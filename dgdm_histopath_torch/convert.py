@@ -1,0 +1,92 @@
+"""Carry JAX-package weights into the port.
+
+A ``save_model_bundle`` npz holds every flax parameter under its
+``/``-joined tree path with a ``p:`` prefix (``p:params/pool/k_proj/kernel``)
+and a ``__meta__`` JSON with the ``model_config``. The port's state-dict keys
+are the same paths joined by ``.``, with these layout rules:
+
+* ``Dense.kernel [in, out]``            -> ``weight [out, in]``
+* ``DenseGeneral.kernel [in, H, D]``     -> ``weight [H·D, in]``, bias ``[H, D]`` -> ``[H·D]``
+* ``out_proj.kernel [H, D, out]``        -> ``weight [out, H·D]``
+* LayerNorm ``scale`` / ``bias``         -> ``weight`` / ``bias``
+* ``global_query [H, D]`` and ``mask_token`` are copied as they are.
+
+Loading is strict: a missing or unexpected key, or a shape mismatch,
+raises ``CheckpointError``.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from .models.dgdm import DGDMModel
+from .utils.exceptions import CheckpointError
+
+KEY_PREFIX = "p:"
+
+
+def _convert_leaf(module: list, leaf: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        if a.ndim == 2:
+            return "weight", a.T
+        if a.ndim == 3 and module and module[-1] == "out_proj":   # [H, D, out]
+            return "weight", a.reshape(-1, a.shape[-1]).T
+        if a.ndim == 3:                                            # [in, H, D]
+            return "weight", a.reshape(a.shape[0], -1).T
+        raise CheckpointError("unexpected kernel rank",
+                              {"path": "/".join(module + [leaf]), "shape": list(a.shape)})
+    if leaf == "bias":
+        return "bias", a.reshape(-1)
+    if leaf == "scale":
+        return "weight", a
+    return leaf, a
+
+
+def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``{"params/a/b/kernel": array}`` -> ``{"a.b.weight": tensor}``."""
+    state = {}
+    for path, arr in flat.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        name, value = _convert_leaf(parts[:-1], parts[-1], np.asarray(arr))
+        state[".".join(parts[:-1] + [name])] = torch.tensor(value, dtype=torch.float32)
+    return state
+
+
+def load_state(model: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> None:
+    """Strict load: every model key present, no extra key, same shapes."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(state))
+    unexpected = sorted(set(state) - set(want))
+    if missing or unexpected:
+        raise CheckpointError(
+            "checkpoint/model parameter paths mismatch",
+            {"missing": missing[:8], "unexpected": unexpected[:8],
+             "n_missing": len(missing), "n_unexpected": len(unexpected)})
+    for key, tmpl in want.items():
+        if tuple(state[key].shape) != tuple(tmpl.shape):
+            raise CheckpointError(
+                "checkpoint parameter shape mismatch",
+                {"key": key, "ckpt": list(state[key].shape), "model": list(tmpl.shape)})
+    model.load_state_dict(state, strict=True)
+
+
+def load_jax_bundle(path) -> Tuple[DGDMModel, Dict[str, torch.Tensor], dict]:
+    """Read a JAX ``save_model_bundle`` npz -> (model on the CPU, state_dict, meta)."""
+    with np.load(Path(path), allow_pickle=False) as data:
+        meta = json.loads(str(data["__meta__"]))
+        if meta.get("format") != "named_paths_v2":
+            raise CheckpointError("only named-path bundles (format named_paths_v2) "
+                                  "can be converted", {"format": meta.get("format")})
+        flat = {k[len(KEY_PREFIX):]: data[k] for k in data.files
+                if k.startswith(KEY_PREFIX)}
+    model = DGDMModel(**meta["model_config"])
+    state = params_from_flax(flat)
+    load_state(model, state)
+    return model.eval(), state, meta

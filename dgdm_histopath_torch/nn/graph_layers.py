@@ -1,0 +1,183 @@
+"""Graph message-passing layers on the padded neighbor-list format.
+
+Counterpart of the JAX package's ``nn/graph_layers.py``: ``GraphConvolution``,
+``DynamicGraphLayer``, ``AdaptiveGraphPooling`` (compact mode) and
+``GraphUNet`` (compact pooling). Inputs are batched, ``[B, N, ...]``.
+
+Message passing has one formulation here, the gather one that the JAX
+package runs under ``gather_impl="pallas"``: the key gather of each
+``DynamicGraphLayer`` is the ``gather_rows`` kernel and the message sum of
+each ``GraphConvolution`` is the ``gather_agg`` kernel (CUDA on the card,
+their plain versions on the CPU). The JAX package's other gather
+formulations (one-hot adjacency, XLA take) compute the same function.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.graph import (
+    compact_top_k_nodes,
+    gather_neighbors,
+    masked_softmax,
+    scatter_nodes,
+    symmetric_norm,
+)
+from ..ops.kernels.gather_agg import weighted_gather_sum
+from .layers import Dense, LayerNorm, gelu
+
+
+class GraphConvolution(nn.Module):
+    """GCN-style convolution with symmetric degree normalization:
+    h_i' = n_ii W x_i + Σ_j n_ij (W x_j + W_e e_ij) + b, n = 1/sqrt(d_i d_j).
+
+    The edge term is reassociated by linearity:
+    Σ_k w·W_e·e = W_e·(Σ_k w·e), so no [N, K, F] edge tensor is formed.
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.lin = Dense(in_features, features, bias=False, dtype=dtype)
+        self.edge_lin = Dense(edge_dim, features, bias=False, dtype=dtype) if edge_dim else None
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, nbr_idx, nbr_mask, edge_attr=None, edge_weight=None):
+        h = self.lin(x)
+        norm, self_norm = symmetric_norm(nbr_idx, nbr_mask)
+        weight = norm.to(h.dtype)
+        if edge_weight is not None:
+            weight = weight * edge_weight.to(h.dtype)
+        weight = weight * nbr_mask.to(h.dtype)
+        agg = weighted_gather_sum(h, nbr_idx, weight.float()).to(h.dtype)
+        if self.edge_lin is not None and edge_attr is not None:
+            e_sum = (edge_attr.to(h.dtype) * weight[..., None]).sum(-2)
+            agg = agg + self.edge_lin(e_sum)
+        out = agg + h * self_norm[..., None].to(h.dtype)
+        return out + self.bias.to(out.dtype)
+
+
+class DynamicGraphLayer(nn.Module):
+    """Per-edge multi-head attention (q·k with an edge-key term, softmax
+    over each node's K slots), two attention-weighted ``GraphConvolution``s,
+    then residual + LayerNorm. Returns (out, attn [B, N, K, H]) when asked."""
+
+    def __init__(self, in_features: int, features: int, num_heads: int = 8,
+                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if features % num_heads:
+            raise ValueError("features must be divisible by num_heads")
+        self.features, self.num_heads = features, num_heads
+        self.compute_dtype = dtype
+        self.in_proj = (Dense(in_features, features, dtype=dtype)
+                        if in_features != features else None)
+        self.q_proj = Dense(features, features, dtype=dtype)
+        self.k_proj = Dense(features, features, dtype=dtype)
+        self.edge_k_proj = Dense(edge_dim, features, dtype=dtype) if edge_dim else None
+        self.conv1 = GraphConvolution(features, features, edge_dim, dtype=dtype)
+        self.conv2 = GraphConvolution(features, features, edge_dim, dtype=dtype)
+        self.norm = LayerNorm(features, dtype=dtype)
+
+    def forward(self, x, nbr_idx, nbr_mask, edge_attr=None,
+                return_attention: bool = False):
+        heads = (self.num_heads, self.features // self.num_heads)
+        x_in = self.in_proj(x) if self.in_proj is not None else x
+        q = self.q_proj(x_in).unflatten(-1, heads)                 # [B, N, H, D]
+        k_nbr = gather_neighbors(self.k_proj(x_in), nbr_idx)       # [B, N, K, H*D]
+        scores = torch.einsum("...nhd,...nkhd->...nkh", q,
+                              k_nbr.unflatten(-1, heads)).float()
+        if edge_attr is not None and self.edge_k_proj is not None:
+            # q·(W_e e + b_e) reassociated so the [N, K, H, D] edge-key tensor
+            # is never formed; W_e and b_e are read off the projection as in
+            # the JAX package (projection of the identity minus that of zero)
+            e_dim = edge_attr.shape[-1]
+            eye = torch.eye(e_dim, dtype=x_in.dtype, device=x_in.device)
+            w_plus_b = self.edge_k_proj(eye).unflatten(-1, heads)       # [E, H, D]
+            b_e = self.edge_k_proj(torch.zeros_like(eye[:1]))[0].unflatten(-1, heads)
+            q_we = torch.einsum("...nhd,ehd->...nhe", q, w_plus_b - b_e)
+            scores = scores + torch.einsum(
+                "...nke,...nhe->...nkh", edge_attr.to(q.dtype), q_we).float()
+            q_be = torch.einsum("...nhd,hd->...nh", q, b_e)
+            scores = scores + q_be[..., None, :].float()
+        scores = scores / math.sqrt(heads[1])
+        attn = masked_softmax(scores, nbr_mask[..., None], dim=-2)     # over K
+        edge_weight = attn.mean(-1)                                    # [B, N, K]
+        h = self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight)
+        h = self.conv2(gelu(h), nbr_idx, nbr_mask, edge_attr, edge_weight)
+        out = self.norm(x_in + h)
+        if return_attention:
+            return out, attn
+        return out
+
+
+class AdaptiveGraphPooling(nn.Module):
+    """Top-k node pooling by a learned score, compact mode: the graph is
+    physically shrunk to ``max(1, round(ratio·N))`` nodes, edges into
+    dropped nodes are removed, and the score gates surviving features.
+    Returns the dict of :func:`compact_top_k_nodes` plus ``"score"``."""
+
+    def __init__(self, features: int, ratio: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ratio = ratio
+        self.score = Dense(features, 1, dtype=dtype)
+
+    def forward(self, x, node_mask, nbr_idx, nbr_mask, edge_attr=None):
+        keep = max(1, int(round(self.ratio * x.shape[-2])))
+        score = torch.tanh(self.score(x)[..., 0].float())
+        gate = torch.sigmoid(score).to(x.dtype)[..., None]
+        c = compact_top_k_nodes(x * gate, nbr_idx, nbr_mask, node_mask,
+                                score, keep, edge_attr)
+        c["score"] = score
+        return c
+
+
+class GraphUNet(nn.Module):
+    """Encoder/pool/decoder U-Net over graphs with skip connections; each
+    level is a ``DynamicGraphLayer`` + compact ``AdaptiveGraphPooling``,
+    unpooling scatters rows back (dropped rows return as zeros)."""
+
+    def __init__(self, in_features: int, features: int, depth: int = 2,
+                 pool_ratio: float = 0.5, num_heads: int = 8,
+                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.depth = depth
+        self.in_proj = (Dense(in_features, features, dtype=dtype)
+                        if in_features != features else None)
+
+        def layer():
+            return DynamicGraphLayer(features, features, num_heads, edge_dim, dtype)
+
+        for d in range(depth):
+            self.add_module(f"down{d}", layer())
+            self.add_module(f"pool{d}", AdaptiveGraphPooling(features, pool_ratio, dtype))
+        self.bottleneck = layer()
+        for d in range(depth):
+            self.add_module(f"up{d}", layer())
+        self.out_norm = LayerNorm(features, dtype=dtype)
+
+    def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None):
+        if self.in_proj is not None:
+            x = self.in_proj(x)
+        h = x
+        idxs, kmask, nodem, ea = nbr_idx, nbr_mask, node_mask, edge_attr
+        skips, levels = [], []
+        for d in range(self.depth):
+            h = getattr(self, f"down{d}")(h, idxs, kmask & nodem[..., None], ea)
+            skips.append(h)
+            c = getattr(self, f"pool{d}")(h, nodem, idxs, kmask, ea)
+            levels.append((idxs, kmask, nodem, ea, h.shape[-2],
+                           c["sel_idx"], c["node_mask"]))
+            h, idxs, kmask = c["x"], c["nbr_idx"], c["nbr_mask"]
+            nodem, ea = c["node_mask"], c["edge_attr"]
+        h = self.bottleneck(h, idxs, kmask & nodem[..., None], ea)
+        for d in reversed(range(self.depth)):
+            idxs, kmask, nodem, ea, n_d, sel, sel_valid = levels[d]
+            h = scatter_nodes(h, sel, n_d, valid=sel_valid) + skips[d]
+            h = getattr(self, f"up{d}")(h, idxs, kmask & nodem[..., None], ea)
+        out = self.out_norm(h + x)
+        return out * node_mask[..., None].to(out.dtype)

@@ -1,0 +1,254 @@
+"""Padded dense-neighbor graph format and masked segment ops.
+
+A tissue graph is stored as fixed-size padded tensors (the layout of the
+JAX package's ``ops/graph.py``):
+
+  - ``x``         [N, F]    node (patch) features
+  - ``pos``       [N, 2]    normalized patch coordinates
+  - ``nbr_idx``   [N, K]    int32 neighbor indices (row i's incoming edges)
+  - ``nbr_mask``  [N, K]    True where the neighbor slot is a real edge
+  - ``edge_attr`` [N, K, E] per-edge features (dist/weight/sim)
+  - ``node_mask`` [N]       True for real (non-padding) nodes
+
+A batch adds a leading ``B`` axis to every field. The model's ops take the
+batched form; ``N`` comes from a small set of buckets.
+
+The neighbor row gather is the ``gather_rows`` CUDA kernel on the card and
+its plain PyTorch version on the CPU (``ops/kernels/gather_rows.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .kernels.gather_rows import gather_rows, index_in_range
+
+_FIELDS = ("x", "pos", "nbr_idx", "nbr_mask", "edge_attr", "node_mask", "y")
+
+
+@dataclasses.dataclass
+class PaddedGraph:
+    """A fixed-shape tissue graph (or batch of graphs with leading axis)."""
+
+    x: torch.Tensor          # [..., N, F] float
+    pos: torch.Tensor        # [..., N, 2] float
+    nbr_idx: torch.Tensor    # [..., N, K] int32
+    nbr_mask: torch.Tensor   # [..., N, K] bool
+    edge_attr: torch.Tensor  # [..., N, K, E] float
+    node_mask: torch.Tensor  # [..., N] bool
+    y: Optional[torch.Tensor] = None
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[-2]
+
+    @property
+    def max_neighbors(self) -> int:
+        return self.nbr_idx.shape[-1]
+
+    @property
+    def feature_dim(self) -> int:
+        return self.x.shape[-1]
+
+    def replace(self, **changes) -> "PaddedGraph":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "PaddedGraph":
+        return self.replace(**{f: getattr(self, f).to(device) for f in _FIELDS
+                               if getattr(self, f) is not None})
+
+    def unsqueeze(self) -> "PaddedGraph":
+        """Add a leading batch axis of 1 to every field."""
+        return self.replace(**{f: getattr(self, f)[None] for f in _FIELDS
+                               if getattr(self, f) is not None})
+
+
+def gather_neighbors(x: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
+    """Gather neighbor rows: x [B, N, F], nbr_idx [B, N, K] -> [B, N, K, F].
+
+    An index outside [0, N) gives a zero row."""
+    return gather_rows(x, nbr_idx)
+
+
+def gather_scalar(values: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
+    """Gather per-node scalars: values [..., N], nbr_idx [..., N, K] -> [..., N, K].
+
+    An index outside [0, N) gives 0, as in :func:`gather_neighbors`."""
+    *batch, n = values.shape
+    k = nbr_idx.shape[-1]
+    valid, safe = index_in_range(nbr_idx.reshape(*batch, n * k), n)
+    flat = torch.gather(values, -1, safe) * valid.to(values.dtype)
+    return flat.reshape(*batch, n, k)
+
+
+def degrees(nbr_mask: torch.Tensor, add_self_loops: bool = True) -> torch.Tensor:
+    """In-degree per node from the neighbor mask; [..., N] f32."""
+    deg = nbr_mask.float().sum(-1)
+    if add_self_loops:
+        deg = deg + 1.0
+    return deg
+
+
+def symmetric_norm(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GCN symmetric normalization 1/sqrt(d_i d_j) per neighbor slot.
+
+    Returns (edge_norm [..., N, K], self_norm [..., N]), both f32.
+    """
+    deg = degrees(nbr_mask, add_self_loops=True)
+    inv_sqrt = torch.rsqrt(deg.clamp_min(1.0))
+    nbr_inv = gather_scalar(inv_sqrt, nbr_idx)
+    edge_norm = inv_sqrt[..., :, None] * nbr_inv * nbr_mask.to(inv_sqrt.dtype)
+    return edge_norm, inv_sqrt * inv_sqrt
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1
+                   ) -> torch.Tensor:
+    """Numerically-stable softmax that zeroes masked entries.
+
+    Fully-masked rows return all-zeros rather than NaN.
+    """
+    neg = torch.finfo(logits.dtype).min
+    masked = torch.where(mask, logits, torch.full_like(logits, neg))
+    maxes = masked.amax(dim=dim, keepdim=True)
+    unnorm = torch.exp(masked - maxes) * mask.to(logits.dtype)
+    denom = unnorm.sum(dim=dim, keepdim=True)
+    return unnorm / denom.clamp_min(1e-20)
+
+
+def compact_top_k_nodes(
+    x: torch.Tensor,          # [B, N, F]
+    nbr_idx: torch.Tensor,    # [B, N, K]
+    nbr_mask: torch.Tensor,   # [B, N, K]
+    node_mask: torch.Tensor,  # [B, N]
+    score: torch.Tensor,      # [B, N], higher = keep
+    keep: int,
+    edge_attr: Optional[torch.Tensor] = None,   # [B, N, K, E]
+) -> dict:
+    """Physically shrink a padded graph to its top-``keep`` nodes.
+
+    Returns a dict with compacted ``x, nbr_idx, nbr_mask, node_mask,
+    edge_attr`` and ``sel_idx [B, keep]`` (original node ids, for
+    :func:`scatter_nodes` unpooling). Edges into dropped nodes, or to an
+    index outside [0, N), are removed; padding/dropped slots select node 0
+    with ``node_mask`` False.
+
+    The selection is a stable descending sort, so equal scores keep the
+    lower node index first, as ``jnp.argsort`` does in the JAX package.
+    """
+    neg = torch.finfo(torch.float32).min
+    masked_score = torch.where(node_mask, score.float(),
+                               torch.full_like(score, neg, dtype=torch.float32))
+    sel_idx = torch.argsort(-masked_score, dim=-1, stable=True)[..., :keep]
+    sel_valid = torch.gather(node_mask, -1, sel_idx)
+
+    # inverse map: orig id -> compact slot, `keep` where dropped
+    slots = torch.arange(keep, device=x.device).expand_as(sel_idx)
+    inv = torch.full(node_mask.shape, keep, dtype=torch.long, device=x.device)
+    inv.scatter_(-1, sel_idx, slots)
+
+    k = nbr_idx.shape[-1]
+    row_sel = sel_idx[..., None].expand(*sel_idx.shape, k)
+    nbr_rows = torch.gather(nbr_idx, -2, row_sel)                 # [B, keep, K]
+    mask_rows = torch.gather(nbr_mask, -2, row_sel)
+    in_range, nbr_rows = index_in_range(nbr_rows, node_mask.shape[-1])
+    new_ids = torch.gather(inv, -1, nbr_rows.flatten(-2)).reshape(nbr_rows.shape)
+    new_mask = mask_rows & in_range & (new_ids < keep) & sel_valid[..., None]
+    new_ids = torch.where(new_mask, new_ids, 0).to(nbr_idx.dtype)
+
+    x_c = torch.gather(x, -2, sel_idx[..., None].expand(*sel_idx.shape, x.shape[-1]))
+    x_c = x_c * sel_valid[..., None].to(x.dtype)
+    out = {"x": x_c, "nbr_idx": new_ids, "nbr_mask": new_mask,
+           "node_mask": sel_valid, "sel_idx": sel_idx, "edge_attr": None}
+    if edge_attr is not None:
+        e = edge_attr.shape[-1]
+        ea_rows = torch.gather(edge_attr, -3,
+                               row_sel[..., None].expand(*row_sel.shape, e))
+        out["edge_attr"] = ea_rows * new_mask[..., None].to(ea_rows.dtype)
+    return out
+
+
+def scatter_nodes(h_small: torch.Tensor, sel_idx: torch.Tensor, n: int,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Unpool: place compacted rows back at their original slots, zeros
+    elsewhere. h_small [B, keep, F], sel_idx [B, keep] -> [B, n, F]."""
+    if valid is not None:
+        h_small = h_small * valid[..., None].to(h_small.dtype)
+    out = h_small.new_zeros(*h_small.shape[:-2], n, h_small.shape[-1])
+    return out.scatter(-2, sel_idx[..., None].expand_as(h_small), h_small)
+
+
+def masked_global_mean(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """Mean over real nodes: x [..., N, F], mask [..., N] -> [..., F]."""
+    m = node_mask.to(x.dtype)[..., None]
+    total = (x * m).sum(-2)
+    count = m.sum(-2).clamp_min(1.0)
+    return total / count
+
+
+def masked_global_max(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    neg = torch.finfo(x.dtype).min
+    return torch.where(node_mask[..., None], x, torch.full_like(x, neg)).amax(-2)
+
+
+# ---------------------------------------------------------------------------
+# Construction helpers (host-side, numpy in, CPU tensors out)
+# ---------------------------------------------------------------------------
+
+def pick_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n (last bucket if n exceeds all; caller subsamples)."""
+    for b in buckets:
+        if n <= b:
+            return int(b)
+    return int(buckets[-1])
+
+
+def build_padded_graph(
+    x: np.ndarray,
+    pos: np.ndarray,
+    nbr_idx: np.ndarray,
+    nbr_dist_or_attr: np.ndarray,
+    nbr_mask: np.ndarray,
+    bucket: Optional[int] = None,
+    y: Optional[np.ndarray] = None,
+) -> PaddedGraph:
+    """Pad host-side graph arrays up to ``bucket`` nodes (CPU tensors)."""
+    n, _ = x.shape
+    k = nbr_idx.shape[1]
+    e = nbr_dist_or_attr.shape[-1] if nbr_dist_or_attr.ndim == 3 else 1
+    attr = nbr_dist_or_attr.reshape(n, k, e)
+    target = int(bucket) if bucket is not None else n
+    if n > target:
+        raise ValueError(f"graph has {n} nodes, exceeds bucket {target}")
+    pad = target - n
+    node_mask = np.zeros((target,), dtype=bool)
+    node_mask[:n] = True
+    t = torch.from_numpy
+    return PaddedGraph(
+        x=t(np.pad(x.astype(np.float32), ((0, pad), (0, 0)))),
+        pos=t(np.pad(pos.astype(np.float32), ((0, pad), (0, 0)))),
+        nbr_idx=t(np.pad(nbr_idx.astype(np.int32), ((0, pad), (0, 0)))),
+        nbr_mask=t(np.pad(nbr_mask.astype(bool), ((0, pad), (0, 0)))),
+        edge_attr=t(np.pad(attr.astype(np.float32), ((0, pad), (0, 0), (0, 0)))),
+        node_mask=t(node_mask),
+        y=None if y is None else torch.as_tensor(y),
+    )
+
+
+def batch_graphs(graphs: Sequence[PaddedGraph]) -> PaddedGraph:
+    """Stack same-bucket graphs into a batched PaddedGraph (leading B axis)."""
+    if not graphs:
+        raise ValueError("cannot batch zero graphs")
+    n = graphs[0].num_nodes
+    k = graphs[0].max_neighbors
+    for g in graphs:
+        if g.num_nodes != n or g.max_neighbors != k:
+            raise ValueError("all graphs in a batch must share the same bucket shape")
+    ys = [g.y for g in graphs]
+    fields = {f: torch.stack([getattr(g, f) for g in graphs]) for f in _FIELDS[:-1]}
+    fields["y"] = None if any(v is None for v in ys) else torch.stack(ys)
+    return PaddedGraph(**fields)

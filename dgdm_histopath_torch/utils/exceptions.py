@@ -1,0 +1,32 @@
+"""Exceptions of the port: a base class with structured context and the
+three domain errors the inference slice raises."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+
+class DGDMException(Exception):
+    """Base exception. Carries a message plus structured ``context`` details."""
+
+    def __init__(self, message: str, context: Optional[dict] = None):
+        super().__init__(message)
+        self.message = message
+        self.context = dict(context or {})
+
+    def __str__(self) -> str:
+        if self.context:
+            return f"{self.message} (context: {self.context})"
+        return self.message
+
+
+class ConfigurationError(DGDMException):
+    """Invalid or missing configuration."""
+
+
+class CheckpointError(DGDMException):
+    """Checkpoint save/restore failure."""
+
+
+class InferenceError(DGDMException):
+    """Prediction-time failure."""
