@@ -1,12 +1,16 @@
-"""DGDMModel: the Dynamic Graph Diffusion Model, inference and finetune
-forward (counterpart of the JAX package's ``models/dgdm.py``).
+"""DGDMModel: the Dynamic Graph Diffusion Model (counterpart of the JAX
+package's ``models/dgdm.py``).
 
-FeatureEncoder → GraphEncoder → SpatialAttention → GraphUNet → global
-pooling → heads. The constructor takes the JAX model's keyword set, so a
-bundle's ``model_config`` builds the same architecture; options this port
-does not have yet raise ``NotImplementedError`` naming their ROADMAP item.
-The diffusion denoiser, ``mask_token`` and ``recon_head`` are held so that
-checkpoints carry over; the pretrain forward comes with the training slice.
+FeatureEncoder → GraphEncoder → SpatialAttention → GraphUNet → (pretrain:
+diffusion objective + reconstruction) → global pooling → heads. The
+constructor takes the JAX model's keyword set, so a bundle's
+``model_config`` builds the same architecture; options this port does not
+have yet raise ``NotImplementedError`` naming their ROADMAP item.
+
+Every random draw (dropout masks, diffusion timesteps and noise, entity
+masking) comes from the ``torch.Generator`` the caller passes, on the
+model's device, or is handed in as a tensor; nothing reads the global
+generator.
 """
 
 from __future__ import annotations
@@ -76,24 +80,27 @@ class DGDMModel(nn.Module):
         hidden = hidden_dims[-1]
 
         self.feature_encoder = FeatureEncoder(node_features, hidden_dims, activation,
-                                              normalization, dtype)
+                                              normalization, dropout, dtype)
         self.graph_encoder = GraphEncoder(hidden, hidden, graph_layers, attention_heads,
-                                          edge_features, activation, dtype)
+                                          edge_features, activation, dropout, dtype)
         if use_spatial_attention:
-            self.spatial_attention = SpatialAttention(hidden, attention_heads, dtype=dtype)
+            self.spatial_attention = SpatialAttention(hidden, attention_heads, dropout,
+                                                      dtype=dtype)
         if use_hierarchical:
             self.graph_unet = GraphUNet(hidden, hidden, depth=2, num_heads=attention_heads,
-                                        edge_dim=edge_features, dtype=dtype)
-        self.diffusion = DiffusionLayer(hidden, dtype=dtype)
+                                        edge_dim=edge_features, dropout=dropout, dtype=dtype)
+        self.diffusion = DiffusionLayer(hidden, num_diffusion_steps, diffusion_schedule,
+                                        dtype=dtype)
         self.pool = make_pool(pooling, hidden, attention_heads, dtype=dtype)
         if num_classes is not None:
-            self.classification_head = ClassificationHead(hidden, num_classes, (hidden,), dtype)
+            self.classification_head = ClassificationHead(hidden, num_classes, (hidden,),
+                                                          dropout, dtype)
         if regression_targets > 0:
             self.regression_head = RegressionHead(hidden, regression_targets, (hidden,),
-                                                  dtype=dtype)
+                                                  dropout, dtype=dtype)
         if survival_mode is not None:
             self.survival_head = SurvivalHead(hidden, survival_mode, survival_intervals,
-                                              (hidden,), dtype)
+                                              (hidden,), dropout, dtype)
         self.mask_token = nn.Parameter(torch.zeros(node_features))
         self.recon_head = Dense(hidden, node_features, dtype=dtype)
 
@@ -123,7 +130,7 @@ class DGDMModel(nn.Module):
         if self.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={self.param_dtype!r}: only float32 parameters are ported "
-                "(ROADMAP queue 1, item 7)")
+                "(ROADMAP queue 1, item 8: model options still to port)")
         if self.attention_traffic_dtype is not None:
             raise NotImplementedError(
                 f"attention_traffic_dtype={self.attention_traffic_dtype!r} is not ported "
@@ -148,34 +155,35 @@ class DGDMModel(nn.Module):
                 "(ROADMAP queue 1, item 12: parallel tiers and MoE)")
 
     def forward(self, graph: PaddedGraph, mode: str = "inference",
-                deterministic: bool = True,
-                return_attention: bool = False) -> Dict[str, Any]:
-        """Forward pass over a batched PaddedGraph (leading B axis)."""
-        if mode == "pretrain":
-            raise NotImplementedError(
-                "the pretrain forward comes with the training slice "
-                "(ROADMAP queue 1, item 7)")
-        if mode not in ("inference", "finetune"):
+                deterministic: bool = True, return_attention: bool = False,
+                generator: Optional[torch.Generator] = None,
+                t: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """Forward pass over a batched PaddedGraph (leading B axis).
+
+        ``mode``: inference | pretrain | finetune. ``generator`` feeds the
+        dropout masks (when not ``deterministic``) and, in pretrain mode,
+        the diffusion timesteps ``t`` [B] and ``noise`` [B, N, hidden]
+        unless those are given.
+        """
+        if mode not in ("inference", "pretrain", "finetune"):
             raise ValueError(f"unknown mode {mode!r}")
-        if not deterministic and self.dropout > 0.0:
-            raise NotImplementedError(
-                "the stochastic (dropout) forward comes with the training slice "
-                "(ROADMAP queue 1, item 7)")
+        rand = dict(deterministic=deterministic, generator=generator)
         x = graph.x.to(self.dtype)
         node_mask = graph.node_mask
         outputs: Dict[str, Any] = {}
 
-        h = self.feature_encoder(x)
+        h = self.feature_encoder(x, **rand)
         enc = self.graph_encoder(h, graph.nbr_idx, graph.nbr_mask, node_mask,
                                  edge_attr=graph.edge_attr,
-                                 return_attention=return_attention)
+                                 return_attention=return_attention, **rand)
         h = enc["embeddings"]
         if return_attention:
             outputs["edge_attentions"] = enc["attentions"]
 
         if self.use_spatial_attention:
             res = self.spatial_attention(h, graph.pos.float(), node_mask,
-                                         return_weights=return_attention)
+                                         return_weights=return_attention, **rand)
             if return_attention:
                 h, outputs["spatial_attention"] = res
             else:
@@ -183,8 +191,19 @@ class DGDMModel(nn.Module):
 
         if self.use_hierarchical:
             h = self.graph_unet(h, graph.nbr_idx, graph.nbr_mask, node_mask,
-                                edge_attr=graph.edge_attr)
+                                edge_attr=graph.edge_attr, **rand)
         outputs["node_embeddings"] = h
+
+        if mode == "pretrain":
+            # diffusion objective on the final embeddings, masked over padding
+            predicted, true_noise, t = self.diffusion(h, generator=generator, t=t,
+                                                      noise=noise)
+            mask_f = node_mask[..., None].float()
+            sq = (predicted.float() - true_noise.float()) ** 2
+            outputs["diffusion_loss"] = ((sq * mask_f).sum()
+                                         / (mask_f.sum() * sq.shape[-1]).clamp_min(1.0))
+            outputs["diffusion_t"] = t
+            outputs["reconstruction"] = self.recon_head(h)
 
         if self.pooling == "attention" and return_attention:
             pooled, outputs["attention_weights"] = self.pool(h, node_mask,
@@ -194,9 +213,51 @@ class DGDMModel(nn.Module):
         outputs["graph_embedding"] = pooled
 
         if self.num_classes is not None:
-            outputs["classification_logits"] = self.classification_head(pooled)
+            outputs["classification_logits"] = self.classification_head(pooled, **rand)
         if self.regression_targets > 0:
-            outputs["regression"] = self.regression_head(pooled)
+            outputs["regression"] = self.regression_head(pooled, **rand)
         if self.survival_mode is not None:
-            outputs["survival"] = self.survival_head(pooled)
+            outputs["survival"] = self.survival_head(pooled, **rand)
         return outputs
+
+    def _draw_masked(self, graph: PaddedGraph, mask_ratio: float,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        u = torch.rand(graph.node_mask.shape, generator=generator,
+                       device=graph.node_mask.device)
+        return (u < mask_ratio) & graph.node_mask
+
+    def apply_entity_masking(self, graph: PaddedGraph, mask_ratio: float = 0.15,
+                             generator: Optional[torch.Generator] = None,
+                             masked: Optional[torch.Tensor] = None) -> PaddedGraph:
+        """Replace a random ``mask_ratio`` of the real nodes (or the nodes of
+        ``masked`` [B, N] bool) with the learned mask token."""
+        if masked is None:
+            masked = self._draw_masked(graph, mask_ratio, generator)
+        token = self.mask_token.to(graph.x.dtype)
+        return graph.replace(x=torch.where(masked[..., None], token, graph.x))
+
+    def pretrain_step(self, graph: PaddedGraph, mask_ratio: float = 0.15,
+                      deterministic: bool = False,
+                      generator: Optional[torch.Generator] = None,
+                      masked: Optional[torch.Tensor] = None,
+                      t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """Entity masking + pretrain forward; adds the masked-node
+        reconstruction loss and ``masked_nodes`` to the outputs. The draws
+        ``masked``, ``t`` and ``noise`` come from ``generator`` unless given."""
+        if masked is None:
+            masked = self._draw_masked(graph, mask_ratio, generator)
+        corrupted = self.apply_entity_masking(graph, masked=masked)
+        outputs = self(corrupted, mode="pretrain", deterministic=deterministic,
+                       generator=generator, t=t, noise=noise)
+        m = masked[..., None].float()
+        sq = (outputs["reconstruction"].float() - graph.x.float()) ** 2
+        outputs["reconstruction_loss"] = ((sq * m).sum()
+                                          / (m.sum() * graph.x.shape[-1]).clamp_min(1.0))
+        outputs["masked_nodes"] = masked
+        return outputs
+
+    @torch.no_grad()
+    def generate_embeddings(self, graph: PaddedGraph) -> torch.Tensor:
+        """Slide-level embeddings without heads."""
+        return self(graph, mode="inference", deterministic=True)["graph_embedding"]

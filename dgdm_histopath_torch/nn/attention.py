@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .layers import Dense, LayerNorm
+from .layers import Dense, LayerNorm, dropout
 
 
 def scaled_dot_product_attention(
@@ -23,11 +23,14 @@ def scaled_dot_product_attention(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     key_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked SDPA. q [..., Lq, H, D], k/v [..., Lk, H, D].
 
     Returns (out [..., Lq, H, D], weights [..., H, Lq, Lk]). Query rows
-    with no valid key come out as zeros.
+    with no valid key come out as zeros. ``dropout_rate > 0`` drops
+    attention weights with draws from ``generator``.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("...qhd,...khd->...hqk", q, k).float() * scale
@@ -40,6 +43,7 @@ def scaled_dot_product_attention(
     if key_mask is not None:
         any_key = key_mask.any(-1)[..., None, None, None]
         weights = torch.where(any_key, weights, torch.zeros((), device=weights.device))
+    weights = dropout(weights, dropout_rate, generator)
     out = torch.einsum("...hqk,...khd->...qhd", weights.to(v.dtype), v)
     return out, weights
 
@@ -68,10 +72,11 @@ class SpatialAttention(nn.Module):
     """Self-attention over nodes with 2-D positional encoding and a
     ``-distance / tau`` bias, masked and batched (dense path)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, distance_tau: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 distance_tau: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = dropout
         self.distance_tau = distance_tau
         self.compute_dtype = dtype
         self.pos_proj = Dense(embed_dim, embed_dim, dtype=dtype)
@@ -82,8 +87,10 @@ class SpatialAttention(nn.Module):
         self.norm = LayerNorm(embed_dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, node_mask: torch.Tensor,
-                return_weights: bool = False):
-        """x [B, N, D], pos [B, N, 2], node_mask [B, N] bool."""
+                return_weights: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """x [B, N, D], pos [B, N, 2], node_mask [B, N] bool. When not
+        deterministic, dropout falls on the attention weights."""
         pos_enc = sinusoidal_position_encoding_2d(pos, self.embed_dim).to(x.dtype)
         h = x + self.pos_proj(pos_enc)
         heads = (self.num_heads, self.embed_dim // self.num_heads)
@@ -97,7 +104,9 @@ class SpatialAttention(nn.Module):
         dy = posf[..., :, None, 1] - posf[..., None, :, 1]
         dist = torch.sqrt(torch.clamp_min(dx * dx + dy * dy, 1e-12))
         bias = (-dist / self.distance_tau)[..., None, :, :]
-        ctx, weights = scaled_dot_product_attention(q, k, v, bias=bias, key_mask=node_mask)
+        ctx, weights = scaled_dot_product_attention(
+            q, k, v, bias=bias, key_mask=node_mask,
+            dropout_rate=0.0 if deterministic else self.dropout, generator=generator)
         out = self.out_proj(ctx.to(self.compute_dtype).flatten(-2))
         out = self.norm(x + out)
         out = out * node_mask[..., None].to(out.dtype)

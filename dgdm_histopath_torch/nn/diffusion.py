@@ -1,30 +1,32 @@
-"""The diffusion denoiser, held as ``diffusion.denoiser`` so that converted
-checkpoints line up with the JAX package's parameter tree.
+"""DiffusionLayer: forward noising and the noise-prediction network over
+node features (counterpart of the JAX package's ``nn/diffusion.py``).
 
-Only the denoiser's forward is ported; the noise schedule, ``add_noise``
-and the pretrain objective come with the training slice.
+The denoiser is held as ``diffusion.denoiser`` so that converted checkpoints
+line up with the JAX parameter tree. The schedule constants are buffers that
+stay out of the ``state_dict`` (they follow from ``num_steps`` and
+``schedule``), so a checkpoint holds parameters only. Training draws one
+timestep per graph and noises all its nodes consistently; the layer returns
+the noise it added, so the loss regresses the true corruption.
 """
 
 from __future__ import annotations
 
-import math
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.diffusion import (
+    DiffusionSchedule,
+    add_noise,
+    ddpm_sample,
+    make_schedule,
+    sinusoidal_time_embedding,
+)
 from .layers import Dense, LayerNorm
 
-
-def sinusoidal_time_embedding(t: torch.Tensor, dim: int = 128,
-                              max_period: float = 10000.0) -> torch.Tensor:
-    half = dim // 2
-    freqs = torch.exp(-math.log(max_period)
-                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
-    args = t.float()[..., None] * freqs
-    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
-    if dim % 2:
-        emb = F.pad(emb, (0, 1))
-    return emb
+__all__ = ["DenoiserMLP", "DiffusionLayer", "sinusoidal_time_embedding"]
 
 
 class DenoiserMLP(nn.Module):
@@ -56,9 +58,43 @@ class DenoiserMLP(nn.Module):
 
 
 class DiffusionLayer(nn.Module):
-    """Holder of the denoiser (the schedule comes with the training slice)."""
+    """Forward noising + denoiser; the self-supervised objective of DGDM
+    pretraining."""
 
-    def __init__(self, features: int, time_embed_dim: int = 128,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, num_steps: int = 10, schedule: str = "cosine",
+                 time_embed_dim: int = 128, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.num_steps = num_steps
+        self.compute_dtype = dtype
+        for name, value in make_schedule(num_steps, schedule)._asdict().items():
+            self.register_buffer(name, value, persistent=False)
         self.denoiser = DenoiserMLP(features, time_embed_dim=time_embed_dim, dtype=dtype)
+
+    @property
+    def constants(self) -> DiffusionSchedule:
+        return DiffusionSchedule(*(getattr(self, f) for f in DiffusionSchedule._fields))
+
+    def forward(self, x0: torch.Tensor, generator: Optional[torch.Generator] = None,
+                t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training forward on clean features x0 [..., N, F]: returns
+        (predicted_noise, true_noise, t) with one timestep per graph. ``t``
+        and ``noise`` are drawn from ``generator`` unless given."""
+        if t is None:
+            t = torch.randint(0, self.num_steps, x0.shape[:-2], generator=generator,
+                              device=x0.device)
+        x_t, noise = add_noise(self.constants, x0, t, noise=noise, generator=generator)
+        return self.denoiser(x_t, t), noise, t
+
+    def predict_noise(self, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return self.denoiser(x_t, t)
+
+    @torch.no_grad()
+    def sample(self, shape: Tuple[int, ...],
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """DDPM ancestral sampling of ``shape`` [..., N, F] in f32, on the
+        layer's device."""
+        def denoise(x, t, cond):
+            return self.denoiser(x.to(self.compute_dtype), t.expand(shape[:-2])).float()
+
+        return ddpm_sample(self.constants, denoise, shape, generator=generator)

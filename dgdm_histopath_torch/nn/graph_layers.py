@@ -28,7 +28,7 @@ from ..ops.graph import (
     symmetric_norm,
 )
 from ..ops.kernels.gather_agg import weighted_gather_sum
-from .layers import Dense, LayerNorm, gelu
+from .layers import Dense, LayerNorm, dropout, gelu
 
 
 class GraphConvolution(nn.Module):
@@ -64,14 +64,18 @@ class GraphConvolution(nn.Module):
 class DynamicGraphLayer(nn.Module):
     """Per-edge multi-head attention (q·k with an edge-key term, softmax
     over each node's K slots), two attention-weighted ``GraphConvolution``s,
-    then residual + LayerNorm. Returns (out, attn [B, N, K, H]) when asked."""
+    then residual + LayerNorm. Returns (out, attn [B, N, K, H]) when asked.
+    When not deterministic, dropout falls on the attention weights and
+    between the two convolutions."""
 
     def __init__(self, in_features: int, features: int, num_heads: int = 8,
-                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 edge_dim: Optional[int] = None, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if features % num_heads:
             raise ValueError("features must be divisible by num_heads")
         self.features, self.num_heads = features, num_heads
+        self.dropout = dropout
         self.compute_dtype = dtype
         self.in_proj = (Dense(in_features, features, dtype=dtype)
                         if in_features != features else None)
@@ -83,7 +87,8 @@ class DynamicGraphLayer(nn.Module):
         self.norm = LayerNorm(features, dtype=dtype)
 
     def forward(self, x, nbr_idx, nbr_mask, edge_attr=None,
-                return_attention: bool = False):
+                return_attention: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         heads = (self.num_heads, self.features // self.num_heads)
         x_in = self.in_proj(x) if self.in_proj is not None else x
         q = self.q_proj(x_in).unflatten(-1, heads)                 # [B, N, H, D]
@@ -105,9 +110,13 @@ class DynamicGraphLayer(nn.Module):
             scores = scores + q_be[..., None, :].float()
         scores = scores / math.sqrt(heads[1])
         attn = masked_softmax(scores, nbr_mask[..., None], dim=-2)     # over K
+        if not deterministic:
+            attn = dropout(attn, self.dropout, generator)
         edge_weight = attn.mean(-1)                                    # [B, N, K]
-        h = self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight)
-        h = self.conv2(gelu(h), nbr_idx, nbr_mask, edge_attr, edge_weight)
+        h = gelu(self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight))
+        if not deterministic:
+            h = dropout(h, self.dropout, generator)
+        h = self.conv2(h, nbr_idx, nbr_mask, edge_attr, edge_weight)
         out = self.norm(x_in + h)
         if return_attention:
             return out, attn
@@ -143,14 +152,16 @@ class GraphUNet(nn.Module):
 
     def __init__(self, in_features: int, features: int, depth: int = 2,
                  pool_ratio: float = 0.5, num_heads: int = 8,
-                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 edge_dim: Optional[int] = None, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = depth
         self.in_proj = (Dense(in_features, features, dtype=dtype)
                         if in_features != features else None)
 
         def layer():
-            return DynamicGraphLayer(features, features, num_heads, edge_dim, dtype)
+            return DynamicGraphLayer(features, features, num_heads, edge_dim, dropout,
+                                     dtype)
 
         for d in range(depth):
             self.add_module(f"down{d}", layer())
@@ -160,24 +171,27 @@ class GraphUNet(nn.Module):
             self.add_module(f"up{d}", layer())
         self.out_norm = LayerNorm(features, dtype=dtype)
 
-    def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None):
+    def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        rand = dict(deterministic=deterministic, generator=generator)
         if self.in_proj is not None:
             x = self.in_proj(x)
         h = x
         idxs, kmask, nodem, ea = nbr_idx, nbr_mask, node_mask, edge_attr
         skips, levels = [], []
         for d in range(self.depth):
-            h = getattr(self, f"down{d}")(h, idxs, kmask & nodem[..., None], ea)
+            h = getattr(self, f"down{d}")(h, idxs, kmask & nodem[..., None], ea, **rand)
             skips.append(h)
             c = getattr(self, f"pool{d}")(h, nodem, idxs, kmask, ea)
             levels.append((idxs, kmask, nodem, ea, h.shape[-2],
                            c["sel_idx"], c["node_mask"]))
             h, idxs, kmask = c["x"], c["nbr_idx"], c["nbr_mask"]
             nodem, ea = c["node_mask"], c["edge_attr"]
-        h = self.bottleneck(h, idxs, kmask & nodem[..., None], ea)
+        h = self.bottleneck(h, idxs, kmask & nodem[..., None], ea, **rand)
         for d in reversed(range(self.depth)):
             idxs, kmask, nodem, ea, n_d, sel, sel_valid = levels[d]
             h = scatter_nodes(h, sel, n_d, valid=sel_valid) + skips[d]
-            h = getattr(self, f"up{d}")(h, idxs, kmask & nodem[..., None], ea)
+            h = getattr(self, f"up{d}")(h, idxs, kmask & nodem[..., None], ea, **rand)
         out = self.out_norm(h + x)
         return out * node_mask[..., None].to(out.dtype)

@@ -6,6 +6,9 @@
   output to the compute dtype.
 * ``gelu`` is the tanh approximation (``flax.linen.gelu``).
 
+* ``dropout`` draws its keep mask from an explicit ``torch.Generator``
+  (``F.dropout`` takes none), so a step's draws follow from its seed.
+
 Parameters are created empty-valued (zeros/ones) and drawn by
 :func:`init_parameters` from an explicit ``torch.Generator``.
 """
@@ -13,6 +16,7 @@ Parameters are created empty-valued (zeros/ones) and drawn by
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +66,17 @@ class LayerNorm(nn.LayerNorm):
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout: a Bernoulli(1 - rate) keep mask drawn from
+    ``generator`` on x's device, survivors scaled by ``1 / (1 - rate)``.
+    Callers apply it only when training (not deterministic) and rate > 0."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 ACTIVATIONS = {"gelu": gelu, "relu": F.relu, "silu": F.silu, "tanh": torch.tanh}

@@ -6,9 +6,12 @@ kernel with the counter of its launches.
 """
 
 from .gather_agg import KERNEL as GATHER_AGG
+from .gather_agg import KERNEL_BWD as GATHER_AGG_BWD
 from .gather_rows import KERNEL as GATHER_ROWS
+from .gather_rows import KERNEL_BWD as GATHER_ROWS_BWD
 
-KERNELS = {"gather_rows": GATHER_ROWS, "gather_agg": GATHER_AGG}
+KERNELS = {"gather_rows": GATHER_ROWS, "gather_agg": GATHER_AGG,
+           "gather_rows_bwd": GATHER_ROWS_BWD, "gather_agg_bwd": GATHER_AGG_BWD}
 
 
 def reset_launch_counts() -> None:

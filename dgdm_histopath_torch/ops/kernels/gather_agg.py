@@ -8,21 +8,35 @@ per row, the K-term sum in f32 registers. It is bound on the H100 by bytes
 (~8 us at B=32, N=1024, K=8, F=128 bf16 h); the source note in the .cu
 file has the details.
 
+The backward has no TPU kernel (the JAX package's is XLA, ``_vjp_bwd`` in the
+same file: a scatter-add for ``dh``, a gathered dot for ``dw``); here it is
+``csrc/gather_agg_bwd.cu``, one kernel for both halves that forms no
+``[B, N, K, F]`` tensor. On CUDA tensors ``weighted_gather_sum`` is a
+``torch.autograd.Function`` over the two kernels; on CPU tensors it is the
+plain version under plain autograd.
+
 An index outside ``[0, N)`` contributes nothing in both versions (the TPU
-one-hot kernel's zero row).
+one-hot kernel's zero row): ``dw`` is 0 there and ``dh`` gets nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from .build import CudaKernel
-from .gather_rows import gather_rows_plain
+from .gather_rows import gather_rows_plain, scatter_add_rows
 
 KERNEL = CudaKernel("gather_agg", "gather_agg_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # h, idx, w, out
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
+    ctypes.c_int, ctypes.c_void_p])                                      # bf16?, stream
+
+KERNEL_BWD = CudaKernel("gather_agg_bwd", "gather_agg_bwd_launch", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, h, idx, w
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # acc, dh, dw
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
     ctypes.c_int, ctypes.c_void_p])                                      # bf16?, stream
 
@@ -33,6 +47,16 @@ def weighted_gather_sum_plain(h: torch.Tensor, idx: torch.Tensor,
                               w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: h [B, N, F], idx/w [B, N, K] -> [B, N, F] f32."""
     return (gather_rows_plain(h, idx).float() * w[..., None]).sum(-2)
+
+
+def weighted_gather_sum_bwd_plain(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
+                                  w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward: g [B, N, F] -> (dh [B, N, F] in
+    h's dtype, dw [B, N, K] f32), both summed in f32."""
+    g = g.float()
+    dh = scatter_add_rows(idx, w[..., None] * g[:, :, None, :], h.shape[1]).to(h.dtype)
+    dw = torch.einsum("bnkf,bnf->bnk", gather_rows_plain(h, idx).float(), g)
+    return dh, dw
 
 
 def _check(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
@@ -50,15 +74,7 @@ def _check(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("h, idx and w must be on one device")
 
 
-def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor,
-                        w: torch.Tensor) -> torch.Tensor:
-    """``out[b, n] = Σ_k w[b, n, k] · h[b, idx[b, n, k]]``: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors. [B, N, F] f32 out."""
-    _check(h, idx, w)
-    if h.device.type == "cpu":
-        return weighted_gather_sum_plain(h, idx, w)
-    if h.device.type != "cuda":
-        raise ValueError(f"weighted_gather_sum runs on cuda or cpu, not {h.device}")
+def _launch_fwd(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not (h.is_contiguous() and idx.is_contiguous() and w.is_contiguous()):
         raise ValueError("weighted_gather_sum needs contiguous h, idx and w")
     b, n, f = h.shape
@@ -71,3 +87,68 @@ def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor,
                       b, n, k, f, int(h.dtype == torch.bfloat16),
                       torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def weighted_gather_sum_bwd(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
+                            w: torch.Tensor, need_dh: bool = True, need_dw: bool = True
+                            ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dh, dw) of ``weighted_gather_sum`` for the cotangent g [B, N, F] f32,
+    by the CUDA kernel; a half that is not needed is skipped and comes back
+    as None. All tensors contiguous, on one CUDA device. ``dh`` is summed
+    with f32 atomic adds in no fixed order, so it is not bit-reproducible
+    from run to run; ``dw`` is."""
+    _check(h, idx, w)
+    if g.shape != h.shape or g.dtype != torch.float32 or g.device != h.device:
+        raise ValueError(f"need f32 g {tuple(h.shape)} on {h.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    if h.device.type != "cuda":
+        raise ValueError("weighted_gather_sum_bwd runs on CUDA tensors")
+    if not all(t.is_contiguous() for t in (g, h, idx, w)):
+        raise ValueError("weighted_gather_sum_bwd needs contiguous g, h, idx and w")
+    b, n, f = h.shape
+    k = idx.shape[-1]
+    bf16 = h.dtype == torch.bfloat16
+    acc = dh = dw = None
+    if need_dh:
+        acc = torch.empty((b, n, f), dtype=torch.float32, device=h.device)
+        dh = torch.empty_like(acc, dtype=torch.bfloat16) if bf16 else acc
+    if need_dw:
+        dw = torch.empty((b, n, k), dtype=torch.float32, device=h.device)
+    if (need_dh or need_dw) and h.numel() + w.numel() > 0:
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        with torch.cuda.device(h.device):
+            KERNEL_BWD.launch(g.data_ptr(), h.data_ptr(), idx.data_ptr(), w.data_ptr(),
+                              ptr(acc), ptr(dh), ptr(dw), b, n, k, f, int(bf16),
+                              torch.cuda.current_stream().cuda_stream)
+    return dh, dw
+
+
+class _WeightedGatherSum(torch.autograd.Function):
+    """Forward and backward kernels on the card."""
+
+    @staticmethod
+    def forward(ctx, h, idx, w):
+        ctx.save_for_backward(h, idx, w)
+        return _launch_fwd(h, idx, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        h, idx, w = ctx.saved_tensors
+        dh, dw = weighted_gather_sum_bwd(g.float().contiguous(), h, idx, w,
+                                         ctx.needs_input_grad[0], ctx.needs_input_grad[2])
+        return dh, None, dw
+
+
+def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """``out[b, n] = Σ_k w[b, n, k] · h[b, idx[b, n, k]]``: the CUDA kernels
+    (forward and backward) for CUDA tensors, the plain version for CPU
+    tensors. [B, N, F] f32 out."""
+    _check(h, idx, w)
+    if h.device.type == "cpu":
+        return weighted_gather_sum_plain(h, idx, w)
+    if h.device.type != "cuda":
+        raise ValueError(f"weighted_gather_sum runs on cuda or cpu, not {h.device}")
+    return _WeightedGatherSum.apply(h, idx, w)

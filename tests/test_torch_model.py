@@ -149,12 +149,25 @@ def test_unported_options_raise_naming_the_roadmap(override):
 
 
 def test_pretrain_and_dropout_forward_raise(small_pair):
+    """These two forwards raised until the training slice; now the pretrain
+    forward gives its outputs, a dropout forward differs from the
+    deterministic one, and only an unknown mode raises."""
     _, tm, batch = small_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(batch, mode="pretrain")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        out = tm(batch, mode="pretrain", generator=gen)
+    assert out["diffusion_loss"].shape == () and torch.isfinite(out["diffusion_loss"])
+    assert out["diffusion_t"].shape == (2,) and out["reconstruction"].shape == (2, 128, 16)
+    assert "classification_logits" in out
     dropout_model = DGDMModel(**{**KW, "dropout": 0.1})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dropout_model(batch, deterministic=False)
+    dropout_model.load_state_dict(tm.state_dict())
+    with torch.no_grad():
+        noisy = dropout_model(batch, deterministic=False, generator=gen)
+        assert torch.equal(dropout_model(batch)["classification_logits"],
+                           tm(batch)["classification_logits"])
+    assert not torch.equal(noisy["classification_logits"], tm(batch)["classification_logits"])
+    with pytest.raises(ValueError, match="unknown mode"):
+        tm(batch, mode="train")
 
 
 @pytest.mark.parametrize("impl", ["auto", "onehot", "xla", "pallas"])
