@@ -6,12 +6,21 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases, each of which raises on a failed check:
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: nvcc builds every kernel under dgdm_histopath_torch/csrc/;
-  3. kernels: each of the four kernels (the two gathers and their backwards)
-     against its plain PyTorch version on the card at the main-path shapes
-     (B=32, N in {1024, 512, 256}, K=8, F=128, bf16 and f32) and one ragged
-     shape, with device times (CUDA-graph replays timed by CUDA events), the
-     plain version's and the library call's; autograd through each wrapper
-     against autograd through its plain forward;
+  3. kernels: each of the four gather kernels (the two gathers and their
+     backwards) against its plain PyTorch version on the card at the shapes
+     both model paths give it (DGDM-Base: B=32, N in {1024, 512, 256};
+     DGDM-Large: B=4, N in {2048, 1024, 512}; K=8, F=128, bf16 and f32) and
+     one ragged shape, with device times (CUDA-graph replays timed by
+     CUDA events), the plain version's and the library call's; autograd
+     through each wrapper against autograd through its plain forward. Then
+     the two flash spatial-attention kernels against their plain versions,
+     bf16 and f32, at the DGDM-Base shape (B=32, N=1024, 8 heads x 16), the
+     DGDM-Large shape (B=4, N=2048, 16 x 8) and a head-major shape (B=8,
+     N=1024, 4 x 64), each with a masked tail, an all-masked graph, a shape
+     that takes the dense route (counted, no launch), their gradients
+     against plain autograd, and
+     ``scaled_dot_product_attention`` with an additive mask as the library
+     yardstick;
   4. model: DGDM-Base (seeded weights, bf16) on 32 graphs of bucket 1024
      with 1000 real nodes through DGDMPredictor.predict_batch; the kernel
      launch counts of that run, output checks, forward time, and the card
@@ -25,7 +34,18 @@ Phases, each of which raises on a failed check:
      one step, finite metrics, learning rate 0 at the first update, the same
      seed giving the same first loss), 2 finetune steps with labels, one
      validation step, one f32 step on the card against the CPU on 2 graphs
-     with injected draws, step time, peak memory and a profiled step.
+     with injected draws, step time, peak memory and a profiled step;
+  7. flash module: ``SpatialAttention(128, 8, use_flash=True)`` on B=32,
+     N=1024 in bf16 against the same module with ``use_flash=False`` (one
+     packed launch, outputs within tolerance, peak memory of both), in f32 at
+     B=4 within 2e-4, and the same at a head-major width (256, 4 heads);
+  8. DGDM-Large at full width (1024-d features, hidden (768, 512, 256, 128),
+     16 heads x 8, 6 graph layers + the depth-2 U-Net, windowed attention and
+     banded message passing with W=128) on 4 band-exact graphs of bucket 2048
+     with 2000 real nodes: predict_batch, one /predict request, pretrain and
+     finetune training steps and a validation step, each with its kernel
+     launch counts, step time, peak memory, a profile, and f32 card-vs-CPU
+     checks on 2 graphs.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -43,19 +63,36 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+# (B, N, K, F) of the gathers at the U-Net levels of DGDM-Base and DGDM-Large
 MAIN_SHAPES = [(32, 1024, 8, 128), (32, 512, 8, 128), (32, 256, 8, 128)]
+LARGE_SHAPES = [(4, 2048, 8, 128), (4, 1024, 8, 128), (4, 512, 8, 128)]
 RAGGED_SHAPE = (32, 100, 5, 24)
-BATCH, BUCKET, N_REAL, FEATURES, K = 32, 1024, 1000, 768, 8
-# launches per DGDM-Base forward: 9 DynamicGraphLayers (4 encoder + 5 U-Net),
-# one key gather and two conv aggregations each; a training step adds one
-# backward launch for each
-EXPECTED_LAUNCHES = {"gather_rows": 9, "gather_agg": 18,
-                     "gather_rows_bwd": 0, "gather_agg_bwd": 0}
-EXPECTED_TRAIN_LAUNCHES = {"gather_rows": 9, "gather_agg": 18,
-                           "gather_rows_bwd": 9, "gather_agg_bwd": 18}
+K = 8
+# The two model cells. ``layers`` counts the DynamicGraphLayers (Base: 4
+# encoder + 5 U-Net, Large: 6 + 5); each launches one key gather and two conv
+# aggregations per forward, and a training step adds one backward launch for
+# each. Large is windowed + banded (W = 128) and its graphs are band-exact.
+BASE = dict(preset="dgdm-base", label="DGDM-Base", batch=32, bucket=1024, n_real=1000,
+            features=768, layers=9, window=None, dropout=0.1, pretrain_steps=8)
+LARGE = dict(preset="dgdm-large", label="DGDM-Large", batch=4, bucket=2048, n_real=2000,
+             features=1024, layers=11, window=128, dropout=0.15, pretrain_steps=8)
+WARMUP_STEPS = 2
+
+
+def expected_launches(cell: dict, training: bool) -> dict:
+    """Launches of one forward (or one training step) of a model cell. No
+    DGDMModel path reaches the flash kernels, as in the JAX package."""
+    layers = cell["layers"]
+    bwd = layers if training else 0
+    return {"gather_rows": layers, "gather_agg": 2 * layers, "gather_rows_bwd": bwd,
+            "gather_agg_bwd": 2 * bwd, "flash_spatial_packed": 0, "flash_spatial": 0}
+
+
 PORT_KERNEL_NAMES = ("gather_rows_kernel", "gather_agg_kernel", "scatter_rows_kernel",
-                     "gather_agg_bwd_kernel", "round_to_bf16_kernel")
-PRETRAIN_STEPS, WARMUP_STEPS = 8, 2
+                     "gather_agg_bwd_kernel", "round_to_bf16_kernel", "flash_spatial")
+# (B, N, real nodes, H, D): DGDM-Base, DGDM-Large, a head-major width
+FLASH_SHAPES = [(32, 1024, 1000, 8, 16), (4, 2048, 2000, 16, 8), (8, 1024, 1000, 4, 64)]
 
 
 def log(msg: str) -> None:
@@ -193,7 +230,7 @@ def kernel_phase(torch) -> dict:
             library_ms=None, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=abytes,
             flops=flops))
-    for (b, n, k, f) in MAIN_SHAPES + [RAGGED_SHAPE]:
+    for (b, n, k, f) in MAIN_SHAPES + LARGE_SHAPES + [RAGGED_SHAPE]:
         for dtype in (torch.bfloat16, torch.float32):
             e = torch.finfo(dtype).bits // 8
             src = torch.randn(b, n, f, device="cuda", generator=gen).to(dtype)
@@ -264,54 +301,298 @@ def kernel_phase(torch) -> dict:
             "gather_rows_bwd": rows_bwd_out, "gather_agg_bwd": agg_bwd_out}
 
 
-def make_graphs(count: int, seed: int = 0):
-    """Graphs of bucket 1024 with 1000 real nodes, kNN (K=8) over random
-    positions, edge_attr [d, exp(-10 d), 0] (the benchmark geometry)."""
+def morton_order(pos):
+    """Order of the nodes along the Morton (Z-order) curve of their 16-bit
+    quantised coordinates."""
+    import numpy as np
+    q = np.minimum((pos * 65536).astype(np.uint64), 65535)
+    code = np.zeros(len(pos), np.uint64)
+    for bit in range(16):
+        code |= ((q[:, 0] >> np.uint64(bit)) & np.uint64(1)) << np.uint64(2 * bit)
+        code |= ((q[:, 1] >> np.uint64(bit)) & np.uint64(1)) << np.uint64(2 * bit + 1)
+    return np.argsort(code, kind="stable")
+
+
+def flash_kernel_phase(torch) -> dict:
+    """The two flash spatial-attention kernels on the card against their plain
+    versions. f32 results are held to 1e-4 on valid rows (the kernel sums in
+    another order and takes exp through the fast intrinsic). bf16: kernel and
+    plain version each round their f32 result once, so where the two f32
+    values (1e-4 apart at most) straddle a rounding boundary they differ by
+    one bf16 ulp of that element (2^-9 for a value in [0.5, 1)); every
+    element is held to its own ulp plus the 1e-4."""
+    import torch.nn.functional as F
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.ops.kernels import flash_spatial as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {"flash_spatial_packed": [], "flash_spatial": []}
+
+    def inputs(b, n, n_real, h, d, dtype):
+        q, k, v = (torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        pos = torch.rand(b, n, 2, device="cuda", generator=gen)
+        mask = torch.arange(n, device="cuda").expand(b, n) < n_real
+        return q, k, v, pos, mask
+
+    def versions(h, d, n):
+        route = fs.flash_route(n, h, d)
+        name = {"packed": "flash_spatial_packed", "headmajor": "flash_spatial"}[route]
+        plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
+        return name, plain
+
+    def error(out, ref, mask, tag) -> float:
+        ref32 = ref.float()
+        tol = torch.full_like(ref32, 1e-4)
+        if out.dtype == torch.bfloat16:
+            tol = tol + torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32).exponent - 8)
+        err = (out.float() - ref32).abs() * mask[:, :, None, None]
+        if not ((err <= tol).all() and torch.isfinite(out).all() and out.dtype == ref.dtype):
+            raise AssertionError(f"flash kernel off its plain version by {err.max().item()}, "
+                                 f"{(err / tol).max().item():.2f} of the limit, at {tag}")
+        return err.max().item()
+
+    for (b, n, n_real, h, d) in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name, plain = versions(h, d, n)
+            q, k, v, pos, mask = inputs(b, n, n_real, h, d, dtype)
+            tag = dict(shape=[b, n, h, d], real_nodes=n_real,
+                       dtype=str(dtype).replace("torch.", ""))
+            before = kernels.KERNELS[name].launches
+            out = fs.flash_spatial_attention(q, k, v, pos, mask, tau=0.1)
+            torch.cuda.synchronize()
+            if kernels.KERNELS[name].launches != before + 1:
+                raise AssertionError(f"{name} was not launched at {tag}")
+            err = error(out, plain(q, k, v, pos, mask, 0.1), mask, tag)
+            error(out, fs.dense_reference(q, k, v, pos, mask, 0.1), mask, tag)
+
+            # the library yardstick: SDPA with bias and mask as one additive
+            # [B, 1, N, N] attn_mask (its construction timed apart)
+            def make_attn_mask():
+                bias = fs.distance_bias(pos, pos, 0.1)[:, None]
+                return bias.masked_fill(~mask[:, None, None, :], float("-inf")).to(dtype)
+
+            attn_mask = make_attn_mask()
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask).transpose(1, 2)
+            lib_err = ((lib.float() - out.float()).abs() * mask[:, :, None, None]).max().item()
+            e = q.element_size()
+            nbytes = 4 * b * n * h * d * e + pos.numel() * 4 + mask.numel()
+            flops = 4 * h * d * n * int(mask.sum().item())      # valid keys only
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+            rows[name].append(dict(
+                tag, max_abs_err=err, library_abs_diff=lib_err,
+                ms=device_ms(torch, lambda: fs.flash_spatial_attention(q, k, v, pos, mask)),
+                plain_ms=device_ms(torch, lambda: plain(q, k, v, pos, mask, 0.1), 4, 7),
+                library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=attn_mask), 10, 11),
+                library_mask_ms=device_ms(torch, make_attn_mask, 4, 7),
+                dense_ms=device_ms(torch, lambda: fs.dense_reference(q, k, v, pos, mask, 0.1),
+                                   4, 7),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                f32_fma_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops))
+            r = rows[name][-1]
+            log(f"kernel {name:20s} {str(tag['shape']):20s} {tag['dtype']:8s} err "
+                f"{r['max_abs_err']:.2e}  ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  dense "
+                f"{r['dense_ms']:.4f}  library {r['library_ms']:.4f} (+ mask "
+                f"{r['library_mask_ms']:.4f}, differs {lib_err:.1e})  bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}; as f32 FMAs {r['f32_fma_ms']:.4f})")
+            del attn_mask, lib
+
+    # a graph without a valid node gives zeros; its neighbor in the batch is untouched
+    for (h, d) in ((8, 16), (16, 8), (4, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name, plain = versions(h, d, 256)
+            q, k, v, pos, mask = inputs(3, 256, 200, h, d, dtype)
+            mask[1] = False
+            out = fs.flash_spatial_attention(q, k, v, pos, mask)
+            torch.cuda.synchronize()
+            error(out, plain(q, k, v, pos, mask, 0.1), mask, f"{name} all-masked {dtype}")
+            if not ((out[1] == 0).all() and (out[0] != 0).any() and (out[2] != 0).any()):
+                raise AssertionError(f"{name}: an all-masked graph must give zeros")
+            v2 = v.clone()
+            v2[:, 200:] = 99.0                                  # masked value rows
+            if not torch.equal(fs.flash_spatial_attention(q, k, v2, pos, mask)[:, :200],
+                               out[:, :200]):
+                raise AssertionError(f"{name}: masked value rows changed valid rows")
+    # other widths of both kernels: true D, no padding in device memory
+    for (h, d) in ((1, 128), (2, 64), (32, 4), (3, 24), (2, 5), (1, 200), (2, 128)):
+        name, plain = versions(h, d, 128)
+        q, k, v, pos, mask = inputs(2, 128, 100, h, d, torch.float32)
+        error(fs.flash_spatial_attention(q, k, v, pos, mask), plain(q, k, v, pos, mask, 0.1),
+              mask, f"{name} {h}x{d}")
+    # N that does not tile takes the dense route: no launch, and it is counted
+    q, k, v, pos, mask = inputs(2, 100, 90, 8, 16, torch.float32)
+    before, dense_before = kernels.launch_counts(), fs.dense_route_calls()
+    if not (torch.equal(fs.flash_spatial_attention(q, k, v, pos, mask),
+                        fs.dense_reference(q, k, v, pos, mask, 0.1))
+            and kernels.launch_counts() == before
+            and fs.dense_route_calls() == dense_before + 1):
+        raise AssertionError("N = 100 must take the dense route and be counted there")
+
+    # gradients: the autograd.Function (kernel forward, dense-recompute
+    # backward) against plain autograd through the plain version, f32
+    grads = {}
+    for (b, n, n_real, h, d) in ((4, 1024, 1000, 8, 16), (2, 2048, 2000, 16, 8),
+                                 (2, 1024, 1000, 4, 64)):
+        name, plain = versions(h, d, n)
+        q, k, v, pos, mask = inputs(b, n, n_real, h, d, torch.float32)
+        g = torch.randn(b, n, h, d, device="cuda", generator=gen) * mask[:, :, None, None]
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(fs.flash_spatial_attention(*leaves, pos, mask), leaves, g)
+        want = torch.autograd.grad(plain(*leaves, pos, mask, 0.1), leaves, g)
+        worst = max((a - w).abs().max().item() for a, w in zip(got, want))
+        if not all(torch.allclose(a, w, atol=1e-4, rtol=1e-3) for a, w in zip(got, want)):
+            raise AssertionError(f"{name}: gradients off plain autograd by {worst}")
+        grads[name] = max(grads.get(name, 0.0), worst)
+    log(f"kernel checks: flash kernels give zeros for an all-masked graph, ignore masked "
+        f"value rows, take the true head width (1x128 ... 2x5), leave N = 100 to the dense "
+        f"route (counted, no launch); gradients within {grads} of plain autograd (atol 1e-4, "
+        f"rtol 1e-3)")
+    for name in rows:
+        for r in rows[name]:
+            r["grad_max_abs_err"] = grads[name]
+    return rows
+
+
+def flash_module_phase(torch, card: str) -> dict:
+    """The flash path as a user reaches it: ``SpatialAttention(use_flash=True)``
+    against the same module with ``use_flash=False``. The launch counters are
+    set to 0 just before the counted forward and read just after it.
+
+    Tolerances. f32: 2e-4 (the reference's own limit for this pair). bf16:
+    the dense route stores its q·k products in bf16 before the softmax while
+    the flash kernels keep them in f32, so weights differ by up to 2^-8
+    relative per logit unit; on LayerNorm outputs of size O(1) the two are
+    held to 0.1 at the worst element and 1e-2 on average."""
+    from dgdm_histopath_torch.nn.attention import SpatialAttention
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    from dgdm_histopath_torch.ops import kernels
+
+    out = {}
+    for name, embed, heads, b, n, n_real in (
+            ("flash_spatial_packed", 128, 8, 32, 1024, 1000),
+            ("flash_spatial", 256, 4, 8, 1024, 1000)):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        x32 = torch.randn(b, n, embed, device="cuda", generator=gen)
+        pos = torch.rand(b, n, 2, device="cuda", generator=gen)
+        mask = torch.arange(n, device="cuda").expand(b, n) < n_real
+        res = {}
+        for dtype, rows, worst_tol, mean_tol in ((torch.bfloat16, b, 0.1, 1e-2),
+                                                 (torch.float32, 4, 2e-4, 2e-4)):
+            flash = SpatialAttention(embed, heads, use_flash=True, dtype=dtype)
+            init_parameters(flash, torch.Generator().manual_seed(3))
+            dense = SpatialAttention(embed, heads, use_flash=False, dtype=dtype)
+            dense.load_state_dict(flash.state_dict())
+            flash, dense = flash.to("cuda").eval(), dense.to("cuda").eval()
+            x = x32[:rows].to(dtype)
+            args = (x, pos[:rows], mask[:rows])
+            with torch.inference_mode():
+                flash(*args), dense(*args)                       # warm up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                kernels.reset_launch_counts()
+                y_flash = flash(*args)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                peak_flash = torch.cuda.max_memory_allocated() - base
+                torch.cuda.reset_peak_memory_stats()
+                y_dense = dense(*args)
+                torch.cuda.synchronize()
+                peak_dense = torch.cuda.max_memory_allocated() - base
+                ms_flash = device_ms(torch, lambda: flash(*args), 5, 7)
+                ms_dense = device_ms(torch, lambda: dense(*args), 5, 7)
+            want = {k: int(k == name) for k in counts}
+            if counts != want:
+                raise AssertionError(f"SpatialAttention(use_flash=True) launches {counts}, "
+                                     f"expected {want}")
+            diff = (y_flash.float() - y_dense.float()).abs()
+            worst, mean = diff.max().item(), diff.mean().item()
+            if not (worst <= worst_tol and mean <= mean_tol and torch.isfinite(y_flash).all()):
+                raise AssertionError(f"flash and dense modules differ by {worst} (mean {mean})")
+            key = str(dtype).replace("torch.", "")
+            res[key] = {"launches": counts, "max_abs_diff": worst, "mean_abs_diff": mean,
+                        "flash_ms": ms_flash, "dense_ms": ms_dense,
+                        "flash_peak_mib": peak_flash / 2 ** 20,
+                        "dense_peak_mib": peak_dense / 2 ** 20, "batch": rows}
+            log(f"flash module: SpatialAttention({embed}, {heads}) {key} B={rows} N={n}: "
+                f"use_flash=True launches {name} x{counts[name]}, differs from the dense "
+                f"module by {worst:.2e} (mean {mean:.2e}; limits {worst_tol}, {mean_tol}); "
+                f"module forward {ms_flash:.3f} ms vs dense {ms_dense:.3f} ms, peak above "
+                f"the inputs {peak_flash / 2 ** 20:.1f} vs {peak_dense / 2 ** 20:.1f} MiB "
+                f"[{card}]")
+        out[name] = res
+    return out
+
+
+def make_graphs(cell: dict, seed: int = 0):
+    """The cell's graphs: ``n_real`` real nodes in its bucket, kNN (K=8) over
+    random positions, edge_attr [d, exp(-10 d), 0] (the benchmark geometry).
+    A windowed cell gets band-exact graphs: nodes in Morton order and the
+    neighbors taken inside the ±1-block band of each node."""
     import numpy as np
     from dgdm_histopath_torch.ops.graph import build_padded_graph
 
+    n_real, window = cell["n_real"], cell["window"]
     graphs = []
-    for i in range(count):
+    for i in range(cell["batch"]):
         rs = np.random.RandomState(seed + i)
-        x = rs.randn(N_REAL, FEATURES).astype(np.float32)
-        pos = rs.rand(N_REAL, 2).astype(np.float32)
+        x = rs.randn(n_real, cell["features"]).astype(np.float32)
+        pos = rs.rand(n_real, 2).astype(np.float32)
+        if window:
+            pos = pos[morton_order(pos)]
         d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
         np.fill_diagonal(d2, np.inf)
+        if window:
+            block = np.arange(n_real) // window
+            d2[np.abs(block[:, None] - block[None, :]) > 1] = np.inf
         near = np.argpartition(d2, K, axis=1)[:, :K]
         near_d2 = np.take_along_axis(d2, near, axis=1)
         order = np.lexsort((near, near_d2), axis=-1)       # by distance, then index
         idx = np.take_along_axis(near, order, axis=1)
         dist = np.sqrt(np.take_along_axis(near_d2, order, axis=1))
         attr = np.stack([dist, np.exp(-10.0 * dist), np.zeros_like(dist)], -1)
-        graphs.append(build_padded_graph(x, pos, idx, attr, np.ones((N_REAL, K), bool),
-                                         bucket=BUCKET))
+        graphs.append(build_padded_graph(x, pos, idx, attr, np.ones((n_real, K), bool),
+                                         bucket=cell["bucket"]))
     return graphs
 
 
-def model_phase(torch, graphs, card: str) -> tuple:
+def model_phase(torch, graphs, card: str, cell: dict) -> tuple:
     import numpy as np
     from dgdm_histopath_torch import DGDMPredictor, batch_graphs, create_model
     from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.ops.graph import in_band_fraction
 
-    model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16",
+    label, batch_size, bucket = cell["label"], cell["batch"], cell["bucket"]
+    model = create_model(cell["preset"], num_classes=2, compute_dtype="bfloat16",
                          device="cuda", seed=0)
+    if (model.spatial_window, model.graph_window) != (cell["window"], cell["window"]):
+        raise AssertionError(f"{label}: window options are not the preset's")
+    if cell["window"]:
+        frac = min(in_band_fraction(g.nbr_idx, g.nbr_mask, cell["window"]) for g in graphs)
+        if frac != 1.0:
+            raise AssertionError(f"{label}: graphs are not band-exact ({frac})")
     predictor = DGDMPredictor(model=model, device="cuda")
 
-    # the main path, counted: one predict_batch of 32 graphs
+    # the main path, counted: one predict_batch of the cell's graphs
+    expected = expected_launches(cell, training=False)
     kernels.reset_launch_counts()
     results = predictor.predict_batch(graphs)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    log(f"model: predict_batch({len(graphs)}) launches {launches}")
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"kernel launches {launches}, expected {EXPECTED_LAUNCHES}")
+    log(f"model: {label} predict_batch({len(graphs)}) launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
     for r in results:
         p = r["probabilities"]
         if not (np.isfinite(p).all() and abs(float(p.sum()) - 1.0) < 1e-5):
             raise AssertionError(f"bad probabilities {p}")
         if not (np.isfinite(r["graph_embedding"]).all() and r["graph_embedding"].shape == (128,)
                 and np.isfinite(r["attention_weights"]).all()
-                and r["attention_weights"].shape == (BUCKET,)):
+                and r["attention_weights"].shape == (bucket,)):
             raise AssertionError("non-finite or misshaped outputs")
         if abs(float(r["attention_weights"].sum()) - 1.0) > 1e-2:
             raise AssertionError("pooled attention does not sum to 1")
@@ -336,15 +617,16 @@ def model_phase(torch, graphs, card: str) -> tuple:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     fwd_ms, e2e_ms = statistics.median(fwd), statistics.median(e2e)
     timing = {"forward_ms": fwd_ms, "forward_ms_all": fwd,
-              "graphs_per_s": BATCH / fwd_ms * 1e3, "predict_batch_ms": e2e_ms,
-              "predict_batch_graphs_per_s": BATCH / e2e_ms * 1e3,
+              "graphs_per_s": batch_size / fwd_ms * 1e3, "predict_batch_ms": e2e_ms,
+              "predict_batch_graphs_per_s": batch_size / e2e_ms * 1e3,
               "peak_gib": peak_gib, "card": card}
-    log(f"model: DGDM-Base bf16 batch {BATCH} bucket {BUCKET}: forward {fwd_ms:.3f} ms "
+    log(f"model: {label} bf16 batch {batch_size} bucket {bucket}: forward {fwd_ms:.3f} ms "
         f"({timing['graphs_per_s']:.1f} graphs/s), predict_batch {e2e_ms:.3f} ms "
         f"({timing['predict_batch_graphs_per_s']:.1f} graphs/s), peak {peak_gib:.2f} GiB "
         f"[{card}]")
-    timing["profile"] = profile_call(torch, lambda: predictor.forward(batch), "forward")
-    parity = card_vs_cpu(torch, graphs[:2])
+    timing["profile"] = profile_call(torch, lambda: predictor.forward(batch),
+                                     f"{label} forward")
+    parity = card_vs_cpu(torch, graphs[:2], cell)
     return predictor, launches, timing, parity
 
 
@@ -373,7 +655,7 @@ def profile_call(torch, fn, what: str) -> dict:
     n_kernels = sum(r[1] for r in rows)
     log(f"profile: one {what} {wall_ms:.3f} ms wall (profiled), {n_kernels} kernels "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% busy), of which the port's "
-        f"gather kernels {ours:.3f} ms ({100 * ours / busy_ms:.1f}% of device time)")
+        f"own kernels {ours:.3f} ms ({100 * ours / busy_ms:.1f}% of device time)")
     for ms, count, key in rows[:15]:
         log(f"profile:   {ms:9.3f} ms  x{count:4d}  {key[:100]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "gather_kernels_ms": ours,
@@ -381,131 +663,195 @@ def profile_call(torch, fn, what: str) -> dict:
             "top": [{"ms": ms, "count": c, "name": key} for ms, c, key in rows[:40]]}
 
 
-def card_vs_cpu(torch, graphs) -> dict:
+def card_vs_cpu(torch, graphs, cell: dict) -> dict:
     """The same f32 model and state on the card (kernels) and on the CPU
-    (plain versions): logits within 1e-3, pooled attention within 1e-4."""
+    (plain versions): logits within 1e-3, pooled attention within 1e-4; with
+    the attention weights asked for (the predictor's forward, dense spatial
+    attention) and without (the windowed route where the cell has a window)."""
     from dgdm_histopath_torch import batch_graphs, create_model
 
-    cpu_model = create_model("dgdm-base", num_classes=2, compute_dtype="float32",
+    cpu_model = create_model(cell["preset"], num_classes=2, compute_dtype="float32",
                              device="cpu", seed=1)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = batch_graphs(graphs)
+
+    def diff(a, b, key):
+        return (a[key].cpu() - b[key]).abs().max().item()
+
     with torch.inference_mode():
         on_card = gpu_model(batch.to("cuda"), return_attention=True)
         on_cpu = cpu_model(batch, return_attention=True)
-    d_logits = (on_card["classification_logits"].cpu() - on_cpu["classification_logits"]).abs().max().item()
-    d_attn = (on_card["attention_weights"].cpu() - on_cpu["attention_weights"]).abs().max().item()
-    log(f"parity: f32 card vs CPU on 2 graphs: logits {d_logits:.3e} (<= 1e-3), "
-        f"pooled attention {d_attn:.3e} (<= 1e-4)")
+        d_logits = max(diff(on_card, on_cpu, "classification_logits"),
+                       diff(gpu_model(batch.to("cuda")), cpu_model(batch),
+                            "classification_logits"))
+    d_attn = diff(on_card, on_cpu, "attention_weights")
+    route = gpu_model.spatial_attention.route(cell["bucket"])
+    log(f"parity: {cell['label']} f32 card vs CPU on 2 graphs: logits {d_logits:.3e} "
+        f"(<= 1e-3, dense and {route} spatial attention), pooled attention {d_attn:.3e} "
+        f"(<= 1e-4)")
     if not (d_logits <= 1e-3 and d_attn <= 1e-4):
         raise AssertionError("card and CPU disagree beyond tolerance")
+    if route != ("window" if cell["window"] else "dense"):
+        raise AssertionError(f"spatial attention took the {route} route")
     return {"logits_max_abs": d_logits, "attention_max_abs": d_attn}
 
 
-def server_phase(predictor, graphs) -> dict:
-    """The server path, counted: the launch counters are set to 0 just
-    before each request and read just after it, so the predictor calls that
-    check the answers are not counted. Every request is one forward."""
+def http_json(port: int, method: str, path: str, body=None):
+    """One request to the local server; the decoded JSON of a 200 answer."""
     import http.client
 
-    import numpy as np
-    from dgdm_histopath_torch.deployment.serving import InferenceServer, graph_to_json
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        data = None if body is None else json.dumps(body)
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json"} if data else {})
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"{method} {path} -> {resp.status}: {payload}")
+    return payload
+
+
+def counted_request(port: int, path: str, body, cell: dict) -> tuple:
+    """A POST with the launch counters set to 0 just before it and read just
+    after: every request is one forward of the cell's model."""
     from dgdm_histopath_torch.ops import kernels
 
-    def request(port, method, path, body=None):
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-        try:
-            data = None if body is None else json.dumps(body)
-            conn.request(method, path, body=data,
-                         headers={"Content-Type": "application/json"} if data else {})
-            resp = conn.getresponse()
-            payload = json.loads(resp.read())
-        finally:
-            conn.close()
-        if resp.status != 200:
-            raise AssertionError(f"{method} {path} -> {resp.status}: {payload}")
-        return payload
+    expected = expected_launches(cell, training=False)
+    kernels.reset_launch_counts()
+    res = http_json(port, "POST", path, body)
+    counts = kernels.launch_counts()
+    if counts != expected:
+        raise AssertionError(f"{path}: kernel launches {counts}, expected {expected}")
+    return res, counts
 
-    def counted(port, path, body):
-        kernels.reset_launch_counts()
-        res = request(port, "POST", path, body)
-        counts = kernels.launch_counts()
-        if counts != EXPECTED_LAUNCHES:
-            raise AssertionError(f"{path}: kernel launches {counts}, expected "
-                                 f"{EXPECTED_LAUNCHES}")
-        launches.append(counts)
-        return res
 
-    def same(a, b, atol, what):
-        d = float(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)).max())
-        if d > atol:
-            raise AssertionError(f"{what}: server differs from the predictor by {d}")
-        return d
+def same_answer(a, b, atol: float, what: str) -> float:
+    import numpy as np
 
-    # a graph whose nbr_idx leaves [0, N): answered (zero rows), and the
-    # requests after it prove the card's CUDA context survived it
-    bad_idx = graphs[5].nbr_idx.clone()
-    bad_idx[0, 0], bad_idx[1, 1], bad_idx[2, 2] = -1, BUCKET, 10 ** 6
-    bad = graphs[5].replace(nbr_idx=bad_idx)
+    d = float(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)).max())
+    if d > atol:
+        raise AssertionError(f"{what}: server differs from the predictor by {d}")
+    return d
+
+
+def checked_predict(port: int, predictor, graph, cell: dict) -> tuple:
+    """One counted /predict of ``graph`` held against ``predict_graph``:
+    (probability diff, launches, round trip ms). The predictor call that
+    checks the answer comes after the counters are read."""
+    from dgdm_histopath_torch.deployment.serving import graph_to_json
+
+    t0 = time.perf_counter()
+    res, counts = counted_request(port, "/predict", {"graph": graph_to_json(graph)}, cell)
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = predictor.predict_graph(graph)
+    diff = same_answer(res["probabilities"], ref["probabilities"], 1e-6, "/predict")
+    same_answer(res["attention_weights"], ref["attention_weights"], 1e-6, "/predict attention")
+    if res["predicted_class"] != ref["predicted_class"]:
+        raise AssertionError("/predict class differs from predict_graph")
+    return diff, counts, ms
+
+
+def start_server(predictor, cell: dict):
+    from dgdm_histopath_torch.deployment.serving import InferenceServer
 
     server = InferenceServer(predictor, port=0, host="127.0.0.1")
     server.start(background=True)
+    try:
+        if not http_json(server.port, "GET", "/healthz")["healthy"]:
+            raise AssertionError("server reports unhealthy")
+        if http_json(server.port, "GET", "/info")["node_features"] != cell["features"]:
+            raise AssertionError("server /info is wrong")
+    except BaseException:
+        server.stop()
+        raise
+    return server
+
+
+def server_phase(predictor, graphs, cell: dict) -> dict:
+    """The server path of DGDM-Base, counted request by request: one /predict
+    whose nbr_idx leaves [0, N), three /predict and one /predict_batch."""
+    from dgdm_histopath_torch.deployment.serving import graph_to_json
+
+    # a graph whose nbr_idx leaves [0, N): answered (zero rows), and the
+    # requests after it prove the card's CUDA context survived it
+    bad_idx = graphs[-1].nbr_idx.clone()
+    bad_idx[0, 0], bad_idx[1, 1], bad_idx[2, 2] = -1, cell["bucket"], 10 ** 6
+    bad = graphs[-1].replace(nbr_idx=bad_idx)
+
+    server = start_server(predictor, cell)
     latencies, diffs, launches = [], [], []
     try:
         port = server.port
-        if not request(port, "GET", "/healthz")["healthy"]:
-            raise AssertionError("server reports unhealthy")
-        if request(port, "GET", "/info")["node_features"] != FEATURES:
-            raise AssertionError("server /info is wrong")
-        res = counted(port, "/predict", {"graph": graph_to_json(bad)})
-        same(res["probabilities"], predictor.predict_graph(bad)["probabilities"], 1e-6,
-             "/predict with out-of-range nbr_idx")
+        res, counts = counted_request(port, "/predict", {"graph": graph_to_json(bad)}, cell)
+        launches.append(counts)
+        same_answer(res["probabilities"], predictor.predict_graph(bad)["probabilities"], 1e-6,
+                    "/predict with out-of-range nbr_idx")
         for g in graphs[:3]:
-            t0 = time.perf_counter()
-            res = counted(port, "/predict", {"graph": graph_to_json(g)})
-            latencies.append((time.perf_counter() - t0) * 1e3)
-            ref = predictor.predict_graph(g)
-            diffs.append(same(res["probabilities"], ref["probabilities"], 1e-6, "/predict"))
-            same(res["attention_weights"], ref["attention_weights"], 1e-6, "/predict attention")
-            if res["predicted_class"] != ref["predicted_class"]:
-                raise AssertionError("/predict class differs from predict_graph")
+            diff, counts, ms = checked_predict(port, predictor, g, cell)
+            diffs.append(diff), launches.append(counts), latencies.append(ms)
         pair = graphs[3:5]
-        res = counted(port, "/predict_batch", {"graphs": [graph_to_json(g) for g in pair]})
-        if res["count"] != 2:
+        res, counts = counted_request(port, "/predict_batch",
+                                      {"graphs": [graph_to_json(g) for g in pair]}, cell)
+        launches.append(counts)
+        if res["count"] != len(pair):
             raise AssertionError("/predict_batch count is wrong")
         for r, b, g in zip(res["results"], predictor.predict_batch(pair), pair):
-            same(r["probabilities"], b["probabilities"], 1e-6, "/predict_batch")
+            same_answer(r["probabilities"], b["probabilities"], 1e-6, "/predict_batch")
             # batch 2 against batch 1 in bf16: GEMM tilings may differ
-            diffs.append(same(r["probabilities"], predictor.predict_graph(g)["probabilities"],
-                              2e-2, "/predict_batch vs predict_graph"))
+            diffs.append(same_answer(r["probabilities"],
+                                     predictor.predict_graph(g)["probabilities"], 2e-2,
+                                     "/predict_batch vs predict_graph"))
         stats = dict(server.stats)
     finally:
         server.stop()
-    log(f"server: 1 /predict with out-of-range nbr_idx + 3 /predict + 1 /predict_batch "
-        f"answered and agree with the predictor (max prob diff {max(diffs):.2e}); "
-        f"launches per request {launches}; /predict round trip ms "
+    log(f"server: {cell['label']}: 1 /predict with out-of-range nbr_idx + 3 /predict + 1 "
+        f"/predict_batch answered and agree with the predictor (max prob diff "
+        f"{max(diffs):.2e}); launches per request {launches}; /predict round trip ms "
         f"{[round(x, 1) for x in latencies]}")
     if stats["requests"] != 5 or stats["errors"] != 0:
         raise AssertionError(f"server stats {stats}")
     return {"predict_ms": latencies, "max_prob_diff": max(diffs), "launches": launches}
 
 
-def training_phase(torch, graphs, card: str) -> tuple:
-    """The training path, counted: DGDMTrainer.training_step on DGDM-Base at
-    full width, batch 32, bucket 1024. The launch counters are set to 0 just
-    before one step and read just after it."""
+def server_one_request(predictor, graph, cell: dict) -> dict:
+    """One counted /predict of a full-width graph of ``cell`` (DGDM-Large)."""
+    server = start_server(predictor, cell)
+    try:
+        diff, counts, ms = checked_predict(server.port, predictor, graph, cell)
+        stats = dict(server.stats)
+    finally:
+        server.stop()
+    log(f"server: {cell['label']}: 1 /predict answered and agrees with the predictor (prob "
+        f"diff {diff:.2e}); launches {counts}; round trip {ms:.1f} ms")
+    if stats["requests"] != 1 or stats["errors"] != 0:
+        raise AssertionError(f"server stats {stats}")
+    return {"predict_ms": [ms], "max_prob_diff": diff, "launches": [counts]}
+
+
+def training_phase(torch, graphs, card: str, cell: dict) -> tuple:
+    """The training path, counted: DGDMTrainer.training_step on the cell's
+    model at full width (DGDM-Base: batch 32, bucket 1024; DGDM-Large: batch
+    4, bucket 2048, windowed attention and banded message passing). The
+    launch counters are set to 0 just before one step and read just after."""
     import math
 
     from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, batch_graphs, create_model
     from dgdm_histopath_torch.ops import kernels
 
+    label, batch_size, steps = cell["label"], cell["batch"], cell["pretrain_steps"]
+    expected_train = expected_launches(cell, training=True)
+    batch = batch_graphs(graphs).to("cuda")
+
     def new_trainer():
-        model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16",
+        model = create_model(cell["preset"], num_classes=2, compute_dtype="bfloat16",
                              device="cuda", seed=0)
         trainer = DGDMTrainer(model, TrainerConfig(
-            warmup_steps=WARMUP_STEPS, steps_per_epoch=PRETRAIN_STEPS, pretrain_epochs=1,
+            warmup_steps=WARMUP_STEPS, steps_per_epoch=steps, pretrain_epochs=1,
             max_epochs=2), device="cuda")
-        trainer.init_state(seed=0)
+        trainer.init_state(seed=0, example_batch=batch)      # the band guard passes
         return trainer
 
     def counted_step(trainer, batch, epoch, expected):
@@ -526,28 +872,28 @@ def training_phase(torch, graphs, card: str) -> tuple:
         return max((p.detach() - q).abs().max().item()
                    for p, q in zip(trainer.model.parameters(), before))
 
-    batch = batch_graphs(graphs).to("cuda")
     trainer = new_trainer()
-    if trainer.model.dropout != 0.1 or any(p.dtype != torch.float32
-                                           for p in trainer.model.parameters()):
-        raise AssertionError("DGDM-Base must train with dropout 0.1 and f32 parameters")
+    if trainer.model.dropout != cell["dropout"] or any(
+            p.dtype != torch.float32 for p in trainer.model.parameters()):
+        raise AssertionError(f"{label} must train with dropout {cell['dropout']} and f32 "
+                             "parameters")
 
     # (a) pretrain steps; the first is the counted run of the main path
     before = snapshot(trainer)
-    first, launches = counted_step(trainer, batch, 0, EXPECTED_TRAIN_LAUNCHES)
+    first, launches = counted_step(trainer, batch, 0, expected_train)
     if moved(trainer, before) != 0.0:
         raise AssertionError("the first update has learning rate 0 and must move nothing")
     again = new_trainer().training_step(batch, 0)
     if abs(again["loss"] - first["loss"]) > 1e-6 * abs(first["loss"]):
         raise AssertionError(f"same seed, other first loss: {first['loss']} {again['loss']}")
-    log(f"training: pretrain step 1 launches {launches}, metrics {first}; the same seed "
-        f"gives loss {again['loss']}")
+    log(f"training: {label} pretrain step 1 launches {launches}, metrics {first}; the same "
+        f"seed gives loss {again['loss']}")
     step_ms, history = [], [first]
-    for i in range(1, PRETRAIN_STEPS):
+    for i in range(1, steps):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        metrics, _ = counted_step(trainer, batch, 0, EXPECTED_TRAIN_LAUNCHES)
+        metrics, _ = counted_step(trainer, batch, 0, expected_train)
         torch.cuda.synchronize()
         history.append(metrics)
         if i >= 2:                                   # two warm-up steps
@@ -556,34 +902,34 @@ def training_phase(torch, graphs, card: str) -> tuple:
             raise AssertionError("the second update must move the parameters")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = statistics.median(step_ms)
-    log(f"training: DGDM-Base bf16 batch {BATCH} bucket {BUCKET} pretrain step "
-        f"{ms:.3f} ms median of {len(step_ms)} ({BATCH / ms * 1e3:.1f} graphs/s), peak "
+    log(f"training: {label} bf16 batch {batch_size} bucket {cell['bucket']} pretrain step "
+        f"{ms:.3f} ms median of {len(step_ms)} ({batch_size / ms * 1e3:.1f} graphs/s), peak "
         f"{peak_gib:.2f} GiB, loss {[round(m['loss'], 4) for m in history]} [{card}]")
-    profile = profile_call(torch, lambda: trainer.training_step(batch, 0), "pretrain step")
+    profile = profile_call(torch, lambda: trainer.training_step(batch, 0),
+                           f"{label} pretrain step")
 
     # (b) finetune steps with labels, (c) one validation step
-    labeled = batch.replace(y=torch.arange(BATCH, device="cuda") % 2)
-    finetune = [counted_step(trainer, labeled, 1, EXPECTED_TRAIN_LAUNCHES)[0]
-                for _ in range(2)]
+    labeled = batch.replace(y=torch.arange(batch_size, device="cuda") % 2)
+    finetune = [counted_step(trainer, labeled, 1, expected_train)[0] for _ in range(2)]
     kernels.reset_launch_counts()
     val = trainer.validation_step(labeled, 1)
-    if kernels.launch_counts() != EXPECTED_LAUNCHES:
+    if kernels.launch_counts() != expected_launches(cell, training=False):
         raise AssertionError(f"validation launches {kernels.launch_counts()}")
     val = {k: v.item() for k, v in val.items() if v.dim() == 0}
     if not all(math.isfinite(v) for v in val.values()) or "accuracy" not in val:
         raise AssertionError(f"validation metrics {val}")
-    log(f"training: finetune steps {finetune}; validation {val}")
+    log(f"training: {label} finetune steps {finetune}; validation {val}")
 
-    parity = train_step_card_vs_cpu(torch, graphs[:2])
+    parity = train_step_card_vs_cpu(torch, graphs[:2], cell)
     timing = {"pretrain_step_ms": ms, "pretrain_step_ms_all": step_ms,
-              "graphs_per_s": BATCH / ms * 1e3, "peak_gib": peak_gib, "card": card,
+              "graphs_per_s": batch_size / ms * 1e3, "peak_gib": peak_gib, "card": card,
               "pretrain_loss": [m["loss"] for m in history],
               "grad_norm": [m["grad_norm"] for m in history],
               "finetune": finetune, "validation": val, "profile": profile}
     return launches, timing, parity
 
 
-def train_step_card_vs_cpu(torch, graphs) -> dict:
+def train_step_card_vs_cpu(torch, graphs, cell: dict) -> dict:
     """One f32 pretrain step (dropout 0) with the same injected draws on the
     card (kernels, forward and backward) and on the CPU (plain versions):
     loss within 1e-4; every parameter's gradient within 1e-3 of that
@@ -600,7 +946,7 @@ def train_step_card_vs_cpu(torch, graphs) -> dict:
              "uniform": torch.rand(n_graphs, n, generator=gen)}
     results = {}
     for device in ("cpu", "cuda"):
-        model = create_model("dgdm-base", num_classes=2, compute_dtype="float32",
+        model = create_model(cell["preset"], num_classes=2, compute_dtype="float32",
                              dropout=0.0, device=device, seed=1)
         trainer = DGDMTrainer(model, TrainerConfig(warmup_steps=WARMUP_STEPS), device=device)
         trainer.init_state(seed=0)
@@ -616,8 +962,8 @@ def train_step_card_vs_cpu(torch, graphs) -> dict:
         rel = (g_card[key] - ref).abs().max().item() / max(ref.abs().max().item(), floor)
         if rel > worst:
             worst, worst_key = rel, key
-    log(f"parity: f32 pretrain step card vs CPU on 2 graphs: loss {m_card['loss']:.6f} vs "
-        f"{m_cpu['loss']:.6f} (diff {d_loss:.3e} <= 1e-4), worst gradient {worst:.3e} of its "
+    log(f"parity: {cell['label']} f32 pretrain step card vs CPU on 2 graphs: loss "
+        f"{m_card['loss']:.6f} vs {m_cpu['loss']:.6f} (diff {d_loss:.3e} <= 1e-4), worst gradient {worst:.3e} of its "
         f"tensor's largest entry ({worst_key}, <= 1e-3), grad_norm {m_card['grad_norm']:.4f} "
         f"vs {m_cpu['grad_norm']:.4f}")
     if not (d_loss <= 1e-4 and worst <= 1e-3):
@@ -649,43 +995,89 @@ def main() -> int:
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
 
     kern = kernel_phase(torch)
-    graphs = make_graphs(BATCH)
-    predictor, launches, timing, parity = model_phase(torch, graphs, card)
-    server = server_phase(predictor, graphs)
+    kern.update(flash_kernel_phase(torch))
+
+    # DGDM-Base: serving, then training
+    graphs = make_graphs(BASE)
+    predictor, launches, timing, parity = model_phase(torch, graphs, card, BASE)
+    server = server_phase(predictor, graphs, BASE)
     del predictor
     torch.cuda.empty_cache()
-    train_launches, train_timing, train_parity = training_phase(torch, graphs, card)
+    train_launches, train_timing, train_parity = training_phase(torch, graphs, card, BASE)
+    del graphs
+    torch.cuda.empty_cache()
 
-    replaces = {   # kernel -> the TPU code it stands in for
-        "gather_rows": "dgdm_histopath_tpu/ops/pallas/gather_rows.py:56",
-        "gather_agg": "dgdm_histopath_tpu/ops/pallas/gather_agg.py:36",
-        "gather_rows_bwd": "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86",
-        "gather_agg_bwd": "dgdm_histopath_tpu/ops/pallas/gather_agg.py:101",
+    # the flash path, through the module a user would call
+    flash_module = flash_module_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # DGDM-Large (windowed + banded): serving, then training
+    large_graphs = make_graphs(LARGE, seed=100)
+    predictor, l_launches, l_timing, l_parity = model_phase(torch, large_graphs, card, LARGE)
+    l_server = server_one_request(predictor, large_graphs[0], LARGE)
+    del predictor
+    torch.cuda.empty_cache()
+    l_train_launches, l_train_timing, l_train_parity = training_phase(
+        torch, large_graphs, card, LARGE)
+
+    replaces = {   # kernel -> (its source, the TPU code it stands in for)
+        "gather_rows": ("gather_rows.cu", "dgdm_histopath_tpu/ops/pallas/gather_rows.py:56"),
+        "gather_agg": ("gather_agg.cu", "dgdm_histopath_tpu/ops/pallas/gather_agg.py:36"),
+        "gather_rows_bwd": ("gather_rows_bwd.cu",
+                            "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86"),
+        "gather_agg_bwd": ("gather_agg_bwd.cu",
+                           "dgdm_histopath_tpu/ops/pallas/gather_agg.py:101"),
+        "flash_spatial_packed": ("flash_spatial.cu",
+                                 "dgdm_histopath_tpu/ops/pallas/flash_spatial.py:101"),
+        "flash_spatial": ("flash_spatial.cu",
+                          "dgdm_histopath_tpu/ops/pallas/flash_spatial.py:47"),
     }
     line = {"kernels": []}
-    for name, where in replaces.items():
-        main_shape = kern[name][0]                 # B32 N1024 K8 F128 bf16
+    for name, (source, where) in replaces.items():
+        main_shape = kern[name][0]                 # the first shape timed, bf16
+        by_path = {"predict_batch": launches[name], "training_step": train_launches[name],
+                   "large_predict_batch": l_launches[name],
+                   "large_training_step": l_train_launches[name],
+                   "spatial_attention_use_flash": (
+                       flash_module[name]["bfloat16"]["launches"][name]
+                       if name in flash_module else 0)}
         # max_abs_err is over the f32 comparisons; the bf16 backward results
-        # are held to one bf16 ulp (max_ulp_err)
-        f32_rows = [r for r in kern[name] if r["dtype"] == "float32" or "bwd" not in name]
+        # and the bf16 flash results are held to one bf16 ulp of each element
+        f32_rows = [r for r in kern[name] if r["dtype"] == "float32"
+                    or name in ("gather_rows", "gather_agg")]
+        # each kernel's own main path: the training step for the gathers, the
+        # SpatialAttention(use_flash=True) forward for the flash kernels
+        main_path = ("spatial_attention_use_flash" if name in flash_module
+                     else "training_step")
         entry = {"name": name, "route": "cuda",
-                 "source": f"dgdm_histopath_torch/csrc/{name}.cu", "replaces": where,
-                 "launches": train_launches[name],
-                 "launches_by_path": {"predict_batch": launches[name],
-                                      "training_step": train_launches[name]},
+                 "source": f"dgdm_histopath_torch/csrc/{source}", "replaces": where,
+                 "launches": by_path[main_path], "launches_by_path": by_path,
                  "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
                  "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
                  "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-                 "library_ms": main_shape["library_ms"], "shape": "B32 N1024 K8 F128 bf16"}
+                 "library_ms": main_shape["library_ms"],
+                 "shape": ("B{} N{} H{} D{} bf16".format(*main_shape["shape"])
+                           if name in flash_module else "B32 N1024 K8 F128 bf16")}
+        if entry["launches"] < 1:
+            raise AssertionError(f"{name} was launched no time on its main path")
         if "bwd" in name:
             entry["max_ulp_err_bf16"] = max(r["max_ulp_err"] for r in kern[name]
                                             if r["max_ulp_err"] is not None)
+        if name in flash_module:
+            entry["max_abs_err_bf16"] = max(r["max_abs_err"] for r in kern[name]
+                                            if r["dtype"] == "bfloat16")
+            entry["all_shapes"] = kern[name]
         line["kernels"].append(entry)
-    for t in (timing, train_timing):
+    for t in (timing, train_timing, l_timing, l_train_timing):
         t["profile"].pop("top")           # printed above, one line per kernel
     log("details: " + json.dumps({"model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
-                                  "training_parity": train_parity}))
+                                  "training_parity": train_parity,
+                                  "flash_module": flash_module,
+                                  "large": {"model": l_timing, "parity": l_parity,
+                                            "server": l_server,
+                                            "training": l_train_timing,
+                                            "training_parity": l_train_parity}}))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(card)

@@ -82,13 +82,17 @@ class DGDMModel(nn.Module):
         self.feature_encoder = FeatureEncoder(node_features, hidden_dims, activation,
                                               normalization, dropout, dtype)
         self.graph_encoder = GraphEncoder(hidden, hidden, graph_layers, attention_heads,
-                                          edge_features, activation, dropout, dtype)
+                                          edge_features, activation, dropout, dtype,
+                                          band_window=graph_window)
         if use_spatial_attention:
-            self.spatial_attention = SpatialAttention(hidden, attention_heads, dropout,
-                                                      dtype=dtype)
+            self.spatial_attention = SpatialAttention(
+                hidden, attention_heads, dropout, window_size=spatial_window, dtype=dtype,
+                traffic_dtype=(None if attention_traffic_dtype is None
+                               else as_dtype(attention_traffic_dtype)))
         if use_hierarchical:
             self.graph_unet = GraphUNet(hidden, hidden, depth=2, num_heads=attention_heads,
-                                        edge_dim=edge_features, dropout=dropout, dtype=dtype)
+                                        edge_dim=edge_features, dropout=dropout, dtype=dtype,
+                                        band_window=graph_window)
         self.diffusion = DiffusionLayer(hidden, num_diffusion_steps, diffusion_schedule,
                                         dtype=dtype)
         self.pool = make_pool(pooling, hidden, attention_heads, dtype=dtype)
@@ -125,16 +129,13 @@ class DGDMModel(nn.Module):
         if self.compute_dtype == "float16":
             raise NotImplementedError(
                 "compute_dtype='float16' is not ported yet: the gather kernels take "
-                "bfloat16 and float32 (ROADMAP queue 1, item 8: model options still "
-                "to port)")
+                "bfloat16 and float32 (ROADMAP queue 1, item 8: param_dtype, set2set "
+                "and float16 still to port)")
         if self.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={self.param_dtype!r}: only float32 parameters are ported "
-                "(ROADMAP queue 1, item 8: model options still to port)")
-        if self.attention_traffic_dtype is not None:
-            raise NotImplementedError(
-                f"attention_traffic_dtype={self.attention_traffic_dtype!r} is not ported "
-                "yet (ROADMAP queue 1, item 8: model options still to port)")
+                "(ROADMAP queue 1, item 8: param_dtype, set2set and float16 still "
+                "to port)")
         if self.gather_impl not in GATHER_IMPLS:
             raise ConfigurationError(f"gather_impl must be one of {GATHER_IMPLS}")
         if self.survival_mode not in (None, "cox", "discrete"):
@@ -143,10 +144,6 @@ class DGDMModel(nn.Module):
             w = getattr(self, name)
             if w is not None and w <= 0:
                 raise ConfigurationError(f"{name} must be positive")
-            if w is not None:
-                raise NotImplementedError(
-                    f"{name}={w}: windowed and banded paths are not ported yet "
-                    "(ROADMAP queue 1, item 8: model options still to port)")
         if self.moe_experts < 0:
             raise ConfigurationError("moe_experts must be >= 0")
         if self.moe_experts > 0:

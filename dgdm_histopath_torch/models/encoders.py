@@ -56,12 +56,13 @@ class FeatureEncoder(nn.Module):
 class GraphEncoder(nn.Module):
     """``num_layers`` DynamicGraphLayers over projected edge features, each
     followed by the activation and dropout, then an output projection.
+    ``band_window`` makes every layer banded (``nn/graph_layers.py``).
     Returns ``{"embeddings", "layer_outputs"[, "attentions"]}``."""
 
     def __init__(self, in_features: int, hidden_dim: int, num_layers: int = 4,
                  num_heads: int = 8, edge_dim: Optional[int] = 3,
                  activation: str = "gelu", dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None):
         super().__init__()
         self.num_layers = num_layers
         self.dropout = dropout
@@ -72,7 +73,7 @@ class GraphEncoder(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", DynamicGraphLayer(
                 hidden_dim, hidden_dim, num_heads, e if edge_dim else None, dropout,
-                dtype))
+                dtype, band_window))
         self.output_proj = Dense(hidden_dim, hidden_dim, dtype=dtype)
 
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,

@@ -59,5 +59,5 @@ def make_pool(kind: str, embed_dim: int, num_heads: int = 8,
     if kind == "set2set":
         raise NotImplementedError(
             "pooling='set2set' is not ported yet (ROADMAP queue 1, item 8: "
-            "model options still to port)")
+            "param_dtype, set2set and float16 still to port)")
     raise ValueError(f"unknown pooling {kind!r}")

@@ -17,8 +17,8 @@ PRESETS = {
         attention_heads=8, dropout=0.1, graph_layers=4,
         use_spatial_attention=True, use_hierarchical=True,
         diffusion_schedule="cosine", pooling="attention"),
-    # windowed+banded by default at its 2048-node buckets; those paths are
-    # not ported yet, so this preset raises until they are
+    # windowed+banded by default at its 2048-node buckets (pass
+    # spatial_window=None, graph_window=None for the dense semantics)
     "dgdm-large": dict(
         node_features=1024, hidden_dims=(768, 512, 256, 128),
         num_diffusion_steps=20, attention_heads=16, dropout=0.15,

@@ -1,9 +1,13 @@
 """Masked dense attention, 2-D positional encoding and ``SpatialAttention``.
 
-Counterpart of the JAX package's ``nn/attention.py``. Only the dense path
-of ``SpatialAttention`` is ported: the model never takes the flash path
-(it needs ``use_flash``, and returning weights forces dense), and the
-windowed path is ROADMAP work. Softmax math and its buffers are f32.
+Counterpart of the JAX package's ``nn/attention.py``. ``SpatialAttention``
+has the reference's three routes: flash (``use_flash=True``: the CUDA kernels
+of ``ops/kernels/flash_spatial.py``, no [N, N] buffer), windowed
+(``window_size=W``: each W-block of queries attends to its own and the two
+adjacent key blocks, the ends wrapping around) and dense. ``DGDMModel`` sets
+the window (``spatial_window``) but never ``use_flash``, and returning the
+weights forces the dense route, as in the reference. Softmax math is f32;
+``traffic_dtype`` sets the storage type of the logits and weights buffers.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.kernels.flash_spatial import distance_bias, flash_spatial_attention
 from .layers import Dense, LayerNorm, dropout
 
 
@@ -25,15 +30,21 @@ def scaled_dot_product_attention(
     key_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    traffic_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked SDPA. q [..., Lq, H, D], k/v [..., Lk, H, D].
 
     Returns (out [..., Lq, H, D], weights [..., H, Lq, Lk]). Query rows
     with no valid key come out as zeros. ``dropout_rate > 0`` drops
-    attention weights with draws from ``generator``.
+    attention weights with draws from ``generator``. ``traffic_dtype``
+    (default f32) is the type the QK^T logits and the weights are stored in:
+    one rounding of each, the softmax between them stays f32.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("...qhd,...khd->...hqk", q, k).float() * scale
+    raw = torch.einsum("...qhd,...khd->...hqk", q, k)
+    if traffic_dtype is not None:
+        raw = raw.to(traffic_dtype)
+    logits = raw.float() * scale
     if bias is not None:
         logits = logits + bias.float()
     if key_mask is not None:
@@ -44,6 +55,8 @@ def scaled_dot_product_attention(
         any_key = key_mask.any(-1)[..., None, None, None]
         weights = torch.where(any_key, weights, torch.zeros((), device=weights.device))
     weights = dropout(weights, dropout_rate, generator)
+    if traffic_dtype is not None:
+        weights = weights.to(traffic_dtype)
     out = torch.einsum("...hqk,...khd->...qhd", weights.to(v.dtype), v)
     return out, weights
 
@@ -70,14 +83,38 @@ def sinusoidal_position_encoding_2d(pos: torch.Tensor, dim: int,
 
 class SpatialAttention(nn.Module):
     """Self-attention over nodes with 2-D positional encoding and a
-    ``-distance / tau`` bias, masked and batched (dense path)."""
+    ``-distance / tau`` bias, masked and batched.
+
+    Routes, with the reference's eligibility rules (:meth:`route`):
+
+    - ``"flash"``: wanted by ``use_flash`` (or, when deterministic, by
+      N >= ``flash_auto_min_nodes``, off by default); needs N % 128 == 0, no
+      returned weights and no active dropout (the kernels have none). Runs
+      ``flash_spatial_attention``; wins over the window.
+    - ``"window"``: ``window_size=W`` with N % W == 0, N // W >= 3 and no
+      returned weights. Block-local attention along the node order: each
+      W-block attends to the previous, its own and the next block (3W keys);
+      block 0's previous block is the last one and the last block's next is
+      block 0 (the ends roll around). Meaningful when nodes are in
+      spatial-sort (Morton) order, where the bias suppresses the wrapped
+      blocks. An approximation of all-pairs attention.
+    - ``"dense"``: everything else, with the [B, H, N, N] weights.
+    """
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
-                 distance_tau: float = 0.1, dtype: torch.dtype = torch.float32):
+                 distance_tau: float = 0.1, use_flash: bool = False,
+                 flash_auto_min_nodes: int = 1 << 30,
+                 window_size: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 traffic_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.dropout = dropout
         self.distance_tau = distance_tau
+        self.use_flash = use_flash
+        self.flash_auto_min_nodes = flash_auto_min_nodes
+        self.window_size = window_size
+        self.traffic_dtype = traffic_dtype
         self.compute_dtype = dtype
         self.pos_proj = Dense(embed_dim, embed_dim, dtype=dtype)
         self.q_proj = Dense(embed_dim, embed_dim, dtype=dtype)
@@ -85,6 +122,38 @@ class SpatialAttention(nn.Module):
         self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
         self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
         self.norm = LayerNorm(embed_dim, dtype=dtype)
+
+    def route(self, n: int, deterministic: bool = True,
+              return_weights: bool = False) -> str:
+        """``"flash"``, ``"window"`` or ``"dense"`` for a bucket of n nodes."""
+        want_flash = self.use_flash or (deterministic and n >= self.flash_auto_min_nodes)
+        no_dropout = deterministic or self.dropout == 0.0
+        if want_flash and not return_weights and n % 128 == 0 and no_dropout:
+            return "flash"
+        w = self.window_size
+        if w is not None and not return_weights and n % (w or 1) == 0 and n // w >= 3:
+            return "window"
+        return "dense"
+
+    def _windowed(self, q, k, v, posf, node_mask, rate, generator):
+        w = self.window_size
+        lead, n = q.shape[:-3], q.shape[-3]
+        nb = n // w
+        blk = len(lead)                       # the axis of the nb blocks
+
+        def blocks(t):                        # [.., N, ...] -> [.., nb, w, ...]
+            return t.reshape(*lead, nb, w, *t.shape[blk + 1:])
+
+        def widen(t):                         # previous + own + next block
+            return torch.cat([torch.roll(t, 1, blk), t, torch.roll(t, -1, blk)], dim=blk + 1)
+
+        qpos = blocks(posf)
+        ctx, _ = scaled_dot_product_attention(
+            blocks(q), widen(blocks(k)), widen(blocks(v)),
+            bias=distance_bias(qpos, widen(qpos), self.distance_tau)[..., None, :, :],
+            key_mask=widen(blocks(node_mask)), dropout_rate=rate, generator=generator,
+            traffic_dtype=self.traffic_dtype)
+        return ctx.reshape(*lead, n, *ctx.shape[blk + 2:])
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, node_mask: torch.Tensor,
                 return_weights: bool = False, deterministic: bool = True,
@@ -97,16 +166,19 @@ class SpatialAttention(nn.Module):
         q = self.q_proj(h).unflatten(-1, heads)
         k = self.k_proj(h).unflatten(-1, heads)
         v = self.v_proj(h).unflatten(-1, heads)
-        # per-component differences, not |a|^2 + |b|^2 - 2ab, which cancels
-        # badly for nearby points
         posf = pos.float()
-        dx = posf[..., :, None, 0] - posf[..., None, :, 0]
-        dy = posf[..., :, None, 1] - posf[..., None, :, 1]
-        dist = torch.sqrt(torch.clamp_min(dx * dx + dy * dy, 1e-12))
-        bias = (-dist / self.distance_tau)[..., None, :, :]
-        ctx, weights = scaled_dot_product_attention(
-            q, k, v, bias=bias, key_mask=node_mask,
-            dropout_rate=0.0 if deterministic else self.dropout, generator=generator)
+        rate = 0.0 if deterministic else self.dropout
+        route = self.route(x.shape[-2], deterministic, return_weights)
+        weights = None
+        if route == "flash":
+            ctx = flash_spatial_attention(q, k, v, posf, node_mask, tau=self.distance_tau)
+        elif route == "window":
+            ctx = self._windowed(q, k, v, posf, node_mask, rate, generator)
+        else:
+            ctx, weights = scaled_dot_product_attention(
+                q, k, v, bias=distance_bias(posf, posf, self.distance_tau)[..., None, :, :],
+                key_mask=node_mask, dropout_rate=rate, generator=generator,
+                traffic_dtype=self.traffic_dtype)
         out = self.out_proj(ctx.to(self.compute_dtype).flatten(-2))
         out = self.norm(x + out)
         out = out * node_mask[..., None].to(out.dtype)

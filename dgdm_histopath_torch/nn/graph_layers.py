@@ -10,6 +10,12 @@ package runs under ``gather_impl="pallas"``: the key gather of each
 each ``GraphConvolution`` is the ``gather_agg`` kernel (CUDA on the card,
 their plain versions on the CPU). The JAX package's other gather
 formulations (one-hot adjacency, XLA take) compute the same function.
+
+``band_window=W`` is the banded (Morton-window) formulation: where the
+bucket splits into >= 3 blocks of W nodes, neighbor slots outside the
+±1-block band of their node are masked off before anything reads the mask,
+so messages, the per-edge softmax and the degree normalization all see the
+pruned graph. The gather kernels then run on the absolute indices.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.graph import (
+    band_prune,
     compact_top_k_nodes,
     gather_neighbors,
     masked_softmax,
@@ -40,14 +47,17 @@ class GraphConvolution(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int,
-                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 band_window: Optional[int] = None):
         super().__init__()
+        self.band_window = band_window
         self.lin = Dense(in_features, features, bias=False, dtype=dtype)
         self.edge_lin = Dense(edge_dim, features, bias=False, dtype=dtype) if edge_dim else None
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x, nbr_idx, nbr_mask, edge_attr=None, edge_weight=None):
         h = self.lin(x)
+        nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
         norm, self_norm = symmetric_norm(nbr_idx, nbr_mask)
         weight = norm.to(h.dtype)
         if edge_weight is not None:
@@ -70,8 +80,9 @@ class DynamicGraphLayer(nn.Module):
 
     def __init__(self, in_features: int, features: int, num_heads: int = 8,
                  edge_dim: Optional[int] = None, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None):
         super().__init__()
+        self.band_window = band_window
         if features % num_heads:
             raise ValueError("features must be divisible by num_heads")
         self.features, self.num_heads = features, num_heads
@@ -82,6 +93,7 @@ class DynamicGraphLayer(nn.Module):
         self.q_proj = Dense(features, features, dtype=dtype)
         self.k_proj = Dense(features, features, dtype=dtype)
         self.edge_k_proj = Dense(edge_dim, features, dtype=dtype) if edge_dim else None
+        # the layer prunes the mask once and hands it to both convolutions
         self.conv1 = GraphConvolution(features, features, edge_dim, dtype=dtype)
         self.conv2 = GraphConvolution(features, features, edge_dim, dtype=dtype)
         self.norm = LayerNorm(features, dtype=dtype)
@@ -90,6 +102,7 @@ class DynamicGraphLayer(nn.Module):
                 return_attention: bool = False, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         heads = (self.num_heads, self.features // self.num_heads)
+        nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
         x_in = self.in_proj(x) if self.in_proj is not None else x
         q = self.q_proj(x_in).unflatten(-1, heads)                 # [B, N, H, D]
         k_nbr = gather_neighbors(self.k_proj(x_in), nbr_idx)       # [B, N, K, H*D]
@@ -148,27 +161,31 @@ class AdaptiveGraphPooling(nn.Module):
 class GraphUNet(nn.Module):
     """Encoder/pool/decoder U-Net over graphs with skip connections; each
     level is a ``DynamicGraphLayer`` + compact ``AdaptiveGraphPooling``,
-    unpooling scatters rows back (dropped rows return as zeros)."""
+    unpooling scatters rows back (dropped rows return as zeros).
+
+    ``band_window`` bands the full-N levels only (``down0`` and ``up0``, which
+    see the original node order); compact pooling orders the survivors by
+    score, so a band over the pooled levels would mean nothing."""
 
     def __init__(self, in_features: int, features: int, depth: int = 2,
                  pool_ratio: float = 0.5, num_heads: int = 8,
                  edge_dim: Optional[int] = None, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None):
         super().__init__()
         self.depth = depth
         self.in_proj = (Dense(in_features, features, dtype=dtype)
                         if in_features != features else None)
 
-        def layer():
+        def layer(banded: bool = False):
             return DynamicGraphLayer(features, features, num_heads, edge_dim, dropout,
-                                     dtype)
+                                     dtype, band_window if banded else None)
 
         for d in range(depth):
-            self.add_module(f"down{d}", layer())
+            self.add_module(f"down{d}", layer(banded=d == 0))
             self.add_module(f"pool{d}", AdaptiveGraphPooling(features, pool_ratio, dtype))
         self.bottleneck = layer()
         for d in range(depth):
-            self.add_module(f"up{d}", layer())
+            self.add_module(f"up{d}", layer(banded=d == 0))
         self.out_norm = LayerNorm(features, dtype=dtype)
 
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,

@@ -120,6 +120,53 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1
     return unnorm / denom.clamp_min(1e-20)
 
 
+# ---------------------------------------------------------------------------
+# Banded (Morton-window) message passing
+#
+# With nodes in spatial-sort (Morton) order cut into nb = N/W contiguous
+# blocks, a node of block b may address neighbors in blocks [b-1, b+1], the
+# band that windowed SpatialAttention uses too. Neighbor slots outside the
+# band are masked off, also in the degree normalization, so a banded layer
+# computes exactly the dense layer on the band-pruned graph. On the TPU the
+# band shrinks the one-hot adjacency to [nb, W, 3W]; the gather kernels need
+# no such layout, so here the band is only this mask on absolute indices.
+# ---------------------------------------------------------------------------
+
+def band_eligible(n: int, window: Optional[int]) -> bool:
+    """The band applies when the bucket splits into >= 3 whole blocks."""
+    return window is not None and window > 0 and n % window == 0 and n // window >= 3
+
+
+def in_band_mask(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor, window: int) -> torch.Tensor:
+    """``nbr_mask`` [..., N, K] with the out-of-band slots masked off.
+
+    Node i of block b = i // W reaches the nodes [(b-1)·W, (b+2)·W), clipped
+    to the bucket (the band does not wrap around its ends); a neighbor
+    outside it is dropped.
+    """
+    n = nbr_idx.shape[-2]
+    base = (torch.arange(n, device=nbr_idx.device, dtype=nbr_idx.dtype) // window - 1) * window
+    rel = nbr_idx - base[:, None]
+    return (rel >= 0) & (rel < 3 * window) & nbr_mask
+
+
+def band_prune(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor,
+               window: Optional[int]) -> torch.Tensor:
+    """``nbr_mask`` with the out-of-band slots masked off where the band
+    applies to this bucket, else as it is."""
+    if not band_eligible(nbr_idx.shape[-2], window):
+        return nbr_mask
+    return in_band_mask(nbr_idx, nbr_mask, window)
+
+
+def in_band_fraction(nbr_idx, nbr_mask, window: int) -> float:
+    """Host diagnostic: the fraction of real edges a banded model can address
+    (1.0: banded compute is exact on this graph)."""
+    idx = torch.as_tensor(nbr_idx)
+    mask = torch.as_tensor(nbr_mask, dtype=torch.bool, device=idx.device)
+    return float(in_band_mask(idx, mask, window).sum()) / max(int(mask.sum()), 1)
+
+
 def compact_top_k_nodes(
     x: torch.Tensor,          # [B, N, F]
     nbr_idx: torch.Tensor,    # [B, N, K]

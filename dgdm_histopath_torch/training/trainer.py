@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from ..evaluation.metrics import concordance_index
 from ..models.decoders import cox_partial_likelihood, discrete_survival_loss
 from ..models.dgdm import DGDMModel
-from ..ops.graph import PaddedGraph
+from ..ops.graph import PaddedGraph, band_eligible, in_band_fraction
 from ..utils.device import resolve_device
 from .losses import contrastive_loss
 
@@ -64,9 +64,12 @@ class TrainerConfig:
     accumulate_grad_batches: int = 1  # > 1 raises: not ported
     finetune_lr_factor: float = 0.1  # LR drop at the phase switch
     steps_per_epoch: int = 1000      # estimate; the schedule's horizon
-    # read by the MoE block and the banded message passing, neither of which
-    # the model builds yet; held so that a JAX trainer config carries over
+    # read by the MoE block, which the model does not build yet; held so that
+    # a JAX trainer config carries over
     moe_aux_weight: float = 0.01
+    # the way past the band guard: training a graph_window model on graphs
+    # whose edges are not all in-band drops the out-of-band edges, and
+    # init_state raises on such an example batch unless this is set
     allow_out_of_band_graphs: bool = False
 
 
@@ -171,15 +174,37 @@ class DGDMTrainer:
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
-    def init_state(self, seed: int = 0) -> None:
+    def init_state(self, seed: int = 0, example_batch: Optional[PaddedGraph] = None) -> None:
         """Start a run at step 0: a fresh optimizer state over the model's
         parameters as they are (``create_model`` drew them from its seed, a
-        converted bundle brings its own) and ``seed`` for the steps' draws."""
+        converted bundle brings its own) and ``seed`` for the steps' draws.
+
+        ``example_batch`` is held to the band guard: a ``graph_window`` model
+        on a batch with under 99% of its edges in-band raises ``ValueError``
+        (or warns, with ``allow_out_of_band_graphs``)."""
+        if example_batch is not None:
+            self._check_band(example_batch)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.config, self.params)
         self.seed, self.step = int(seed), 0
         n_params = sum(p.numel() for p in self.params)
         logger.info("training %.2fM parameters on %s", n_params / 1e6, self.device)
+
+    def _check_band(self, batch: PaddedGraph) -> None:
+        gw = self.model.graph_window
+        if not gw or not band_eligible(batch.num_nodes, gw):
+            return
+        frac = in_band_fraction(batch.nbr_idx, batch.nbr_mask, gw)
+        if frac >= 0.99:
+            return
+        msg = (f"graph_window={gw} but only {100 * frac:.1f}% of edges are in-band — "
+               f"banded message passing drops the rest. Build graphs in spatial-sort "
+               f"(Morton) order with neighbors limited to the ±1-block band "
+               f"(knn_window={gw}) for exact banded compute.")
+        if not self.config.allow_out_of_band_graphs:
+            raise ValueError(msg + " Set TrainerConfig(allow_out_of_band_graphs=True) to "
+                             "train on them anyway.")
+        logger.warning("%s Proceeding anyway (allow_out_of_band_graphs=True).", msg)
 
     # ------------------------------------------------------------------
     # losses

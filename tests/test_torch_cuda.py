@@ -38,6 +38,7 @@ from dgdm_histopath_torch.ops.kernels.gather_rows import (
 from dgdm_histopath_torch.training import DGDMTrainer, TrainerConfig
 
 SHAPES = [(32, 1024, 8, 128), (3, 100, 5, 24), (2, 37, 40, 5)]
+NO_FLASH = {"flash_spatial_packed": 0, "flash_spatial": 0}   # no model path launches them
 
 
 @pytest.fixture
@@ -152,7 +153,7 @@ def test_autograd_through_the_wrappers_runs_the_backward_kernels_on_card(cuda_de
     (only_w,) = torch.autograd.grad(weighted_gather_sum(src.detach(), idx, w), w, g3)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"gather_rows": 1, "gather_agg": 2,
-                                       "gather_rows_bwd": 1, "gather_agg_bwd": 2}
+                                       "gather_rows_bwd": 1, "gather_agg_bwd": 2, **NO_FLASH}
     (p_rows,) = torch.autograd.grad(gather_rows_plain(src, idx), src, g4)
     p_h, p_w = torch.autograd.grad(weighted_gather_sum_plain(src, idx, w), (src, w), g3)
     for got, want in ((d_rows, p_rows), (d_h, p_h), (d_w, p_w), (only_w, p_w)):
@@ -194,7 +195,7 @@ def test_small_model_on_card_matches_cpu_and_launches_the_kernels(cuda_device):
     kernels.reset_launch_counts()
     _card_vs_cpu(card, cpu, batch, cuda_device)
     assert kernels.launch_counts() == {"gather_rows": 7, "gather_agg": 14,   # 2 + 5 layers
-                                       "gather_rows_bwd": 0, "gather_agg_bwd": 0}
+                                       "gather_rows_bwd": 0, "gather_agg_bwd": 0, **NO_FLASH}
 
 
 @pytest.mark.cuda
@@ -233,9 +234,127 @@ def test_training_step_on_card_matches_cpu_and_launches_all_four_kernels(cuda_de
     (m_cpu, c_cpu, g_cpu, p_cpu), (m_card, c_card, g_card, p_card) = out["cpu"], out["cuda"]
     assert c_cpu == dict.fromkeys(c_cpu, 0)
     assert c_card == {"gather_rows": 7, "gather_agg": 14,
-                      "gather_rows_bwd": 7, "gather_agg_bwd": 14}
+                      "gather_rows_bwd": 7, "gather_agg_bwd": 14, **NO_FLASH}
     assert abs(m_cpu["loss"] - m_card["loss"]) <= 1e-4
     floor = 1e-3 * max(float(g.abs().max()) for g in g_cpu.values())
     for key, ref in g_cpu.items():
         scale = max(float(ref.abs().max()), floor)
         assert float((g_card[key] - ref).abs().max()) <= 1e-3 * scale, key
+
+
+# ---------------------------------------------------------------------------
+# flash spatial attention: f32 results hold to 1e-4 on valid rows (the kernel
+# sums in another order and takes exp through the fast intrinsic); bf16
+# results to that plus one bf16 ulp of each element (kernel and plain version
+# each round their f32 result once, so they part only where the two f32
+# values straddle a rounding boundary)
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [   # (B, N, H, D), route
+    ((2, 256, 8, 16), "packed"), ((2, 256, 16, 8), "packed"), ((1, 128, 2, 64), "packed"),
+    ((1, 128, 1, 128), "packed"), ((1, 128, 32, 4), "packed"),
+    ((2, 256, 4, 16), "headmajor"), ((1, 128, 2, 128), "headmajor"),
+    ((2, 128, 4, 64), "headmajor"), ((1, 128, 3, 24), "headmajor"),
+    ((1, 128, 2, 5), "headmajor"), ((1, 128, 1, 200), "headmajor"),
+]
+
+
+def _flash_inputs(device, shape, dtype, masked_from, seed=0):
+    from dgdm_histopath_torch.ops.kernels import flash_spatial as fs
+    b, n, h, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, n, h, d, device=device, generator=g).to(dtype)
+               for _ in range(3))
+    pos = torch.rand(b, n, 2, device=device, generator=g)
+    mask = torch.ones(b, n, dtype=torch.bool, device=device)
+    mask[:, masked_from:] = False
+    return fs, q, k, v, pos, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route", FLASH_SHAPES)
+def test_flash_kernels_match_their_plain_versions_on_card(cuda_device, shape, route, dtype):
+    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, dtype, shape[1] - 28)
+    assert fs.flash_route(*shape[1:]) == route
+    kernel = fs.KERNEL_PACKED if route == "packed" else fs.KERNEL_HEADMAJOR
+    plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
+    count = kernel.launches
+    out = fs.flash_spatial_attention(q, k, v, pos, mask, tau=0.1)
+    torch.cuda.synchronize()
+    assert kernel.launches == count + 1
+    ref = plain(q, k, v, pos, mask, 0.1)
+    dense = fs.dense_reference(q, k, v, pos, mask, 0.1)
+    valid = mask[:, :, None, None]
+    assert out.dtype == dtype and out.shape == q.shape
+    for want in (ref.float(), dense.float()):
+        tol = torch.full_like(want, 1e-4)
+        if dtype == torch.bfloat16:
+            tol = tol + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+        assert ((out.float() - want).abs() * valid <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 8, 16), (2, 128, 4, 16)])
+def test_flash_all_masked_graph_gives_zeros_on_card(cuda_device, shape):
+    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, torch.float32, shape[1])
+    mask[1] = False
+    out = fs.flash_spatial_attention(q, k, v, pos, mask)
+    torch.cuda.synchronize()
+    assert (out[1] == 0).all() and torch.isfinite(out).all() and (out[0] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 8, 16), (2, 128, 16, 8), (2, 128, 4, 16)])
+def test_flash_gradients_are_the_dense_recompute_on_card(cuda_device, shape):
+    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, torch.float32, 100)
+    g = torch.randn(shape, device=cuda_device) * mask[:, :, None, None]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fs.flash_spatial_attention(*leaves, pos, mask), leaves, g)
+    want = torch.autograd.grad(fs.dense_reference(*leaves, pos, mask, 0.1), leaves, g)
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embed,heads,name", [(128, 8, "flash_spatial_packed"),
+                                              (128, 16, "flash_spatial_packed"),
+                                              (64, 4, "flash_spatial")])
+def test_spatial_attention_use_flash_is_one_launch_and_the_dense_module_on_card(
+        cuda_device, embed, heads, name):
+    from dgdm_histopath_torch.nn.attention import SpatialAttention
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    flash = init_parameters(SpatialAttention(embed, heads, use_flash=True),
+                            torch.Generator().manual_seed(0)).to(cuda_device)
+    dense = SpatialAttention(embed, heads).to(cuda_device)
+    dense.load_state_dict(flash.state_dict())
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(2, 256, embed, device=cuda_device, generator=g)
+    pos = torch.rand(2, 256, 2, device=cuda_device, generator=g)
+    mask = torch.arange(256, device=cuda_device).expand(2, 256) < 200
+    kernels.reset_launch_counts()
+    out = flash(x, pos, mask)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {k: int(k == name) for k in kernels.KERNELS}
+    assert torch.allclose(out, dense(x, pos, mask), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_windowed_banded_model_on_card_matches_cpu(cuda_device):
+    """A small dgdm-large (16 heads x 8, W = 128, N = 384) in f32: the card
+    (kernels) against the CPU (plain versions), logits within 1e-4."""
+    cpu_model = create_model("dgdm-large", num_classes=2, device="cpu", node_features=24,
+                             hidden_dims=(48, 128), graph_layers=2, compute_dtype="float32")
+    rs = np.random.RandomState(0)
+    n_real, n, k = 350, 384, 6
+    pos = np.sort(rs.rand(n_real, 2).astype(np.float32), axis=0)
+    idx = np.clip(np.arange(n_real)[:, None] + rs.randint(-40, 40, (n_real, k)), 0, n_real - 1)
+    g = build_padded_graph(rs.randn(n_real, 24), pos, idx, rs.rand(n_real, k, 3),
+                           np.ones((n_real, k), bool), bucket=n)
+    batch = batch_graphs([g, g])
+    card_model = copy.deepcopy(cpu_model).to(cuda_device)
+    with torch.inference_mode():
+        ref = cpu_model(batch)["classification_logits"]
+        out = card_model(batch.to(cuda_device))["classification_logits"].cpu()
+    assert card_model.spatial_attention.route(n) == "window"
+    assert torch.allclose(out, ref, atol=1e-4, rtol=1e-4)

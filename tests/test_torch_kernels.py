@@ -118,7 +118,8 @@ def test_weighted_gather_sum_rejects_non_f32_weights():
 
 def test_build_is_keyed_on_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
     srcs = {s.stem: s for s in build.sources()}
-    assert set(srcs) == {"gather_rows", "gather_agg", "gather_rows_bwd", "gather_agg_bwd"}
+    assert set(srcs) == {"gather_rows", "gather_agg", "gather_rows_bwd", "gather_agg_bwd",
+                         "flash_spatial"}
     p = build.library_path(srcs["gather_rows"])
     assert p.parent == build.BUILD_DIR and p.name.startswith("gather_rows-")
     assert p == build.library_path(srcs["gather_rows"])

@@ -179,4 +179,5 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors_and_launch_nothing():
         weighted_gather_sum_bwd(torch.from_numpy(g3), h, torch.from_numpy(idx),
                                 torch.from_numpy(w))
     assert kernels.launch_counts() == before
-    assert set(before) == {"gather_rows", "gather_agg", "gather_rows_bwd", "gather_agg_bwd"}
+    assert set(before) == {"gather_rows", "gather_agg", "gather_rows_bwd", "gather_agg_bwd",
+                           "flash_spatial_packed", "flash_spatial"}

@@ -144,6 +144,22 @@ def test_flax_layout_rules():
     {"param_dtype": "bfloat16"}, {"compute_dtype": "float16"},
 ])
 def test_unported_options_raise_naming_the_roadmap(override):
+    """The window, band and traffic-dtype options build and reach their
+    modules. The options not ported yet raise, naming their ROADMAP item."""
+    ported = {"spatial_window": lambda m: m.spatial_attention.window_size,
+              "graph_window": lambda m: (m.graph_encoder.layer0.band_window,
+                                         m.graph_encoder.layer1.band_window,
+                                         m.graph_unet.down0.band_window,
+                                         m.graph_unet.down1.band_window),
+              "attention_traffic_dtype": lambda m: m.spatial_attention.traffic_dtype}
+    (name, value), = override.items()
+    if name in ported:
+        want = {"spatial_window": 64, "graph_window": (64, 64, 64, None),
+                "attention_traffic_dtype": torch.bfloat16}[name]
+        assert ported[name](DGDMModel(**{**KW, **override})) == want
+        with pytest.raises(ConfigurationError):
+            DGDMModel(**{**KW, name: -1 if "window" in name else "int8"})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DGDMModel(**{**KW, **override})
 
@@ -209,6 +225,12 @@ def test_port_runs_with_jax_blocked():
         "import numpy as np, torch\n"
         "from dgdm_histopath_torch import DGDMPredictor, create_model, build_padded_graph\n"
         "import dgdm_histopath_torch.deployment.serving\n"
+        "import dgdm_histopath_torch.ops.kernels.flash_spatial\n"
+        "from dgdm_histopath_torch.nn.attention import SpatialAttention\n"
+        "a = SpatialAttention(128, 8, use_flash=True)\n"
+        "o = a(torch.randn(1, 128, 128), torch.rand(1, 128, 2),"
+        " torch.ones(1, 128, dtype=torch.bool))\n"
+        "assert o.shape == (1, 128, 128) and a.route(128) == 'flash'\n"
         "m = create_model('dgdm-small', num_classes=2, device='cpu', node_features=8,"
         " hidden_dims=(16, 8), compute_dtype='float32')\n"
         "rs = np.random.RandomState(0)\n"
