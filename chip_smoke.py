@@ -5,7 +5,9 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases, each of which raises on a failed check:
   1. environment: torch/CUDA versions and the card's name and power limit;
-  2. build: nvcc builds every kernel under dgdm_histopath_torch/csrc/;
+  2. build: nvcc builds every kernel under dgdm_histopath_torch/csrc/, and
+     the registers, spills and static shared memory ptxas reported for each
+     flash kernel instantiation;
   3. kernels: each of the four gather kernels (the two gathers and their
      backwards) against its plain PyTorch version on the card at the shapes
      both model paths give it (DGDM-Base: B=32, N in {1024, 512, 256};
@@ -16,9 +18,10 @@ Phases, each of which raises on a failed check:
      the two flash spatial-attention kernels against their plain versions,
      bf16 and f32, at the DGDM-Base shape (B=32, N=1024, 8 heads x 16), the
      DGDM-Large shape (B=4, N=2048, 16 x 8) and a head-major shape (B=8,
-     N=1024, 4 x 64), each with a masked tail, an all-masked graph, a shape
-     that takes the dense route (counted, no launch), their gradients
-     against plain autograd, and
+     N=1024, 4 x 64), each with a masked tail, and ten other widths at
+     N=128 (bf16 runs on the tensor cores, f32 on FMAs), an all-masked graph,
+     a shape that takes the dense route (counted, no launch), their gradients
+     against plain autograd, the exp floor next to the tensor-core bound, and
      ``scaled_dot_product_attention`` with an additive mask as the library
      yardstick;
   4. model: DGDM-Base (seeded weights, bf16) on 32 graphs of bucket 1024
@@ -64,6 +67,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+EXP_PER_S = 132 * 16 * 1.98e9      # H100 SXM special-function units (exp), 16/clk/SM at 1.98 GHz
 # (B, N, K, F) of the gathers at the U-Net levels of DGDM-Base and DGDM-Large
 MAIN_SHAPES = [(32, 1024, 8, 128), (32, 512, 8, 128), (32, 256, 8, 128)]
 LARGE_SHAPES = [(4, 2048, 8, 128), (4, 1024, 8, 128), (4, 512, 8, 128)]
@@ -341,9 +345,9 @@ def flash_kernel_phase(torch) -> dict:
         plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
         return name, plain
 
-    def error(out, ref, mask, tag) -> float:
+    def error(out, ref, mask, tag, atol=1e-4) -> float:
         ref32 = ref.float()
-        tol = torch.full_like(ref32, 1e-4)
+        tol = torch.full_like(ref32, atol)
         if out.dtype == torch.bfloat16:
             tol = tol + torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32).exponent - 8)
         err = (out.float() - ref32).abs() * mask[:, :, None, None]
@@ -394,12 +398,35 @@ def flash_kernel_phase(torch) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 f32_fma_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops))
             r = rows[name][-1]
+            # a reckoning for the log, not a measurement: one exp per (query,
+            # head, key), every query row, the key tiles that hold a valid key
+            # (64 keys a tile), at the data sheet's exp rate
+            exp_floor_ms = b * n * h * min(n, -(-n_real // 64) * 64) / EXP_PER_S * 1e3
             log(f"kernel {name:20s} {str(tag['shape']):20s} {tag['dtype']:8s} err "
                 f"{r['max_abs_err']:.2e}  ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  dense "
                 f"{r['dense_ms']:.4f}  library {r['library_ms']:.4f} (+ mask "
                 f"{r['library_mask_ms']:.4f}, differs {lib_err:.1e})  bound {r['bound_ms']:.4f} "
-                f"({r['bound_by']}; as f32 FMAs {r['f32_fma_ms']:.4f})")
+                f"({r['bound_by']}; as f32 FMAs {r['f32_fma_ms']:.4f}; exp floor "
+                f"{exp_floor_ms:.4f})")
             del attn_mask, lib
+
+    # a sharp bias, tau = 1e-3, bf16: the tensor-core kernels start q.k's
+    # accumulator from the bias in units of the unscaled product (up to
+    # 1.4 / (tau * scale) here), so they are held where it is largest, to the
+    # reference's limit at this tau (5e-3) plus one bf16 ulp of each element
+    sharp = {}
+    for (b, n, n_real, h, d) in FLASH_SHAPES:
+        name, plain = versions(h, d, n)
+        q, k, v, pos, mask = inputs(b, n, n_real, h, d, torch.bfloat16)
+        tag = f"{name} {[b, n, h, d]} bfloat16 tau 1e-3"
+        before = kernels.KERNELS[name].launches
+        out = fs.flash_spatial_attention(q, k, v, pos, mask, tau=1e-3)
+        torch.cuda.synchronize()
+        if kernels.KERNELS[name].launches != before + 1:
+            raise AssertionError(f"{name} was not launched at {tag}")
+        sharp[tag] = error(out, plain(q, k, v, pos, mask, 1e-3), mask, tag, atol=5e-3)
+    log(f"kernel checks: flash bf16 at tau = 1e-3 within 5e-3 + 1 ulp of the plain versions, "
+        f"largest errors {sharp}")
 
     # a graph without a valid node gives zeros; its neighbor in the batch is untouched
     for (h, d) in ((8, 16), (16, 8), (4, 64)):
@@ -417,12 +444,20 @@ def flash_kernel_phase(torch) -> dict:
             if not torch.equal(fs.flash_spatial_attention(q, k, v2, pos, mask)[:, :200],
                                out[:, :200]):
                 raise AssertionError(f"{name}: masked value rows changed valid rows")
-    # other widths of both kernels: true D, no padding in device memory
-    for (h, d) in ((1, 128), (2, 64), (32, 4), (3, 24), (2, 5), (1, 200), (2, 128)):
-        name, plain = versions(h, d, 128)
-        q, k, v, pos, mask = inputs(2, 128, 100, h, d, torch.float32)
-        error(fs.flash_spatial_attention(q, k, v, pos, mask), plain(q, k, v, pos, mask, 0.1),
-              mask, f"{name} {h}x{d}")
+    # other widths of both kernels, both dtypes: true D, no padding in device
+    # memory (the bf16 kernels pad D to 8 or to 16s in shared memory only);
+    # N = 128 is the smallest N the route takes
+    for (h, d) in ((1, 128), (2, 64), (32, 4), (3, 24), (2, 5), (1, 200), (2, 128), (8, 8),
+                   (8, 16), (16, 8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name, plain = versions(h, d, 128)
+            q, k, v, pos, mask = inputs(2, 128, 100, h, d, dtype)
+            before = kernels.KERNELS[name].launches
+            out = fs.flash_spatial_attention(q, k, v, pos, mask)
+            torch.cuda.synchronize()
+            if kernels.KERNELS[name].launches != before + 1:
+                raise AssertionError(f"{name} was not launched at {h}x{d} {dtype}")
+            error(out, plain(q, k, v, pos, mask, 0.1), mask, f"{name} {h}x{d} {dtype}")
     # N that does not tile takes the dense route: no launch, and it is counted
     q, k, v, pos, mask = inputs(2, 100, 90, 8, 16, torch.float32)
     before, dense_before = kernels.launch_counts(), fs.dense_route_calls()
@@ -448,7 +483,8 @@ def flash_kernel_phase(torch) -> dict:
             raise AssertionError(f"{name}: gradients off plain autograd by {worst}")
         grads[name] = max(grads.get(name, 0.0), worst)
     log(f"kernel checks: flash kernels give zeros for an all-masked graph, ignore masked "
-        f"value rows, take the true head width (1x128 ... 2x5), leave N = 100 to the dense "
+        f"value rows, take the true head width (1x128 ... 2x5, 8x8, bf16 and f32), leave N = "
+        f"100 to the dense "
         f"route (counted, no launch); gradients within {grads} of plain autograd (atol 1e-4, "
         f"rtol 1e-3)")
     for name in rows:
@@ -993,6 +1029,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    ptxas = build.ptxas_report("flash_spatial")
+    for r in ptxas:
+        log(f"ptxas: {r['kernel']}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} / loads {r['spill_loads']} bytes, stack {r['stack']}, "
+            f"static smem {r['static_smem']}")
 
     kern = kernel_phase(torch)
     kern.update(flash_kernel_phase(torch))
@@ -1070,7 +1111,8 @@ def main() -> int:
         line["kernels"].append(entry)
     for t in (timing, train_timing, l_timing, l_train_timing):
         t["profile"].pop("top")           # printed above, one line per kernel
-    log("details: " + json.dumps({"model": timing, "parity": parity, "server": server,
+    log("details: " + json.dumps({"ptxas_flash_spatial": ptxas,
+                                  "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
                                   "training_parity": train_parity,
                                   "flash_module": flash_module,

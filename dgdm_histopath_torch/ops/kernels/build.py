@@ -7,7 +7,10 @@ reused. Nothing is built when a module is imported; the first launch of a
 kernel builds its library (``build_all`` builds every source at once, one
 nvcc process per source, all started together).
 
-Sources are compiled for Hopper only (``sm_90a``).
+Sources are compiled for Hopper only (``sm_90a``), with ``-Xptxas -v``:
+nvcc's output is kept beside each library (``build/<name>-<hash>.log``) and
+:func:`ptxas_report` reads each kernel's registers, spills and shared memory
+from it.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 
@@ -77,10 +81,53 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             if proc.returncode != 0:
                 failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             else:
+                libs[name].with_suffix(".log").write_text(log)
                 os.replace(tmp, libs[name])   # atomic: readers never see half a file
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return libs
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def demangle(names: List[str]) -> List[str]:
+    """Kernel names through ``cu++filt -p`` (beside nvcc); the mangled names
+    as they are where it cannot run."""
+    try:
+        res = subprocess.run([str(Path(nvcc_path()).with_name("cu++filt")), "-p", *names],
+                             capture_output=True, text=True, check=True, timeout=60)
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return names
+    out = res.stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
+def ptxas_report(name: str) -> List[Dict]:
+    """What ptxas said of each kernel of ``csrc/<name>.cu`` when its library
+    was built: ``[{"kernel", "registers", "spill_stores", "spill_loads",
+    "stack", "static_smem"}]``. Dynamic shared memory is the launcher's and
+    not in it."""
+    log = build_all([name])[name].with_suffix(".log")
+    out: List[Dict] = []
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if (m := _ENTRY.search(line)):
+            out.append({"kernel": m.group(1), "registers": None,
+                        "spill_stores": None, "spill_loads": None, "stack": None,
+                        "static_smem": 0})
+        elif out and (m := _SPILL.search(line)):
+            out[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        elif out and (m := _USED.search(line)):
+            out[-1]["registers"] = int(m.group(1))
+            if (sm := _SMEM.search(line)):
+                out[-1]["static_smem"] = int(sm.group(1))
+    for r, label in zip(out, demangle([r["kernel"] for r in out])):
+        r["kernel"] = label
+    return out
 
 
 class CudaKernel:

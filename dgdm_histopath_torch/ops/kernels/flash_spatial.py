@@ -5,6 +5,7 @@ Replaces ``dgdm_histopath_tpu/ops/pallas/flash_spatial.py``: the packed-heads
 kernel ``_flash_kernel_packed`` (H·D = 128: every DGDM preset) and the
 head-major kernel ``_flash_kernel`` (any other width). Both CUDA kernels are
 in ``csrc/flash_spatial.cu``; its source note has the design and the bound.
+The dtype picks the kernel: bf16 runs on the tensor cores, f32 on FMAs.
 
 :func:`flash_spatial_attention` routes as the JAX wrapper does: N must be a
 multiple of the 128-row blocks and at least 128, else the dense reference
@@ -146,7 +147,8 @@ def _check(q, k, v, pos, node_mask) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned, as the kernels' vector loads need."""
+    """Contiguous and 16-byte aligned, as the kernels' vector loads and
+    cp.async copies need."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -156,8 +158,7 @@ def _launch(q, k, v, pos, node_mask, tau: float, packed: bool) -> torch.Tensor:
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the flash kernels take head_dim <= {MAX_HEAD_DIM}, got {d}")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    pos = pos.float().contiguous()
-    node_mask = node_mask.contiguous()
+    pos, node_mask = _aligned(pos.float()), _aligned(node_mask)
     out = torch.empty_like(q)
     kernel = KERNEL_PACKED if packed else KERNEL_HEADMAJOR
     with torch.cuda.device(q.device):     # the kernel launches on the current device

@@ -256,6 +256,7 @@ FLASH_SHAPES = [   # (B, N, H, D), route
     ((2, 256, 4, 16), "headmajor"), ((1, 128, 2, 128), "headmajor"),
     ((2, 128, 4, 64), "headmajor"), ((1, 128, 3, 24), "headmajor"),
     ((1, 128, 2, 5), "headmajor"), ((1, 128, 1, 200), "headmajor"),
+    ((2, 128, 8, 8), "headmajor"), ((2, 128, 16, 8), "packed"), ((2, 128, 8, 16), "packed"),
 ]
 
 
@@ -295,13 +296,48 @@ def test_flash_kernels_match_their_plain_versions_on_card(cuda_device, shape, ro
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 128, 8, 16), (2, 128, 4, 16)])
-def test_flash_all_masked_graph_gives_zeros_on_card(cuda_device, shape):
-    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, torch.float32, shape[1])
+@pytest.mark.parametrize("shape,route", [((2, 256, 8, 16), "packed"), ((2, 256, 16, 8), "packed"),
+                                         ((2, 256, 4, 64), "headmajor")])
+def test_flash_bf16_kernels_at_a_sharp_tau_on_card(cuda_device, shape, route):
+    """tau = 1e-3: the bf16 kernels start the q.k accumulator from the bias in
+    units of the unscaled product, largest at a small tau. Held to the
+    reference's limit at this tau (5e-3) plus one bf16 ulp of each element."""
+    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, torch.bfloat16, shape[1] - 28)
+    assert fs.flash_route(*shape[1:]) == route
+    kernel = fs.KERNEL_PACKED if route == "packed" else fs.KERNEL_HEADMAJOR
+    plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
+    count = kernel.launches
+    out = fs.flash_spatial_attention(q, k, v, pos, mask, tau=1e-3)
+    torch.cuda.synchronize()
+    assert kernel.launches == count + 1
+    want = plain(q, k, v, pos, mask, 1e-3).float()
+    tol = 5e-3 + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    assert ((out.float() - want).abs() * mask[:, :, None, None] <= tol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 128, 8, 16), (2, 128, 16, 8), (2, 128, 4, 16),
+                                   (2, 256, 4, 64)])
+def test_flash_all_masked_graph_gives_zeros_on_card(cuda_device, shape, dtype):
+    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, dtype, shape[1])
     mask[1] = False
     out = fs.flash_spatial_attention(q, k, v, pos, mask)
     torch.cuda.synchronize()
     assert (out[1] == 0).all() and torch.isfinite(out).all() and (out[0] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 256, 16, 8), (2, 256, 4, 16), (2, 256, 1, 200)])
+def test_flash_masked_value_rows_change_no_valid_row_on_card(cuda_device, shape, dtype):
+    """Key tiles past the last valid node are skipped whole; a masked key in
+    a tile that has valid ones contributes exactly nothing."""
+    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, dtype, 200)
+    out = fs.flash_spatial_attention(q, k, v, pos, mask)
+    v2 = v.clone()
+    v2[:, 200:] = 99.0
+    assert torch.equal(fs.flash_spatial_attention(q, k, v2, pos, mask)[:, :200], out[:, :200])
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""Flash spatial attention of the port against the JAX package, f32 on the CPU.
+"""Flash spatial attention of the port against the JAX package on the CPU: f32,
+and bf16 inputs at the widths the card kernels treat apart.
 
 The JAX side runs its Pallas kernels in interpret mode (``force_pallas=True``,
 as tests/test_pallas.py does) under ``default_matmul_precision("float32")``.
@@ -7,10 +8,11 @@ kernels (a blockwise online softmax with the kernels' constants) and the
 dense-recompute backward.
 
 Tolerances are the reference's own (tests/test_pallas.py): 1e-4 on valid rows
-at tau = 0.1; 5e-3 at tau = 1e-3, where the sharp softmax amplifies rounding
-differences in the distance; gradients rtol = atol = 2e-3 (the backward is a
-dense recompute on both sides, the forward values it starts from differ by
-the 1e-4 above); modules 2e-4.
+at tau = 0.1 (bf16 outputs: plus one bf16 ulp of each element, since both
+sides round their f32 result once); 5e-3 at tau = 1e-3, where the sharp
+softmax amplifies rounding differences in the distance; gradients rtol = atol
+= 2e-3 (the backward is a dense recompute on both sides, the forward values it
+starts from differ by the 1e-4 above); modules 2e-4.
 """
 
 import re
@@ -29,6 +31,19 @@ from dgdm_histopath_torch.ops.kernels import flash_spatial as fs
 from test_torch_layers import _carry, _close, _init_apply, _t
 
 SHAPES = {"8x16": (8, 16), "16x8": (16, 8), "4x16": (4, 16), "2x128": (2, 128)}
+# widths the card kernels treat apart (D padded to 8 or to 16s in shared
+# memory, D = 8 off the packed route, D > 128, many heads of width 4) and the
+# two packed model widths at DGDM-Large's bucket
+WIDTHS = {"4x64": (4, 64), "8x8": (8, 8), "3x24": (3, 24), "2x5": (2, 5), "1x200": (1, 200),
+          "32x4": (32, 4)}
+ALL_WIDTHS = {**SHAPES, **WIDTHS}
+PARITY_CASES = (   # (heads, N, tau, dtype)
+    [(h, n, tau, "f32") for h in sorted(SHAPES) for n in (128, 256) for tau in (0.1, 1e-3)]
+    + [(h, 128, tau, "f32") for h in WIDTHS for tau in (0.1, 1e-3)]
+    + [(h, 2048, tau, "f32") for h in ("8x16", "16x8") for tau in (0.1, 1e-3)]
+    + [(h, 256, 0.1, "bf16") for h in sorted(SHAPES)]
+    + [(h, 128, 0.1, "bf16") for h in WIDTHS]
+    + [(h, 2048, 0.1, "bf16") for h in ("8x16", "16x8")])
 
 
 def _inputs(n, h, d, masked_from, b=2, seed=0):
@@ -46,21 +61,40 @@ def _jax_flash(q, k, v, pos, mask, tau):
                                   force_pallas=True))
 
 
-@pytest.mark.parametrize("tau", [0.1, 1e-3])
-@pytest.mark.parametrize("n", [128, 256])
-@pytest.mark.parametrize("heads", sorted(SHAPES))
-def test_plain_versions_match_the_jax_kernels(heads, n, tau):
-    h, d = SHAPES[heads]
+@pytest.mark.parametrize(
+    "heads,n,tau,dtype",
+    [pytest.param(*c, id="-".join(map(str, c[:3])) + ("-bf16" if c[3] == "bf16" else ""))
+     for c in PARITY_CASES])
+def test_plain_versions_match_the_jax_kernels(heads, n, tau, dtype):
+    """bf16: both sides take the same bf16 inputs, compute in f32 and round
+    once, so each element is held to its own bf16 ulp on top of the f32
+    limit (the two f32 values may straddle a rounding boundary)."""
+    h, d = ALL_WIDTHS[heads]
     q, k, v, pos, mask = _inputs(n, h, d, masked_from=n - 28)
     route = fs.flash_route(n, h, d)
     assert route == ("packed" if h * d == 128 else "headmajor")
-    out = fs.flash_spatial_attention(*_t(q, k, v, pos, mask), tau=tau).numpy()
+    qkv = _t(q, k, v)
+    if dtype == "bf16":
+        qkv = [t.to(torch.bfloat16) for t in qkv]
+        q, k, v = (t.float().numpy() for t in qkv)      # exact: bf16 values in f32
+    out = fs.flash_spatial_attention(*qkv, *_t(pos, mask), tau=tau)
     plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
-    np.testing.assert_array_equal(out, plain(*_t(q, k, v, pos, mask), tau).numpy())
-    ref = _jax_flash(q, k, v, pos, mask, tau)
+    assert torch.equal(out, plain(*qkv, *_t(pos, mask), tau))
+    if dtype == "bf16":
+        assert out.dtype == torch.bfloat16
+        with jax.default_matmul_precision("float32"):
+            ref = np.asarray(j_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                     jnp.asarray(pos), jnp.asarray(mask), tau=tau,
+                                     force_pallas=True).astype(jnp.float32))
+        ulp = np.ldexp(np.ones_like(ref), np.frexp(ref)[1] - 8)
+    else:
+        ref = _jax_flash(q, k, v, pos, mask, tau)
+        ulp = 0.0
+    out = out.float().numpy()
     valid = mask[:, :, None, None]
     assert out.shape == ref.shape
-    assert np.abs((out - ref) * valid).max() < (1e-4 if tau == 0.1 else 5e-3)
+    err = np.abs((out - ref) * valid)
+    assert (err < (1e-4 if tau == 0.1 else 5e-3) + ulp).all(), err.max()
 
 
 @pytest.mark.parametrize("heads", ["8x16", "4x16"])
