@@ -9,12 +9,16 @@ Phases, each of which raises on a failed check:
      the registers, spills and static shared memory ptxas reported for each
      flash kernel instantiation;
   3. kernels: each of the four gather kernels (the two gathers and their
-     backwards) against its plain PyTorch version on the card at the shapes
-     both model paths give it (DGDM-Base: B=32, N in {1024, 512, 256};
-     DGDM-Large: B=4, N in {2048, 1024, 512}; K=8, F=128, bf16 and f32) and
-     one ragged shape, with device times (CUDA-graph replays timed by
-     CUDA events), the plain version's and the library call's; autograd
-     through each wrapper against autograd through its plain forward. Then
+     backwards) and the transposed neighbor list the backwards read, against
+     its plain PyTorch version on the card at the shapes both model paths
+     give it (DGDM-Base: B=32, N in {1024, 512, 256}; DGDM-Large: B=4, N in
+     {2048, 1024, 512}; K=8, F=128, bf16 and f32), at hub shapes (half the
+     slots at node 0, as pooling leaves them) and one ragged shape, with
+     device times (CUDA-graph replays timed by CUDA events), the plain
+     version's and the library call's (``index_add_``, ``torch.gather``,
+     ``torch.sparse.mm`` over a CSR adjacency); the backwards bit-identical
+     from call to call; autograd through each wrapper against the plain
+     backward functions. Then
      the two flash spatial-attention kernels against their plain versions,
      bf16 and f32, at the DGDM-Base shape (B=32, N=1024, 8 heads x 16), the
      DGDM-Large shape (B=4, N=2048, 16 x 8) and a head-major shape (B=8,
@@ -37,7 +41,9 @@ Phases, each of which raises on a failed check:
      one step, finite metrics, learning rate 0 at the first update, the same
      seed giving the same first loss), 2 finetune steps with labels, one
      validation step, one f32 step on the card against the CPU on 2 graphs
-     with injected draws, step time, peak memory and a profiled step;
+     with injected draws, step time, peak memory and a profiled step; the
+     backward kernels and the list build timed on the three neighbor-index
+     tensors of one real pretrain step;
   7. flash module: ``SpatialAttention(128, 8, use_flash=True)`` on B=32,
      N=1024 in bf16 against the same module with ``use_flash=False`` (one
      packed launch, outputs within tolerance, peak memory of both), in f32 at
@@ -72,6 +78,8 @@ EXP_PER_S = 132 * 16 * 1.98e9      # H100 SXM special-function units (exp), 16/c
 MAIN_SHAPES = [(32, 1024, 8, 128), (32, 512, 8, 128), (32, 256, 8, 128)]
 LARGE_SHAPES = [(4, 2048, 8, 128), (4, 1024, 8, 128), (4, 512, 8, 128)]
 RAGGED_SHAPE = (32, 100, 5, 24)
+# the pooled Base levels and a Large level with half the slots at node 0
+HUB_SHAPES = [(32, 512, 8, 128), (32, 256, 8, 128), (4, 1024, 8, 128)]
 K = 8
 # The two model cells. ``layers`` counts the DynamicGraphLayers (Base: 4
 # encoder + 5 U-Net, Large: 6 + 5); each launches one key gather and two conv
@@ -85,16 +93,21 @@ WARMUP_STEPS = 2
 
 
 def expected_launches(cell: dict, training: bool) -> dict:
-    """Launches of one forward (or one training step) of a model cell. No
-    DGDMModel path reaches the flash kernels, as in the JAX package."""
+    """Launches of one forward (or one training step) of a model cell. A
+    training step builds one transposed neighbor list per U-Net level (3 in
+    both cells), a forward without a gradient none. No DGDMModel path reaches
+    the flash kernels, as in the JAX package."""
     layers = cell["layers"]
     bwd = layers if training else 0
     return {"gather_rows": layers, "gather_agg": 2 * layers, "gather_rows_bwd": bwd,
-            "gather_agg_bwd": 2 * bwd, "flash_spatial_packed": 0, "flash_spatial": 0}
+            "gather_agg_bwd": 2 * bwd, "neighbor_transpose": 3 if training else 0,
+            "flash_spatial_packed": 0, "flash_spatial": 0}
 
 
-PORT_KERNEL_NAMES = ("gather_rows_kernel", "gather_agg_kernel", "scatter_rows_kernel",
-                     "gather_agg_bwd_kernel", "round_to_bf16_kernel", "flash_spatial")
+PORT_KERNEL_NAMES = ("gather_rows_kernel", "gather_agg_kernel", "gather_rows_bwd_kernel",
+                     "gather_agg_bwd_kernel", "neighbor_transpose_kernel", "flash_spatial")
+# sources whose ptxas report (registers, spills per kernel) the build phase prints
+PTXAS_SOURCES = ("gather_rows_bwd", "gather_agg_bwd", "neighbor_transpose", "flash_spatial")
 # (B, N, real nodes, H, D): DGDM-Base, DGDM-Large, a head-major width
 FLASH_SHAPES = [(32, 1024, 1000, 8, 16), (4, 2048, 2000, 16, 8), (8, 1024, 1000, 4, 64)]
 
@@ -136,9 +149,9 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
 
 
 def scatter_error(torch, out, ref32) -> dict:
-    """A scatter-sum kernel's result against the plain f32 sums ``ref32``.
-    f32: atol = rtol = 1e-5 (atomic adds in no fixed order). bf16: the
-    kernel rounds its f32 sums once, so it is held to one bf16 ulp of the
+    """A backward gather-sum kernel's result against the plain f32 sums
+    ``ref32``. f32: atol = rtol = 1e-5 (the two sum in other orders). bf16:
+    the kernel rounds its f32 sums once, so it is held to one bf16 ulp of the
     plain rounded result, plus the 1e-5 of the f32 sums near zero."""
     if out.dtype == torch.float32:
         err = (out - ref32).abs()
@@ -151,89 +164,158 @@ def scatter_error(torch, out, ref32) -> dict:
             "max_ulp_err": (err / ulp.clamp_min(1e-5)).max().item()}
 
 
+def csr_adjacency(torch, idx, w, dtype, transpose: bool = False):
+    """The [B·N, B·N] CSR matrix A with A[b·N + n, b·N + idx[b, n, k]] summing
+    w[b, n, k] over the in-range slots (A^T with ``transpose``): then
+    ``A @ h`` is gather_agg and ``A^T @ g`` the dh half of its backward. The
+    operand of the library yardstick, built outside its timing."""
+    b, n, k = idx.shape
+    valid = (idx >= 0) & (idx < n)
+    base = n * torch.arange(b, device=idx.device).view(b, 1, 1)
+    rows = (torch.arange(n, device=idx.device).view(1, n, 1) + base).expand(b, n, k)[valid]
+    cols = (idx.long() + base)[valid]
+    if transpose:
+        rows, cols = cols, rows
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), w[valid].to(dtype), (b * n, b * n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def sparse_mm_ms(torch, idx, w, dense, transpose: bool = False) -> tuple:
+    """(device ms, dtype) of ``torch.sparse.mm`` of the CSR adjacency with
+    ``dense`` [B, N, F]: in dense's dtype where cuSPARSE takes it, else in
+    f32 (the dtype is recorded beside the time)."""
+    b, n, f = dense.shape
+    for dtype in dict.fromkeys((dense.dtype, torch.float32)):
+        x = dense.reshape(b * n, f).to(dtype)
+        a = csr_adjacency(torch, idx, w, dtype, transpose)
+        try:
+            torch.sparse.mm(a, x)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:          # this dtype is not taken: the next one
+            log(f"library: torch.sparse.mm refuses {dtype}: {str(exc).splitlines()[0]}")
+            continue
+        return device_ms(torch, lambda: torch.sparse.mm(a, x)), str(dtype).replace("torch.", "")
+    raise AssertionError("torch.sparse.mm took neither dtype")
+
+
+def backward_checks(torch, gen, src, idx, w, tag, out: dict, timed: bool) -> None:
+    """The transposed-list kernel and both backward kernels at one shape:
+    the list bit-equal to its plain version, the backwards bit-identical from
+    call to call and held to their plain f32 sums, through autograd, and
+    (``timed``) their device times, bounds and library times appended to
+    ``out["neighbor_transpose" | "gather_rows_bwd" | "gather_agg_bwd"]``."""
+    from dgdm_histopath_torch.ops.kernels.gather_agg import (
+        weighted_gather_sum, weighted_gather_sum_bwd, weighted_gather_sum_bwd_plain)
+    from dgdm_histopath_torch.ops.kernels.gather_rows import (
+        gather_rows, gather_rows_bwd, gather_rows_bwd_plain)
+    from dgdm_histopath_torch.ops.kernels.neighbor_transpose import (
+        neighbor_transpose, neighbor_transpose_plain)
+
+    b, n, f = src.shape
+    k = idx.shape[-1]
+    e = src.element_size()
+    g4 = torch.randn(b, n, k, f, device="cuda", generator=gen).to(src.dtype)
+    g3 = torch.randn(b, n, f, device="cuda", generator=gen)
+    nbr_t, plain_t = neighbor_transpose(idx), neighbor_transpose_plain(idx)
+    torch.cuda.synchronize()
+    if not (torch.equal(nbr_t.offsets, plain_t.offsets)
+            and torch.equal(nbr_t.slots, plain_t.slots)):
+        raise AssertionError(f"neighbor_transpose differs from its plain version at {tag}")
+    dsrc = gather_rows_bwd(idx, g4, nbr_t)
+    dh, dw = weighted_gather_sum_bwd(g3, src, idx, w, nbr_t=nbr_t)
+    again = (gather_rows_bwd(idx, g4, nbr_t), *weighted_gather_sum_bwd(g3, src, idx, w,
+                                                                       nbr_t=nbr_t))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip((dsrc, dh, dw), again)):
+        raise AssertionError(f"the backward kernels differ from call to call at {tag}")
+    r = scatter_error(torch, dsrc, gather_rows_bwd_plain(idx, g4.float(), plain_t))
+    ref_dh, dw_ref = weighted_gather_sum_bwd_plain(g3, src.float(), idx, w, plain_t)
+    a = scatter_error(torch, dh, ref_dh)
+    dw_err = (dw - dw_ref).abs().max().item()
+    if not r["ok"]:
+        raise AssertionError(f"gather_rows_bwd off its plain version: {r} at {tag}")
+    if not (a["ok"] and torch.allclose(dw, dw_ref, atol=1e-5, rtol=1e-5)):
+        raise AssertionError(f"gather_agg_bwd off its plain version: {a}, dw {dw_err} at {tag}")
+    # each half alone, as needs_input_grad asks for it; the list built inside
+    only_dh, none_dw = weighted_gather_sum_bwd(g3, src, idx, w, True, False)
+    none_dh, only_dw = weighted_gather_sum_bwd(g3, src, idx, w, False, True)
+    if not (none_dw is None and none_dh is None and torch.equal(only_dw, dw)
+            and torch.equal(only_dh, dh) and torch.equal(gather_rows_bwd(idx, g4), dsrc)):
+        raise AssertionError(f"gather_agg_bwd halves disagree with the whole at {tag}")
+    a["max_abs_err"] = max(a["max_abs_err"], dw_err)
+
+    # autograd through the wrappers (forward and backward kernels, the list
+    # built inside), on a strided cotangent, against the plain backward
+    # functions: plain autograd's scatter sums in g's dtype in no fixed
+    # order, ~1e-4 off the exact sum of a hub row's ~2000 f32 terms
+    s1, w1 = src.clone().requires_grad_(), w.clone().requires_grad_()
+    (d_rows,) = torch.autograd.grad(gather_rows(s1, idx), s1, g4.permute(0, 1, 3, 2)
+                                    .contiguous().permute(0, 1, 3, 2))   # strided g
+    d_h, d_w = torch.autograd.grad(weighted_gather_sum(s1, idx, w1), (s1, w1), g3)
+    p_rows = gather_rows_bwd_plain(idx, g4, plain_t)
+    p_h, p_w = weighted_gather_sum_bwd_plain(g3, src, idx, w, plain_t)
+    for name, got, want in (("gather_rows", d_rows, p_rows), ("gather_agg dh", d_h, p_h),
+                            ("gather_agg dw", d_w, p_w)):
+        chk = scatter_error(torch, got, want.float())
+        if not (chk["ok"] and got.dtype == want.dtype):
+            raise AssertionError(f"autograd through {name}: {chk} at {tag}")
+    if not timed:
+        return
+    counts = (nbr_t.offsets[:, 1:] - nbr_t.offsets[:, :-1])
+    tag = dict(tag, max_in_degree=int(counts.max()))
+    flat_idx = (idx.long() + n * torch.arange(b, device="cuda").view(b, 1, 1)).reshape(-1)
+    g_flat = g4.reshape(-1, f)
+    valid_idx = torch.where((flat_idx >= 0) & (flat_idx < b * n), flat_idx, 0)
+    rbytes = b * n * k * f * e + b * n * k * 4 + b * n * f * e
+    t_bytes, t_ops = rbytes / HBM_BYTES_PER_S * 1e3, b * n * k * f / F32_FLOPS_PER_S * 1e3
+    out["gather_rows_bwd"].append(dict(
+        tag, max_abs_err=r["max_abs_err"], max_ulp_err=r["max_ulp_err"],
+        ms=device_ms(torch, lambda: gather_rows_bwd(idx, g4, nbr_t)),
+        plain_ms=device_ms(torch, lambda: gather_rows_bwd_plain(idx, g4, plain_t)),
+        library_ms=device_ms(torch, lambda: torch.zeros(
+            b * n, f, dtype=g4.dtype, device="cuda").index_add_(0, valid_idx, g_flat)),
+        library="index_add_", bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=rbytes))
+    abytes = b * n * f * 4 + 2 * b * n * f * e + 3 * b * n * k * 4
+    flops = 4 * b * n * k * f
+    t_bytes, t_ops = abytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    lib_ms, lib_dtype = sparse_mm_ms(torch, idx, w, g3, transpose=True)
+    out["gather_agg_bwd"].append(dict(
+        tag, max_abs_err=a["max_abs_err"], max_ulp_err=a["max_ulp_err"],
+        ms=device_ms(torch, lambda: weighted_gather_sum_bwd(g3, src, idx, w, nbr_t=nbr_t)),
+        plain_ms=device_ms(torch, lambda: weighted_gather_sum_bwd_plain(g3, src, idx, w,
+                                                                        plain_t)),
+        library_ms=lib_ms, library=f"torch.sparse.mm(A^T CSR, g) {lib_dtype}, dh half only",
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=abytes, flops=flops))
+    if src.dtype == torch.bfloat16:     # the list does not depend on the dtype
+        tbytes = 2 * b * n * k * 4 + b * (n + 1) * 4
+        out["neighbor_transpose"].append(dict(
+            tag, max_abs_err=0.0, ms=device_ms(torch, lambda: neighbor_transpose(idx)),
+            plain_ms=device_ms(torch, lambda: neighbor_transpose_plain(idx)),
+            library_ms=None, bound_ms=tbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=tbytes))
+
+
+def log_kernel_rows(out: dict, names) -> None:
+    for name in names:
+        r = out[name][-1]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        extra = f"  in-degree<={r['max_in_degree']}" if "max_in_degree" in r else ""
+        log(f"kernel {name:18s} {str(r['shape']):20s} {r['dtype']:8s} "
+            f"err {r['max_abs_err']:.2e}  ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}"
+            f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']}){extra}"
+            f"{'  ' + r['case'] if 'case' in r else ''}")
+
+
 def kernel_phase(torch) -> dict:
     from dgdm_histopath_torch.ops.kernels.gather_agg import (
-        weighted_gather_sum, weighted_gather_sum_bwd, weighted_gather_sum_bwd_plain,
-        weighted_gather_sum_plain)
-    from dgdm_histopath_torch.ops.kernels.gather_rows import (
-        gather_rows, gather_rows_bwd, gather_rows_bwd_plain, gather_rows_plain,
-        scatter_add_rows)
+        weighted_gather_sum, weighted_gather_sum_plain)
+    from dgdm_histopath_torch.ops.kernels.gather_rows import gather_rows, gather_rows_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows_out, agg_out, rows_bwd_out, agg_bwd_out = [], [], [], []
-
-    def backward_checks(src, idx, w, tag, timed: bool):
-        """Both backward kernels at one shape: against the plain f32 sums,
-        through autograd, and (``timed``) their device times and bounds."""
-        b, n, f = src.shape
-        k = idx.shape[-1]
-        e = src.element_size()
-        g4 = torch.randn(b, n, k, f, device="cuda", generator=gen).to(src.dtype)
-        g3 = torch.randn(b, n, f, device="cuda", generator=gen)
-        dsrc = gather_rows_bwd(idx, g4)
-        dh, dw = weighted_gather_sum_bwd(g3, src, idx, w)
-        torch.cuda.synchronize()
-        r = scatter_error(torch, dsrc, scatter_add_rows(idx, g4, n))
-        a = scatter_error(torch, dh, scatter_add_rows(idx, w[..., None] * g3[:, :, None, :], n))
-        _, dw_ref = weighted_gather_sum_bwd_plain(g3, src, idx, w)
-        dw_err = (dw - dw_ref).abs().max().item()
-        if not r["ok"]:
-            raise AssertionError(f"gather_rows_bwd off its plain version: {r} at {tag}")
-        if not (a["ok"] and torch.allclose(dw, dw_ref, atol=1e-5, rtol=1e-5)):
-            raise AssertionError(f"gather_agg_bwd off its plain version: {a}, dw {dw_err} "
-                                 f"at {tag}")
-        # each half alone, as needs_input_grad asks for it
-        only_dh, none_dw = weighted_gather_sum_bwd(g3, src, idx, w, True, False)
-        none_dh, only_dw = weighted_gather_sum_bwd(g3, src, idx, w, False, True)
-        if not (none_dw is None and none_dh is None and torch.equal(only_dw, dw)
-                and torch.allclose(only_dh.float(), dh.float(), atol=1e-5,
-                                   rtol=2.0 ** -7)):
-            raise AssertionError(f"gather_agg_bwd halves disagree with the whole at {tag}")
-        a["max_abs_err"] = max(a["max_abs_err"], dw_err)
-
-        # autograd through the wrappers (forward and backward kernels). f32:
-        # against autograd through the plain forwards. bf16: plain autograd
-        # sums the scatter in bf16, so the plain backward functions (f32 sums,
-        # one rounding) are the reference there.
-        s1, w1 = src.clone().requires_grad_(), w.clone().requires_grad_()
-        (d_rows,) = torch.autograd.grad(gather_rows(s1, idx), s1, g4.permute(0, 1, 3, 2)
-                                        .contiguous().permute(0, 1, 3, 2))   # strided g
-        d_h, d_w = torch.autograd.grad(weighted_gather_sum(s1, idx, w1), (s1, w1), g3)
-        if src.dtype == torch.float32:
-            (p_rows,) = torch.autograd.grad(gather_rows_plain(s1, idx), s1, g4)
-            p_h, p_w = torch.autograd.grad(weighted_gather_sum_plain(s1, idx, w1), (s1, w1), g3)
-        else:
-            p_rows = gather_rows_bwd_plain(idx, g4)
-            p_h, p_w = weighted_gather_sum_bwd_plain(g3, src, idx, w)
-        for name, got, want in (("gather_rows", d_rows, p_rows), ("gather_agg dh", d_h, p_h),
-                                ("gather_agg dw", d_w, p_w)):
-            chk = scatter_error(torch, got, want.float())
-            if not (chk["ok"] and got.dtype == want.dtype):
-                raise AssertionError(f"autograd through {name}: {chk} at {tag}")
-        if not timed:
-            return
-        flat_idx = (idx.long() + n * torch.arange(b, device="cuda").view(b, 1, 1)).reshape(-1)
-        g_flat = g4.reshape(-1, f)
-        rbytes = b * n * k * f * e + b * n * k * 4 + b * n * f * e
-        t_bytes, t_ops = rbytes / HBM_BYTES_PER_S * 1e3, b * n * k * f / F32_FLOPS_PER_S * 1e3
-        rows_bwd_out.append(dict(
-            tag, max_abs_err=r["max_abs_err"], max_ulp_err=r["max_ulp_err"],
-            ms=device_ms(torch, lambda: gather_rows_bwd(idx, g4)),
-            plain_ms=device_ms(torch, lambda: gather_rows_bwd_plain(idx, g4)),
-            library_ms=device_ms(torch, lambda: torch.zeros(
-                b * n, f, dtype=g4.dtype, device="cuda").index_add_(0, flat_idx, g_flat)),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=rbytes))
-        abytes = b * n * f * 4 + 2 * b * n * f * e + 3 * b * n * k * 4
-        flops = 4 * b * n * k * f
-        t_bytes, t_ops = abytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-        agg_bwd_out.append(dict(
-            tag, max_abs_err=a["max_abs_err"], max_ulp_err=a["max_ulp_err"],
-            ms=device_ms(torch, lambda: weighted_gather_sum_bwd(g3, src, idx, w)),
-            plain_ms=device_ms(torch, lambda: weighted_gather_sum_bwd_plain(g3, src, idx, w)),
-            library_ms=None, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=abytes,
-            flops=flops))
+    out = {name: [] for name in ("gather_rows", "gather_agg", "gather_rows_bwd",
+                                 "gather_agg_bwd", "neighbor_transpose")}
     for (b, n, k, f) in MAIN_SHAPES + LARGE_SHAPES + [RAGGED_SHAPE]:
         for dtype in (torch.bfloat16, torch.float32):
             e = torch.finfo(dtype).bits // 8
@@ -243,18 +325,19 @@ def kernel_phase(torch) -> dict:
             w = torch.rand(b, n, k, device="cuda", generator=gen)
             tag = dict(shape=[b, n, k, f], dtype=str(dtype).replace("torch.", ""))
 
-            out = gather_rows(src, idx)
+            res = gather_rows(src, idx)
             torch.cuda.synchronize()
-            if not torch.equal(out, gather_rows_plain(src, idx)):
+            if not torch.equal(res, gather_rows_plain(src, idx)):
                 raise AssertionError(f"gather_rows differs from its plain version at {tag}")
             lib_idx = idx.long().reshape(b, n * k, 1).expand(b, n * k, f)
             rbytes = b * n * k * f * e + b * n * f * e + b * n * k * 4
-            rows_out.append(dict(
+            out["gather_rows"].append(dict(
                 tag, max_abs_err=0.0,
                 ms=device_ms(torch, lambda: gather_rows(src, idx)),
                 plain_ms=device_ms(torch, lambda: gather_rows_plain(src, idx)),
                 library_ms=device_ms(torch, lambda: torch.gather(src, 1, lib_idx)),
-                bound_ms=rbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=rbytes))
+                library="torch.gather", bound_ms=rbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bytes=rbytes))
 
             agg = weighted_gather_sum(src, idx, w)
             ref = weighted_gather_sum_plain(src, idx, w)
@@ -266,21 +349,32 @@ def kernel_phase(torch) -> dict:
             flops = 2 * b * n * k * f
             t_bytes = abytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / F32_FLOPS_PER_S * 1e3
-            agg_out.append(dict(
+            lib_ms, lib_dtype = sparse_mm_ms(torch, idx, w, src)
+            out["gather_agg"].append(dict(
                 tag, max_abs_err=err,
                 ms=device_ms(torch, lambda: weighted_gather_sum(src, idx, w)),
                 plain_ms=device_ms(torch, lambda: weighted_gather_sum_plain(src, idx, w)),
-                library_ms=None, bound_ms=max(t_bytes, t_ops),
+                library_ms=lib_ms, library=f"torch.sparse.mm(A CSR, h) {lib_dtype}",
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=abytes,
                 flops=flops))
-            backward_checks(src, idx, w, tag, timed=True)
-            for name, r in (("gather_rows", rows_out[-1]), ("gather_agg", agg_out[-1]),
-                            ("gather_rows_bwd", rows_bwd_out[-1]),
-                            ("gather_agg_bwd", agg_bwd_out[-1])):
-                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-                log(f"kernel {name:15s} {str(tag['shape']):20s} {tag['dtype']:8s} "
-                    f"err {r['max_abs_err']:.2e}  ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}"
-                    f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            backward_checks(torch, gen, src, idx, w, tag, out, timed=True)
+            log_kernel_rows(out, ("gather_rows", "gather_agg", "gather_rows_bwd",
+                                  "gather_agg_bwd")
+                            + (("neighbor_transpose",) if dtype == torch.bfloat16 else ()))
+
+    # hub shapes: half the slots at node 0, as compact pooling leaves them
+    for (b, n, k, f) in HUB_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            src = torch.randn(b, n, f, device="cuda", generator=gen).to(dtype)
+            idx = torch.randint(0, n, (b, n, k), device="cuda", generator=gen,
+                                dtype=torch.int32)
+            idx[torch.rand(b, n, k, device="cuda", generator=gen) < 0.5] = 0
+            w = torch.rand(b, n, k, device="cuda", generator=gen)
+            tag = dict(shape=[b, n, k, f], dtype=str(dtype).replace("torch.", ""), case="hub")
+            backward_checks(torch, gen, src, idx, w, tag, out, timed=True)
+            log_kernel_rows(out, ("gather_rows_bwd", "gather_agg_bwd")
+                            + (("neighbor_transpose",) if dtype == torch.bfloat16 else ()))
 
     # indices outside [0, N) give zero rows in both versions
     b, n, k, f = RAGGED_SHAPE
@@ -288,21 +382,38 @@ def kernel_phase(torch) -> dict:
     idx = torch.randint(-3, n + 3, (b, n, k), device="cuda", generator=gen,
                         dtype=torch.int32)
     w = torch.rand(b, n, k, device="cuda", generator=gen)
-    out = gather_rows(src, idx)
+    res = gather_rows(src, idx)
     bad = (idx < 0) | (idx >= n)
-    if not (torch.equal(out, gather_rows_plain(src, idx)) and bad.any()
-            and (out[bad] == 0).all()):
+    if not (torch.equal(res, gather_rows_plain(src, idx)) and bad.any()
+            and (res[bad] == 0).all()):
         raise AssertionError("gather_rows: out-of-range indices must give zero rows")
     if not torch.allclose(weighted_gather_sum(src, idx, w),
                           weighted_gather_sum_plain(src, idx, w), atol=1e-5, rtol=1e-5):
         raise AssertionError("gather_agg: out-of-range indices must contribute nothing")
     for dtype in (torch.bfloat16, torch.float32):
-        backward_checks(src.to(dtype), idx, w, dict(shape=list(RAGGED_SHAPE), dtype=str(dtype),
-                                                    out_of_range=True), timed=False)
-    log("kernel checks: out-of-range indices give zero rows in the forward kernels and add "
-        "nothing in the backward kernels, as in the plain versions")
-    return {"gather_rows": rows_out, "gather_agg": agg_out,
-            "gather_rows_bwd": rows_bwd_out, "gather_agg_bwd": agg_bwd_out}
+        backward_checks(torch, gen, src.to(dtype), idx, w,
+                        dict(shape=list(RAGGED_SHAPE), dtype=str(dtype), out_of_range=True),
+                        out, timed=False)
+    log("kernel checks: out-of-range indices give zero rows in the forward kernels, are "
+        "dropped from the transposed list and add nothing in the backward kernels, as in "
+        "the plain versions; the backward kernels are bit-identical from call to call")
+    return out
+
+
+def real_step_phase(torch, captured) -> dict:
+    """The list kernel and both backward kernels (bf16, F 128) on the
+    neighbor-index tensors of one real DGDM-Base pretrain step, one per U-Net
+    level, with the hub rows that compact pooling leaves at node 0."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {name: [] for name in ("gather_rows_bwd", "gather_agg_bwd", "neighbor_transpose")}
+    for idx in captured:
+        b, n, k = idx.shape
+        src = torch.randn(b, n, 128, device="cuda", generator=gen).to(torch.bfloat16)
+        w = torch.rand(b, n, k, device="cuda", generator=gen)
+        tag = dict(shape=[b, n, k, 128], dtype="bfloat16", case="real Base step")
+        backward_checks(torch, gen, src, idx, w, tag, out, timed=True)
+        log_kernel_rows(out, ("neighbor_transpose", "gather_rows_bwd", "gather_agg_bwd"))
+    return out
 
 
 def morton_order(pos):
@@ -867,15 +978,18 @@ def server_one_request(predictor, graph, cell: dict) -> dict:
     return {"predict_ms": [ms], "max_prob_diff": diff, "launches": [counts]}
 
 
-def training_phase(torch, graphs, card: str, cell: dict) -> tuple:
+def training_phase(torch, graphs, card: str, cell: dict, captured=None) -> tuple:
     """The training path, counted: DGDMTrainer.training_step on the cell's
     model at full width (DGDM-Base: batch 32, bucket 1024; DGDM-Large: batch
     4, bucket 2048, windowed attention and banded message passing). The
-    launch counters are set to 0 just before one step and read just after."""
+    launch counters are set to 0 just before one step and read just after.
+    ``captured``, where given, receives the neighbor-index tensor of each
+    transposed list that one more pretrain step builds (one per level)."""
     import math
 
     from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, batch_graphs, create_model
     from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.ops.kernels import neighbor_transpose as nt
 
     label, batch_size, steps = cell["label"], cell["batch"], cell["pretrain_steps"]
     expected_train = expected_launches(cell, training=True)
@@ -943,6 +1057,20 @@ def training_phase(torch, graphs, card: str, cell: dict) -> tuple:
         f"{peak_gib:.2f} GiB, loss {[round(m['loss'], 4) for m in history]} [{card}]")
     profile = profile_call(torch, lambda: trainer.training_step(batch, 0),
                            f"{label} pretrain step")
+    if captured is not None:
+        build = nt.neighbor_transpose
+
+        def capture(idx):
+            captured.append(idx.clone())
+            return build(idx)
+
+        nt.neighbor_transpose = capture
+        try:
+            trainer.training_step(batch, 0)
+        finally:
+            nt.neighbor_transpose = build
+        log(f"training: {label} one pretrain step built lists for the index tensors "
+            f"{[tuple(i.shape) for i in captured]}")
 
     # (b) finetune steps with labels, (c) one validation step
     labeled = batch.replace(y=torch.arange(batch_size, device="cuda") % 2)
@@ -1029,8 +1157,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    ptxas = build.ptxas_report("flash_spatial")
-    for r in ptxas:
+    ptxas = {name: build.ptxas_report(name) for name in PTXAS_SOURCES}
+    for r in (r for rows in ptxas.values() for r in rows):
         log(f"ptxas: {r['kernel']}: {r['registers']} registers, spill stores "
             f"{r['spill_stores']} / loads {r['spill_loads']} bytes, stack {r['stack']}, "
             f"static smem {r['static_smem']}")
@@ -1044,8 +1172,13 @@ def main() -> int:
     server = server_phase(predictor, graphs, BASE)
     del predictor
     torch.cuda.empty_cache()
-    train_launches, train_timing, train_parity = training_phase(torch, graphs, card, BASE)
+    captured = []
+    train_launches, train_timing, train_parity = training_phase(torch, graphs, card, BASE,
+                                                                captured)
     del graphs
+    torch.cuda.empty_cache()
+    real_step = real_step_phase(torch, captured)
+    del captured
     torch.cuda.empty_cache()
 
     # the flash path, through the module a user would call
@@ -1068,6 +1201,10 @@ def main() -> int:
                             "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86"),
         "gather_agg_bwd": ("gather_agg_bwd.cu",
                            "dgdm_histopath_tpu/ops/pallas/gather_agg.py:101"),
+        "neighbor_transpose": ("neighbor_transpose.cu",
+                               "none: new, the list the backwards of "
+                               "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86 and "
+                               "gather_agg.py:101 read"),
         "flash_spatial_packed": ("flash_spatial.cu",
                                  "dgdm_histopath_tpu/ops/pallas/flash_spatial.py:101"),
         "flash_spatial": ("flash_spatial.cu",
@@ -1085,7 +1222,7 @@ def main() -> int:
         # max_abs_err is over the f32 comparisons; the bf16 backward results
         # and the bf16 flash results are held to one bf16 ulp of each element
         f32_rows = [r for r in kern[name] if r["dtype"] == "float32"
-                    or name in ("gather_rows", "gather_agg")]
+                    or name in ("gather_rows", "gather_agg", "neighbor_transpose")]
         # each kernel's own main path: the training step for the gathers, the
         # SpatialAttention(use_flash=True) forward for the flash kernels
         main_path = ("spatial_attention_use_flash" if name in flash_module
@@ -1096,7 +1233,7 @@ def main() -> int:
                  "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
                  "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
                  "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-                 "library_ms": main_shape["library_ms"],
+                 "library_ms": main_shape["library_ms"], "library": main_shape.get("library"),
                  "shape": ("B{} N{} H{} D{} bf16".format(*main_shape["shape"])
                            if name in flash_module else "B32 N1024 K8 F128 bf16")}
         if entry["launches"] < 1:
@@ -1104,6 +1241,8 @@ def main() -> int:
         if "bwd" in name:
             entry["max_ulp_err_bf16"] = max(r["max_ulp_err"] for r in kern[name]
                                             if r["max_ulp_err"] is not None)
+        if name in real_step:
+            entry["real_step_ms"] = {r["shape"][1]: r["ms"] for r in real_step[name]}
         if name in flash_module:
             entry["max_abs_err_bf16"] = max(r["max_abs_err"] for r in kern[name]
                                             if r["dtype"] == "bfloat16")
@@ -1111,7 +1250,7 @@ def main() -> int:
         line["kernels"].append(entry)
     for t in (timing, train_timing, l_timing, l_train_timing):
         t["profile"].pop("top")           # printed above, one line per kernel
-    log("details: " + json.dumps({"ptxas_flash_spatial": ptxas,
+    log("details: " + json.dumps({"ptxas": ptxas, "kernels": kern, "real_step": real_step,
                                   "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
                                   "training_parity": train_parity,

@@ -1,207 +1,327 @@
 // Backward of the weighted neighbor aggregation
 //   out[b, n, :] = sum_k w[b, n, k] * h[b, idx[b, n, k], :]
-// for the cotangent g [B, N, F] (f32):
-//   dh[b, m, :]  = sum over (n, k) with idx[b, n, k] == m of w[b, n, k] * g[b, n, :]
+// for the cotangent g [B, N, F] (f32), in one launch:
 //   dw[b, n, k]  = sum_f g[b, n, f] * h[b, idx[b, n, k], f]
+//   dh[b, m, :]  = sum over s in T(b, m) of w[b, s] * g[b, s / K, :]
+// where T(b, m) is the transposed neighbor list (csrc/neighbor_transpose.cu):
+// the flat slots s = n*K + k with idx[b, n, k] == m, in increasing order.
 //
 // The TPU package has no kernel for this: its backward is XLA
 // (dgdm_histopath_tpu/ops/pallas/gather_agg.py::_vjp_bwd, a scatter-add for
 // dh and a gathered dot for dw), which forms two f32 [B, N, K, F] tensors.
-// This kernel forms neither.
+// This kernel forms neither, and it sums dh as a gather: no atomics, no f32
+// accumulator in device memory, no second pass to round it.
 //
 // Bound on the H100: bytes. At B=32, N=1024, K=8, F=128 with bf16 h it must
 // read g (16.8 MB), h (8.4 MB), idx and w (2.1 MB) and write dh (8.4 MB) and
 // dw (1.0 MB): 36.7 MB, ~11 us at 3.35 TB/s; its 134 MFLOP are ~2 us at the
-// f32 rate. This design also zeroes the f32 dh accumulator (16.8 MB) and,
-// for bf16 h, reads it again to round it. Design: the forward's layout, one
-// warp per destination row n, lanes over F (4 contiguous features each when
-// F % 4 == 0). The warp keeps its slice of g[n, :] in registers; per
-// neighbor slot it loads the h row, reduces the dot with shuffles into dw,
-// and adds w * g into the f32 dh accumulator with one 16-byte vector atomic
-// per lane. Lane k holds idx[k], w[k] and dw[k], so those are loaded and
-// stored coalesced. A second kernel rounds dh to bf16 once when h is bf16.
+// f32 rate. Each g row is read about K+1 times and each h row about K times;
+// one call's g and h (25 MB) fit the 50 MB L2, which serves the re-reads, so
+// the ~220 MB that reach the SMs make L2 bandwidth this design's floor.
+// Design: a block of 16 half-warps owns 16 consecutive rows of one graph and
+// computes one half, dw or dh (the first B*N/16 blocks dw, the rest dh); 16
+// lanes cover F with 16-byte loads of h (8 bf16 or 4 f32 features a lane; one
+// feature when rows are not 16-byte aligned). For dw a half-warp keeps its
+// slice of g[n, :], loads the K h rows (8 at once), and reduces each dot over
+// its 16 lanes with shuffles in a fixed order. For dh it sums w * g over its
+// destination row's slots (4 or 8 g rows in flight). A row with more than 32
+// slots (pooling sends every dropped neighbor to node 0, ~N*K/2 slots at a
+// pooled level) is summed by the whole block after its other rows: each
+// half-warp takes a fixed contiguous chunk, the partials go to shared memory
+// and are added in half-warp order. dh adds its f32 products w * g in f64,
+// so a hub row's thousands of terms are exact to well below f32's rounding,
+// and rounds once (through f32) to h's dtype; dw takes each lane's E-term
+// f32 dot into an f64 sum over the lanes and the passes over F.
 //
-// The order of the atomic adds is not fixed, so dh is not bit-reproducible
-// from run to run; dw is. An index outside [0, N) gives dw = 0 and adds
-// nothing to dh. Either half can be skipped. Any N, K and F are taken.
+// Every sum runs in an order fixed by idx alone, so dh and dw are
+// bit-identical from run to run. An index outside [0, N) gives dw = 0 and is
+// not in the list, so it adds nothing to dh. Either half can be skipped. Any
+// N, K and F are taken.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kGroup = 16;                    // lanes per row
+constexpr int kGroups = 16;                   // rows per block
+constexpr int kThreads = kGroup * kGroups;
+constexpr int kShort = 32;                    // a dh row with more slots is summed by the block
+constexpr int kInFlight = 8;                  // h rows a half-warp loads at once for dw
 
-template <typename T, int V> struct Load;
+// E features of h's type T a lane: E * sizeof(T) == 16 (one vector), or E == 1.
+template <typename T, int E> struct HRow;
 
-template <> struct Load<float, 4> {
-  __device__ static void run(const float* p, float* v) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+template <> struct HRow<float, 4> {
+  using Raw = float4;
+  __device__ static Raw load(const float* p) { return *reinterpret_cast<const float4*>(p); }
+  __device__ static float dot(const float* g, const Raw& r) {
+    return fmaf(g[3], r.w, fmaf(g[2], r.z, fmaf(g[1], r.y, g[0] * r.x)));
+  }
+  __device__ static void store(float* p, const double* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
-template <> struct Load<__nv_bfloat16, 4> {
-  __device__ static void run(const __nv_bfloat16* p, float* v) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+template <> struct HRow<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
   }
-};
-template <> struct Load<float, 1> {
-  __device__ static void run(const float* p, float* v) { v[0] = *p; }
-};
-template <> struct Load<__nv_bfloat16, 1> {
-  __device__ static void run(const __nv_bfloat16* p, float* v) { v[0] = __bfloat162float(*p); }
-};
-
-template <int V> __device__ void atomic_add(float* p, const float* v);
-template <> __device__ void atomic_add<4>(float* p, const float* v) {
-#if CUDART_VERSION >= 12020
-  // sm_90 vector atomic: one 16-byte reduction, each element atomic
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-#else
+  __device__ static float dot(const float* g, const Raw& r) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+    float d = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) atomicAdd(p + i, v[i]);
-#endif
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      d = fmaf(g[2 * i], v.x, d);
+      d = fmaf(g[2 * i + 1], v.y, d);
+    }
+    return d;
+  }
+  __device__ static void store(__nv_bfloat16* p, const double* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // f64 -> f32 -> bf16, as the plain version rounds
+      const __nv_bfloat162 x = __floats2bfloat162_rn(static_cast<float>(v[2 * i]),
+                                                     static_cast<float>(v[2 * i + 1]));
+      w[i] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <> struct HRow<float, 1> {
+  using Raw = float;
+  __device__ static Raw load(const float* p) { return *p; }
+  __device__ static float dot(const float* g, const Raw& r) { return g[0] * r; }
+  __device__ static void store(float* p, const double* v) { *p = static_cast<float>(v[0]); }
+};
+template <> struct HRow<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  __device__ static Raw load(const __nv_bfloat16* p) { return *p; }
+  __device__ static float dot(const float* g, const Raw& r) {
+    return g[0] * __bfloat162float(r);
+  }
+  __device__ static void store(__nv_bfloat16* p, const double* v) {
+    *p = __float2bfloat16_rn(static_cast<float>(v[0]));
+  }
+};
+
+// E f32 features of g: E / 4 16-byte loads, or one scalar.
+template <int E> struct GRow {
+  static constexpr int kVecs = E / 4;
+  float4 v[kVecs];
+  __device__ void load(const float* p) {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) v[i] = reinterpret_cast<const float4*>(p)[i];
+  }
+  __device__ void to(float* out) const {
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      out[4 * i] = v[i].x; out[4 * i + 1] = v[i].y;
+      out[4 * i + 2] = v[i].z; out[4 * i + 3] = v[i].w;
+    }
+  }
+};
+template <> struct GRow<1> {
+  float v;
+  __device__ void load(const float* p) { v = *p; }
+  __device__ void to(float* out) const { out[0] = v; }
+};
+
+__device__ inline void store_one(float* p, double v) { *p = static_cast<float>(v); }
+__device__ inline void store_one(__nv_bfloat16* p, double v) {
+  *p = __float2bfloat16_rn(static_cast<float>(v));
 }
-template <> __device__ void atomic_add<1>(float* p, const float* v) { atomicAdd(p, v[0]); }
 
-// acc is null when dh is not wanted, dw is null when dw is not wanted.
-template <typename T, int V>
-__global__ void gather_agg_bwd_kernel(const float* __restrict__ g,
-                                      const T* __restrict__ h,
-                                      const int32_t* __restrict__ idx,
-                                      const float* __restrict__ w,
-                                      float* __restrict__ acc,
-                                      float* __restrict__ dw,
-                                      int64_t rows, int64_t n, int k, int f) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t row = warp; row < rows; row += warps) {   // warp-uniform loop
-    const int64_t b = row / n;
-    const T* hb = h + b * n * f;
-    float* ab = acc == nullptr ? nullptr : acc + b * n * f;
-    const float* gr = g + row * f;
-    const int32_t* ir = idx + row * k;
-    const float* wr = w + row * k;
-    float g0[V];                                          // g[n, lane's first chunk]
+// acc[0:E] = f64 sum of the f32 products w[s] * g[s / k] over the slots
+// s = sl[j], j in [j0, j1), in j order, at features [fl, fl + E) (zeros when
+// `act` is false).
+template <int E>
+__device__ void sum_weighted(const float* __restrict__ gb, const float* __restrict__ wb,
+                             const int32_t* __restrict__ sl, int j0, int j1, int k, int f,
+                             int fl, bool act, double* acc) {
+  constexpr int kIn = E == 8 ? 4 : 8;          // g rows in flight: 32 registers of loads
 #pragma unroll
-    for (int i = 0; i < V; ++i) g0[i] = 0.f;
-    if (lane * V < f) Load<float, V>::run(gr + lane * V, g0);
-    for (int k0 = 0; k0 < k; k0 += 32) {
-      const int kk = k0 + lane;
-      const int my_j = kk < k ? __ldg(ir + kk) : -1;
-      const float my_w = kk < k ? __ldg(wr + kk) : 0.f;
-      float my_dw = 0.f;
-      const int kn = min(32, k - k0);
-      for (int s = 0; s < kn; ++s) {
-        const int j = __shfl_sync(kFullMask, my_j, s);
-        const float ws = __shfl_sync(kFullMask, my_w, s);
-        if (j < 0 || j >= n) continue;                    // warp-uniform
-        float dot = 0.f;
-        for (int base = 0; base < f; base += 32 * V) {    // warp-uniform loop
-          const int f0 = base + lane * V;
-          if (f0 < f) {
-            float gv[V];
-            if (base == 0) {
+  for (int e = 0; e < E; ++e) acc[e] = 0.0;
+  if (!act) return;
+  for (int j = j0; j < j1; j += kIn) {
+    int s[kIn];
 #pragma unroll
-              for (int i = 0; i < V; ++i) gv[i] = g0[i];
-            } else {
-              Load<float, V>::run(gr + f0, gv);
-            }
-            if (dw != nullptr) {
-              float hv[V];
-              Load<T, V>::run(hb + static_cast<int64_t>(j) * f + f0, hv);
+    for (int u = 0; u < kIn; ++u) s[u] = j + u < j1 ? __ldg(sl + j + u) : -1;
+    GRow<E> rows[kIn];
+    float ws[kIn];
 #pragma unroll
-              for (int i = 0; i < V; ++i) dot = fmaf(gv[i], hv[i], dot);
-            }
-            if (ab != nullptr) {
-              float c[V];
-#pragma unroll
-              for (int i = 0; i < V; ++i) c[i] = ws * gv[i];
-              atomic_add<V>(ab + static_cast<int64_t>(j) * f + f0, c);
-            }
-          }
-        }
-        if (dw != nullptr) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(kFullMask, dot, off);
-          if (lane == s) my_dw = dot;
-        }
+    for (int u = 0; u < kIn; ++u) {
+      if (s[u] >= 0) {
+        ws[u] = __ldg(wb + s[u]);
+        rows[u].load(gb + static_cast<int64_t>(s[u] / k) * f + fl);
       }
-      if (dw != nullptr && kk < k) dw[row * k + kk] = my_dw;
+    }
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      if (s[u] >= 0) {
+        float gv[E];
+        rows[u].to(gv);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += __fmul_rn(ws[u], gv[e]);
+      }
     }
   }
 }
 
-__global__ void round_to_bf16_kernel(const float* __restrict__ acc,
-                                     __nv_bfloat16* __restrict__ out, int64_t total) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       t < total; t += stride)
-    out[t] = __float2bfloat16_rn(acc[t]);
+template <typename T, int E>
+__global__ void __launch_bounds__(kThreads, 2)
+gather_agg_bwd_kernel(const float* __restrict__ g, const T* __restrict__ h,
+                      const int32_t* __restrict__ idx, const float* __restrict__ w,
+                      const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
+                      T* __restrict__ dh, float* __restrict__ dw,
+                      int n, int k, int f, int tiles, int dw_blocks) {
+  constexpr int kSpan = kGroup * E;            // features a half-warp covers per pass
+  using H = HRow<T, E>;
+  __shared__ double part[kGroups][kSpan];
+  __shared__ int row_start[kGroups], row_count[kGroups];
+  // blocks [0, dw_blocks) compute dw, the rest dh, each over one row tile
+  const bool dw_half = static_cast<int>(blockIdx.x) < dw_blocks;
+  const int tile = dw_half ? blockIdx.x : blockIdx.x - dw_blocks;
+  const int64_t b = tile / tiles;
+  const int r0 = (tile % tiles) * kGroups;
+  const int grp = threadIdx.x / kGroup, lane = threadIdx.x % kGroup;
+  const int64_t nk = static_cast<int64_t>(n) * k;
+  const float* gb = g + b * n * f;
+  const int row = r0 + grp;
+
+  if (dw_half) {
+    if (row >= n) return;
+    const unsigned half = 0xffffu << (threadIdx.x & 16);
+    const T* hb = h + b * n * f;
+    const int32_t* ir = idx + (b * n + row) * k;
+    const float* gr = gb + static_cast<int64_t>(row) * f;
+    for (int k0 = 0; k0 < k; k0 += kInFlight) {
+      int j[kInFlight];
+      double dot[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        j[u] = k0 + u < k ? __ldg(ir + k0 + u) : -1;
+        if (j[u] >= n) j[u] = -1;
+        dot[u] = 0.0;
+      }
+      for (int f0 = 0; f0 < f; f0 += kSpan) {
+        const int fl = f0 + lane * E;
+        if (fl < f) {
+          GRow<E> gl;
+          gl.load(gr + fl);
+          typename H::Raw raw[kInFlight];
+#pragma unroll
+          for (int u = 0; u < kInFlight; ++u)
+            if (j[u] >= 0) raw[u] = H::load(hb + static_cast<int64_t>(j[u]) * f + fl);
+          float gv[E];
+          gl.to(gv);
+#pragma unroll
+          for (int u = 0; u < kInFlight; ++u)
+            if (j[u] >= 0) dot[u] += H::dot(gv, raw[u]);    // a lane's E terms in f32
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+#pragma unroll
+        for (int o = kGroup / 2; o > 0; o >>= 1)
+          dot[u] += __shfl_xor_sync(half, dot[u], o, kGroup);
+        if (lane == u && k0 + u < k)
+          dw[(b * n + row) * k + k0 + u] = static_cast<float>(dot[u]);
+      }
+    }
+    return;
+  }
+
+  const int32_t* off = offsets + b * (n + 1);
+  const int32_t* sl = slots + b * nk;
+  const float* wb = w + b * nk;
+  T* ob = dh + b * n * f;
+  const int start = row < n ? __ldg(off + row) : 0;
+  const int count = row < n ? __ldg(off + row + 1) - start : 0;
+  if (lane == 0) {
+    row_start[grp] = start;
+    row_count[grp] = count;
+  }
+  if (row < n && count <= kShort) {
+    for (int f0 = 0; f0 < f; f0 += kSpan) {
+      const int fl = f0 + lane * E;
+      double acc[E];
+      sum_weighted<E>(gb, wb, sl, start, start + count, k, f, fl, fl < f, acc);
+      if (fl < f) H::store(ob + static_cast<int64_t>(row) * f + fl, acc);
+    }
+  }
+  __syncthreads();
+
+  // long rows: the whole block, fixed chunks, partials added in chunk order
+  for (int r = 0; r < kGroups; ++r) {
+    const int c = row_count[r];
+    if (c <= kShort) continue;                 // block-uniform
+    const int per = (c + kGroups - 1) / kGroups;
+    const int j0 = row_start[r] + min(c, grp * per);
+    const int j1 = row_start[r] + min(c, grp * per + per);
+    for (int f0 = 0; f0 < f; f0 += kSpan) {
+      const int fl = f0 + lane * E;
+      double acc[E];
+      sum_weighted<E>(gb, wb, sl, j0, j1, k, f, fl, fl < f, acc);
+#pragma unroll
+      for (int e = 0; e < E; ++e) part[grp][lane * E + e] = acc[e];
+      __syncthreads();
+      for (int t = threadIdx.x; t < kSpan; t += kThreads) {
+        if (f0 + t < f) {
+          double s = 0.0;
+          for (int q = 0; q < kGroups; ++q) s += part[q][t];
+          store_one(ob + static_cast<int64_t>(r0 + r) * f + f0 + t, s);
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
-unsigned grid_for(int64_t work, int threads) {
-  int64_t blocks = (work + threads - 1) / threads;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;          // grid-stride covers the rest
-  return static_cast<unsigned>(blocks);
-}
-
-template <typename T>
+template <typename T, int E>
 cudaError_t launch(const float* g, const void* h, const int32_t* idx, const float* w,
-                   float* acc, float* dw, int64_t rows, int64_t n, int k, int f,
-                   cudaStream_t stream) {
-  const int threads = 256;                                // 8 rows per block
-  const unsigned grid = grid_for(rows * 32, threads);
-  const auto* hp = static_cast<const T*>(h);
-  if (f % 4 == 0)
-    gather_agg_bwd_kernel<T, 4><<<grid, threads, 0, stream>>>(g, hp, idx, w, acc, dw,
-                                                              rows, n, k, f);
-  else
-    gather_agg_bwd_kernel<T, 1><<<grid, threads, 0, stream>>>(g, hp, idx, w, acc, dw,
-                                                              rows, n, k, f);
+                   const int32_t* off, const int32_t* sl, void* dh, float* dw,
+                   int64_t batch, int64_t n, int64_t k, int64_t f, cudaStream_t s) {
+  const int64_t tiles = (n + kGroups - 1) / kGroups;
+  const int64_t dw_blocks = dw == nullptr ? 0 : batch * tiles;
+  const int64_t blocks = dw_blocks + (dh == nullptr ? 0 : batch * tiles);
+  gather_agg_bwd_kernel<T, E><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      g, static_cast<const T*>(h), idx, w, off, sl, static_cast<T*>(dh), dw,
+      static_cast<int>(n), static_cast<int>(k), static_cast<int>(f),
+      static_cast<int>(tiles), static_cast<int>(dw_blocks));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`, on the caller's current device. `acc` is an f32
-// [B, N, F] buffer that this call zeroes and sums dh into (null: dh is not
-// wanted); for f32 h it is dh, for bf16 h dh is written to `dh_out`. `dw` is
-// f32 [B, N, K] (null: dw is not wanted).
+// Launches on `stream`, on the caller's current device. g [B, N, F] f32, h
+// [B, N, F] bf16 or f32, idx [B, N, K] int32, w [B, N, K] f32; offsets
+// [B, N + 1] and slots [B, N*K] from neighbor_transpose (read only for dh).
+// dh [B, N, F] in h's dtype (null: not wanted), dw [B, N, K] f32 (null: not
+// wanted). `vec`: rows are 16-byte aligned (F times h's element size a
+// multiple of 16, base pointers aligned).
 extern "C" int gather_agg_bwd_launch(const void* g, const void* h, const void* idx,
-                                     const void* w, void* acc, void* dh_out, void* dw,
-                                     int64_t batch, int64_t n, int64_t k, int64_t f,
-                                     int h_is_bf16, void* stream) {
+                                     const void* w, const void* offsets, const void* slots,
+                                     void* dh, void* dw, int64_t batch, int64_t n,
+                                     int64_t k, int64_t f, int h_is_bf16, int vec,
+                                     void* stream) {
+  if (batch * n == 0 || (dh == nullptr && dw == nullptr)) return 0;
+  if (dh == nullptr && (k == 0 || f == 0)) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  auto* ap = static_cast<float*>(acc);
+  const auto* gp = static_cast<const float*>(g);
+  const auto* ix = static_cast<const int32_t*>(idx);
+  const auto* wp = static_cast<const float*>(w);
+  const auto* off = static_cast<const int32_t*>(offsets);
+  const auto* sl = static_cast<const int32_t*>(slots);
   auto* dwp = static_cast<float*>(dw);
-  const int64_t rows = batch * n;
-  const int64_t total = rows * f;
-  cudaError_t err = cudaSuccess;
-  if (ap != nullptr && total > 0) {
-    err = cudaMemsetAsync(ap, 0, static_cast<size_t>(total) * sizeof(float), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (rows > 0 && k > 0 && (ap != nullptr || dwp != nullptr)) {
-    const auto* gp = static_cast<const float*>(g);
-    const auto* ix = static_cast<const int32_t*>(idx);
-    const auto* wp = static_cast<const float*>(w);
-    err = h_is_bf16
-        ? launch<__nv_bfloat16>(gp, h, ix, wp, ap, dwp, rows, n, static_cast<int>(k),
-                                static_cast<int>(f), s)
-        : launch<float>(gp, h, ix, wp, ap, dwp, rows, n, static_cast<int>(k),
-                        static_cast<int>(f), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (ap != nullptr && h_is_bf16 && total > 0) {
-    round_to_bf16_kernel<<<grid_for(total, 256), 256, 0, s>>>(
-        ap, static_cast<__nv_bfloat16*>(dh_out), total);
-    err = cudaGetLastError();
-  }
+  cudaError_t err;
+  if (h_is_bf16)
+    err = vec ? launch<__nv_bfloat16, 8>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
+              : launch<__nv_bfloat16, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
+  else
+    err = vec ? launch<float, 4>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
+              : launch<float, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
   return static_cast<int>(err);
 }
 

@@ -24,7 +24,8 @@ from ..nn.attention import SpatialAttention
 from ..nn.diffusion import DiffusionLayer
 from ..nn.graph_layers import GraphUNet
 from ..nn.layers import Dense, as_dtype
-from ..ops.graph import PaddedGraph
+from ..ops.graph import PaddedGraph, real_edge_index
+from ..ops.kernels.neighbor_transpose import transpose_for_backward
 from ..utils.exceptions import ConfigurationError
 from .decoders import ClassificationHead, RegressionHead, SurvivalHead
 from .encoders import FeatureEncoder, GraphEncoder
@@ -171,9 +172,13 @@ class DGDMModel(nn.Module):
         outputs: Dict[str, Any] = {}
 
         h = self.feature_encoder(x, **rand)
-        enc = self.graph_encoder(h, graph.nbr_idx, graph.nbr_mask, node_mask,
+        # masked-off slots point outside [0, N) (no forward value changes), and
+        # one transposed neighbor list serves the backward of every full-N layer
+        nbr_idx = real_edge_index(graph.nbr_idx, graph.nbr_mask & node_mask[..., None])
+        nbr_t = transpose_for_backward(nbr_idx)
+        enc = self.graph_encoder(h, nbr_idx, graph.nbr_mask, node_mask,
                                  edge_attr=graph.edge_attr,
-                                 return_attention=return_attention, **rand)
+                                 return_attention=return_attention, **rand, nbr_t=nbr_t)
         h = enc["embeddings"]
         if return_attention:
             outputs["edge_attentions"] = enc["attentions"]
@@ -187,8 +192,8 @@ class DGDMModel(nn.Module):
                 h = res
 
         if self.use_hierarchical:
-            h = self.graph_unet(h, graph.nbr_idx, graph.nbr_mask, node_mask,
-                                edge_attr=graph.edge_attr, **rand)
+            h = self.graph_unet(h, nbr_idx, graph.nbr_mask, node_mask,
+                                edge_attr=graph.edge_attr, **rand, nbr_t=nbr_t)
         outputs["node_embeddings"] = h
 
         if mode == "pretrain":

@@ -10,6 +10,7 @@ from torch import nn
 
 from ..nn.graph_layers import DynamicGraphLayer
 from ..nn.layers import Dense, LayerNorm, dropout, get_activation
+from ..ops.kernels.neighbor_transpose import transpose_for_backward
 
 __all__ = ["FeatureEncoder", "GraphEncoder", "get_activation"]
 
@@ -57,6 +58,8 @@ class GraphEncoder(nn.Module):
     """``num_layers`` DynamicGraphLayers over projected edge features, each
     followed by the activation and dropout, then an output projection.
     ``band_window`` makes every layer banded (``nn/graph_layers.py``).
+    Every layer reads one transposed list of ``nbr_idx`` (``nbr_t``, built
+    here when the caller has none and a gradient will be taken).
     Returns ``{"embeddings", "layer_outputs"[, "attentions"]}``."""
 
     def __init__(self, in_features: int, hidden_dim: int, num_layers: int = 4,
@@ -78,8 +81,10 @@ class GraphEncoder(nn.Module):
 
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+                generator: Optional[torch.Generator] = None, nbr_t=None) -> Dict[str, object]:
         h = self.input_proj(x)
+        if nbr_t is None:
+            nbr_t = transpose_for_backward(nbr_idx)
         e = None
         if edge_attr is not None and self.edge_proj is not None:
             e = self.edge_proj(edge_attr.to(h.dtype))
@@ -89,7 +94,7 @@ class GraphEncoder(nn.Module):
             res = getattr(self, f"layer{i}")(h, nbr_idx, masked_nbr, e,
                                              return_attention=return_attention,
                                              deterministic=deterministic,
-                                             generator=generator)
+                                             generator=generator, nbr_t=nbr_t)
             if return_attention:
                 h, attn = res
                 attentions.append(attn)

@@ -16,6 +16,12 @@ bucket splits into >= 3 blocks of W nodes, neighbor slots outside the
 ±1-block band of their node are masked off before anything reads the mask,
 so messages, the per-edge softmax and the degree normalization all see the
 pruned graph. The gather kernels then run on the absolute indices.
+
+The layers take ``nbr_t``, the transposed list of ``nbr_idx`` that both
+gather backwards read (``ops/kernels/neighbor_transpose.py``). ``GraphUNet``
+builds one per level of a forward that a gradient will be taken through and
+hands it to every layer there; a layer called without one leaves it to the
+gathers' backwards.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ from ..ops.graph import (
     compact_top_k_nodes,
     gather_neighbors,
     masked_softmax,
+    real_edge_index,
     scatter_nodes,
     symmetric_norm,
 )
 from ..ops.kernels.gather_agg import weighted_gather_sum
+from ..ops.kernels.neighbor_transpose import transpose_for_backward
 from .layers import Dense, LayerNorm, dropout, gelu
 
 
@@ -55,7 +63,7 @@ class GraphConvolution(nn.Module):
         self.edge_lin = Dense(edge_dim, features, bias=False, dtype=dtype) if edge_dim else None
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, nbr_idx, nbr_mask, edge_attr=None, edge_weight=None):
+    def forward(self, x, nbr_idx, nbr_mask, edge_attr=None, edge_weight=None, nbr_t=None):
         h = self.lin(x)
         nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
         norm, self_norm = symmetric_norm(nbr_idx, nbr_mask)
@@ -63,7 +71,7 @@ class GraphConvolution(nn.Module):
         if edge_weight is not None:
             weight = weight * edge_weight.to(h.dtype)
         weight = weight * nbr_mask.to(h.dtype)
-        agg = weighted_gather_sum(h, nbr_idx, weight.float()).to(h.dtype)
+        agg = weighted_gather_sum(h, nbr_idx, weight.float(), nbr_t).to(h.dtype)
         if self.edge_lin is not None and edge_attr is not None:
             e_sum = (edge_attr.to(h.dtype) * weight[..., None]).sum(-2)
             agg = agg + self.edge_lin(e_sum)
@@ -100,12 +108,12 @@ class DynamicGraphLayer(nn.Module):
 
     def forward(self, x, nbr_idx, nbr_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, nbr_t=None):
         heads = (self.num_heads, self.features // self.num_heads)
         nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
         x_in = self.in_proj(x) if self.in_proj is not None else x
         q = self.q_proj(x_in).unflatten(-1, heads)                 # [B, N, H, D]
-        k_nbr = gather_neighbors(self.k_proj(x_in), nbr_idx)       # [B, N, K, H*D]
+        k_nbr = gather_neighbors(self.k_proj(x_in), nbr_idx, nbr_t)   # [B, N, K, H*D]
         scores = torch.einsum("...nhd,...nkhd->...nkh", q,
                               k_nbr.unflatten(-1, heads)).float()
         if edge_attr is not None and self.edge_k_proj is not None:
@@ -126,10 +134,10 @@ class DynamicGraphLayer(nn.Module):
         if not deterministic:
             attn = dropout(attn, self.dropout, generator)
         edge_weight = attn.mean(-1)                                    # [B, N, K]
-        h = gelu(self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight))
+        h = gelu(self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t))
         if not deterministic:
             h = dropout(h, self.dropout, generator)
-        h = self.conv2(h, nbr_idx, nbr_mask, edge_attr, edge_weight)
+        h = self.conv2(h, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t)
         out = self.norm(x_in + h)
         if return_attention:
             return out, attn
@@ -190,25 +198,32 @@ class GraphUNet(nn.Module):
 
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, nbr_t=None):
+        """``nbr_t``: nbr_idx's transposed list where the caller has built it;
+        the pooled levels' lists are built here, for their indices with the
+        edges pooling dropped pointed outside [0, N) (``real_edge_index``)."""
         rand = dict(deterministic=deterministic, generator=generator)
         if self.in_proj is not None:
             x = self.in_proj(x)
         h = x
         idxs, kmask, nodem, ea = nbr_idx, nbr_mask, node_mask, edge_attr
+        tr = transpose_for_backward(idxs) if nbr_t is None else nbr_t
         skips, levels = [], []
         for d in range(self.depth):
-            h = getattr(self, f"down{d}")(h, idxs, kmask & nodem[..., None], ea, **rand)
+            h = getattr(self, f"down{d}")(h, idxs, kmask & nodem[..., None], ea, **rand,
+                                          nbr_t=tr)
             skips.append(h)
             c = getattr(self, f"pool{d}")(h, nodem, idxs, kmask, ea)
             levels.append((idxs, kmask, nodem, ea, h.shape[-2],
-                           c["sel_idx"], c["node_mask"]))
-            h, idxs, kmask = c["x"], c["nbr_idx"], c["nbr_mask"]
-            nodem, ea = c["node_mask"], c["edge_attr"]
-        h = self.bottleneck(h, idxs, kmask & nodem[..., None], ea, **rand)
+                           c["sel_idx"], c["node_mask"], tr))
+            kmask, nodem, ea = c["nbr_mask"], c["node_mask"], c["edge_attr"]
+            h, idxs = c["x"], real_edge_index(c["nbr_idx"], kmask & nodem[..., None])
+            tr = transpose_for_backward(idxs)
+        h = self.bottleneck(h, idxs, kmask & nodem[..., None], ea, **rand, nbr_t=tr)
         for d in reversed(range(self.depth)):
-            idxs, kmask, nodem, ea, n_d, sel, sel_valid = levels[d]
+            idxs, kmask, nodem, ea, n_d, sel, sel_valid, tr = levels[d]
             h = scatter_nodes(h, sel, n_d, valid=sel_valid) + skips[d]
-            h = getattr(self, f"up{d}")(h, idxs, kmask & nodem[..., None], ea, **rand)
+            h = getattr(self, f"up{d}")(h, idxs, kmask & nodem[..., None], ea, **rand,
+                                        nbr_t=tr)
         out = self.out_norm(h + x)
         return out * node_mask[..., None].to(out.dtype)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .kernels.gather_rows import gather_rows, index_in_range
+from .kernels.neighbor_transpose import NeighborTranspose
 
 _FIELDS = ("x", "pos", "nbr_idx", "nbr_mask", "edge_attr", "node_mask", "y")
 
@@ -67,11 +68,26 @@ class PaddedGraph:
                                if getattr(self, f) is not None})
 
 
-def gather_neighbors(x: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
+def gather_neighbors(x: torch.Tensor, nbr_idx: torch.Tensor,
+                     nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """Gather neighbor rows: x [B, N, F], nbr_idx [B, N, K] -> [B, N, K, F].
 
-    An index outside [0, N) gives a zero row."""
-    return gather_rows(x, nbr_idx)
+    An index outside [0, N) gives a zero row. ``nbr_t``: nbr_idx's
+    transposed list for the backward, where the caller has it."""
+    return gather_rows(x, nbr_idx, nbr_t)
+
+
+def real_edge_index(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor) -> torch.Tensor:
+    """``nbr_idx`` with every masked-off slot set to -1, outside [0, N).
+
+    Padding rows and the edges that pooling drops keep index 0 in the padded
+    format, so node 0 would collect thousands of slots in a backward. They
+    carry zero weight in every layer (the per-edge softmax, the degree
+    normalization and the message weights all read the mask), and a gather
+    treats an index outside [0, N) as a zero row that adds nothing: pointing
+    them outside changes no forward value, and their zero cotangents are no
+    longer summed into node 0."""
+    return torch.where(nbr_mask, nbr_idx, torch.full_like(nbr_idx, -1))
 
 
 def gather_scalar(values: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,11 @@ from .gather_agg import KERNEL as GATHER_AGG
 from .gather_agg import KERNEL_BWD as GATHER_AGG_BWD
 from .gather_rows import KERNEL as GATHER_ROWS
 from .gather_rows import KERNEL_BWD as GATHER_ROWS_BWD
+from .neighbor_transpose import KERNEL as NEIGHBOR_TRANSPOSE
 
 KERNELS = {"gather_rows": GATHER_ROWS, "gather_agg": GATHER_AGG,
            "gather_rows_bwd": GATHER_ROWS_BWD, "gather_agg_bwd": GATHER_AGG_BWD,
+           "neighbor_transpose": NEIGHBOR_TRANSPOSE,
            "flash_spatial_packed": FLASH_SPATIAL_PACKED, "flash_spatial": FLASH_SPATIAL}
 
 

@@ -10,10 +10,13 @@ file has the details.
 
 The backward has no TPU kernel (the JAX package's is XLA, ``_vjp_bwd`` in the
 same file: a scatter-add for ``dh``, a gathered dot for ``dw``); here it is
-``csrc/gather_agg_bwd.cu``, one kernel for both halves that forms no
-``[B, N, K, F]`` tensor. On CUDA tensors ``weighted_gather_sum`` is a
-``torch.autograd.Function`` over the two kernels; on CPU tensors it is the
-plain version under plain autograd.
+``csrc/gather_agg_bwd.cu``, one launch for both halves that forms no
+``[B, N, K, F]`` tensor: ``dw`` per source row, ``dh`` as a gather-sum over
+the transposed neighbor list (``neighbor_transpose.py``) in a fixed order,
+so both are bit-reproducible. ``weighted_gather_sum`` is a
+``torch.autograd.Function``: on CUDA tensors over the two kernels, on CPU
+tensors over their plain versions. It takes idx's transposed list as
+``nbr_t`` where the caller has it and builds it in its backward where not.
 
 An index outside ``[0, N)`` contributes nothing in both versions (the TPU
 one-hot kernel's zero row): ``dw`` is 0 there and ``dh`` gets nothing.
@@ -27,7 +30,13 @@ from typing import Optional, Tuple
 import torch
 
 from .build import CudaKernel
-from .gather_rows import gather_rows_plain, scatter_add_rows
+from .gather_rows import gather_rows_plain, rows_aligned, transposed_sum
+from .neighbor_transpose import (
+    NeighborTranspose,
+    check_transpose,
+    neighbor_transpose,
+    neighbor_transpose_plain,
+)
 
 KERNEL = CudaKernel("gather_agg", "gather_agg_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # h, idx, w, out
@@ -36,9 +45,9 @@ KERNEL = CudaKernel("gather_agg", "gather_agg_launch", [
 
 KERNEL_BWD = CudaKernel("gather_agg_bwd", "gather_agg_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, h, idx, w
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # acc, dh, dw
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, slots, dh, dw
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
-    ctypes.c_int, ctypes.c_void_p])                                      # bf16?, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # bf16?, vec?, stream
 
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -50,13 +59,20 @@ def weighted_gather_sum_plain(h: torch.Tensor, idx: torch.Tensor,
 
 
 def weighted_gather_sum_bwd_plain(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
-                                  w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward: g [B, N, F] -> (dh [B, N, F] in
-    h's dtype, dw [B, N, K] f32), both summed in f32."""
+                                  w: torch.Tensor, nbr_t: Optional[NeighborTranspose] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, in the kernel's form: g [B, N, F]
+    -> (dh [B, N, F] in h's dtype, each row a gather-sum of the f32 products
+    w·g over its slots of the transposed list, built here when ``nbr_t`` is
+    None, summed in f64; dw [B, N, K] f32, a dot per slot in f64), each
+    rounded once."""
+    b, n, k = idx.shape
     g = g.float()
-    dh = scatter_add_rows(idx, w[..., None] * g[:, :, None, :], h.shape[1]).to(h.dtype)
-    dw = torch.einsum("bnkf,bnf->bnk", gather_rows_plain(h, idx).float(), g)
-    return dh, dw
+    nbr_t = neighbor_transpose_plain(idx) if nbr_t is None else nbr_t
+    contrib = (w[..., None] * g[:, :, None, :]).reshape(b, n * k, -1)
+    dh = transposed_sum(nbr_t, contrib, n).to(h.dtype)
+    dw = torch.einsum("bnkf,bnf->bnk", gather_rows_plain(h, idx).double(), g.double())
+    return dh, dw.float()
 
 
 def _check(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
@@ -90,13 +106,15 @@ def _launch_fwd(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
 
 
 def weighted_gather_sum_bwd(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
-                            w: torch.Tensor, need_dh: bool = True, need_dw: bool = True
+                            w: torch.Tensor, need_dh: bool = True, need_dw: bool = True,
+                            nbr_t: Optional[NeighborTranspose] = None
                             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(dh, dw) of ``weighted_gather_sum`` for the cotangent g [B, N, F] f32,
-    by the CUDA kernel; a half that is not needed is skipped and comes back
-    as None. All tensors contiguous, on one CUDA device. ``dh`` is summed
-    with f32 atomic adds in no fixed order, so it is not bit-reproducible
-    from run to run; ``dw`` is."""
+    by the CUDA kernel in one launch; a half that is not needed is skipped
+    and comes back as None. All tensors contiguous, on one CUDA device.
+    ``nbr_t`` is idx's transposed list, built here when None and dh is
+    needed. Both halves are summed in a fixed order: bit-identical from run
+    to run."""
     _check(h, idx, w)
     if g.shape != h.shape or g.dtype != torch.float32 or g.device != h.device:
         raise ValueError(f"need f32 g {tuple(h.shape)} on {h.device}, got "
@@ -107,48 +125,61 @@ def weighted_gather_sum_bwd(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
         raise ValueError("weighted_gather_sum_bwd needs contiguous g, h, idx and w")
     b, n, f = h.shape
     k = idx.shape[-1]
-    bf16 = h.dtype == torch.bfloat16
-    acc = dh = dw = None
+    dh = torch.empty_like(h) if need_dh else None
+    dw = torch.empty((b, n, k), dtype=torch.float32, device=h.device) if need_dw else None
     if need_dh:
-        acc = torch.empty((b, n, f), dtype=torch.float32, device=h.device)
-        dh = torch.empty_like(acc, dtype=torch.bfloat16) if bf16 else acc
-    if need_dw:
-        dw = torch.empty((b, n, k), dtype=torch.float32, device=h.device)
-    if (need_dh or need_dw) and h.numel() + w.numel() > 0:
+        if nbr_t is None:
+            nbr_t = neighbor_transpose(idx)
+        check_transpose(nbr_t, idx)
+    if (need_dh or need_dw) and b * n > 0:
         def ptr(t):
             return None if t is None else t.data_ptr()
+        offsets, slots = (None, None) if nbr_t is None else nbr_t
+        vec = rows_aligned(f, h, *([] if dh is None else [dh])) and g.data_ptr() % 16 == 0
         with torch.cuda.device(h.device):
             KERNEL_BWD.launch(g.data_ptr(), h.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                              ptr(acc), ptr(dh), ptr(dw), b, n, k, f, int(bf16),
+                              ptr(offsets), ptr(slots), ptr(dh), ptr(dw), b, n, k, f,
+                              int(h.dtype == torch.bfloat16), int(vec),
                               torch.cuda.current_stream().cuda_stream)
     return dh, dw
 
 
 class _WeightedGatherSum(torch.autograd.Function):
-    """Forward and backward kernels on the card."""
+    """The kernels on CUDA tensors, their plain versions on CPU tensors.
+    ``offsets`` and ``slots`` are idx's transposed list, or both None."""
 
     @staticmethod
-    def forward(ctx, h, idx, w):
-        ctx.save_for_backward(h, idx, w)
+    def forward(ctx, h, idx, w, offsets, slots):
+        ctx.save_for_backward(h, idx, w, offsets, slots)
+        if h.device.type == "cpu":
+            return weighted_gather_sum_plain(h, idx, w)
         return _launch_fwd(h, idx, w)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        h, idx, w = ctx.saved_tensors
-        dh, dw = weighted_gather_sum_bwd(g.float().contiguous(), h, idx, w,
-                                         ctx.needs_input_grad[0], ctx.needs_input_grad[2])
-        return dh, None, dw
+        h, idx, w, offsets, slots = ctx.saved_tensors
+        nbr_t = None if offsets is None else NeighborTranspose(offsets, slots)
+        need_dh, need_dw = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
+        if g.device.type == "cpu":
+            dh, dw = weighted_gather_sum_bwd_plain(g, h, idx, w, nbr_t)
+            dh, dw = (dh if need_dh else None), (dw if need_dw else None)
+        else:
+            dh, dw = weighted_gather_sum_bwd(g.float().contiguous(), h, idx, w, need_dh,
+                                             need_dw, nbr_t)
+        return dh, None, dw, None, None
 
 
-def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor,
-                        w: torch.Tensor) -> torch.Tensor:
+def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                        nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n] = Σ_k w[b, n, k] · h[b, idx[b, n, k]]``: the CUDA kernels
-    (forward and backward) for CUDA tensors, the plain version for CPU
-    tensors. [B, N, F] f32 out."""
+    (forward and backward) for CUDA tensors, the plain versions for CPU
+    tensors. [B, N, F] f32 out. ``nbr_t``: idx's transposed list for the
+    backward, where the caller has it."""
     _check(h, idx, w)
-    if h.device.type == "cpu":
-        return weighted_gather_sum_plain(h, idx, w)
-    if h.device.type != "cuda":
+    if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"weighted_gather_sum runs on cuda or cpu, not {h.device}")
-    return _WeightedGatherSum.apply(h, idx, w)
+    offsets, slots = (None, None) if nbr_t is None else nbr_t
+    if nbr_t is not None:
+        check_transpose(nbr_t, idx)
+    return _WeightedGatherSum.apply(h, idx, w, offsets, slots)

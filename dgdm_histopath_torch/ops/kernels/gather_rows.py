@@ -9,10 +9,15 @@ in the .cu file has the details.
 
 The backward, ``dsrc[b, m, :] = Σ_{(n,k): idx[b,n,k]=m} g[b, n, k, :]``,
 replaces ``gather_rows.py::_bwd_kernel`` and is ``csrc/gather_rows_bwd.cu``:
-a scatter with f32 atomic adds into an f32 accumulator, rounded once to g's
-dtype (the TPU kernel's f32 accumulate, then cast). On a CUDA tensor
-``gather_rows`` is a ``torch.autograd.Function`` over the two kernels; on a
-CPU tensor it is the plain version under plain autograd.
+a gather-sum over the transposed neighbor list (``neighbor_transpose.py``),
+each destination row summing its own slots in a fixed order, in f64, and
+rounding once to g's dtype (the TPU kernel accumulates in f32, then casts;
+f64 keeps the thousands of terms of a hub row exact), so it is
+bit-reproducible. ``gather_rows`` is a ``torch.autograd.Function``:
+on a CUDA tensor over the two kernels, on a CPU tensor over their plain
+versions. It takes the transposed list of ``idx`` as ``nbr_t`` where the
+caller has it (a model builds one per level) and builds it in its backward
+where not.
 
 An index outside ``[0, N)`` gives a zero row in both versions (the TPU
 one-hot kernel's result), where ``take_along_axis`` would clamp; in the
@@ -22,11 +27,17 @@ backward it adds nothing.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .build import CudaKernel
+from .neighbor_transpose import (
+    NeighborTranspose,
+    check_transpose,
+    neighbor_transpose,
+    neighbor_transpose_plain,
+)
 
 KERNEL = CudaKernel("gather_rows", "gather_rows_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # src, idx, out
@@ -34,9 +45,9 @@ KERNEL = CudaKernel("gather_rows", "gather_rows_launch", [
     ctypes.c_int64, ctypes.c_void_p])                        # row bytes, stream
 
 KERNEL_BWD = CudaKernel("gather_rows_bwd", "gather_rows_bwd_launch", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, idx, acc, out
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, offsets, slots, out
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
-    ctypes.c_int, ctypes.c_void_p])                                      # bf16?, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # bf16?, vec?, stream
 
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -60,21 +71,35 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                                            device=src.device))
 
 
-def scatter_add_rows(idx: torch.Tensor, contrib: torch.Tensor, n: int) -> torch.Tensor:
-    """f32 ``[B, n, F]`` sum of the rows ``contrib [B, N, K, F]`` at ``idx``
-    (``index_add_``); an index outside [0, n) adds nothing."""
-    b, f = contrib.shape[0], contrib.shape[-1]
-    valid, safe = index_in_range(idx, n)
-    flat = (safe + n * torch.arange(b, device=idx.device).view(b, 1, 1)).reshape(-1)
-    rows = (contrib.float() * valid[..., None]).reshape(-1, f)
-    acc = torch.zeros(b * n, f, dtype=torch.float32, device=contrib.device)
-    return acc.index_add_(0, flat, rows).view(b, n, f)
+def transposed_sum(nbr_t: NeighborTranspose, rows: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain gather-sum over a transposed list: ``out[b, m] = Σ_{s in T(b, m)}
+    rows[b, s]`` for rows [B, S, F] (S = N·K slots) -> f32 [B, n, F], summed
+    in f64 as the kernels sum (a hub row's thousands of terms stay exact to
+    below f32 rounding) and rounded once. Shapes depend on no data (no host
+    sync), so it runs in a CUDA graph."""
+    offsets, slots = nbr_t
+    b, s_len, f = rows.shape
+    batch = torch.arange(b, device=rows.device).view(b, 1)
+    # the destination of list position p: offsets[m] <= p < offsets[m + 1];
+    # positions past a graph's last group (its -1 tail) land in row n, dropped
+    pos = torch.arange(s_len, device=rows.device).expand(b, s_len).contiguous()
+    dest = torch.searchsorted(offsets[:, 1:].long().contiguous(), pos, right=True)
+    src = slots.long().clamp_min(0) + s_len * batch
+    acc = torch.zeros(b * (n + 1), f, dtype=torch.float64, device=rows.device)
+    acc.index_add_(0, (dest + (n + 1) * batch).reshape(-1),
+                   rows.reshape(-1, f).double()[src.reshape(-1)])
+    return acc.view(b, n + 1, f)[:, :n].float()
 
 
-def gather_rows_bwd_plain(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the backward: idx [B, N, K], g [B, N, K, F]
-    -> dsrc [B, N, F] in g's dtype, summed in f32."""
-    return scatter_add_rows(idx, g, g.shape[1]).to(g.dtype)
+def gather_rows_bwd_plain(idx: torch.Tensor, g: torch.Tensor,
+                          nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
+    """Plain PyTorch version of the backward, in the kernel's gather form:
+    idx [B, N, K], g [B, N, K, F] -> dsrc [B, N, F] in g's dtype, each row
+    summed in f64 over its slots of the transposed list (built here when
+    ``nbr_t`` is None) and rounded once through f32."""
+    b, n, k, f = g.shape
+    nbr_t = neighbor_transpose_plain(idx) if nbr_t is None else nbr_t
+    return transposed_sum(nbr_t, g.reshape(b, n * k, f), n).to(g.dtype)
 
 
 def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
@@ -105,11 +130,19 @@ def _launch_fwd(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_rows_bwd(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """``dsrc[b, m] = Σ_{(n,k): idx[b,n,k]=m} g[b, n, k]`` by the CUDA kernel.
-    idx [B, N, K] int32, g [B, N, K, F] bf16|f32, both contiguous CUDA
-    tensors -> [B, N, F] in g's dtype. The sums are f32 atomic adds in no
-    fixed order, so the result is not bit-reproducible from run to run."""
+def rows_aligned(f: int, *tensors: torch.Tensor) -> bool:
+    """Whether rows of F elements of each tensor start on 16 bytes, so the
+    backward kernels take 16-byte loads."""
+    return all((f * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def gather_rows_bwd(idx: torch.Tensor, g: torch.Tensor,
+                    nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
+    """``dsrc[b, m] = Σ_{(n,k): idx[b,n,k]=m} g[b, n, k]`` by the CUDA kernel,
+    one launch. idx [B, N, K] int32, g [B, N, K, F] bf16|f32, both contiguous
+    CUDA tensors -> [B, N, F] in g's dtype. ``nbr_t`` is idx's transposed list
+    (``neighbor_transpose``), built here when None. The sums run in a fixed
+    order: the result is bit-identical from run to run."""
     if g.dim() != 4 or g.shape[:3] != idx.shape or g.dtype not in DTYPES:
         raise ValueError(f"need g [B, N, K, F] bf16|f32 for idx {tuple(idx.shape)}, got "
                          f"{tuple(g.shape)} {g.dtype}")
@@ -117,40 +150,50 @@ def gather_rows_bwd(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows_bwd needs g and int32 idx on one CUDA device")
     if not (g.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_rows_bwd needs contiguous g and idx")
+    if nbr_t is None:
+        nbr_t = neighbor_transpose(idx)
+    check_transpose(nbr_t, idx)
     b, n, k, f = g.shape
-    acc = torch.empty((b, n, f), dtype=torch.float32, device=g.device)
-    bf16 = g.dtype == torch.bfloat16
-    out = torch.empty_like(acc, dtype=torch.bfloat16) if bf16 else acc
-    if acc.numel() == 0:
+    out = torch.empty((b, n, f), dtype=g.dtype, device=g.device)
+    if out.numel() == 0:
         return out
     with torch.cuda.device(g.device):
-        KERNEL_BWD.launch(g.data_ptr(), idx.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                          b, n, k, f, int(bf16), torch.cuda.current_stream().cuda_stream)
+        KERNEL_BWD.launch(g.data_ptr(), nbr_t.offsets.data_ptr(), nbr_t.slots.data_ptr(),
+                          out.data_ptr(), b, n, k, f, int(g.dtype == torch.bfloat16),
+                          int(rows_aligned(f, g, out)), torch.cuda.current_stream().cuda_stream)
     return out
 
 
 class _GatherRows(torch.autograd.Function):
-    """Forward and backward kernels on the card."""
+    """The kernels on a CUDA tensor, their plain versions on a CPU tensor.
+    ``offsets`` and ``slots`` are idx's transposed list, or both None."""
 
     @staticmethod
-    def forward(ctx, src, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, src, idx, offsets, slots):
+        ctx.save_for_backward(idx, offsets, slots)
+        if src.device.type == "cpu":
+            return gather_rows_plain(src, idx)
         return _launch_fwd(src, idx)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        return gather_rows_bwd(idx, g.contiguous()), None
+        idx, offsets, slots = ctx.saved_tensors
+        nbr_t = None if offsets is None else NeighborTranspose(offsets, slots)
+        bwd = gather_rows_bwd_plain if g.device.type == "cpu" else gather_rows_bwd
+        return bwd(idx, g.contiguous(), nbr_t), None, None, None
 
 
-def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n, k] = src[b, idx[b, n, k]]``: the CUDA kernels (forward and
-    backward) for a CUDA tensor, the plain version for a CPU tensor.
-    src [B, N, F] bf16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's dtype."""
+    backward) for a CUDA tensor, the plain versions for a CPU tensor.
+    src [B, N, F] bf16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's dtype.
+    ``nbr_t``: idx's transposed list for the backward, where the caller has it."""
     _check(src, idx)
-    if src.device.type == "cpu":
-        return gather_rows_plain(src, idx)
-    if src.device.type != "cuda":
+    if src.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_rows runs on cuda or cpu, not {src.device}")
-    return _GatherRows.apply(src, idx)
+    offsets, slots = (None, None) if nbr_t is None else nbr_t
+    if nbr_t is not None:
+        check_transpose(nbr_t, idx)
+    return _GatherRows.apply(src, idx, offsets, slots)

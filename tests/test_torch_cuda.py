@@ -7,9 +7,11 @@ has only PyTorch:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: gather_rows is a copy (bit-equal); gather_agg sums K f32 terms
-in another order than the plain version (1e-5); the two backward kernels sum
-with f32 atomic adds in no fixed order (1e-5 in f32; in bf16 one ulp of the
-plain result, which rounds the same f32 sums once); the f32 model on the
+in another order than the plain version (1e-5); the transposed neighbor
+list is fixed by idx (bit-equal); the two backward kernels sum each row in
+f32 in a fixed order of their own, other than the plain version's (1e-5 in
+f32; in bf16 one ulp of the plain result, which rounds the same f32 sums
+once), and give bit-identical results from call to call; the f32 model on the
 card against the same model on the CPU differs by f32 rounding (1e-4), and
 its training step's gradients by 1e-3 of each tensor's largest entry.
 """
@@ -32,12 +34,21 @@ from dgdm_histopath_torch.ops.kernels.gather_agg import (
 from dgdm_histopath_torch.ops.kernels.gather_rows import (
     gather_rows,
     gather_rows_bwd,
+    gather_rows_bwd_plain,
     gather_rows_plain,
-    scatter_add_rows,
+)
+from dgdm_histopath_torch.ops.kernels.neighbor_transpose import (
+    neighbor_transpose,
+    neighbor_transpose_plain,
 )
 from dgdm_histopath_torch.training import DGDMTrainer, TrainerConfig
 
 SHAPES = [(32, 1024, 8, 128), (3, 100, 5, 24), (2, 37, 40, 5)]
+# the backward kernels at the DGDM-Base levels, the DGDM-Large levels and
+# the ragged shapes; "hub" sends half the slots to node 0, as pooling does
+BWD_SHAPES = [(32, 1024, 8, 128), (32, 512, 8, 128), (32, 256, 8, 128),
+              (4, 2048, 8, 128), (4, 1024, 8, 128), (4, 512, 8, 128),
+              (3, 100, 5, 24), (2, 37, 40, 5)]
 NO_FLASH = {"flash_spatial_packed": 0, "flash_spatial": 0}   # no model path launches them
 
 
@@ -48,11 +59,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _data(device, b, n, k, f, dtype, seed=0):
-    """idx spans [-2, n+2): out-of-range indices must give zero rows."""
+def _data(device, b, n, k, f, dtype, seed=0, hub=False):
+    """idx spans [-2, n+2): out-of-range indices must give zero rows. With
+    ``hub`` half the slots point at node 0."""
     g = torch.Generator(device=device).manual_seed(seed)
     src = torch.randn(b, n, f, device=device, generator=g).to(dtype)
     idx = torch.randint(-2, n + 2, (b, n, k), device=device, generator=g, dtype=torch.int32)
+    if hub:
+        idx[torch.rand(b, n, k, device=device, generator=g) < 0.5] = 0
     w = torch.rand(b, n, k, device=device, generator=g)
     return src, idx, w
 
@@ -102,40 +116,82 @@ def _assert_scatter_close(out, ref32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_gather_rows_bwd_kernel_matches_plain_on_card(cuda_device, dtype, shape):
-    _, idx, _ = _data(cuda_device, *shape, dtype)
-    b, n, k, f = shape
-    g = torch.randn(b, n, k, f, device=cuda_device).to(dtype)
-    count = kernels.GATHER_ROWS_BWD.launches
-    out = gather_rows_bwd(idx, g)
+@pytest.mark.parametrize("shape", [(32, 1024, 8), (4, 2048, 8), (3, 100, 5), (2, 37, 40),
+                                   (2, 3000, 8), (2, 5, 0)])
+@pytest.mark.parametrize("hub", [False, True])
+def test_neighbor_transpose_kernel_bit_equal_on_card(cuda_device, shape, hub):
+    """N = 3000 keeps its counters in global scratch, the rest in shared memory."""
+    _, idx, _ = _data(cuda_device, *shape, 4, torch.float32, hub=hub)
+    count = kernels.NEIGHBOR_TRANSPOSE.launches
+    out = neighbor_transpose(idx)
     torch.cuda.synchronize()
-    assert kernels.GATHER_ROWS_BWD.launches == count + 1
-    assert out.dtype == dtype and out.shape == (b, n, f)
-    _assert_scatter_close(out, scatter_add_rows(idx, g, n))
+    assert kernels.NEIGHBOR_TRANSPOSE.launches == count + 1
+    ref = neighbor_transpose_plain(idx)
+    assert torch.equal(out.offsets, ref.offsets) and torch.equal(out.slots, ref.slots)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_gather_agg_bwd_kernel_matches_plain_on_card(cuda_device, dtype, shape):
-    h, idx, w = _data(cuda_device, *shape, dtype)
-    g = torch.randn(h.shape, device=cuda_device)
-    count = kernels.GATHER_AGG_BWD.launches
-    dh, dw = weighted_gather_sum_bwd(g, h, idx, w)
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("hub", [False, True])
+def test_gather_rows_bwd_kernel_matches_plain_on_card(cuda_device, dtype, shape, hub):
+    _, idx, _ = _data(cuda_device, *shape, dtype, hub=hub)
+    b, n, k, f = shape
+    g = torch.randn(b, n, k, f, device=cuda_device).to(dtype)
+    nbr_t = neighbor_transpose(idx)
     torch.cuda.synchronize()
-    assert kernels.GATHER_AGG_BWD.launches == count + 1
+    kernels.reset_launch_counts()
+    out = gather_rows_bwd(idx, g, nbr_t)
+    again = gather_rows_bwd(idx, g, nbr_t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.KERNELS, 0),
+                                       "gather_rows_bwd": 2}     # one launch a call
+    assert out.dtype == dtype and out.shape == (b, n, f)
+    assert torch.equal(out, again)
+    _assert_scatter_close(out, gather_rows_bwd_plain(idx, g.float()))
+    assert torch.equal(gather_rows_bwd(idx, g), out)              # the list built inside
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("hub", [False, True])
+def test_gather_agg_bwd_kernel_matches_plain_on_card(cuda_device, dtype, shape, hub):
+    h, idx, w = _data(cuda_device, *shape, dtype, hub=hub)
+    g = torch.randn(h.shape, device=cuda_device)
+    nbr_t = neighbor_transpose(idx)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    dh, dw = weighted_gather_sum_bwd(g, h, idx, w, nbr_t=nbr_t)
+    dh2, dw2 = weighted_gather_sum_bwd(g, h, idx, w, nbr_t=nbr_t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**dict.fromkeys(kernels.KERNELS, 0),
+                                       "gather_agg_bwd": 2}      # one launch a call
     assert dh.dtype == dtype and dw.dtype == torch.float32
-    _assert_scatter_close(dh, scatter_add_rows(idx, w[..., None] * g[:, :, None, :],
-                                               h.shape[1]))
-    torch.testing.assert_close(dw, weighted_gather_sum_bwd_plain(g, h, idx, w)[1],
-                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(dh, dh2) and torch.equal(dw, dw2)
+    ref_dh, ref_dw = weighted_gather_sum_bwd_plain(g, h.float(), idx, w, nbr_t)
+    _assert_scatter_close(dh, ref_dh)
+    torch.testing.assert_close(dw, ref_dw, atol=1e-5, rtol=1e-5)
     only_dh, no_dw = weighted_gather_sum_bwd(g, h, idx, w, need_dw=False)
     no_dh, only_dw = weighted_gather_sum_bwd(g, h, idx, w, need_dh=False)
-    assert no_dw is None and no_dh is None and torch.equal(only_dw, dw)
-    _assert_scatter_close(only_dh, scatter_add_rows(
-        idx, w[..., None] * g[:, :, None, :], h.shape[1]))
+    assert no_dw is None and no_dh is None
+    assert torch.equal(only_dw, dw) and torch.equal(only_dh, dh)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_take_rows_that_are_not_16_byte_aligned_on_card(cuda_device):
+    """A cotangent that starts 4 bytes into its storage takes the one-feature
+    path; the sums are those of the aligned call."""
+    _, idx, w = _data(cuda_device, 2, 64, 8, 128, torch.float32)
+    h = torch.randn(2, 64, 128, device=cuda_device)
+    g4 = torch.randn(2 * 64 * 8 * 128 + 1, device=cuda_device)[1:].view(2, 64, 8, 128)
+    g3 = torch.randn(2 * 64 * 128 + 1, device=cuda_device)[1:].view(2, 64, 128)
+    assert g4.data_ptr() % 16 and g3.data_ptr() % 16 and g4.is_contiguous()
+    _assert_scatter_close(gather_rows_bwd(idx, g4), gather_rows_bwd(idx, g4.clone()))
+    dh, dw = weighted_gather_sum_bwd(g3, h, idx, w)
+    ref_dh, ref_dw = weighted_gather_sum_bwd(g3.clone(), h, idx, w)
+    _assert_scatter_close(dh, ref_dh)
+    torch.testing.assert_close(dw, ref_dw, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -152,8 +208,12 @@ def test_autograd_through_the_wrappers_runs_the_backward_kernels_on_card(cuda_de
     d_h, d_w = torch.autograd.grad(weighted_gather_sum(src, idx, w), (src, w), g3)
     (only_w,) = torch.autograd.grad(weighted_gather_sum(src.detach(), idx, w), w, g3)
     torch.cuda.synchronize()
+    # the gathers called alone build their transposed lists in their
+    # backwards: one for gather_rows, one for the dh half of gather_agg (the
+    # dw-only backward needs none)
     assert kernels.launch_counts() == {"gather_rows": 1, "gather_agg": 2,
-                                       "gather_rows_bwd": 1, "gather_agg_bwd": 2, **NO_FLASH}
+                                       "gather_rows_bwd": 1, "gather_agg_bwd": 2,
+                                       "neighbor_transpose": 2, **NO_FLASH}
     (p_rows,) = torch.autograd.grad(gather_rows_plain(src, idx), src, g4)
     p_h, p_w = torch.autograd.grad(weighted_gather_sum_plain(src, idx, w), (src, w), g3)
     for got, want in ((d_rows, p_rows), (d_h, p_h), (d_w, p_w), (only_w, p_w)):
@@ -195,7 +255,8 @@ def test_small_model_on_card_matches_cpu_and_launches_the_kernels(cuda_device):
     kernels.reset_launch_counts()
     _card_vs_cpu(card, cpu, batch, cuda_device)
     assert kernels.launch_counts() == {"gather_rows": 7, "gather_agg": 14,   # 2 + 5 layers
-                                       "gather_rows_bwd": 0, "gather_agg_bwd": 0, **NO_FLASH}
+                                       "gather_rows_bwd": 0, "gather_agg_bwd": 0,
+                                       "neighbor_transpose": 0, **NO_FLASH}
 
 
 @pytest.mark.cuda
@@ -233,8 +294,9 @@ def test_training_step_on_card_matches_cpu_and_launches_all_four_kernels(cuda_de
                             {k: p.detach().cpu() for k, p in model.named_parameters()})
     (m_cpu, c_cpu, g_cpu, p_cpu), (m_card, c_card, g_card, p_card) = out["cpu"], out["cuda"]
     assert c_cpu == dict.fromkeys(c_cpu, 0)
-    assert c_card == {"gather_rows": 7, "gather_agg": 14,
-                      "gather_rows_bwd": 7, "gather_agg_bwd": 14, **NO_FLASH}
+    assert c_card == {"gather_rows": 7, "gather_agg": 14,      # one list per U-Net level
+                      "gather_rows_bwd": 7, "gather_agg_bwd": 14, "neighbor_transpose": 3,
+                      **NO_FLASH}
     assert abs(m_cpu["loss"] - m_card["loss"]) <= 1e-4
     floor = 1e-3 * max(float(g.abs().max()) for g in g_cpu.values())
     for key, ref in g_cpu.items():

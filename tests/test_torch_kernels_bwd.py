@@ -1,6 +1,8 @@
 """The plain versions of the port's backward gather kernels against the JAX
 package: the Pallas ``gather_rows`` backward in interpret mode, ``jax.grad``
 through the Pallas forwards, and the XLA vjp of ``weighted_gather_sum``.
+The plain versions have the kernels' gather form: each destination row sums
+its slots of the transposed neighbor list (``neighbor_transpose.py``).
 
 Everything is f32 on the CPU unless a test says bf16. The scatter sums run
 in another order than JAX's: up to K·(collisions) f32 terms per row, so the
@@ -17,10 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from dgdm_histopath_tpu.ops.pallas.gather_agg import _vjp_bwd as j_wgs_vjp_bwd
 from dgdm_histopath_tpu.ops.pallas.gather_agg import weighted_gather_sum as j_wgs
 from dgdm_histopath_tpu.ops.pallas.gather_rows import _bwd_pallas
 from dgdm_histopath_tpu.ops.pallas.gather_rows import gather_rows as j_gather_rows
+from dgdm_histopath_torch.nn.layers import init_parameters
+from dgdm_histopath_torch.models.dgdm import DGDMModel
 from dgdm_histopath_torch.ops import kernels
+from dgdm_histopath_torch.ops.kernels import neighbor_transpose as nt
 from dgdm_histopath_torch.ops.kernels.gather_agg import (
     weighted_gather_sum,
     weighted_gather_sum_bwd,
@@ -135,8 +141,9 @@ def test_plain_backwards_are_the_autograd_of_the_plain_forwards(lo, hi):
 
 
 def test_wrappers_pass_gradcheck_on_the_cpu():
-    """The CPU path is the plain forward under plain autograd; the wrappers
-    take f32 and bf16 only, so gradcheck runs in f32 with loose steps."""
+    """The CPU path is the autograd Function over the plain forward and the
+    plain gather-form backward; the wrappers take f32 and bf16 only, so
+    gradcheck runs in f32 with loose steps."""
     _, h, idx, w, _ = _data(b=1, n=6, k=3, f=4, seed=2)
     ti = torch.from_numpy(idx)
     src = h.clone().requires_grad_()
@@ -180,4 +187,125 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors_and_launch_nothing():
                                 torch.from_numpy(w))
     assert kernels.launch_counts() == before
     assert set(before) == {"gather_rows", "gather_agg", "gather_rows_bwd", "gather_agg_bwd",
-                           "flash_spatial_packed", "flash_spatial"}
+                           "neighbor_transpose", "flash_spatial_packed", "flash_spatial"}
+
+
+def _case(case, dtype, seed=7):
+    """(g4, h, idx, w, g3) of a named case: ``ragged`` (N 100, K 5, F 24),
+    ``out_of_range`` (indices in [-3, N+3)) and ``hub`` (half the slots at
+    node 0, as pooling leaves them), all at B 2."""
+    b, n, k, f = (2, 100, 5, 24) if case == "ragged" else (2, 128, 8, 32)
+    rs = np.random.RandomState(seed)
+    tdt = DT[dtype][0]
+    g4 = torch.from_numpy(rs.randn(b, n, k, f).astype(np.float32)).to(tdt)
+    h = torch.from_numpy(rs.randn(b, n, f).astype(np.float32)).to(tdt)
+    lo, hi = (-3, n + 3) if case == "out_of_range" else (0, n)
+    idx = rs.randint(lo, hi, size=(b, n, k)).astype(np.int32)
+    if case == "hub":
+        idx[rs.rand(b, n, k) < 0.5] = 0
+    w = rs.rand(b, n, k).astype(np.float32)
+    g3 = rs.randn(b, n, f).astype(np.float32)
+    return g4, h, idx, w, g3
+
+
+def _pallas_bwd_padded(idx, g4, dtype):
+    """The Pallas backward in interpret mode; N padded to its 128-row tile
+    with rows that index nothing and carry zero cotangents."""
+    b, n, k, f = g4.shape
+    pad = -n % 128
+    idx_p = np.pad(idx, ((0, 0), (0, pad), (0, 0)), constant_values=-1)
+    g_p = np.pad(g4.float().numpy(), ((0, 0), (0, pad), (0, 0), (0, 0)))
+    ref = _bwd_pallas(jnp.asarray(idx_p), jnp.asarray(g_p, DT[dtype][1]), n + pad,
+                      DT[dtype][1], interpret=True)
+    return np.asarray(ref.astype(DT[dtype][1]), np.float32)[:, :n]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["ragged", "out_of_range", "hub"])
+def test_gather_form_plain_backwards_match_the_jax_backwards(case, dtype):
+    """The gather-form plain versions (what the kernels are held to on the
+    card) against the Pallas gather_rows backward and the XLA vjp of
+    weighted_gather_sum, on the same numpy inputs: 1e-5 in f32, one bf16
+    ulp in bf16 (both sides sum in f32 and round once)."""
+    g4, h, idx, w, g3 = _case(case, dtype)
+    ti = torch.from_numpy(idx)
+    dsrc = gather_rows_bwd_plain(ti, g4)
+    ref = _pallas_bwd_padded(idx, g4, dtype)
+    # the XLA vjp has no out-of-range rule (its take fills NaN): it gets the
+    # in-range slots only, which is what "adds nothing" means
+    bad = (idx < 0) | (idx >= idx.shape[1])
+    (ref_dh, _, ref_dw) = j_wgs_vjp_bwd(
+        None, (_jax(h, dtype), jnp.asarray(np.where(bad, 0, idx)),
+               jnp.asarray(np.where(bad, 0.0, w).astype(np.float32))), jnp.asarray(g3))
+    ref_dw = np.where(bad, 0.0, np.asarray(ref_dw))
+    dh, dw = weighted_gather_sum_bwd_plain(torch.from_numpy(g3), h, ti, torch.from_numpy(w))
+    assert dsrc.dtype == g4.dtype and dh.dtype == h.dtype and dw.dtype == torch.float32
+    np.testing.assert_allclose(dw.numpy(), np.asarray(ref_dw), atol=1e-5, rtol=1e-5)
+    if dtype == "float32":
+        np.testing.assert_allclose(dsrc.numpy(), ref, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(dh.numpy(), np.asarray(ref_dh), atol=1e-5, rtol=1e-5)
+    else:
+        _assert_within_one_bf16_ulp(dsrc.float().numpy(), ref)
+        _assert_within_one_bf16_ulp(dh.float().numpy(), np.asarray(ref_dh, np.float32))
+    assert bad.any() == (case == "out_of_range") and (dw.numpy()[bad] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["ragged", "out_of_range", "hub"])
+def test_a_given_transposed_list_gives_the_same_sums_as_one_built_inside(case):
+    g4, h, idx, w, g3 = _case(case, "float32")
+    ti, tw, tg3 = torch.from_numpy(idx), torch.from_numpy(w), torch.from_numpy(g3)
+    t = nt.neighbor_transpose(ti)
+    assert torch.equal(gather_rows_bwd_plain(ti, g4, t), gather_rows_bwd_plain(ti, g4))
+    for a, b in zip(weighted_gather_sum_bwd_plain(tg3, h, ti, tw, t),
+                    weighted_gather_sum_bwd_plain(tg3, h, ti, tw)):
+        assert torch.equal(a, b)
+    # and through the wrappers' autograd on the CPU
+    src, w1 = h.clone().requires_grad_(), tw.clone().requires_grad_()
+    with_t = torch.autograd.grad(weighted_gather_sum(src, ti, w1, t), (src, w1), tg3)
+    without = torch.autograd.grad(weighted_gather_sum(src, ti, w1), (src, w1), tg3)
+    assert all(torch.equal(a, b) for a, b in zip(with_t, without))
+    (r_with,) = torch.autograd.grad(gather_rows(src, ti, t), src, g4)
+    (r_without,) = torch.autograd.grad(gather_rows(src, ti), src, g4)
+    assert torch.equal(r_with, r_without)
+    with pytest.raises(ValueError, match="does not fit"):
+        gather_rows(src, ti, nt.neighbor_transpose(ti[:, :-1]))
+
+
+def test_a_small_base_step_gives_the_same_gradients_with_and_without_the_list(monkeypatch):
+    """A small DGDM-Base pretrain step (f32, the U-Net's three levels) on the
+    CPU: with the transposed lists built once per level in the forward and
+    handed to every layer, and without (each gather builds its own in its
+    backward). Same lists, same sums: the gradients are equal."""
+    from test_torch_training import KW, make_batch, to_torch_graph
+    from dgdm_histopath_torch.training import DGDMTrainer, TrainerConfig
+
+    tbatch = to_torch_graph(make_batch())
+    b, n = tbatch.node_mask.shape
+    gen = torch.Generator().manual_seed(0)
+    draws = {"masked": (torch.rand(b, n, generator=gen) < 0.15) & tbatch.node_mask,
+             "t": torch.randint(0, 3, (b,), generator=gen),
+             "noise": torch.randn(b, n, KW["hidden_dims"][-1], generator=gen),
+             "uniform": torch.rand(b, n, generator=gen)}
+    built = []
+    real_build = nt.neighbor_transpose
+
+    def counted_build(idx):
+        built.append(tuple(idx.shape))
+        return real_build(idx)
+
+    monkeypatch.setattr(nt, "neighbor_transpose", counted_build)
+
+    def grads():
+        tm = init_parameters(DGDMModel(**KW), torch.Generator().manual_seed(0))
+        loss, _ = DGDMTrainer(tm, TrainerConfig(), device="cpu")._pretrain_losses(tbatch, draws)
+        loss.backward()
+        return {k: p.grad.clone() for k, p in tm.named_parameters() if p.grad is not None}
+
+    without = grads()
+    assert built == []                          # nothing built in a CPU forward by default
+    monkeypatch.setattr(nt, "BUILD_DEVICES", ("cuda", "cpu"))
+    with_lists = grads()
+    assert built == [(b, n, 8), (b, n // 2, 8), (b, n // 4, 8)]   # once per level
+    assert with_lists.keys() == without.keys() and len(without) > 10
+    for key, g in without.items():
+        assert torch.equal(with_lists[key], g), key
