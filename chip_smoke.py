@@ -7,7 +7,8 @@ Phases, each of which raises on a failed check:
   1. environment: torch/CUDA versions and the card's name and power limit;
   2. build: nvcc builds every kernel under dgdm_histopath_torch/csrc/, and
      the registers, spills and static shared memory ptxas reported for each
-     flash kernel instantiation;
+     instantiation of the forward aggregation, backward, list and flash
+     kernels;
   3. kernels: each of the four gather kernels (the two gathers and their
      backwards) and the transposed neighbor list the backwards read, against
      its plain PyTorch version on the card at the shapes both model paths
@@ -42,8 +43,8 @@ Phases, each of which raises on a failed check:
      seed giving the same first loss), 2 finetune steps with labels, one
      validation step, one f32 step on the card against the CPU on 2 graphs
      with injected draws, step time, peak memory and a profiled step; the
-     backward kernels and the list build timed on the three neighbor-index
-     tensors of one real pretrain step;
+     forward aggregation, the backward kernels and the list build timed on
+     the three neighbor-index tensors of one real pretrain step;
   7. flash module: ``SpatialAttention(128, 8, use_flash=True)`` on B=32,
      N=1024 in bf16 against the same module with ``use_flash=False`` (one
      packed launch, outputs within tolerance, peak memory of both), in f32 at
@@ -54,7 +55,12 @@ Phases, each of which raises on a failed check:
      with 2000 real nodes: predict_batch, one /predict request, pretrain and
      finetune training steps and a validation step, each with its kernel
      launch counts, step time, peak memory, a profile, and f32 card-vs-CPU
-     checks on 2 graphs.
+     checks on 2 graphs;
+  9. remat, last: three DGDM-Base pretrain steps with ``use_remat=True``
+     against three with ``use_remat=False`` (the GraphEncoder layers
+     checkpointed): equal losses and gradient norms, launch counts (the 4
+     encoder layers' gathers run again in the backward), peak memory and
+     device time of both.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -86,28 +92,36 @@ K = 8
 # aggregations per forward, and a training step adds one backward launch for
 # each. Large is windowed + banded (W = 128) and its graphs are band-exact.
 BASE = dict(preset="dgdm-base", label="DGDM-Base", batch=32, bucket=1024, n_real=1000,
-            features=768, layers=9, window=None, dropout=0.1, pretrain_steps=8)
+            features=768, layers=9, encoder_layers=4, window=None, dropout=0.1,
+            pretrain_steps=8)
 LARGE = dict(preset="dgdm-large", label="DGDM-Large", batch=4, bucket=2048, n_real=2000,
-             features=1024, layers=11, window=128, dropout=0.15, pretrain_steps=8)
+             features=1024, layers=11, encoder_layers=6, window=128, dropout=0.15,
+             pretrain_steps=8)
 WARMUP_STEPS = 2
 
 
-def expected_launches(cell: dict, training: bool) -> dict:
+def expected_launches(cell: dict, training: bool, remat: bool = False) -> dict:
     """Launches of one forward (or one training step) of a model cell. A
     training step builds one transposed neighbor list per U-Net level (3 in
-    both cells), a forward without a gradient none. No DGDMModel path reaches
-    the flash kernels, as in the JAX package."""
+    both cells), a forward without a gradient none. With ``use_remat`` a
+    training step runs the forward of each GraphEncoder layer again in its
+    backward (one key gather, two conv aggregations each) and builds no list
+    there. No DGDMModel path reaches the flash kernels, as in the JAX
+    package."""
     layers = cell["layers"]
     bwd = layers if training else 0
-    return {"gather_rows": layers, "gather_agg": 2 * layers, "gather_rows_bwd": bwd,
-            "gather_agg_bwd": 2 * bwd, "neighbor_transpose": 3 if training else 0,
+    again = cell["encoder_layers"] if training and remat else 0
+    return {"gather_rows": layers + again, "gather_agg": 2 * (layers + again),
+            "gather_rows_bwd": bwd, "gather_agg_bwd": 2 * bwd,
+            "neighbor_transpose": 3 if training else 0,
             "flash_spatial_packed": 0, "flash_spatial": 0}
 
 
 PORT_KERNEL_NAMES = ("gather_rows_kernel", "gather_agg_kernel", "gather_rows_bwd_kernel",
                      "gather_agg_bwd_kernel", "neighbor_transpose_kernel", "flash_spatial")
 # sources whose ptxas report (registers, spills per kernel) the build phase prints
-PTXAS_SOURCES = ("gather_rows_bwd", "gather_agg_bwd", "neighbor_transpose", "flash_spatial")
+PTXAS_SOURCES = ("gather_agg", "gather_rows_bwd", "gather_agg_bwd", "neighbor_transpose",
+                 "flash_spatial")
 # (B, N, real nodes, H, D): DGDM-Base, DGDM-Large, a head-major width
 FLASH_SHAPES = [(32, 1024, 1000, 8, 16), (4, 2048, 2000, 16, 8), (8, 1024, 1000, 4, 64)]
 
@@ -297,6 +311,36 @@ def backward_checks(torch, gen, src, idx, w, tag, out: dict, timed: bool) -> Non
             bytes=tbytes))
 
 
+def gather_agg_row(torch, src, idx, w, tag: dict) -> dict:
+    """The forward aggregation kernel at one shape: held to its plain version
+    (1e-5: both sum K f32 terms, in other orders), its device time, the plain
+    version's and the library call's (``torch.sparse.mm`` of the CSR
+    adjacency), and its bound (each input read once, f32 out written once)."""
+    from dgdm_histopath_torch.ops.kernels.gather_agg import (
+        weighted_gather_sum, weighted_gather_sum_plain)
+
+    b, n, f = src.shape
+    k = idx.shape[-1]
+    agg = weighted_gather_sum(src, idx, w)
+    ref = weighted_gather_sum_plain(src, idx, w)
+    torch.cuda.synchronize()
+    err = (agg - ref).abs().max().item()
+    if not torch.allclose(agg, ref, atol=1e-5, rtol=1e-5):
+        raise AssertionError(f"gather_agg off its plain version by {err} at {tag}")
+    abytes = b * n * f * src.element_size() + 2 * b * n * k * 4 + b * n * f * 4
+    flops = 2 * b * n * k * f
+    t_bytes = abytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    lib_ms, lib_dtype = sparse_mm_ms(torch, idx, w, src)
+    return dict(tag, max_abs_err=err,
+                ms=device_ms(torch, lambda: weighted_gather_sum(src, idx, w)),
+                plain_ms=device_ms(torch, lambda: weighted_gather_sum_plain(src, idx, w)),
+                library_ms=lib_ms, library=f"torch.sparse.mm(A CSR, h) {lib_dtype}",
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=abytes,
+                flops=flops)
+
+
 def log_kernel_rows(out: dict, names) -> None:
     for name in names:
         r = out[name][-1]
@@ -339,25 +383,7 @@ def kernel_phase(torch) -> dict:
                 library="torch.gather", bound_ms=rbytes / HBM_BYTES_PER_S * 1e3,
                 bound_by="bytes", bytes=rbytes))
 
-            agg = weighted_gather_sum(src, idx, w)
-            ref = weighted_gather_sum_plain(src, idx, w)
-            torch.cuda.synchronize()
-            err = (agg - ref).abs().max().item()
-            if not torch.allclose(agg, ref, atol=1e-5, rtol=1e-5):
-                raise AssertionError(f"gather_agg off its plain version by {err} at {tag}")
-            abytes = b * n * f * e + 2 * b * n * k * 4 + b * n * f * 4
-            flops = 2 * b * n * k * f
-            t_bytes = abytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOPS_PER_S * 1e3
-            lib_ms, lib_dtype = sparse_mm_ms(torch, idx, w, src)
-            out["gather_agg"].append(dict(
-                tag, max_abs_err=err,
-                ms=device_ms(torch, lambda: weighted_gather_sum(src, idx, w)),
-                plain_ms=device_ms(torch, lambda: weighted_gather_sum_plain(src, idx, w)),
-                library_ms=lib_ms, library=f"torch.sparse.mm(A CSR, h) {lib_dtype}",
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=abytes,
-                flops=flops))
+            out["gather_agg"].append(gather_agg_row(torch, src, idx, w, tag))
             backward_checks(torch, gen, src, idx, w, tag, out, timed=True)
             log_kernel_rows(out, ("gather_rows", "gather_agg", "gather_rows_bwd",
                                   "gather_agg_bwd")
@@ -401,18 +427,22 @@ def kernel_phase(torch) -> dict:
 
 
 def real_step_phase(torch, captured) -> dict:
-    """The list kernel and both backward kernels (bf16, F 128) on the
-    neighbor-index tensors of one real DGDM-Base pretrain step, one per U-Net
-    level, with the hub rows that compact pooling leaves at node 0."""
+    """The forward aggregation kernel, the list kernel and both backward
+    kernels (bf16, F 128) on the neighbor-index tensors of one real DGDM-Base
+    pretrain step, one per U-Net level, with the slots that padding and
+    pooling mask off pointed at -1 (``real_edge_index``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    out = {name: [] for name in ("gather_rows_bwd", "gather_agg_bwd", "neighbor_transpose")}
+    out = {name: [] for name in ("gather_agg", "gather_rows_bwd", "gather_agg_bwd",
+                                 "neighbor_transpose")}
     for idx in captured:
         b, n, k = idx.shape
         src = torch.randn(b, n, 128, device="cuda", generator=gen).to(torch.bfloat16)
         w = torch.rand(b, n, k, device="cuda", generator=gen)
         tag = dict(shape=[b, n, k, 128], dtype="bfloat16", case="real Base step")
+        out["gather_agg"].append(gather_agg_row(torch, src, idx, w, tag))
         backward_checks(torch, gen, src, idx, w, tag, out, timed=True)
-        log_kernel_rows(out, ("neighbor_transpose", "gather_rows_bwd", "gather_agg_bwd"))
+        log_kernel_rows(out, ("gather_agg", "neighbor_transpose", "gather_rows_bwd",
+                              "gather_agg_bwd"))
     return out
 
 
@@ -1093,6 +1123,64 @@ def training_phase(torch, graphs, card: str, cell: dict, captured=None) -> tuple
     return launches, timing, parity
 
 
+def remat_phase(torch, graphs, card: str, cell: dict) -> dict:
+    """``use_remat=True`` against ``use_remat=False`` on the cell's pretrain
+    step at full width, from one seed: each way, one counted step (the
+    counters set to 0 just before it and read just after), a second step
+    whose peak ``max_memory_allocated`` is kept, and a profiled third. Each
+    step's loss and gradient norm are held equal between the two ways within
+    1e-6 of their size (the recompute runs the same kernels on the same
+    inputs and replays the same dropout draws). The first update has rate 0
+    (warm-up), so a wrong recompute shows in the gradient norms of every
+    step and, through the second update, in the third step's loss."""
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, batch_graphs, create_model
+    from dgdm_histopath_torch.ops import kernels
+
+    batch = batch_graphs(graphs).to("cuda")
+    res = {}
+    for remat in (False, True):
+        model = create_model(cell["preset"], num_classes=2, compute_dtype="bfloat16",
+                             device="cuda", seed=0, use_remat=remat)
+        trainer = DGDMTrainer(model, TrainerConfig(
+            warmup_steps=WARMUP_STEPS, steps_per_epoch=cell["pretrain_steps"],
+            pretrain_epochs=1, max_epochs=2), device="cuda")
+        trainer.init_state(seed=0, example_batch=batch)
+        kernels.reset_launch_counts()
+        steps = [trainer.training_step(batch, 0)]
+        launches = kernels.launch_counts()
+        expected = expected_launches(cell, training=True, remat=remat)
+        if launches != expected:
+            raise AssertionError(f"use_remat={remat}: kernel launches {launches}, expected "
+                                 f"{expected}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps.append(trainer.training_step(batch, 0))
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        profile = profile_call(torch, lambda: steps.append(trainer.training_step(batch, 0)),
+                               f"{cell['label']} pretrain step, use_remat={remat}")
+        profile.pop("top")
+        res[remat] = {"launches": launches, "loss": [m["loss"] for m in steps],
+                      "grad_norm": [m["grad_norm"] for m in steps], "peak_gib": peak_gib,
+                      "profile": profile}
+        del trainer, model
+        torch.cuda.empty_cache()
+    off, on = res[False], res[True]
+    rel = {key: max(abs(a - b) / abs(b) for a, b in zip(on[key], off[key]))
+           for key in ("loss", "grad_norm")}
+    log(f"remat: {cell['label']} batch {cell['batch']} pretrain steps, use_remat on / off: "
+        f"launches {on['launches']} / {off['launches']}; losses {on['loss']} / "
+        f"{off['loss']}; gradient norms {on['grad_norm']} / {off['grad_norm']} (largest "
+        f"relative difference {rel['loss']:.3e} / {rel['grad_norm']:.3e}, <= 1e-6); peak "
+        f"{on['peak_gib']:.3f} / {off['peak_gib']:.3f} GiB; device "
+        f"{on['profile']['device_busy_ms']} / {off['profile']['device_busy_ms']} ms in "
+        f"{on['profile'].get('kernel_launches')} / {off['profile'].get('kernel_launches')} "
+        f"kernels [{card}]")
+    if max(rel.values()) > 1e-6:
+        raise AssertionError(f"use_remat changes the steps: relative differences {rel}")
+    return {"on": on, "off": off, "max_rel_diff": rel, "card": card}
+
+
 def train_step_card_vs_cpu(torch, graphs, cell: dict) -> dict:
     """One f32 pretrain step (dropout 0) with the same injected draws on the
     card (kernels, forward and backward) and on the CPU (plain versions):
@@ -1175,7 +1263,6 @@ def main() -> int:
     captured = []
     train_launches, train_timing, train_parity = training_phase(torch, graphs, card, BASE,
                                                                 captured)
-    del graphs
     torch.cuda.empty_cache()
     real_step = real_step_phase(torch, captured)
     del captured
@@ -1193,6 +1280,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     l_train_launches, l_train_timing, l_train_parity = training_phase(
         torch, large_graphs, card, LARGE)
+    del large_graphs
+    torch.cuda.empty_cache()
+
+    # last, so that every phase above runs as it did before this phase existed
+    remat = remat_phase(torch, graphs, card, BASE)
+    del graphs
+    torch.cuda.empty_cache()
 
     replaces = {   # kernel -> (its source, the TPU code it stands in for)
         "gather_rows": ("gather_rows.cu", "dgdm_histopath_tpu/ops/pallas/gather_rows.py:56"),
@@ -1214,6 +1308,7 @@ def main() -> int:
     for name, (source, where) in replaces.items():
         main_shape = kern[name][0]                 # the first shape timed, bf16
         by_path = {"predict_batch": launches[name], "training_step": train_launches[name],
+                   "training_step_use_remat": remat["on"]["launches"][name],
                    "large_predict_batch": l_launches[name],
                    "large_training_step": l_train_launches[name],
                    "spatial_attention_use_flash": (
@@ -1253,7 +1348,7 @@ def main() -> int:
     log("details: " + json.dumps({"ptxas": ptxas, "kernels": kern, "real_step": real_step,
                                   "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
-                                  "training_parity": train_parity,
+                                  "training_parity": train_parity, "remat": remat,
                                   "flash_module": flash_module,
                                   "large": {"model": l_timing, "parity": l_parity,
                                             "server": l_server,

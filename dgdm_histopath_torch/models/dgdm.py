@@ -84,7 +84,7 @@ class DGDMModel(nn.Module):
                                               normalization, dropout, dtype)
         self.graph_encoder = GraphEncoder(hidden, hidden, graph_layers, attention_heads,
                                           edge_features, activation, dropout, dtype,
-                                          band_window=graph_window)
+                                          band_window=graph_window, remat=use_remat)
         if use_spatial_attention:
             self.spatial_attention = SpatialAttention(
                 hidden, attention_heads, dropout, window_size=spatial_window, dtype=dtype,

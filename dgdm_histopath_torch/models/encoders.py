@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..nn.graph_layers import DynamicGraphLayer
@@ -60,14 +61,22 @@ class GraphEncoder(nn.Module):
     ``band_window`` makes every layer banded (``nn/graph_layers.py``).
     Every layer reads one transposed list of ``nbr_idx`` (``nbr_t``, built
     here when the caller has none and a gradient will be taken).
+
+    ``remat`` (the reference's ``nn.remat`` of each layer): where a gradient
+    is recorded and no attention is returned, each layer runs under
+    ``torch.utils.checkpoint``, so its activations are recomputed in the
+    backward instead of kept (:meth:`_checkpointed`). The activation and
+    dropout after each layer stay outside, as in the reference.
     Returns ``{"embeddings", "layer_outputs"[, "attentions"]}``."""
 
     def __init__(self, in_features: int, hidden_dim: int, num_layers: int = 4,
                  num_heads: int = 8, edge_dim: Optional[int] = 3,
                  activation: str = "gelu", dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None):
+                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None,
+                 remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         self.dropout = dropout
         self.act = get_activation(activation)
         self.input_proj = Dense(in_features, hidden_dim, dtype=dtype)
@@ -89,12 +98,17 @@ class GraphEncoder(nn.Module):
         if edge_attr is not None and self.edge_proj is not None:
             e = self.edge_proj(edge_attr.to(h.dtype))
         masked_nbr = nbr_mask & node_mask[..., None]
+        remat = (self.remat and not return_attention and torch.is_grad_enabled()
+                 and (x.requires_grad or any(p.requires_grad for p in self.parameters())))
         layer_outputs, attentions = [], []
         for i in range(self.num_layers):
-            res = getattr(self, f"layer{i}")(h, nbr_idx, masked_nbr, e,
-                                             return_attention=return_attention,
-                                             deterministic=deterministic,
-                                             generator=generator, nbr_t=nbr_t)
+            layer = getattr(self, f"layer{i}")
+            if remat:
+                res = self._checkpointed(layer, h, nbr_idx, masked_nbr, e, deterministic,
+                                         generator, nbr_t)
+            else:
+                res = layer(h, nbr_idx, masked_nbr, e, return_attention=return_attention,
+                            deterministic=deterministic, generator=generator, nbr_t=nbr_t)
             if return_attention:
                 h, attn = res
                 attentions.append(attn)
@@ -109,3 +123,36 @@ class GraphEncoder(nn.Module):
         if return_attention:
             result["attentions"] = attentions
         return result
+
+    @staticmethod
+    def _checkpointed(layer, h, nbr_idx, nbr_mask, e, deterministic, generator, nbr_t):
+        """``layer`` under a non-reentrant checkpoint. Its dropout draws come
+        from ``generator``, whose state ``checkpoint`` does not save (its
+        ``preserve_rng_state`` covers only the global generators): the
+        recompute sets the generator back to its state before the first run,
+        so it draws the same masks, and then puts back the state it found, so
+        the draws after the backward are those of a step without remat.
+        Dropout from the global generator (``generator=None``) is replayed by
+        ``checkpoint`` itself. ``nbr_t`` and ``e`` come in as inputs: the
+        recompute builds no list."""
+        saved = None if deterministic or generator is None else generator.get_state()
+        first = True
+
+        def run(h, nbr_idx, nbr_mask, e, nbr_t):
+            nonlocal first
+            found = None
+            if not first and saved is not None:   # the recompute replays the draws
+                found = generator.get_state()
+                generator.set_state(saved)
+            first = False
+            try:
+                return layer(h, nbr_idx, nbr_mask, e, deterministic=deterministic,
+                             generator=generator, nbr_t=nbr_t)
+            finally:                              # also when the recompute stops early
+                if found is not None:
+                    generator.set_state(found)
+
+        return torch.utils.checkpoint.checkpoint(run, h, nbr_idx, nbr_mask, e, nbr_t,
+                                                 use_reentrant=False,
+                                                 preserve_rng_state=(not deterministic
+                                                                     and generator is None))

@@ -3,10 +3,13 @@
 
 Replaces ``dgdm_histopath_tpu/ops/pallas/gather_agg.py::_kernel``, the
 message sum of each ``GraphConvolution``. The CUDA kernel is
-``csrc/gather_agg.cu``: one warp per destination row, idx and w loaded once
-per row, the K-term sum in f32 registers. It is bound on the H100 by bytes
-(~8 us at B=32, N=1024, K=8, F=128 bf16 h); the source note in the .cu
-file has the details.
+``csrc/gather_agg.cu``: a group of lanes per destination row (a half-warp
+at F=128 bf16), its indices and weights loaded once, the h loads of eight
+slots issued before the first FMA (16 bytes a lane where rows are 16-byte
+aligned), the K-term sum in f32 registers in k order; K=8 is compiled apart.
+Its bound on the H100 is bytes (~8 us at B=32, N=1024, K=8, F=128 bf16 h);
+the K-fold re-reads of h from L2 keep it at ~1.5x that (the source note in
+the .cu file has the details).
 
 The backward has no TPU kernel (the JAX package's is XLA, ``_vjp_bwd`` in the
 same file: a scatter-add for ``dh``, a gathered dot for ``dw``); here it is
@@ -95,6 +98,9 @@ def _launch_fwd(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
         raise ValueError("weighted_gather_sum needs contiguous h, idx and w")
     b, n, f = h.shape
     k = idx.shape[-1]
+    if max(b * n, k, f) >= 2 ** 31:
+        raise ValueError(f"weighted_gather_sum takes B * N, K and F below 2^31, got "
+                         f"{b * n}, {k}, {f}")
     out = torch.empty((b, n, f), dtype=torch.float32, device=h.device)
     if out.numel() == 0:
         return out

@@ -7,7 +7,9 @@ has only PyTorch:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: gather_rows is a copy (bit-equal); gather_agg sums K f32 terms
-in another order than the plain version (1e-5); the transposed neighbor
+in another order than the plain version (1e-5); a training step with
+``use_remat`` recomputes the same kernels on the same inputs (1e-6 of each
+gradient tensor's largest entry against the plain step); the transposed neighbor
 list is fixed by idx (bit-equal); the two backward kernels sum each row in
 f32 in a fixed order of their own, other than the plain version's (1e-5 in
 f32; in bf16 one ulp of the plain result, which rounds the same f32 sums
@@ -50,6 +52,10 @@ BWD_SHAPES = [(32, 1024, 8, 128), (32, 512, 8, 128), (32, 256, 8, 128),
               (4, 2048, 8, 128), (4, 1024, 8, 128), (4, 512, 8, 128),
               (3, 100, 5, 24), (2, 37, 40, 5)]
 NO_FLASH = {"flash_spatial_packed": 0, "flash_spatial": 0}   # no model path launches them
+# gather_agg: K = 8 compiled apart for 16-byte lanes, any other K (and every K
+# on one-element lanes, F = 5 here) in chunks of 8 (33 crosses four chunks);
+# F 24 takes a group of 4 lanes, 128 and 256 one of 16 or 32 (bf16)
+AGG_SHAPES = SHAPES + [(3, 200, k, f) for k in (5, 8, 16, 33) for f in (24, 128, 256)]
 
 
 @pytest.fixture
@@ -85,15 +91,45 @@ def test_gather_rows_kernel_bit_equal_on_card(cuda_device, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", AGG_SHAPES)
 def test_gather_agg_kernel_matches_plain_on_card(cuda_device, dtype, shape):
+    """Indices -2 .. N+1 and N + 3 at some slots: out of range adds nothing."""
     src, idx, w = _data(cuda_device, *shape, dtype)
+    idx[:, ::7, 0] = shape[1] + 3
+    idx[:, 1::7, -1] = -1
     count = kernels.GATHER_AGG.launches
     out = weighted_gather_sum(src, idx, w)
     torch.cuda.synchronize()
     assert kernels.GATHER_AGG.launches == count + 1
     torch.testing.assert_close(out, weighted_gather_sum_plain(src, idx, w),
                                atol=1e-5, rtol=1e-5)
+    ok = (idx >= 0) & (idx < shape[1])
+    torch.testing.assert_close(out, weighted_gather_sum_plain(src, idx.clamp(0, shape[1] - 1),
+                                                              w * ok), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [5, 8])
+def test_gather_agg_kernel_takes_inputs_that_are_not_16_byte_aligned_on_card(cuda_device,
+                                                                            dtype, k):
+    """h, idx and w that start one element into their storage take the
+    one-element path and the any-K path; the sums are those of the aligned
+    call and of the plain version."""
+    b, n, f = 3, 200, 128
+    src, idx, w = _data(cuda_device, b, n, k, f, dtype)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    s2, i2, w2 = shifted(src), shifted(idx), shifted(w)
+    assert s2.data_ptr() % 16 and i2.data_ptr() % 16 and w2.data_ptr() % 16
+    out = weighted_gather_sum(s2, i2, w2)
+    torch.testing.assert_close(out, weighted_gather_sum(src, idx, w), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out, weighted_gather_sum_plain(src, idx, w), atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -302,6 +338,40 @@ def test_training_step_on_card_matches_cpu_and_launches_all_four_kernels(cuda_de
     for key, ref in g_cpu.items():
         scale = max(float(ref.abs().max()), floor)
         assert float((g_card[key] - ref).abs().max()) <= 1e-3 * scale, key
+
+
+@pytest.mark.cuda
+def test_remat_training_step_on_card_matches_the_plain_step(cuda_device):
+    """A small DGDM-Base (4 graph-encoder layers + 5 U-Net layers, dropout
+    0.1) trained one step with and without ``use_remat`` from one seed: equal
+    losses, gradients within 1e-6 of each tensor's largest entry, the same
+    generator state after the step; the recompute runs the 4 checkpointed
+    layers' gathers again (13 / 26 against 9 / 18) and builds no list."""
+    _, _, batch = _small_pair(cuda_device)
+    batch = batch.to(cuda_device)
+    out = {}
+    for remat in (False, True):
+        model = create_model("dgdm-base", num_classes=3, device=cuda_device,
+                             node_features=32, hidden_dims=(64, 32), graph_layers=4,
+                             compute_dtype="float32", dropout=0.1, use_remat=remat)
+        trainer = DGDMTrainer(model, TrainerConfig(warmup_steps=0, learning_rate=1e-3),
+                              device=cuda_device)
+        trainer.init_state(0)
+        kernels.reset_launch_counts()
+        metrics = trainer.training_step(batch, 0)
+        torch.cuda.synchronize()
+        out[remat] = (metrics, kernels.launch_counts(), trainer.generator.get_state(),
+                      {k: p.grad.clone() for k, p in model.named_parameters()
+                       if p.grad is not None})
+    (m_off, c_off, s_off, g_off), (m_on, c_on, s_on, g_on) = out[False], out[True]
+    assert c_off == {"gather_rows": 9, "gather_agg": 18, "gather_rows_bwd": 9,
+                     "gather_agg_bwd": 18, "neighbor_transpose": 3, **NO_FLASH}
+    assert c_on == {**c_off, "gather_rows": 13, "gather_agg": 26}
+    assert m_on["loss"] == pytest.approx(m_off["loss"], rel=0, abs=1e-6 * abs(m_off["loss"]))
+    assert torch.equal(s_on, s_off)
+    assert g_on.keys() == g_off.keys()
+    for key, ref in g_off.items():
+        assert float((g_on[key] - ref).abs().max()) <= 1e-6 * float(ref.abs().max()), key
 
 
 # ---------------------------------------------------------------------------

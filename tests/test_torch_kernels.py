@@ -116,6 +116,17 @@ def test_weighted_gather_sum_rejects_non_f32_weights():
         weighted_gather_sum(src, torch.from_numpy(idx), torch.from_numpy(w).double())
 
 
+def test_gather_agg_launch_refuses_more_rows_than_the_kernel_indexes():
+    """The kernel indexes rows, K and F in 32 bits; the launch path refuses
+    more before it allocates or builds anything (meta tensors, no card)."""
+    from dgdm_histopath_torch.ops.kernels.gather_agg import _launch_fwd
+    h = torch.empty(2 ** 16, 2 ** 15, 1, dtype=torch.bfloat16, device="meta")
+    idx = torch.empty(2 ** 16, 2 ** 15, 1, dtype=torch.int32, device="meta")
+    w = torch.empty(2 ** 16, 2 ** 15, 1, device="meta")
+    with pytest.raises(ValueError, match="below 2"):
+        _launch_fwd(h, idx, w)
+
+
 def test_build_is_keyed_on_source_hash_and_needs_nvcc(monkeypatch, tmp_path):
     srcs = {s.stem: s for s in build.sources()}
     assert set(srcs) == {"gather_rows", "gather_agg", "gather_rows_bwd", "gather_agg_bwd",
