@@ -56,11 +56,21 @@ Phases, each of which raises on a failed check:
      finetune training steps and a validation step, each with its kernel
      launch counts, step time, peak memory, a profile, and f32 card-vs-CPU
      checks on 2 graphs;
-  9. remat, last: three DGDM-Base pretrain steps with ``use_remat=True``
+  9. remat: three DGDM-Base pretrain steps with ``use_remat=True``
      against three with ``use_remat=False`` (the GraphEncoder layers
      checkpointed): equal losses and gradient norms, launch counts (the 4
      encoder layers' gathers run again in the backward), peak memory and
-     device time of both.
+     device time of both;
+ 10. whole slide, last: a synthetic 20x slide (a 3 x 3 mosaic of 4096²
+     fields made in worker processes, >= 1000 tissue patches) through
+     ``DGDMPredictor(feature_extractor="dinov2", stain_normalize=True)``
+     with DGDM-Base: the featurizer's throughput over 1024 patches against
+     its bound, ``predict_slide`` pipelined and serial (9 + 18 gather
+     launches each, the same prediction, the stage timings, peak memory),
+     the two gathers at the slide graph's shape (B 1, N 1024, K 24) against
+     their plain versions, Macenko's stain matrices, the kNN graph and the
+     f32 featurizer on the card against the CPU, and one /predict_slide
+     request over HTTP on a deflate-tiled TIFF.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -98,6 +108,14 @@ LARGE = dict(preset="dgdm-large", label="DGDM-Large", batch=4, bucket=2048, n_re
              features=1024, layers=11, encoder_layers=6, window=128, dropout=0.15,
              pretrain_steps=8)
 WARMUP_STEPS = 2
+# The whole-slide cell: DGDM-Base behind the slide pipeline with the
+# reference's defaults (256-px patches at 20x, at most 1000 a slide, the
+# dinov2 ViT-B/16 featurizer at 224 in batches of 256, Macenko on the card,
+# the 1024 bucket, 8 + 16 = 24 neighbours). The slide: a 3 x 3 mosaic of
+# 4096² synthetic fields (12288² at level 0, 4 levels), 14 tissue blobs a
+# field so that it yields well over 1000 tissue patches.
+SLIDE = dict(preset="dgdm-base", fields=3, field_px=4096, levels=4, num_blobs=14,
+             min_patches=1000, bucket=1024, k=24, throughput_patches=1024, http_px=2048)
 
 
 def expected_launches(cell: dict, training: bool, remat: bool = False) -> dict:
@@ -311,6 +329,29 @@ def backward_checks(torch, gen, src, idx, w, tag, out: dict, timed: bool) -> Non
             bytes=tbytes))
 
 
+def gather_rows_row(torch, src, idx, tag: dict) -> dict:
+    """The key-gather kernel at one shape: bit-equal to its plain version,
+    its device time, the plain version's and ``torch.gather``'s, and its
+    bound (src and idx read once, the gathered rows written once)."""
+    from dgdm_histopath_torch.ops.kernels.gather_rows import gather_rows, gather_rows_plain
+
+    b, n, f = src.shape
+    k = idx.shape[-1]
+    e = src.element_size()
+    res = gather_rows(src, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(res, gather_rows_plain(src, idx)):
+        raise AssertionError(f"gather_rows differs from its plain version at {tag}")
+    lib_idx = idx.long().clamp(0, n - 1).reshape(b, n * k, 1).expand(b, n * k, f)
+    rbytes = b * n * k * f * e + b * n * f * e + b * n * k * 4
+    return dict(tag, max_abs_err=0.0,
+                ms=device_ms(torch, lambda: gather_rows(src, idx)),
+                plain_ms=device_ms(torch, lambda: gather_rows_plain(src, idx)),
+                library_ms=device_ms(torch, lambda: torch.gather(src, 1, lib_idx)),
+                library="torch.gather", bound_ms=rbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bytes=rbytes)
+
+
 def gather_agg_row(torch, src, idx, w, tag: dict) -> dict:
     """The forward aggregation kernel at one shape: held to its plain version
     (1e-5: both sum K f32 terms, in other orders), its device time, the plain
@@ -362,27 +403,13 @@ def kernel_phase(torch) -> dict:
                                  "gather_agg_bwd", "neighbor_transpose")}
     for (b, n, k, f) in MAIN_SHAPES + LARGE_SHAPES + [RAGGED_SHAPE]:
         for dtype in (torch.bfloat16, torch.float32):
-            e = torch.finfo(dtype).bits // 8
             src = torch.randn(b, n, f, device="cuda", generator=gen).to(dtype)
             idx = torch.randint(0, n, (b, n, k), device="cuda", generator=gen,
                                 dtype=torch.int32)
             w = torch.rand(b, n, k, device="cuda", generator=gen)
             tag = dict(shape=[b, n, k, f], dtype=str(dtype).replace("torch.", ""))
 
-            res = gather_rows(src, idx)
-            torch.cuda.synchronize()
-            if not torch.equal(res, gather_rows_plain(src, idx)):
-                raise AssertionError(f"gather_rows differs from its plain version at {tag}")
-            lib_idx = idx.long().reshape(b, n * k, 1).expand(b, n * k, f)
-            rbytes = b * n * k * f * e + b * n * f * e + b * n * k * 4
-            out["gather_rows"].append(dict(
-                tag, max_abs_err=0.0,
-                ms=device_ms(torch, lambda: gather_rows(src, idx)),
-                plain_ms=device_ms(torch, lambda: gather_rows_plain(src, idx)),
-                library_ms=device_ms(torch, lambda: torch.gather(src, 1, lib_idx)),
-                library="torch.gather", bound_ms=rbytes / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes", bytes=rbytes))
-
+            out["gather_rows"].append(gather_rows_row(torch, src, idx, tag))
             out["gather_agg"].append(gather_agg_row(torch, src, idx, w, tag))
             backward_checks(torch, gen, src, idx, w, tag, out, timed=True)
             log_kernel_rows(out, ("gather_rows", "gather_agg", "gather_rows_bwd",
@@ -1223,6 +1250,250 @@ def train_step_card_vs_cpu(torch, graphs, cell: dict) -> dict:
     return {"loss_abs_diff": d_loss, "worst_grad_rel": worst, "worst_grad": worst_key}
 
 
+def slide_fixture() -> tuple:
+    """The slide of the whole-slide cell: a mosaic of ``SLIDE["fields"]``²
+    synthetic H&E fields (the port's generator, one seed each, rendered in
+    worker processes), its pyramid in memory, objective power 20."""
+    import multiprocessing as mp
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from dgdm_histopath_torch.preprocessing.slide_io import ArrayBackend
+    from dgdm_histopath_torch.preprocessing.synthetic import build_pyramid, generate_tissue_image
+
+    t0 = time.perf_counter()
+    n, px = SLIDE["fields"], SLIDE["field_px"]
+    with ProcessPoolExecutor(max_workers=min(n * n, os.cpu_count() or 1),
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = [pool.submit(generate_tissue_image, px, px, num_blobs=SLIDE["num_blobs"],
+                               seed=seed) for seed in range(n * n)]
+        fields = [f.result()[0] for f in futures]
+    level0 = np.concatenate([np.concatenate(fields[r * n:(r + 1) * n], 1) for r in range(n)], 0)
+    del fields
+    backend = ArrayBackend(build_pyramid(level0, SLIDE["levels"]),
+                           properties={"openslide.objective-power": "20"})
+    seconds = time.perf_counter() - t0
+    log(f"slide: fixture {level0.shape[1]} x {level0.shape[0]}, {SLIDE['levels']} levels, "
+        f"{n * n} fields of {px}² built in {seconds:.1f} s")
+    return backend, seconds
+
+
+def counted(torch, fn, expected: dict, what: str):
+    """``fn()`` with the launch counters set to 0 just before it and read just
+    after; fails unless they read ``expected``."""
+    from dgdm_histopath_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != expected:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {expected}")
+    return out, launches
+
+
+def featurizer_throughput(torch, ext, patches_u8) -> dict:
+    """The fused featurizer alone (upload excluded: the patches are on the
+    card) over ``len(patches_u8)`` patches in batches of ``ext.batch_size``:
+    CUDA events, median of 5 after 2 warm-ups; bound: the ViT's operations
+    at the bf16 tensor-core peak."""
+    from dgdm_histopath_torch.models.vit import vit_flops
+
+    bs, n = ext.batch_size, len(patches_u8)
+
+    def run():
+        with torch.inference_mode():
+            for i in range(0, n, bs):
+                ext.fused_forward(patches_u8[i:i + bs])
+    times = []
+    for i in range(7):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    flops = vit_flops() * n
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return {"patches": n, "ms": ms, "ms_all": times, "patches_per_s": n / ms * 1e3,
+            "bound_ms": bound_ms, "bound_by": "operations", "flops": flops}
+
+
+def slide_phase(torch, card: str, kern: dict) -> dict:
+    """The whole-slide cell: DGDM-Base (seed 0, bf16) behind
+    ``DGDMPredictor(feature_extractor="dinov2", stain_normalize=True)`` on a
+    synthetic 20x slide of >= 1000 tissue patches. ``predict_slide``
+    pipelined and serial, each counted (one DGDM-Base forward: 9 + 18 gather
+    launches); the gathers at the slide graph's shape (B 1, N 1024, K 24)
+    against their plain versions; Macenko, the kNN graph and the f32
+    featurizer on the card against the CPU; one ``/predict_slide`` over
+    HTTP; the featurizer's throughput."""
+    import tempfile
+
+    import numpy as np
+    from dgdm_histopath_torch import DGDMPredictor, create_model
+    from dgdm_histopath_torch.deployment.serving import InferenceServer
+    from dgdm_histopath_torch.models.vit import PatchFeatureExtractor
+    from dgdm_histopath_torch.ops.graph import real_edge_index
+    from dgdm_histopath_torch.ops.knn import build_dual_knn
+    from dgdm_histopath_torch.preprocessing import synthetic, tiff
+    from dgdm_histopath_torch.preprocessing.slide_processor import SlideData
+    from dgdm_histopath_torch.preprocessing.stain_normalization import estimate_stain_matrix
+
+    backend, fixture_s = slide_fixture()
+    model = create_model(SLIDE["preset"], num_classes=2, compute_dtype="bfloat16",
+                         device="cuda", seed=0)
+    predictor = DGDMPredictor(model=model, feature_extractor="dinov2", stain_normalize=True)
+    proc, builder = predictor.processor, predictor.graph_builder
+    mask, mask_ds = proc.detect_tissue_regions(backend)
+    tissue = proc.generate_patch_coordinates(backend, mask, mask_ds)
+    log(f"slide: {len(tissue)} tissue patches of {proc.patch_size} px at 20x (>= "
+        f"{SLIDE['min_patches']} needed; max_patches {proc.max_patches} keeps "
+        f"{min(len(tissue), proc.max_patches)})")
+    if len(tissue) < SLIDE["min_patches"]:
+        raise AssertionError(f"the slide yields {len(tissue)} tissue patches, fewer than "
+                             f"{SLIDE['min_patches']}")
+    infos = tissue
+    if len(tissue) > proc.max_patches:       # the predictor's uniform subsample
+        infos = [tissue[i] for i in np.linspace(0, len(tissue) - 1,
+                                                proc.max_patches).astype(int)]
+    patches = proc.extract_patch_batch(backend, infos)              # [1000, 256, 256, 3]
+    ext = builder.extractor
+
+    # the featurizer alone first (it warms every kernel of the path)
+    reps = -(-SLIDE["throughput_patches"] // len(patches))
+    on_card = torch.from_numpy(np.concatenate([patches] * reps)[:SLIDE["throughput_patches"]])
+    on_card = on_card.to("cuda")
+    throughput = featurizer_throughput(torch, ext, on_card)
+    with torch.inference_mode():
+        throughput["profile"] = profile_call(
+            torch, lambda: ext.fused_forward(on_card[:ext.batch_size]),
+            f"featurizer batch of {ext.batch_size} patches")
+    del on_card
+    log(f"slide: featurizer (Macenko + resize + ViT-B/16, bf16) {throughput['patches']} "
+        f"patches in {throughput['ms']:.2f} ms ({throughput['patches_per_s']:.0f} patches/s), "
+        f"bound {throughput['bound_ms']:.2f} ms ({throughput['flops'] / 1e12:.1f} TFLOP at "
+        f"989 TFLOP/s) [{card}]")
+
+    # the main path, counted: predict_slide pipelined, then serial
+    expected = expected_launches(BASE, training=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    piped, launches = counted(torch, lambda: predictor.predict_slide(backend, slide_id="slide"),
+                              expected, "predict_slide")
+    piped_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    serial, _ = counted(torch, lambda: predictor.predict_slide(backend, slide_id="slide",
+                                                               pipelined=False),
+                        expected, "predict_slide(pipelined=False)")
+    serial_s = time.perf_counter() - t0
+    timings = piped["pipeline_timings"]
+    d_prob = float(np.abs(piped["probabilities"] - serial["probabilities"]).max())
+    log(f"slide: predict_slide launches {launches}; pipelined {piped_s:.3f} s, serial "
+        f"{serial_s:.3f} s; stages (s) " + ", ".join(f"{k} {v:.4f}" for k, v in timings.items())
+        + f"; peak {peak_gib:.2f} GiB; probabilities {piped['probabilities']} (serial differs "
+        f"by {d_prob:.2e}) [{card}]")
+    for r in (piped, serial):
+        p = r["probabilities"]
+        if not (np.isfinite(p).all() and abs(float(p.sum()) - 1.0) < 1e-5
+                and r["num_patches"] == len(infos)
+                and r["attention_weights"].shape == (SLIDE["bucket"],)
+                and np.isfinite(r["graph_embedding"]).all()):
+            raise AssertionError("predict_slide: non-finite or misshaped outputs")
+    if d_prob > 1e-3 or piped["predicted_class"] != serial["predicted_class"]:
+        raise AssertionError(f"pipelined and serial predict_slide differ by {d_prob}")
+
+    # the two gathers at the slide graph's shape: uniform indices, and the
+    # index tensor of this slide's graph as the model passes it
+    features = ext.extract(patches)
+    data = SlideData("slide", "", patches[:0], infos, proc.get_metadata(backend))
+    graph = builder.build_graph(data, features=features)
+    forward_profile = profile_call(torch, lambda: predictor.forward(graph.unsqueeze()),
+                                   "slide graph forward (DGDM-Base, B 1, N 1024, K 24)")
+    b, n, k, f = 1, SLIDE["bucket"], SLIDE["k"], 128
+    if tuple(graph.nbr_idx.shape) != (n, k):
+        raise AssertionError(f"slide graph neighbour list {tuple(graph.nbr_idx.shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    slide_idx = real_edge_index(graph.nbr_idx, graph.nbr_mask)[None].int().contiguous()
+    uniform_idx = torch.randint(0, n, (b, n, k), device="cuda", generator=gen, dtype=torch.int32)
+    rows = {"gather_rows": [], "gather_agg": []}
+    for case, idx in (("uniform", uniform_idx), ("slide graph", slide_idx)):
+        for dtype in (torch.bfloat16, torch.float32):
+            src = torch.randn(b, n, f, device="cuda", generator=gen).to(dtype)
+            w = torch.rand(b, n, k, device="cuda", generator=gen)
+            tag = dict(shape=[b, n, k, f], dtype=str(dtype).replace("torch.", ""),
+                       case=f"K 24, {case}")
+            rows["gather_rows"].append(gather_rows_row(torch, src, idx, tag))
+            rows["gather_agg"].append(gather_agg_row(torch, src, idx, w, tag))
+            log_kernel_rows(rows, ("gather_rows", "gather_agg"))
+    for name, r in rows.items():
+        kern[name].extend(r)
+
+    # the card against the CPU: Macenko's stain matrices, the kNN graph, the
+    # f32 featurizer
+    sub = torch.from_numpy(np.ascontiguousarray(patches[:64].reshape(64, -1, 3)[:, ::16]))
+    d_stain = (estimate_stain_matrix(sub.cuda()).cpu() - estimate_stain_matrix(sub)).abs().max()
+    pos = builder.normalize_coordinates(infos, backend.dimensions)
+    pad = n - len(infos)
+    args = [torch.from_numpy(np.pad(pos, ((0, pad), (0, 0)))),
+            torch.from_numpy(np.pad(features, ((0, pad), (0, 0)))),
+            torch.from_numpy(np.arange(n) < len(infos))]
+    knn_cpu = build_dual_knn(*args)
+    knn_card = build_dual_knn(*[a.cuda() for a in args])
+    same_idx = torch.equal(knn_card["nbr_idx"].cpu(), knn_cpu["nbr_idx"])
+    d_attr = (knn_card["edge_attr"].cpu() - knn_cpu["edge_attr"]).abs().max().item()
+    kw = dict(arch="dinov2", stain_normalize_on_device=True, dtype="float32", seed=0)
+    f_card = PatchFeatureExtractor(device="cuda", **kw).extract(patches[:8])
+    f_cpu = PatchFeatureExtractor(device="cpu", **kw).extract(patches[:8])
+    d_feat = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+    log(f"slide: card vs CPU: Macenko stain matrices of 64 patches {d_stain:.2e} (<= 1e-4); "
+        f"kNN of {len(infos)} nodes neighbour lists equal {same_idx}, edge_attr {d_attr:.2e} "
+        f"(<= 1e-5); f32 featurizer on 8 patches {d_feat:.2e} of its largest feature (<= 1e-3)")
+    if not (d_stain <= 1e-4 and same_idx and d_attr <= 1e-5 and d_feat <= 1e-3):
+        raise AssertionError("the slide path differs between the card and the CPU")
+
+    # one /predict_slide over HTTP on a deflate-tiled TIFF written by the port
+    with tempfile.TemporaryDirectory() as root:
+        img, _ = synthetic.generate_tissue_image(SLIDE["http_px"], SLIDE["http_px"], seed=100,
+                                                 num_blobs=SLIDE["num_blobs"])
+        path = tiff.write_tiled_tiff(f"{root}/slide.tif", synthetic.build_pyramid(img, 3),
+                                     tile=256, compression="deflate", bigtiff=True,
+                                     description="Aperio synthetic|AppMag = 20|MPP = 0.5")
+        server = InferenceServer(predictor, port=0, host="127.0.0.1", data_root=root)
+        server.start(background=True)
+        try:
+            t0 = time.perf_counter()
+            res, http_launches = counted(torch, lambda: http_json(
+                server.port, "POST", "/predict_slide", {"slide_path": "slide.tif"}),
+                expected, "/predict_slide")
+            http_ms = (time.perf_counter() - t0) * 1e3
+            stats = dict(server.stats)
+        finally:
+            server.stop()
+        ref = predictor.predict_slide(path)
+    predictor.close()
+    d_http = same_answer(res["probabilities"], ref["probabilities"], 1e-6, "/predict_slide")
+    if stats["requests"] != 1 or stats["errors"] != 0 or res["num_patches"] != ref["num_patches"]:
+        raise AssertionError(f"/predict_slide: server stats {stats}")
+    log(f"slide: /predict_slide of a {SLIDE['http_px']}² deflate-tiled TIFF ({res['num_patches']} "
+        f"patches) answered in {http_ms:.1f} ms, launches {http_launches}, agrees with "
+        f"predict_slide (prob diff {d_http:.2e}) [{card}]")
+    return {"fixture_s": fixture_s, "tissue_patches": len(tissue), "launches": launches,
+            "pipeline_timings": timings, "pipelined_s": piped_s, "serial_s": serial_s,
+            "forward_profile": forward_profile,
+            "serial_prob_diff": d_prob, "peak_gib": peak_gib, "featurizer": throughput,
+            "card_vs_cpu": {"stain": float(d_stain), "knn_idx_equal": same_idx,
+                            "knn_edge_attr": d_attr, "featurizer_f32_rel": d_feat},
+            "http": {"ms": http_ms, "launches": http_launches, "prob_diff": d_http,
+                     "num_patches": res["num_patches"]},
+            "kernels_k24": rows, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -1283,9 +1554,13 @@ def main() -> int:
     del large_graphs
     torch.cuda.empty_cache()
 
-    # last, so that every phase above runs as it did before this phase existed
+    # so that every phase above runs as it did before this phase existed
     remat = remat_phase(torch, graphs, card, BASE)
     del graphs
+    torch.cuda.empty_cache()
+
+    # last: the whole-slide path
+    slide = slide_phase(torch, card, kern)
     torch.cuda.empty_cache()
 
     replaces = {   # kernel -> (its source, the TPU code it stands in for)
@@ -1311,6 +1586,7 @@ def main() -> int:
                    "training_step_use_remat": remat["on"]["launches"][name],
                    "large_predict_batch": l_launches[name],
                    "large_training_step": l_train_launches[name],
+                   "predict_slide": slide["launches"][name],
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}
@@ -1338,6 +1614,9 @@ def main() -> int:
                                             if r["max_ulp_err"] is not None)
         if name in real_step:
             entry["real_step_ms"] = {r["shape"][1]: r["ms"] for r in real_step[name]}
+        if name in slide["kernels_k24"]:
+            entry["slide_k24_ms"] = {f"{r['case']} {r['dtype']}": r["ms"]
+                                     for r in slide["kernels_k24"][name]}
         if name in flash_module:
             entry["max_abs_err_bf16"] = max(r["max_abs_err"] for r in kern[name]
                                             if r["dtype"] == "bfloat16")
@@ -1349,7 +1628,8 @@ def main() -> int:
                                   "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
                                   "training_parity": train_parity, "remat": remat,
-                                  "flash_module": flash_module,
+                                  "flash_module": flash_module, "slide": {
+                                      k: v for k, v in slide.items() if k != "kernels_k24"},
                                   "large": {"model": l_timing, "parity": l_parity,
                                             "server": l_server,
                                             "training": l_train_timing,

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of DGDM: graph-level inference and two-phase training
-on an NVIDIA GPU.
+"""PyTorch/CUDA port of DGDM: whole-slide and graph-level inference and
+two-phase training on an NVIDIA GPU.
 
 The JAX package ``dgdm_histopath_tpu`` is the reference this port is tested
 against; this package imports neither it nor JAX. Its neighbor-gather hot
@@ -11,6 +11,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
     from dgdm_histopath_torch import create_model, DGDMPredictor
     model = create_model("dgdm-base", num_classes=2)        # on "cuda"
     predictor = DGDMPredictor(model=model)
+    result = predictor.predict_slide("slide.svs")            # or predict_graph(graph)
     trainer = DGDMTrainer(model, TrainerConfig(pretrain_epochs=1))
     trainer.init_state(seed=0)
     metrics = trainer.training_step(batch, epoch=0)         # batch: PaddedGraph

@@ -7,9 +7,12 @@ are the same paths joined by ``.``, with these layout rules:
 
 * ``Dense.kernel [in, out]``            -> ``weight [out, in]``
 * ``DenseGeneral.kernel [in, H, D]``     -> ``weight [H·D, in]``, bias ``[H, D]`` -> ``[H·D]``
-* ``out_proj.kernel [H, D, out]``        -> ``weight [out, H·D]``
+* ``out_proj.kernel [H, D, out]``        -> ``weight [out, H·D]`` (flax
+  ``MultiHeadDotProductAttention`` calls it ``out``)
+* ``Conv.kernel [kh, kw, in, out]``      -> ``weight [out, in, kh, kw]``
 * LayerNorm ``scale`` / ``bias``         -> ``weight`` / ``bias``
-* ``global_query [H, D]`` and ``mask_token`` are copied as they are.
+* ``global_query [H, D]``, ``mask_token`` and the ViT's ``cls_token``,
+  ``pos_embed`` and ``ls*_gamma`` are copied as they are.
 
 Loading is strict: a missing or unexpected key, or a shape mismatch,
 raises ``CheckpointError``.
@@ -34,10 +37,12 @@ def _convert_leaf(module: list, leaf: str, a: np.ndarray) -> Tuple[str, np.ndarr
     if leaf == "kernel":
         if a.ndim == 2:
             return "weight", a.T
-        if a.ndim == 3 and module and module[-1] == "out_proj":   # [H, D, out]
+        if a.ndim == 3 and module and module[-1] in ("out_proj", "out"):   # [H, D, out]
             return "weight", a.reshape(-1, a.shape[-1]).T
         if a.ndim == 3:                                            # [in, H, D]
             return "weight", a.reshape(a.shape[0], -1).T
+        if a.ndim == 4:                                            # conv
+            return "weight", a.transpose(3, 2, 0, 1)
         raise CheckpointError("unexpected kernel rank",
                               {"path": "/".join(module + [leaf]), "shape": list(a.shape)})
     if leaf == "bias":
@@ -57,6 +62,25 @@ def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         name, value = _convert_leaf(parts[:-1], parts[-1], np.asarray(arr))
         state[".".join(parts[:-1] + [name])] = torch.tensor(value, dtype=torch.float32)
     return state
+
+
+def flatten_flax(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested flax parameter tree -> ``{"params/a/b/kernel": array}``."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            flat.update(flatten_flax(value, path + "/"))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def encoder_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``VisionTransformer`` / ``SimpleConvEncoder``
+    parameter tree (``module.init(...)``, numpy or JAX arrays) -> the state
+    dict of the port's module of the same configuration."""
+    return params_from_flax(flatten_flax(tree))
 
 
 def load_state(model: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> None:

@@ -1,15 +1,22 @@
-"""Inference server over DGDMPredictor: health probes and graph predict.
+"""Inference server over DGDMPredictor: health probes, graph and slide predict.
 
 Endpoints:
   GET  /healthz | /readyz | /health  — health report
   GET  /info                         — model metadata and serving counters
   POST /predict        — JSON {"graph": {x, pos, nbr_idx, nbr_mask, edge_attr, node_mask}}
-  POST /predict_batch  — JSON {"graphs": [graph, ...]}; same-bucket graphs
-                         run as one batched forward (DGDMPredictor.predict_batch)
+                         or {"graph_path": ...}
+  POST /predict_batch  — JSON {"graphs": [graph, ...]} or {"graph_paths": [...]};
+                         same-bucket graphs run as one batched forward
+                         (DGDMPredictor.predict_batch)
+  POST /predict_slide  — JSON {"slide_path": ...}: the whole slide pipeline
+                         (DGDMPredictor.predict_slide)
+
+Paths are read only under ``data_root`` (resolved; a path that leaves it is
+refused), and only when the server was given one.
 
 The server is single-threaded: the card is one device queue, and requests
-are served in order. Rate limiting, /metrics, /predict_slide, graph_path
-loading and dynamic batching are ROADMAP work.
+are served in order. Rate limiting, /metrics and dynamic batching are
+ROADMAP work.
 """
 
 from __future__ import annotations
@@ -18,11 +25,13 @@ import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..data.graph_io import load_graph
 from ..ops.graph import PaddedGraph
 
 
@@ -47,17 +56,30 @@ def graph_to_json(graph: PaddedGraph) -> Dict[str, Any]:
             for f in ("x", "pos", "nbr_idx", "nbr_mask", "edge_attr", "node_mask")}
 
 
-def _jsonable(result: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in result.items()}
+def _jsonable(obj: Any) -> Any:
+    """numpy arrays and scalars -> lists and Python numbers, recursively."""
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    return obj
 
 
 class InferenceServer:
     """Serves a DGDMPredictor over HTTP. ``port=0`` takes a free port; the
     bound port is ``self.port`` after :meth:`start`."""
 
-    def __init__(self, predictor, port: int = 8080, host: str = ""):
+    def __init__(self, predictor, port: int = 8080, host: str = "",
+                 data_root: Optional[str | Path] = None):
         self.predictor = predictor
         self.host, self.port = host, port
+        # path loading is opt-in: without a data_root a client could make the
+        # server read any file of the host
+        self.data_root = Path(data_root).resolve() if data_root else None
         self.stats = {"requests": 0, "errors": 0, "total_latency_s": 0.0}
         self._stats_lock = threading.Lock()
         self._httpd: Optional[HTTPServer] = None
@@ -77,23 +99,48 @@ class InferenceServer:
         return {"healthy": all(checks.values()), "checks": checks,
                 "device": str(self.predictor.device), "timestamp": time.time()}
 
+    def _resolve_path(self, path: str) -> Path:
+        """A client's path, confined to ``data_root``."""
+        if self.data_root is None:
+            raise PermissionError("path loading is disabled: the server was started "
+                                  "without data_root; send the graph inline")
+        resolved = (self.data_root / path).resolve()
+        if self.data_root not in resolved.parents and resolved != self.data_root:
+            raise PermissionError(f"path escapes data_root: {path!r}")
+        return resolved
+
     def handle_predict(self, payload: Dict[str, Any]) -> Dict[str, Any]:
         t0 = time.perf_counter()
-        if "graph" not in payload:
-            raise ValueError("payload must contain 'graph' (graph_path loading is "
-                             "not ported yet)")
-        out = _jsonable(self.predictor.predict_graph(graph_from_json(payload["graph"])))
+        if "graph_path" in payload:
+            graph = load_graph(self._resolve_path(payload["graph_path"]))
+        elif "graph" in payload:
+            graph = graph_from_json(payload["graph"])
+        else:
+            raise ValueError("payload must contain 'graph' or 'graph_path'")
+        out = _jsonable(self.predictor.predict_graph(graph))
+        out["latency_s"] = round(time.perf_counter() - t0, 4)
+        self._count(out["latency_s"])
+        return out
+
+    def handle_predict_slide(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole slide pipeline on ``{"slide_path": <under data_root>}``."""
+        t0 = time.perf_counter()
+        if "slide_path" not in payload:
+            raise ValueError("payload must contain 'slide_path'")
+        out = _jsonable(self.predictor.predict_slide(self._resolve_path(payload["slide_path"])))
         out["latency_s"] = round(time.perf_counter() - t0, 4)
         self._count(out["latency_s"])
         return out
 
     def handle_predict_batch(self, payload: Dict[str, Any]) -> Dict[str, Any]:
         t0 = time.perf_counter()
-        if "graphs" not in payload:
-            raise ValueError("payload must contain 'graphs' (graph_paths loading is "
-                             "not ported yet)")
-        results = self.predictor.predict_batch(
-            [graph_from_json(g) for g in payload["graphs"]])
+        if "graph_paths" in payload:
+            graphs = [load_graph(self._resolve_path(p)) for p in payload["graph_paths"]]
+        elif "graphs" in payload:
+            graphs = [graph_from_json(g) for g in payload["graphs"]]
+        else:
+            raise ValueError("payload must contain 'graphs' or 'graph_paths'")
+        results = self.predictor.predict_batch(graphs)
         latency = round(time.perf_counter() - t0, 4)
         self._count(latency)
         return {"results": [_jsonable(r) for r in results], "count": len(results),
@@ -125,7 +172,8 @@ class InferenceServer:
 
             def do_POST(self):
                 routes = {"/predict": server.handle_predict,
-                          "/predict_batch": server.handle_predict_batch}
+                          "/predict_batch": server.handle_predict_batch,
+                          "/predict_slide": server.handle_predict_slide}
                 handler = routes.get(self.path)
                 if handler is None:
                     self._send(404, {"error": "not found"})

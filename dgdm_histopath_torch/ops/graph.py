@@ -302,6 +302,79 @@ def build_padded_graph(
     )
 
 
+def from_edge_index(
+    x: np.ndarray,
+    edge_index: np.ndarray,
+    pos: Optional[np.ndarray] = None,
+    edge_attr: Optional[np.ndarray] = None,
+    max_neighbors: int = 16,
+    bucket: Optional[int] = None,
+    y: Optional[np.ndarray] = None,
+) -> PaddedGraph:
+    """A COO edge list ``edge_index`` [2, E] of (src, dst) rows -> PaddedGraph.
+
+    Node i's incoming edges (dst == i) fill its slots, at most
+    ``max_neighbors``: highest weight first where ``edge_attr`` is given
+    (the weight is its last column), else in input order.
+    """
+    n = x.shape[0]
+    e_dim = 1 if edge_attr is None else (edge_attr.shape[1] if edge_attr.ndim == 2 else 1)
+    nbr_idx = np.zeros((n, max_neighbors), dtype=np.int32)
+    nbr_mask = np.zeros((n, max_neighbors), dtype=bool)
+    attr = np.zeros((n, max_neighbors, e_dim), dtype=np.float32)
+    if edge_index.size:
+        src, dst = edge_index[0], edge_index[1]
+        n_edges = src.shape[0]
+        ea = None
+        if edge_attr is not None and edge_attr.shape[0] == n_edges:
+            ea = edge_attr.reshape(n_edges, -1)
+        if ea is not None:
+            order = np.lexsort((-ea[:, -1], dst))      # dst ascending, weight descending
+        else:
+            order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+        if ea is not None:
+            ea = ea[order]
+        # each edge's rank within its dst group is its slot
+        starts = np.searchsorted(dst, np.arange(n), side="left")
+        rank = np.arange(n_edges) - starts[dst]
+        keep = rank < max_neighbors
+        d_k, r_k = dst[keep], rank[keep]
+        nbr_idx[d_k, r_k] = src[keep]
+        nbr_mask[d_k, r_k] = True
+        if ea is not None:
+            attr[d_k, r_k, : ea.shape[1]] = ea[keep]
+    if pos is None:
+        pos = np.zeros((n, 2), dtype=np.float32)
+    return build_padded_graph(x, pos, nbr_idx, attr, nbr_mask, bucket=bucket, y=y)
+
+
+def _interleave_bits(v: np.ndarray) -> np.ndarray:
+    """Spread each of the low 16 bits of ``v`` to even positions (int64)."""
+    v = v.astype(np.int64) & 0xFFFF
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    v = (v | (v << 1)) & 0x55555555
+    return v
+
+
+def morton_keys(pos: np.ndarray, node_mask: np.ndarray) -> np.ndarray:
+    """Z-curve key per node from its 2-D coordinates, quantised to 16 bits
+    over the real nodes' extent; padding rows get the largest key, so they
+    sort last. pos [N, 2] -> int64 [N]."""
+    pos = np.asarray(pos, np.float64)
+    mask = np.asarray(node_mask, bool)
+    if mask.any():
+        lo = pos[mask].min(axis=0)
+        span = np.maximum(pos[mask].max(axis=0) - lo, 1e-12)
+    else:
+        lo, span = np.zeros(2), np.ones(2)
+    q = np.clip(((pos - lo) / span * 65535.0), 0, 65535).astype(np.int64)
+    keys = _interleave_bits(q[:, 0]) | (_interleave_bits(q[:, 1]) << 1)
+    return np.where(mask, keys, np.iinfo(np.int64).max)
+
+
 def batch_graphs(graphs: Sequence[PaddedGraph]) -> PaddedGraph:
     """Stack same-bucket graphs into a batched PaddedGraph (leading B axis)."""
     if not graphs:

@@ -1,5 +1,5 @@
 """Exceptions of the port: a base class with structured context and the
-three domain errors the inference slice raises."""
+domain errors its entry points raise."""
 
 from __future__ import annotations
 
@@ -30,3 +30,15 @@ class CheckpointError(DGDMException):
 
 class InferenceError(DGDMException):
     """Prediction-time failure."""
+
+
+class DataError(DGDMException):
+    """Data loading or validation failure."""
+
+
+class SlideProcessingError(DataError):
+    """Whole-slide image processing failure."""
+
+
+class GraphConstructionError(DataError):
+    """Tissue graph construction failure."""

@@ -15,7 +15,12 @@ f32 in a fixed order of their own, other than the plain version's (1e-5 in
 f32; in bf16 one ulp of the plain result, which rounds the same f32 sums
 once), and give bit-identical results from call to call; the f32 model on the
 card against the same model on the CPU differs by f32 rounding (1e-4), and
-its training step's gradients by 1e-3 of each tensor's largest entry.
+its training step's gradients by 1e-3 of each tensor's largest entry. The
+slide path on the card against the CPU: kNN neighbour lists equal slot for
+slot (edge features 1e-5), Macenko stain matrices 1e-4 and pixels 5e-3 on
+the 0-255 scale, the tissue mask within 0.05% of its pixels, the f32 ViT-B
+featurizer within 1e-3 of its largest feature, predict_slide's probabilities
+within 1e-4.
 """
 
 import copy
@@ -526,3 +531,113 @@ def test_windowed_banded_model_on_card_matches_cpu(cuda_device):
         out = card_model(batch.to(cuda_device))["classification_logits"].cpu()
     assert card_model.spatial_attention.route(n) == "window"
     assert torch.allclose(out, ref, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the slide path: gathers at K = 24, Macenko, kNN, the tissue mask, the
+# featurizer and predict_slide, each on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _tissue_patches(n, size=256, seed=3):
+    from dgdm_histopath_torch.preprocessing.synthetic import generate_tissue_image
+    img, _ = generate_tissue_image(1024, 1024, seed=seed)
+    return np.stack([img[(i // 4) * 256:(i // 4) * 256 + size, (i % 4) * 256:(i % 4) * 256 + size]
+                     for i in range(n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_kernels_at_the_slide_shape_on_card(cuda_device, dtype):
+    """One slide's graph: B 1, N 1024, K 24 (8 spatial + 16 morphological
+    neighbours), F 128: gather_agg takes its any-K path."""
+    src, idx, w = _data(cuda_device, 1, 1024, 24, 128, dtype)
+    assert torch.equal(gather_rows(src, idx), gather_rows_plain(src, idx))
+    assert torch.allclose(weighted_gather_sum(src, idx, w),
+                          weighted_gather_sum_plain(src, idx, w), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_macenko_on_card_matches_cpu(cuda_device):
+    """Stain matrices within 1e-4 (cuSOLVER's eigenvector signs against
+    LAPACK's), normalized pixels within 5e-3 on the 0-255 scale."""
+    from dgdm_histopath_torch.preprocessing import stain_normalization as st
+    p = torch.from_numpy(_tissue_patches(16))
+    flat = p.reshape(16, -1, 3)[:, ::16]
+    on_card = st.estimate_stain_matrix(flat.to(cuda_device)).cpu()
+    assert torch.allclose(on_card, st.estimate_stain_matrix(flat), atol=1e-4, rtol=0)
+    ref_s = torch.from_numpy(st.DEFAULT_STAIN_MATRIX)
+    ref_c = torch.from_numpy(st.DEFAULT_MAX_CONCENTRATIONS)
+    out = st.macenko_normalize_batch(p.to(cuda_device), ref_s.to(cuda_device),
+                                     ref_c.to(cuda_device)).cpu()
+    assert torch.allclose(out, st.macenko_normalize_batch(p, ref_s, ref_c), atol=5e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [False, True])
+def test_knn_on_card_matches_cpu_slot_for_slot(cuda_device, tf32):
+    """Lattice positions (exact ties) with the imageless features, and random
+    768-d features: the same neighbour lists on both devices, whatever the
+    global TF32 flag says."""
+    from dgdm_histopath_torch.ops.knn import build_dual_knn
+    gx, gy = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    pos = ((np.stack([gx, gy], -1).reshape(-1, 2) * 256 + 128) / np.float32(8192)).astype(np.float32)
+    mask = np.arange(1024) < 1000
+    place = np.concatenate([pos, np.ones((1024, 1)), np.full((1024, 1), 0.5),
+                            np.zeros((1024, 1))], 1).astype(np.float32)
+    rand = np.random.RandomState(0).randn(1024, 768).astype(np.float32)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        for feats in (place, rand):
+            args = [torch.from_numpy(a) for a in (pos, feats, mask)]
+            ref = build_dual_knn(*args)
+            out = build_dual_knn(*[a.to(cuda_device) for a in args])
+            for key in ("nbr_idx", "nbr_mask"):
+                assert torch.equal(out[key].cpu(), ref[key]), key
+            assert torch.allclose(out["edge_attr"].cpu(), ref["edge_attr"], atol=1e-5, rtol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+def test_tissue_mask_on_card_matches_cpu(cuda_device):
+    from dgdm_histopath_torch.preprocessing.synthetic import synthetic_slide
+    from dgdm_histopath_torch.preprocessing.tissue_detection import compute_tissue_mask
+    for seed in range(3):
+        thumb = torch.from_numpy(synthetic_slide(2048, 2048, num_levels=3, seed=seed)[0]
+                                 .get_thumbnail(512))
+        out = compute_tissue_mask(thumb.to(cuda_device)).cpu()
+        assert (out != compute_tissue_mask(thumb)).float().mean() <= 5e-4
+
+
+@pytest.mark.cuda
+def test_f32_featurizer_on_card_matches_cpu(cuda_device):
+    """ViT-B/16 (the "dinov2" featurizer) in f32 with Macenko on the device,
+    4 patches of 256 px: the card within 1e-3 of the largest feature."""
+    from dgdm_histopath_torch.models.vit import PatchFeatureExtractor
+    p = _tissue_patches(4)
+    kw = dict(arch="dinov2", stain_normalize_on_device=True, dtype="float32", seed=0)
+    out = PatchFeatureExtractor(device=cuda_device, **kw).extract(p)
+    ref = PatchFeatureExtractor(device="cpu", **kw).extract(p)
+    assert out.shape == (4, 768) and np.isfinite(out).all()
+    assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_predict_slide_runs_on_the_card_by_default(cuda_device):
+    from dgdm_histopath_torch.evaluation.predictor import DGDMPredictor
+    from dgdm_histopath_torch.preprocessing.synthetic import synthetic_slide
+    model = create_model("dgdm-small", num_classes=2, device="cpu", node_features=14,
+                         hidden_dims=(32, 16), compute_dtype="float32")
+    kw = dict(feature_extractor="stats", patch_size=32, max_patches=60, tissue_threshold=0.3,
+              node_buckets=[64])
+    card = DGDMPredictor(model=copy.deepcopy(model), **kw)
+    assert card.device.type == "cuda" and card.graph_builder.device.type == "cuda"
+    backend = synthetic_slide(512, 512, num_levels=3, seed=5)[0]
+    kernels.reset_launch_counts()
+    out = card.predict_slide(backend)
+    counts = kernels.launch_counts()
+    assert counts["gather_rows"] == 2 and counts["gather_agg"] == 4
+    ref = DGDMPredictor(model=model, device="cpu", **kw).predict_slide(backend)
+    assert out["num_patches"] == ref["num_patches"] == 60
+    np.testing.assert_allclose(out["probabilities"], ref["probabilities"], atol=1e-4)

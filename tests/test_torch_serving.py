@@ -167,3 +167,65 @@ def test_server_survives_out_of_range_neighbor_indices(predictor, bundle):
         assert server.stats["requests"] == 2 and server.stats["errors"] == 0
     finally:
         server.stop()
+
+
+def test_server_reads_slides_and_graphs_only_under_data_root(tmp_path, bundle):
+    """/predict_slide, /predict with graph_path and /predict_batch with
+    graph_paths answer what the predictor answers on the same files; a path
+    that leaves data_root, and any path when the server has no data_root,
+    is refused (400) and the server goes on serving."""
+    from dgdm_histopath_torch.data.graph_io import save_graph
+    from dgdm_histopath_torch.models.dgdm import DGDMModel
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    from dgdm_histopath_torch.preprocessing import synthetic, tiff
+
+    import torch
+    model = DGDMModel(node_features=14, hidden_dims=(32, 16), num_diffusion_steps=3,
+                      attention_heads=4, graph_layers=2, num_classes=3, compute_dtype="float32")
+    init_parameters(model, torch.Generator().manual_seed(0))
+    pred = DGDMPredictor(model=model, device="cpu", feature_extractor="stats", patch_size=32,
+                         max_patches=40, tissue_threshold=0.3, node_buckets=[64],
+                         decode_workers=1)
+    root = tmp_path / "data"
+    img, _ = synthetic.generate_tissue_image(512, 512, seed=2)
+    slide = tiff.write_tiled_tiff(root / "slides" / "a.tif", synthetic.build_pyramid(img, 3),
+                                  tile=128, compression="deflate",
+                                  description="Aperio S|AppMag = 20")
+    graph = pred.graph_builder.build_graph(pred.processor.process_slide(slide))
+    save_graph(graph, root / "graphs" / "a_graph.npz")
+    (tmp_path / "outside.npz").write_bytes(b"")
+    server = InferenceServer(pred, port=0, host="127.0.0.1", data_root=root)
+    plain = InferenceServer(pred, port=0, host="127.0.0.1")
+    server.start(background=True)
+    plain.start(background=True)
+    try:
+        status, res = _request(server.port, "POST", "/predict_slide",
+                               {"slide_path": "slides/a.tif"})
+        assert status == 200
+        ref = pred.predict_slide(slide)
+        np.testing.assert_array_equal(np.asarray(res["probabilities"], np.float32),
+                                      ref["probabilities"])
+        assert res["slide_id"] == "a" and res["num_patches"] == 40
+        assert res["biomarkers"] == ref["biomarkers"]
+        assert set(res["pipeline_timings"]) == set(ref["pipeline_timings"])
+        status, res = _request(server.port, "POST", "/predict",
+                               {"graph_path": "graphs/a_graph.npz"})
+        assert status == 200
+        np.testing.assert_array_equal(np.asarray(res["probabilities"], np.float32),
+                                      pred.predict_graph(graph)["probabilities"])
+        status, res = _request(server.port, "POST", "/predict_batch",
+                               {"graph_paths": ["graphs/a_graph.npz"] * 2})
+        assert status == 200 and res["count"] == 2
+        for bad in ({"slide_path": "../outside.npz"}, {"slide_path": "/etc/hostname"}):
+            status, res = _request(server.port, "POST", "/predict_slide", bad)
+            assert status == 400 and "escapes data_root" in res["error"]
+        status, res = _request(server.port, "POST", "/predict", {"graph_path": "../outside.npz"})
+        assert status == 400 and "escapes data_root" in res["error"]
+        status, res = _request(plain.port, "POST", "/predict_slide", {"slide_path": "a.tif"})
+        assert status == 400 and "without data_root" in res["error"]
+        assert _request(server.port, "POST", "/predict_slide", {})[0] == 400
+        assert _request(server.port, "GET", "/healthz")[0] == 200
+        assert server.stats["requests"] == 3 and server.stats["errors"] == 4
+    finally:
+        server.stop()
+        plain.stop()
