@@ -70,7 +70,17 @@ Phases, each of which raises on a failed check:
      the two gathers at the slide graph's shape (B 1, N 1024, K 24) against
      their plain versions, Macenko's stain matrices, the kNN graph and the
      f32 featurizer on the card against the CPU, and one /predict_slide
-     request over HTTP on a deflate-tiled TIFF.
+     request over HTTP on a deflate-tiled TIFF;
+ 11. the training entry point, last: ``cli.train.main`` at DGDM-Base full
+     width (batch 32, bucket 1024) on 160 graph files, two epochs, counted
+     (every step 9 / 18 / 9 / 18 + 3 launches, every validation and test
+     forward 9 / 18) with every output file; the same run stopped by
+     SIGTERM inside epoch 0 (exit 75) and resumed, its final parameters
+     equal to the bit; ``cli.predict.main`` on the bundle (9 / 18 a graph,
+     probabilities equal to ``DGDMPredictor``'s); the loader's rate alone,
+     ``fit``'s graphs/s and idle share against the resident-batch step, the
+     checkpoint's blocking and background times; ``--dataset-type slide``
+     on four small deflate-tiled TIFFs with the dinov2 featurizer.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -116,6 +126,12 @@ WARMUP_STEPS = 2
 # field so that it yields well over 1000 tissue patches.
 SLIDE = dict(preset="dgdm-base", fields=3, field_px=4096, levels=4, num_blobs=14,
              min_patches=1000, bucket=1024, k=24, throughput_patches=1024, http_px=2048)
+# The training entry point's cells: DGDM-Base through ``cli.train.main`` on
+# 160 graphs of the Base cell (0.8 / 0.1 / 0.1 split: 4 training batches of
+# 32 an epoch, one validation and one test batch, each filled up), two
+# epochs; and ``--dataset-type slide`` on four small deflate-tiled TIFFs.
+CLI = dict(graphs=160, batch=32, epochs=2, slides=4, slide_px=1024, slide_patch=128,
+           slide_bucket=64)
 
 
 def expected_launches(cell: dict, training: bool, remat: bool = False) -> dict:
@@ -1494,6 +1510,378 @@ def slide_phase(torch, card: str, kern: dict) -> dict:
             "kernels_k24": rows, "card": card}
 
 
+def write_cli_fixture(root: str) -> dict:
+    """The graph-training cell's files under ``root``: CLI["graphs"] DGDM-Base
+    graphs of ``make_graphs`` (1000 real nodes in bucket 1024, 768-d, K = 8,
+    3 edge features) written by the port's ``save_graph``, a seeded two-class
+    ``labels.json`` and a JSON config (splits, batch, epochs, csv logging)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from dgdm_histopath_torch.data.graph_io import save_graph
+
+    t0 = time.perf_counter()
+    graphs = make_graphs(dict(BASE, batch=CLI["graphs"]), seed=1000)
+    data = f"{root}/graphs"
+    rs = np.random.RandomState(0)
+    labels = {f"slide{i:03d}": int(v) for i, v in enumerate(rs.randint(0, 2, len(graphs)))}
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:   # zlib frees the GIL
+        list(pool.map(lambda i: save_graph(graphs[i], f"{data}/slide{i:03d}_graph.npz"),
+                      range(len(graphs))))
+    with open(f"{root}/labels.json", "w") as f:
+        json.dump(labels, f)
+    cfg = {"experiment": {"name": "chip_smoke_cli"},
+           "data": {"train_split": 0.8, "val_split": 0.1, "test_split": 0.1,
+                    "batch_size": CLI["batch"]},
+           "training": {"max_epochs": CLI["epochs"], "pretrain_epochs": 1,
+                        "warmup_steps": WARMUP_STEPS},
+           "logging": {"logger_type": "csv"}}
+    with open(f"{root}/config.json", "w") as f:
+        json.dump(cfg, f)
+    seconds = time.perf_counter() - t0
+    size = sum(os.path.getsize(f"{data}/{n}") for n in os.listdir(data))
+    log(f"cli: fixture {len(graphs)} graphs ({size / 2 ** 20:.1f} MiB compressed) written "
+        f"in {seconds:.1f} s")
+    return {"data": data, "labels": f"{root}/labels.json", "config": f"{root}/config.json",
+            "fixture_s": seconds, "fixture_mib": size / 2 ** 20}
+
+
+def cli_expected(steps: int, forwards: int) -> dict:
+    """Launches of ``steps`` Base training steps and ``forwards`` forwards
+    without a gradient."""
+    step, fwd = expected_launches(BASE, training=True), expected_launches(BASE, training=False)
+    return {k: steps * step[k] + forwards * fwd[k] for k in step}
+
+
+def bundle_params(path: str) -> dict:
+    import numpy as np
+
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files if k != "__meta__"}
+
+
+def cli_phase(torch, card: str) -> dict:
+    """The training entry point, ``dgdm_histopath_torch.cli.train.main``, at
+    DGDM-Base full width (batch 32, bucket 1024), last:
+    A) ``train`` on 160 graphs, two epochs (pretrain, finetune), counted:
+       every training step 9 / 18 / 9 / 18 + 3 launches, every validation
+       and test forward 9 / 18; every output file written;
+    B) the same command stopped by SIGTERM in epoch 0 (exit 75, emergency
+       checkpoint with its position), then ``resume``: the final parameters
+       and the finetune epoch's summary equal to A's;
+    the predict CLI on A's bundle over the test graphs (9 / 18 launches a
+    graph, probabilities equal to ``DGDMPredictor.predict_graph``); the
+    loader's rate alone, ``fit``'s graphs/s and the device's idle share over
+    a profiled epoch against the resident-batch step; last, ``--dataset-type
+    slide`` on four deflate-tiled TIFFs (the dinov2 featurizer on the card)."""
+    import math
+    import os
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    from dgdm_histopath_torch.cli import predict as predict_cli
+    from dgdm_histopath_torch.cli import train as train_cli
+    from dgdm_histopath_torch.data import HistopathDataModule, HistopathDataset, load_graph
+    from dgdm_histopath_torch.evaluation.predictor import DGDMPredictor
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.training import CheckpointManager, DGDMTrainer
+    from dgdm_histopath_torch.utils.config import load_config
+
+    managers = []                         # every CheckpointManager the runs make
+    init = CheckpointManager.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        managers.append(self)
+
+    CheckpointManager.__init__ = recording_init
+    out: dict = {"card": card}
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            fx = write_cli_fixture(root)
+            out.update(fixture_s=fx["fixture_s"], fixture_mib=fx["fixture_mib"])
+            argv = ["--preset", "dgdm-base", "--config", fx["config"], "--data-dir", fx["data"],
+                    "--dataset-type", "graph", "--metadata", fx["labels"], "--num-classes", "2",
+                    "--seed", "0", "--log-level", "WARNING"]
+            cfg = load_config(fx["config"])
+            dm = HistopathDataModule(HistopathDataset(fx["data"], metadata_path=fx["labels"]),
+                                     batch_size=CLI["batch"], train_split=0.8, val_split=0.1,
+                                     test_split=0.1, seed=0)
+            n_train = len(dm.train_dataloader())
+            steps = CLI["epochs"] * n_train
+            forwards = CLI["epochs"] * len(dm.val_dataloader()) + len(dm.test_dataloader())
+            if n_train != 4:
+                raise AssertionError(f"{n_train} training batches an epoch, expected 4")
+
+            # A: train, counted
+            torch.cuda.reset_peak_memory_stats()
+            a_dir = f"{root}/A"
+            t0 = time.perf_counter()
+            rc, launches = counted(torch, lambda: train_cli.main(
+                ["train", *argv, "--output-dir", a_dir]), cli_expected(steps, forwards),
+                "dgdm-train (run A)")
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if rc != 0:
+                raise AssertionError(f"run A exit code {rc}")
+            for name in ("config_snapshot.yaml", "checkpoints/index.json", "logs/metrics.csv",
+                         "logs/metrics.jsonl", "final_model.npz", "history.json"):
+                if not os.path.exists(f"{a_dir}/{name}"):
+                    raise AssertionError(f"run A wrote no {name}")
+            with open(f"{a_dir}/history.json") as f:
+                hist_a = json.load(f)
+            if [h["phase"] for h in hist_a] != ["pretrain", "finetune"] or not all(
+                    math.isfinite(v) for h in hist_a for v in h.values()
+                    if isinstance(v, float)):
+                raise AssertionError(f"run A history {hist_a}")
+            saves = [t for m in managers for t in m.save_timings]
+            out["A"] = {"rc": rc, "launches": launches, "steps": steps, "forwards": forwards,
+                        "wall_s": wall, "epoch_s": [h["epoch_time_s"] for h in hist_a],
+                        "fit_graphs_per_s": [h["steps"] * CLI["batch"] / h["epoch_time_s"]
+                                             for h in hist_a],
+                        "peak_gib": peak, "history": hist_a, "checkpoint_saves": saves}
+            log(f"cli: A train rc {rc} in {wall:.1f} s ({steps} steps, {forwards} forwards), "
+                f"launches {launches} as computed; epochs "
+                f"{[round(h['epoch_time_s'], 3) for h in hist_a]} s, fit "
+                f"{[round(g, 1) for g in out['A']['fit_graphs_per_s']]} graphs/s, peak "
+                f"{peak:.2f} GiB; checkpoint saves (ms blocking / background, MiB) "
+                f"{[(round(t['blocking_ms'], 1), round(t['background_ms'], 1), round(t['bytes'] / 2 ** 20, 1)) for t in saves]} [{card}]")
+
+            # B: preempted by SIGTERM once the first backward ran, then resumed
+            b_dir = f"{root}/B"
+            kernels.reset_launch_counts()
+            done = threading.Event()
+
+            def watch():
+                while not done.is_set():
+                    if kernels.KERNELS["gather_agg_bwd"].launches > 0:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                        return
+                    time.sleep(0.0005)
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                rc_b = train_cli.main(["train", *argv, "--output-dir", b_dir])
+            finally:
+                done.set()
+                watcher.join(timeout=10)
+            stopped_s = time.perf_counter() - t0
+            position = CheckpointManager(f"{b_dir}/checkpoints").record_extra().get("resume", {})
+            if rc_b != 75 or not position.get("mid_epoch") or not (
+                    0 < position.get("step_in_epoch", 0) < n_train):
+                raise AssertionError(f"run B exit code {rc_b}, resume record {position}")
+            t0 = time.perf_counter()
+            rc_r = train_cli.main(["resume", *argv, "--output-dir", b_dir, "--checkpoint-dir",
+                                   f"{b_dir}/checkpoints"])
+            resume_s = time.perf_counter() - t0
+            peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+            if rc_r != 0:
+                raise AssertionError(f"resume exit code {rc_r}")
+            pa, pb = bundle_params(f"{a_dir}/final_model.npz"), bundle_params(
+                f"{b_dir}/final_model.npz")
+            differ = [k for k in pa if not np.array_equal(pa[k], pb[k])]
+            with open(f"{b_dir}/history.json") as f:
+                hist_b = json.load(f)
+
+            def summary(h):
+                return {k: v for k, v in h.items() if k != "epoch_time_s"}
+
+            if set(pa) != set(pb) or differ or summary(hist_b[-1]) != summary(hist_a[-1]):
+                raise AssertionError(f"resumed run differs from run A: parameters {differ[:8]}, "
+                                     f"finetune {hist_b[-1]} against {hist_a[-1]}")
+            out["B"] = {"rc": rc_b, "resume": position, "stopped_wall_s": stopped_s,
+                        "resume_rc": rc_r, "resume_wall_s": resume_s,
+                        "epoch_s": [h["epoch_time_s"] for h in hist_b],
+                        "fit_graphs_per_s": [(h["steps"] - (position["step_in_epoch"] if i == 0
+                                                            else 0)) * CLI["batch"]
+                                             / h["epoch_time_s"] for i, h in enumerate(hist_b)],
+                        "peak_gib": peak_b, "parameters_equal": len(pa)}
+            log(f"cli: B rc {rc_b} at {position} after {stopped_s:.1f} s, resume rc {rc_r} in "
+                f"{resume_s:.1f} s (epochs {[round(h['epoch_time_s'], 3) for h in hist_b]} s, "
+                f"fit {[round(g, 1) for g in out['B']['fit_graphs_per_s']]} graphs/s), peak "
+                f"{peak_b:.2f} GiB; {len(pa)} parameters bit-equal to A, finetune summary equal")
+
+            # predict on A's bundle over the test graphs
+            test_files = [dm.dataset.files[i] for i in dm.test_dataloader().dataset.indices]
+            test_dir = f"{root}/test"
+            os.makedirs(test_dir)
+            for p in test_files:
+                os.symlink(p, f"{test_dir}/{p.name}")
+            fwd = expected_launches(BASE, training=False)
+            t0 = time.perf_counter()
+            rc_p, p_launches = counted(torch, lambda: predict_cli.main(
+                ["--model", f"{a_dir}/final_model.npz", "--input", test_dir, "--output-dir",
+                 f"{root}/preds", "--format", "both", "--log-level", "WARNING"]),
+                {k: len(test_files) * v for k, v in fwd.items()}, "dgdm-predict")
+            predict_s = time.perf_counter() - t0
+            predictor = DGDMPredictor(model_path=f"{a_dir}/final_model.npz")
+            worst = 0.0
+            for p in test_files:
+                with open(f"{root}/preds/{p.stem}.json") as f:
+                    got = np.asarray(json.load(f)["probabilities"])
+                ref = predictor.predict_graph(load_graph(p))["probabilities"]
+                worst = max(worst, float(np.abs(got - ref).max()))
+            if rc_p != 0 or worst != 0.0 or not os.path.exists(f"{root}/preds/predictions.csv"):
+                raise AssertionError(f"dgdm-predict rc {rc_p}, probabilities off by {worst}")
+            out["predict"] = {"rc": rc_p, "graphs": len(test_files), "launches": p_launches,
+                              "wall_s": predict_s, "max_abs_err": worst}
+            log(f"cli: predict rc {rc_p} on {len(test_files)} graphs in {predict_s:.1f} s, "
+                f"launches {p_launches}, probabilities equal to DGDMPredictor.predict_graph")
+            del predictor
+
+            out["rates"] = fit_rates(torch, cfg, fx)
+            torch.cuda.empty_cache()
+            out["slide"] = slide_training(torch, root)
+    finally:
+        CheckpointManager.__init__ = init
+    return out
+
+
+def fit_rates(torch, cfg, fx) -> dict:
+    """The loader alone (cold: a new dataset inflates every file; warm: from
+    its cache); ``fit``'s graphs/s over warm pretrain epochs of the loader,
+    of the same batches stacked beforehand on the host and on the card, and
+    a profiled epoch; the resident-batch pretrain step on the same trainer
+    (median of 5 after 2) and its profile. ``cfg``: the run's config."""
+    from dgdm_histopath_torch.data import HistopathDataModule, HistopathDataset
+    from dgdm_histopath_torch.models.presets import PRESETS
+    from dgdm_histopath_torch.training import DGDMTrainer
+
+    def loader_rate(dm):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in dm.train_dataloader())
+        return n / (time.perf_counter() - t0)
+
+    dm = HistopathDataModule(HistopathDataset(fx["data"], metadata_path=fx["labels"]),
+                             batch_size=CLI["batch"], train_split=0.8, val_split=0.1,
+                             test_split=0.1, seed=0)
+    cold, warm = loader_rate(dm), loader_rate(dm)
+    batch = next(iter(dm.train_dataloader()))
+    for key, value in PRESETS["dgdm-base"].items():       # the run's model: the preset,
+        setattr(cfg.model, key, list(value) if isinstance(value, tuple) else value)
+    cfg.model.num_classes, cfg.model.edge_features = 2, batch.edge_attr.shape[-1]
+    trainer = DGDMTrainer.from_config(cfg, device="cuda")
+    trainer.init_state(0, batch)
+    def fit_epochs(loader_fn, epochs: int) -> list:
+        rates = []
+        for _ in range(epochs):
+            trainer.current_epoch = 0
+            trainer.fit(loader_fn(), max_epochs=1)
+            epoch = trainer.history[-1]
+            rates.append(epoch["steps"] * CLI["batch"] / epoch["epoch_time_s"])
+        return rates
+
+    fit_gps = fit_epochs(dm.train_dataloader, 3)[1:]      # a warm-up epoch, then two timed
+    # the feed taken apart: the same four batches stacked beforehand, on the
+    # host (fit pins and uploads them) and on the card (fit's loop alone)
+    host_batches = list(dm.train_dataloader())
+    card_batches = [b.to(trainer.device) for b in host_batches]
+    host_gps = fit_epochs(lambda: host_batches, 2)
+    card_gps = fit_epochs(lambda: card_batches, 2)
+    del host_batches, card_batches
+    trainer.current_epoch = 0
+    loader = dm.train_dataloader()
+    fit_profile = profile_call(torch, lambda: trainer.fit(loader, max_epochs=1),
+                               "fit epoch (4 pretrain steps of batch 32)")
+    resident = batch.to(trainer.device)
+    step_ms = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.training_step(resident, 0)
+        torch.cuda.synchronize()
+        if i >= 2:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(step_ms)
+    step_profile = profile_call(torch, lambda: trainer.training_step(resident, 0),
+                                "resident-batch pretrain step")
+
+    def idle(profile):
+        busy = profile["device_busy_ms"]
+        return None if busy is None else 1.0 - busy / profile["wall_ms"]
+
+    rates = {"loader_batches_per_s_cold": cold, "loader_batches_per_s_warm": warm,
+             "fit_graphs_per_s_warm": fit_gps, "fit_graphs_per_s_host_batches": host_gps,
+             "fit_graphs_per_s_card_batches": card_gps, "resident_step_ms": ms,
+             "resident_step_ms_all": step_ms, "resident_graphs_per_s": CLI["batch"] / ms * 1e3,
+             "idle_share_fit_epoch_profiled": idle(fit_profile),
+             "idle_share_resident_step_profiled": idle(step_profile),
+             "profile_fit_epoch": {k: v for k, v in fit_profile.items() if k != "top"},
+             "profile_resident_step": {k: v for k, v in step_profile.items() if k != "top"}}
+
+    def share(x):
+        return "not measured" if x is None else f"{100 * x:.1f}%"
+
+    log(f"cli: loader alone {cold:.2f} batches/s cold, {warm:.2f} warm; fit "
+        f"{[round(g, 1) for g in fit_gps]} graphs/s over two warm epochs (stacked host batches "
+        f"{[round(g, 1) for g in host_gps]}, batches on the card "
+        f"{[round(g, 1) for g in card_gps]}) against {rates['resident_graphs_per_s']:.1f} for "
+        f"the resident-batch step ({ms:.3f} ms median of 5); device idle {share(idle(fit_profile))} of a profiled fit epoch, "
+        f"{share(idle(step_profile))} of a profiled resident step")
+    return rates
+
+
+def slide_training(torch, root: str) -> dict:
+    """``--dataset-type slide`` on CLI["slides"] deflate-tiled TIFFs written by
+    the port: the dinov2 featurizer on the card (768-d nodes, K = 24), batch
+    2, one pretrain and one finetune epoch, counted."""
+    import os
+
+    import numpy as np
+    from dgdm_histopath_torch.cli import train as train_cli
+    from dgdm_histopath_torch.preprocessing import synthetic, tiff
+
+    slides = f"{root}/slides"
+    os.makedirs(slides)
+    labels = {}
+    for i in range(CLI["slides"]):
+        img, _ = synthetic.generate_tissue_image(CLI["slide_px"], CLI["slide_px"], seed=200 + i,
+                                                 num_blobs=SLIDE["num_blobs"])
+        tiff.write_tiled_tiff(f"{slides}/case{i}.tif", synthetic.build_pyramid(img, 3),
+                              tile=256, compression="deflate", bigtiff=True,
+                              description="Aperio synthetic|AppMag = 20|MPP = 0.5")
+        labels[f"case{i}"] = i % 2
+    with open(f"{root}/slide_labels.json", "w") as f:
+        json.dump(labels, f)
+    cfg = {"data": {"train_split": 0.5, "val_split": 0.25, "test_split": 0.25, "batch_size": 2,
+                    "patch_size": CLI["slide_patch"], "tissue_threshold": 0.5,
+                    "node_buckets": [CLI["slide_bucket"]], "feature_extractor": "dinov2"},
+           "training": {"max_epochs": 2, "pretrain_epochs": 1, "warmup_steps": WARMUP_STEPS},
+           "logging": {"logger_type": "csv"}}
+    with open(f"{root}/slide_config.json", "w") as f:
+        json.dump(cfg, f)
+    # 2 training slides (1 step an epoch), 1 validation and 1 test slide
+    steps, forwards = 2, 2 + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, launches = counted(torch, lambda: train_cli.main(
+        ["train", "--preset", "dgdm-base", "--config", f"{root}/slide_config.json",
+         "--data-dir", slides, "--dataset-type", "slide", "--metadata",
+         f"{root}/slide_labels.json", "--num-classes", "2", "--seed", "0", "--output-dir",
+         f"{root}/S", "--log-level", "WARNING"]), cli_expected(steps, forwards),
+        "dgdm-train --dataset-type slide")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(f"{root}/S/history.json") as f:
+        hist = json.load(f)
+    if rc != 0 or [h["phase"] for h in hist] != ["pretrain", "finetune"]:
+        raise AssertionError(f"slide run rc {rc}, history {hist}")
+    with np.load(f"{root}/S/final_model.npz") as data:
+        meta = json.loads(str(data["__meta__"]))
+    log(f"cli: slide training rc {rc} in {wall:.1f} s on {CLI['slides']} {CLI['slide_px']}² "
+        f"TIFFs (dinov2, node_features {meta['model_config']['node_features']}), launches "
+        f"{launches} as computed; epochs {[round(h['epoch_time_s'], 3) for h in hist]} s, peak "
+        f"{peak:.2f} GiB")
+    return {"rc": rc, "launches": launches, "wall_s": wall, "peak_gib": peak,
+            "epoch_s": [h["epoch_time_s"] for h in hist]}
+
+
 def main() -> int:
     import torch
 
@@ -1563,6 +1951,10 @@ def main() -> int:
     slide = slide_phase(torch, card, kern)
     torch.cuda.empty_cache()
 
+    # last: training through the CLI, resumed after a SIGTERM, and dgdm-predict
+    cli = cli_phase(torch, card)
+    torch.cuda.empty_cache()
+
     replaces = {   # kernel -> (its source, the TPU code it stands in for)
         "gather_rows": ("gather_rows.cu", "dgdm_histopath_tpu/ops/pallas/gather_rows.py:56"),
         "gather_agg": ("gather_agg.cu", "dgdm_histopath_tpu/ops/pallas/gather_agg.py:36"),
@@ -1587,6 +1979,9 @@ def main() -> int:
                    "large_predict_batch": l_launches[name],
                    "large_training_step": l_train_launches[name],
                    "predict_slide": slide["launches"][name],
+                   "dgdm_train": cli["A"]["launches"][name],
+                   "dgdm_train_slide": cli["slide"]["launches"][name],
+                   "dgdm_predict": cli["predict"]["launches"][name],
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}
@@ -1628,7 +2023,7 @@ def main() -> int:
                                   "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
                                   "training_parity": train_parity, "remat": remat,
-                                  "flash_module": flash_module, "slide": {
+                                  "flash_module": flash_module, "cli": cli, "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},
                                   "large": {"model": l_timing, "parity": l_parity,
                                             "server": l_server,

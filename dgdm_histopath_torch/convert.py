@@ -15,7 +15,9 @@ are the same paths joined by ``.``, with these layout rules:
   ``pos_embed`` and ``ls*_gamma`` are copied as they are.
 
 Loading is strict: a missing or unexpected key, or a shape mismatch,
-raises ``CheckpointError``.
+raises ``CheckpointError``. ``params_to_flax`` applies the rules backwards;
+which ``Dense`` layers flax holds per head (``DenseGeneral``) it reads off
+the modules that own them.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .models.dgdm import DGDMModel
+from .models.pooling import GlobalAttentionPool
+from .nn.attention import SpatialAttention
+from .nn.graph_layers import DynamicGraphLayer
 from .utils.exceptions import CheckpointError
 
 KEY_PREFIX = "p:"
@@ -62,6 +68,56 @@ def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         name, value = _convert_leaf(parts[:-1], parts[-1], np.asarray(arr))
         state[".".join(parts[:-1] + [name])] = torch.tensor(value, dtype=torch.float32)
     return state
+
+
+# per module class: its Dense children that flax holds as DenseGeneral with
+# per-head outputs ([in, H, D] kernels, [H, D] biases), and those with
+# per-head inputs ([H, D, out] kernels)
+_PER_HEAD = {DynamicGraphLayer: (("q_proj", "k_proj", "edge_k_proj"), ()),
+             SpatialAttention: (("q_proj", "k_proj", "v_proj"), ("out_proj",)),
+             GlobalAttentionPool: (("k_proj", "v_proj"), ())}
+
+
+def _head_layouts(model: nn.Module) -> Dict[str, Tuple[str, int]]:
+    """Dense module path -> ("out" | "in", heads) for the per-head layers."""
+    layouts = {}
+    for path, module in model.named_modules():
+        outs, ins = _PER_HEAD.get(type(module), ((), ()))
+        prefix = f"{path}." if path else ""
+        for name in outs:
+            if getattr(module, name, None) is not None:
+                layouts[prefix + name] = ("out", module.num_heads)
+        for name in ins:
+            layouts[prefix + name] = ("in", module.num_heads)
+    return layouts
+
+
+def params_to_flax(state: Mapping[str, torch.Tensor], model: nn.Module
+                   ) -> Dict[str, np.ndarray]:
+    """``{"a.b.weight": tensor}`` -> ``{"params/a/b/kernel": array}``: the
+    inverse of :func:`params_from_flax` for ``model``'s state dict. Arrays
+    are f32 on the host."""
+    layouts = _head_layouts(model)
+    flat = {}
+    for key, value in state.items():
+        a = value.detach().float().cpu().numpy()
+        module, _, leaf = key.rpartition(".")
+        kind, heads = layouts.get(module, (None, 1))
+        if leaf == "weight" and a.ndim == 1:               # LayerNorm
+            leaf = "scale"
+        elif leaf == "weight" and a.ndim == 4:             # conv
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and kind == "out":           # [in, H, D]
+            leaf, a = "kernel", a.T.reshape(a.shape[1], heads, -1)
+        elif leaf == "weight" and kind == "in":            # [H, D, out]
+            leaf, a = "kernel", a.T.reshape(heads, -1, a.shape[0])
+        elif leaf == "weight":
+            leaf, a = "kernel", a.T
+        elif leaf == "bias" and kind == "out":
+            a = a.reshape(heads, -1)
+        path = ["params"] + (module.split(".") if module else []) + [leaf]
+        flat["/".join(path)] = np.ascontiguousarray(a)
+    return flat
 
 
 def flatten_flax(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:

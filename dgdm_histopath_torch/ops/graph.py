@@ -58,9 +58,17 @@ class PaddedGraph:
     def replace(self, **changes) -> "PaddedGraph":
         return dataclasses.replace(self, **changes)
 
-    def to(self, device) -> "PaddedGraph":
-        return self.replace(**{f: getattr(self, f).to(device) for f in _FIELDS
+    def to(self, device, non_blocking: bool = False) -> "PaddedGraph":
+        return self.replace(**{f: getattr(self, f).to(device, non_blocking=non_blocking)
+                               for f in _FIELDS if getattr(self, f) is not None})
+
+    def pin_memory(self) -> "PaddedGraph":
+        """A copy in page-locked host memory (the source of an asynchronous upload)."""
+        return self.replace(**{f: getattr(self, f).pin_memory() for f in _FIELDS
                                if getattr(self, f) is not None})
+
+    def tensors(self) -> list:
+        return [getattr(self, f) for f in _FIELDS if getattr(self, f) is not None]
 
     def unsqueeze(self) -> "PaddedGraph":
         """Add a leading batch axis of 1 to every field."""

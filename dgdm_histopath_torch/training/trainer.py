@@ -18,7 +18,15 @@ counted from 0, so with warmup the first update has rate 0.
 Randomness: the trainer owns one ``torch.Generator`` on its device and
 reseeds it from ``(seed, step)`` at the start of each step, so a run that
 resumes at step ``s`` replays the draws of step ``s``. Nothing reads the
-global generator.
+global generator. ``state_dict()`` holds what a resume needs (parameters,
+AdamW state, ``step``, ``seed``, ``current_epoch``); ``fit`` checkpoints
+through a ``CheckpointManager`` and stops at a step boundary when its
+``PreemptionGuard`` trips.
+
+``fit`` feeds the steps through a ``PrefetchIterator``: a background thread
+takes the loader's next batch, copies it to pinned host memory and starts
+its upload on a side stream while the current step runs; the step's stream
+waits for that upload's event.
 
 The trainer runs on the card unless ``device="cpu"`` is passed.
 """
@@ -38,9 +46,14 @@ import torch.nn.functional as F
 from ..evaluation.metrics import concordance_index
 from ..models.decoders import cox_partial_likelihood, discrete_survival_loss
 from ..models.dgdm import DGDMModel
+from ..nn.layers import init_parameters
 from ..ops.graph import PaddedGraph, band_eligible, in_band_fraction
+from ..utils.config import DGDMConfig
 from ..utils.device import resolve_device
+from ..utils.monitoring import monitor_operation
+from ..utils.optimization import PrefetchIterator
 from .losses import contrastive_loss
+from .preemption import skip_batches
 
 logger = logging.getLogger("dgdm_histopath_torch.training")
 
@@ -71,6 +84,19 @@ class TrainerConfig:
     # whose edges are not all in-band drops the out-of-band edges, and
     # init_state raises on such an example batch unless this is set
     allow_out_of_band_graphs: bool = False
+
+    @classmethod
+    def from_config(cls, cfg: DGDMConfig) -> "TrainerConfig":
+        t, a = cfg.training, cfg.advanced
+        return cls(
+            learning_rate=t.learning_rate, weight_decay=t.weight_decay,
+            max_epochs=t.max_epochs, pretrain_epochs=t.pretrain_epochs,
+            masking_ratio=t.masking_ratio, use_contrastive_loss=t.use_contrastive_loss,
+            contrastive_temperature=t.contrastive_temperature,
+            scheduler_type=t.scheduler_type, warmup_steps=t.warmup_steps,
+            gradient_clip_val=a.gradient_clip_val,
+            accumulate_grad_batches=a.accumulate_grad_batches,
+            allow_out_of_band_graphs=t.allow_out_of_band_graphs)
 
 
 def make_lr_schedule(cfg: TrainerConfig) -> Callable[[int], float]:
@@ -170,6 +196,8 @@ class DGDMTrainer:
         self.step = 0
         self.history: list[Dict[str, Any]] = []
         self.current_epoch = 0
+        self._upload_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                               else None)
 
     # ------------------------------------------------------------------
     # state
@@ -205,6 +233,23 @@ class DGDMTrainer:
             raise ValueError(msg + " Set TrainerConfig(allow_out_of_band_graphs=True) to "
                              "train on them anyway.")
         logger.warning("%s Proceeding anyway (allow_out_of_band_graphs=True).", msg)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a resume needs: the model's parameters, the AdamW state,
+        ``step``, ``seed`` and ``current_epoch`` (tensors on the device)."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state() first")
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "seed": self.seed, "current_epoch": self.current_epoch}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Take up a ``state_dict()`` (from this device or another)."""
+        if self.optimizer is None:
+            raise RuntimeError("call init_state() first")
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step, self.seed = int(state["step"]), int(state["seed"])
+        self.current_epoch = int(state["current_epoch"])
 
     # ------------------------------------------------------------------
     # losses
@@ -304,8 +349,9 @@ class DGDMTrainer:
         self.optimizer.step()
         self.step += 1
 
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = norm
+        # in key order, as the reference's jitted step returns them
+        metrics = {k: metrics[k].detach() for k in sorted(metrics)}
         if materialize:
             values = torch.stack([v.float() for v in metrics.values()]).tolist()
             return dict(zip(metrics, values))
@@ -349,42 +395,92 @@ class DGDMTrainer:
         per = ((pred - batch.y.float().reshape(pred.shape)) ** 2).mean(-1)
         return {"loss": (per * valid).sum() / denom, "valid": valid}
 
+    def _prepare_batch(self, batch: PaddedGraph):
+        """(batch on the device, its upload's event or None). On the card a
+        host batch is copied to pinned memory and uploaded on the side
+        stream; called on the prefetch thread."""
+        if self._upload_stream is None or batch.x.is_cuda:
+            return batch.to(self.device), None
+        pinned = batch.pin_memory()
+        with torch.cuda.stream(self._upload_stream):
+            on_card = pinned.to(self.device, non_blocking=True)
+            uploaded = torch.cuda.Event()
+            uploaded.record()
+        return on_card, uploaded
+
+    def _await_upload(self, prepared) -> PaddedGraph:
+        """Make the current stream wait for the batch's upload, and keep its
+        memory from reuse until the work queued on this stream is done."""
+        batch, uploaded = prepared
+        if uploaded is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(uploaded)
+            for t in batch.tensors():
+                t.record_stream(stream)
+        return batch
+
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             max_epochs: Optional[int] = None, checkpoint_manager=None,
             log_every: int = 50, early_stopping_patience: int = 10, train_logger=None,
             preemption_guard=None, start_step_in_epoch: int = 0,
             restore_best_params: bool = False) -> Dict[str, Any]:
-        """Epoch loop with the two-phase curriculum, validation and early
-        stopping (finetune phase only). ``restore_best_params`` keeps a host
-        copy of the parameters at the best validation loss and loads it back
-        when the loop ends. Checkpointing, the train logger, the preemption
-        guard and resuming inside an epoch are not ported."""
-        for what, given in (("fit(checkpoint_manager=...)", checkpoint_manager is not None),
-                            ("fit(train_logger=...)", train_logger is not None),
-                            ("fit(preemption_guard=...)", preemption_guard is not None),
-                            ("fit(start_step_in_epoch=...)", start_step_in_epoch != 0)):
-            if given:
-                raise NotImplementedError(_NOT_PORTED.format(what=what, item=11))
+        """Epoch loop with the two-phase curriculum, validation, checkpoints
+        and early stopping (finetune phase only).
+
+        ``checkpoint_manager``: a ``CheckpointManager``; after each validated
+        epoch it saves ``state_dict()`` at step ``epoch`` with ``val_loss``.
+        ``train_logger``: a ``TrainLogger`` that receives every epoch summary.
+        ``restore_best_params`` keeps a host copy of the parameters at the
+        best validation loss and loads it back when the loop ends.
+
+        ``preemption_guard``: a ``PreemptionGuard``; when it trips, the loop
+        stops at the next step boundary, saves an emergency checkpoint with
+        ``extra={"resume": {"epoch", "step_in_epoch", "mid_epoch"}}`` and
+        returns ``{"interrupted": True, "resume": {...}}``.
+        ``start_step_in_epoch`` skips that many batches of the first epoch
+        (a resume): with a deterministic loader the replay is bit-identical.
+        """
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
         max_epochs = max_epochs or self.config.max_epochs
         best_val, best_params, patience = float("inf"), None, 0
+        first_epoch = self.current_epoch
+        interrupted = False
+        resume_info: Dict[str, Any] = {}
         for epoch in range(self.current_epoch, max_epochs):
             self.current_epoch = epoch
             phase = self.phase_for_epoch(epoch)
             totals: Dict[str, torch.Tensor] = {}
             t0 = time.perf_counter()
-            n_steps = 0
-            for batch in train_loader:
-                # accumulated on the device: one host sync per epoch
-                m = self.training_step(batch, epoch, materialize=False)
-                n_steps += 1
-                for k, v in m.items():
-                    totals[k] = v if k not in totals else totals[k] + v
-                if n_steps % log_every == 0:
-                    logger.info("epoch %d [%s] step %d loss=%.4f", epoch, phase, n_steps,
-                                float(m["loss"]))
-            summary: Dict[str, Any] = {f"train_{k}": float(v) / max(n_steps, 1)
+            skip = start_step_in_epoch if epoch == first_epoch else 0
+            # n_steps is the position in the epoch, counting the skipped batches
+            n_steps = skip
+            epoch_loader = skip_batches(train_loader, skip) if skip else train_loader
+            with monitor_operation(f"train_epoch_{phase}"):
+                prepared = PrefetchIterator((self._prepare_batch(b) for b in epoch_loader),
+                                            depth=2)
+                for item in prepared:
+                    # accumulated on the device: one host sync per epoch
+                    m = self.training_step(self._await_upload(item), epoch,
+                                           materialize=False)
+                    n_steps += 1
+                    for k, v in m.items():
+                        totals[k] = v if k not in totals else totals[k] + v
+                    if n_steps % log_every == 0:
+                        logger.info("epoch %d [%s] step %d loss=%.4f", epoch, phase,
+                                    n_steps, float(m["loss"]))
+                    if preemption_guard is not None and preemption_guard.triggered:
+                        interrupted = True
+                        prepared.close()
+                        break
+            if interrupted:
+                resume_info = {"epoch": epoch, "step_in_epoch": n_steps, "mid_epoch": True}
+                logger.warning("preemption: stopping at epoch %d step %d", epoch, n_steps)
+                if checkpoint_manager is not None:
+                    checkpoint_manager.save(self.state_dict(), step=epoch,
+                                            extra={"resume": resume_info})
+                break
+            summary: Dict[str, Any] = {f"train_{k}": float(v) / max(n_steps - skip, 1)
                                        for k, v in totals.items()}
             summary.update(epoch=epoch, phase=phase,
                            epoch_time_s=time.perf_counter() - t0, steps=n_steps)
@@ -403,6 +499,9 @@ class DGDMTrainer:
                     v = cat("valid") > 0
                     summary["val_cindex"] = concordance_index(
                         cat("time")[v], cat("risk")[v], cat("event")[v])
+                if checkpoint_manager is not None:
+                    checkpoint_manager.save(self.state_dict(), step=epoch,
+                                            metric=summary["val_loss"])
                 if summary["val_loss"] < best_val - 1e-6:
                     best_val, patience = summary["val_loss"], 0
                     if restore_best_params:
@@ -413,13 +512,24 @@ class DGDMTrainer:
                     if patience >= early_stopping_patience and phase == "finetune":
                         logger.info("early stopping at epoch %d", epoch)
                         self.history.append(summary)
+                        if train_logger is not None:
+                            train_logger.log_metrics(summary, step=epoch)
                         break
             self.history.append(summary)
+            if train_logger is not None:
+                train_logger.log_metrics(summary, step=epoch)
             logger.info("epoch %d done: %s", epoch,
                         {k: round(v, 4) for k, v in summary.items() if isinstance(v, float)})
-        if restore_best_params and best_params is not None:
+        if checkpoint_manager is not None:
+            # saves run in the background: the last one is on disk when fit returns
+            checkpoint_manager.wait_until_finished()
+        if restore_best_params and best_params is not None and not interrupted:
             self.model.load_state_dict(best_params)
-        return {"history": self.history, "best_val_loss": best_val, "interrupted": False}
+        result: Dict[str, Any] = {"history": self.history, "best_val_loss": best_val,
+                                  "interrupted": interrupted}
+        if interrupted:
+            result["resume"] = resume_info
+        return result
 
     @torch.no_grad()
     def predict_step(self, batch: PaddedGraph, return_attention: bool = True
@@ -431,3 +541,33 @@ class DGDMTrainer:
         embs = [self.model.generate_embeddings(batch.to(self.device)).float().cpu().numpy()
                 for batch in loader]
         return np.concatenate(embs, axis=0)
+
+    @classmethod
+    def from_config(cls, cfg: DGDMConfig, mesh=None, device=None) -> "DGDMTrainer":
+        """A trainer over a ``DGDMModel`` built from ``cfg.model`` (the
+        classification / regression / survival sections switch their heads
+        on), its parameters drawn from ``cfg.experiment.seed``. A mesh
+        (``mesh`` or ``hardware.mesh_shape``) and ``moe_experts`` raise
+        naming ROADMAP item 12, a ``param_dtype`` other than float32 item 8."""
+        if mesh is not None or cfg.hardware.mesh_shape:
+            raise NotImplementedError(_NOT_PORTED.format(what="training on a mesh", item=12))
+        m = cfg.model
+        model = DGDMModel(
+            node_features=m.node_features, hidden_dims=tuple(m.hidden_dims),
+            num_diffusion_steps=m.num_diffusion_steps, attention_heads=m.attention_heads,
+            dropout=m.dropout, graph_layers=m.graph_layers,
+            use_spatial_attention=m.use_spatial_attention,
+            use_hierarchical=m.use_hierarchical, diffusion_schedule=m.diffusion_schedule,
+            activation=m.activation, normalization=m.normalization, pooling=m.pooling,
+            num_classes=(cfg.classification.num_classes if cfg.classification.enabled
+                         else m.num_classes),
+            regression_targets=(cfg.regression.num_targets if cfg.regression.enabled
+                                else m.regression_targets),
+            survival_mode=cfg.survival.mode if cfg.survival.enabled else None,
+            survival_intervals=cfg.survival.num_intervals, edge_features=m.edge_features,
+            compute_dtype=m.compute_dtype, param_dtype=m.param_dtype,
+            attention_traffic_dtype=m.attention_traffic_dtype,
+            spatial_window=m.spatial_window, graph_window=m.graph_window,
+            moe_experts=m.moe_experts, moe_top_k=m.moe_top_k, moe_capacity=m.moe_capacity)
+        init_parameters(model, torch.Generator().manual_seed(cfg.experiment.seed))
+        return cls(model, TrainerConfig.from_config(cfg), device=device)

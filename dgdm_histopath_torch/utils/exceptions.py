@@ -24,6 +24,10 @@ class ConfigurationError(DGDMException):
     """Invalid or missing configuration."""
 
 
+class ValidationError(DGDMException):
+    """Input validation failure (shapes, ranges, enums, paths)."""
+
+
 class CheckpointError(DGDMException):
     """Checkpoint save/restore failure."""
 

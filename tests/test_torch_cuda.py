@@ -641,3 +641,127 @@ def test_predict_slide_runs_on_the_card_by_default(cuda_device):
     ref = DGDMPredictor(model=model, device="cpu", **kw).predict_slide(backend)
     assert out["num_patches"] == ref["num_patches"] == 60
     np.testing.assert_allclose(out["probabilities"], ref["probabilities"], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# training through fit and the CLI: checkpoints, preemption and resume, and
+# bundles, on the card
+# ---------------------------------------------------------------------------
+
+SMALL_BASE = dict(node_features=24, hidden_dims=(48, 32), attention_heads=4, graph_layers=2,
+                  num_diffusion_steps=3)
+
+
+def _small_graphs(count, n_real=90, n=128, k=6, f=24, seed=0):
+    rs = np.random.RandomState(seed)
+    graphs = []
+    for i in range(count):
+        idx = rs.randint(0, n_real, (n_real, k))
+        g = build_padded_graph(rs.randn(n_real, f), rs.rand(n_real, 2), idx,
+                               rs.rand(n_real, k, 3), np.ones((n_real, k), bool), bucket=n)
+        graphs.append(g.replace(y=torch.tensor(i % 2, dtype=torch.int32)))
+    return graphs
+
+
+def _card_trainer(device):
+    model = create_model("dgdm-base", num_classes=2, device=device, seed=0, **SMALL_BASE)
+    trainer = DGDMTrainer(model, TrainerConfig(learning_rate=1e-3, warmup_steps=1,
+                                               pretrain_epochs=1, max_epochs=2), device=device)
+    trainer.init_state(0)
+    return trainer
+
+
+@pytest.mark.cuda
+def test_fit_preempted_and_resumed_is_bit_equal_on_card(cuda_device, tmp_path):
+    """Two epochs of host batches through fit (pinned uploads on the side
+    stream), against the same run stopped after its first step with an
+    emergency checkpoint and resumed from it: parameters, AdamW state and
+    step equal to the bit."""
+    from dgdm_histopath_torch.training import CheckpointManager, PreemptionGuard
+
+    batches = [batch_graphs(_small_graphs(4, seed=s)) for s in range(3)]
+    ref = _card_trainer(cuda_device)
+    ref.fit(batches, val_loader=batches[:1])
+
+    stopped = _card_trainer(cuda_device)
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    guard = PreemptionGuard(install=False)
+    guard.trigger()
+    result = stopped.fit(batches, val_loader=batches[:1], checkpoint_manager=mgr,
+                         preemption_guard=guard)
+    assert result["interrupted"] and result["resume"]["step_in_epoch"] == 1
+    assert mgr.record_extra()["resume"] == result["resume"]
+
+    resumed = _card_trainer(cuda_device)
+    resumed.load_state_dict(mgr.restore())
+    resumed.current_epoch = result["resume"]["epoch"]
+    out = resumed.fit(batches, val_loader=batches[:1], checkpoint_manager=mgr,
+                      start_step_in_epoch=result["resume"]["step_in_epoch"])
+    assert out["interrupted"] is False and resumed.step == ref.step == 6
+    for (name, a), b in zip(ref.model.state_dict().items(), resumed.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    sa, sb = ref.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    for i in sa:
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[i][key], sb[i][key]), (i, key)
+    assert {k: v for k, v in out["history"][-1].items() if k != "epoch_time_s"} == {
+        k: v for k, v in ref.history[-1].items() if k != "epoch_time_s"}
+    assert mgr.all_steps() == [0, 1] and mgr.best_step in (0, 1)
+
+
+@pytest.mark.cuda
+def test_bundle_written_on_card_loads_on_the_cpu(cuda_device, tmp_path):
+    """An f32 model trained a step on the card, saved as a bundle, loaded on
+    the CPU: logits within 1e-3 of the card's."""
+    from dgdm_histopath_torch.evaluation.predictor import load_model_checkpoint
+    from dgdm_histopath_torch.training import save_model_bundle
+
+    model = create_model("dgdm-base", num_classes=2, device=cuda_device, seed=1,
+                         compute_dtype="float32", **SMALL_BASE)
+    trainer = DGDMTrainer(model, TrainerConfig(warmup_steps=0, pretrain_epochs=1),
+                          device=cuda_device)
+    trainer.init_state(0)
+    batch = batch_graphs(_small_graphs(3))
+    trainer.training_step(batch, 0)
+    config = {**SMALL_BASE, "hidden_dims": list(SMALL_BASE["hidden_dims"]), "dropout": 0.1,
+              "num_classes": 2, "compute_dtype": "float32"}
+    save_model_bundle(tmp_path / "model.npz", model, config)
+    cpu_model, meta = load_model_checkpoint(tmp_path / "model.npz", device="cpu")
+    assert meta["format"] == "named_paths_v2"
+    with torch.inference_mode():
+        on_card = model.eval()(batch.to(cuda_device))["classification_logits"].cpu()
+        on_cpu = cpu_model(batch)["classification_logits"]
+    torch.testing.assert_close(on_cpu, on_card, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_train_cli_runs_on_the_card_by_default(cuda_device, tmp_path):
+    """``cli.train.main`` without ``--device``: the steps launch the card's
+    kernels, and the run writes its outputs. The package logger that
+    ``setup_logging`` reconfigures is put back afterwards."""
+    import json
+    import logging
+
+    from dgdm_histopath_torch.cli import train as train_cli
+    from dgdm_histopath_torch.data.graph_io import save_graph
+
+    for i, g in enumerate(_small_graphs(8)):
+        save_graph(g, tmp_path / "data" / f"s{i}_graph.npz")
+    (tmp_path / "cfg.json").write_text(json.dumps({
+        "model": {**SMALL_BASE, "hidden_dims": list(SMALL_BASE["hidden_dims"])},
+        "data": {"batch_size": 4, "train_split": 0.5, "val_split": 0.25, "test_split": 0.25},
+        "training": {"max_epochs": 2, "pretrain_epochs": 1, "warmup_steps": 1},
+        "logging": {"logger_type": "csv"}}))
+    kernels.reset_launch_counts()
+    pkg = logging.getLogger("dgdm_histopath_torch")
+    saved = (pkg.level, pkg.propagate, list(pkg.handlers))
+    try:
+        rc = train_cli.main(["train", "--config", str(tmp_path / "cfg.json"), "--data-dir",
+                             str(tmp_path / "data"), "--num-classes", "2", "--dataset-type",
+                             "graph", "--output-dir", str(tmp_path / "out")])
+    finally:
+        pkg.setLevel(saved[0])
+        pkg.propagate = saved[1]
+        pkg.handlers[:] = saved[2]
+    assert rc == 0 and (tmp_path / "out" / "final_model.npz").exists()
+    assert kernels.GATHER_AGG_BWD.launches > 0

@@ -416,7 +416,13 @@ def test_trainer_steps_replay_from_seed_and_step():
 # surface
 # ---------------------------------------------------------------------------
 
-def test_unported_trainer_options_raise_naming_the_roadmap(monkeypatch):
+def test_unported_trainer_options_raise_naming_the_roadmap(monkeypatch, tmp_path):
+    """The item-12 options raise; the fit options of item 11 (a checkpoint
+    manager, a train logger, a preemption guard, a mid-epoch start) are
+    ported and taken; ``TrainerConfig.from_config`` reads a config."""
+    from dgdm_histopath_torch.training import CheckpointManager, PreemptionGuard, TrainLogger
+    from dgdm_histopath_torch.utils.config import DGDMConfig
+
     model = DGDMModel(**KW)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
         DGDMTrainer(model, device="cpu", mesh=object())
@@ -427,11 +433,25 @@ def test_unported_trainer_options_raise_naming_the_roadmap(monkeypatch):
     with pytest.raises(RuntimeError, match="init_state"):
         tt.training_step(to_torch_graph(make_batch()))
     tt.init_state(0)
-    for kw in (dict(checkpoint_manager=object()), dict(train_logger=object()),
-               dict(preemption_guard=object()), dict(start_step_in_epoch=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-            tt.fit([], **kw)
-    assert not hasattr(TrainerConfig, "from_config")
+    batch = to_torch_graph(make_batch())
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    logger = TrainLogger(tmp_path / "logs", logger_type="none")
+    guard = PreemptionGuard(install=False)
+    guard.trigger()
+    stopped = tt.fit([batch, batch], val_loader=[batch], max_epochs=1,
+                     checkpoint_manager=mgr, train_logger=logger, preemption_guard=guard)
+    assert stopped["interrupted"] and tt.step == 1
+    assert mgr.record_extra()["resume"] == {"epoch": 0, "step_in_epoch": 1, "mid_epoch": True}
+    done = tt.fit([batch, batch], val_loader=[batch], max_epochs=1, checkpoint_manager=mgr,
+                  train_logger=logger, start_step_in_epoch=1)
+    logger.close()
+    assert not done["interrupted"] and done["history"][-1]["steps"] == 2 and tt.step == 2
+    assert mgr.all_steps() == [0] and (tmp_path / "logs" / "metrics.csv").exists()
+    cfg = DGDMConfig()
+    cfg.training.learning_rate, cfg.advanced.gradient_clip_val = 3e-4, 0.5
+    from_cfg = TrainerConfig.from_config(cfg)
+    assert (from_cfg.learning_rate, from_cfg.gradient_clip_val) == (3e-4, 0.5)
+    assert from_cfg.max_epochs == cfg.training.max_epochs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DGDMTrainer(model)
