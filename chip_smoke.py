@@ -80,7 +80,16 @@ Phases, each of which raises on a failed check:
      probabilities equal to ``DGDMPredictor``'s); the loader's rate alone,
      ``fit``'s graphs/s and idle share against the resident-batch step, the
      checkpoint's blocking and background times; ``--dataset-type slide``
-     on four small deflate-tiled TIFFs with the dinov2 featurizer.
+     on four small deflate-tiled TIFFs with the dinov2 featurizer;
+ 12. the serving entry point, last: DGDM-Base behind ``InferenceServer``
+     with ``dynamic_batch=16`` after ``warmup(1024)``, 16 closed-loop
+     clients sending 64 ``/predict`` of graph files (launches exactly 9 / 18
+     a batch, each answer equal to the bit to ``predict_batch`` of its padded
+     batch, ``/metrics`` checked), the same traffic serialized, the rate
+     limit (4 of 10 requests answered, 6 refused with 429), ``python -m
+     dgdm_histopath_torch.cli.serve`` as a process (ready, 16 answers,
+     SIGTERM -> exit 0) and ``cli.predict --save-heatmaps`` where matplotlib
+     is importable.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -132,6 +141,13 @@ SLIDE = dict(preset="dgdm-base", fields=3, field_px=4096, levels=4, num_blobs=14
 # epochs; and ``--dataset-type slide`` on four small deflate-tiled TIFFs.
 CLI = dict(graphs=160, batch=32, epochs=2, slides=4, slide_px=1024, slide_patch=128,
            slide_bucket=64)
+# The serving cell: DGDM-Base behind the README's ``dgdm-serve --dynamic-batch
+# 16``: 64 graph files of the Base cell (1000 real nodes in bucket 1024, K = 8)
+# read by ``graph_path`` under data_root, 16 closed-loop clients, a 5 ms
+# batch window; the rate limit at 2 a second (burst 4) against 10 requests at
+# once; the CLI as a process with batches of 8, 16 requests; heatmaps of 2.
+SERVE = dict(graphs=64, clients=16, dynamic_batch=16, wait_ms=5.0, limit_rate=2.0,
+             limit_requests=10, cli_batch=8, cli_requests=16, heatmap_graphs=2)
 
 
 def expected_launches(cell: dict, training: bool, remat: bool = False) -> dict:
@@ -916,22 +932,26 @@ def card_vs_cpu(torch, graphs, cell: dict) -> dict:
     return {"logits_max_abs": d_logits, "attention_max_abs": d_attn}
 
 
-def http_json(port: int, method: str, path: str, body=None):
-    """One request to the local server; the decoded JSON of a 200 answer."""
+def http_status(port: int, method: str, path: str, body=None) -> tuple:
+    """One request to the local server: (status, body text)."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
-        data = None if body is None else json.dumps(body)
-        conn.request(method, path, body=data,
-                     headers={"Content-Type": "application/json"} if data else {})
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"} if body is not None else {})
         resp = conn.getresponse()
-        payload = json.loads(resp.read())
+        return resp.status, resp.read().decode()
     finally:
         conn.close()
-    if resp.status != 200:
-        raise AssertionError(f"{method} {path} -> {resp.status}: {payload}")
-    return payload
+
+
+def http_json(port: int, method: str, path: str, body=None):
+    """One request to the local server; the decoded JSON of a 200 answer."""
+    status, text = http_status(port, method, path, body)
+    if status != 200:
+        raise AssertionError(f"{method} {path} -> {status}: {text[:2000]}")
+    return json.loads(text)
 
 
 def counted_request(port: int, path: str, body, cell: dict) -> tuple:
@@ -1882,6 +1902,357 @@ def slide_training(torch, root: str) -> dict:
             "epoch_s": [h["epoch_time_s"] for h in hist]}
 
 
+def prometheus(port: int) -> dict:
+    """``GET /metrics`` as {metric name: value}."""
+    status, text = http_status(port, "GET", "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics -> {status}")
+    return {name: float(value) for name, value in
+            (line.split() for line in text.splitlines() if line and not line.startswith("#"))}
+
+
+def in_threads(fn, count: int, timeout: float = 600.0) -> float:
+    """``fn(i)`` for i < count, each in its own thread, all started
+    together; the first exception of any thread is raised here. Returns the
+    wall seconds from the first start to the last join."""
+    import threading
+
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except BaseException as exc:  # noqa: BLE001 - raised below, in the caller
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(count)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{sum(t.is_alive() for t in threads)} client threads hang")
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def closed_loop(port: int, names, clients: int) -> dict:
+    """``clients`` closed-loop clients: client c sends /predict for
+    ``names[c::clients]`` one after another. Every answer, its round trip,
+    requests/s over the run, p50 and p99."""
+    import numpy as np
+
+    answers, lat = [None] * len(names), [0.0] * len(names)
+
+    def client(c):
+        for i in range(c, len(names), clients):
+            t0 = time.perf_counter()
+            answers[i] = http_json(port, "POST", "/predict", {"graph_path": names[i]})
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    wall = in_threads(client, clients)
+    return {"answers": answers, "latency_ms": lat, "wall_s": wall,
+            "requests_per_s": len(names) / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def serve_phase(torch, card: str) -> dict:
+    """The serving entry point at DGDM-Base full width (seed 0, bf16), last:
+    a bundle written by ``save_model_bundle`` and SERVE["graphs"] graph files
+    of the Base cell's geometry under a temporary data_root, then
+    1) ``InferenceServer(dynamic_batch=16, batch_wait_ms=5)`` after
+       ``warmup(1024)``: 16 closed-loop clients send 64 ``/predict
+       {"graph_path"}``; launches exactly 9 / 18 x the batches run; every
+       answer equal to the bit to ``predict_batch`` of the padded batch it
+       rode in (a spy records the batches, which run again afterwards);
+       ``/metrics`` agrees with the batcher;
+    2) the same traffic serialized (``dynamic_batch=0``): 9 / 18 a request,
+       answers within 2e-2 of the batched ones (bf16, other batch sizes);
+    3) ``rate_limit_per_s=2`` (burst 4): 10 requests at once, 4 answered 200
+       and 6 answered 429, ``/metrics`` counting 4 requests and 0 errors;
+    4) ``python -m dgdm_histopath_torch.cli.serve --dynamic-batch 8
+       --warmup-nodes 1024`` as a process on a free port (``serve_cli``);
+    5) ``cli.predict --save-heatmaps`` over 2 graphs, where matplotlib is
+       importable: both files per graph."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from dgdm_histopath_torch import create_model
+    from dgdm_histopath_torch.cli import predict as predict_cli
+    from dgdm_histopath_torch.data.graph_io import save_graph
+    from dgdm_histopath_torch.deployment import InferenceServer
+    from dgdm_histopath_torch.evaluation.predictor import DGDMPredictor
+    from dgdm_histopath_torch.models.presets import PRESETS
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.training.checkpoint import save_model_bundle
+
+    per_forward = expected_launches(BASE, training=False)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16",
+                             device="cuda", seed=0)
+        bundle = str(save_model_bundle(f"{root}/final_model.npz", model,
+                                       dict(PRESETS["dgdm-base"], num_classes=2,
+                                            compute_dtype="bfloat16")))
+        del model
+        graphs = make_graphs(dict(BASE, batch=SERVE["graphs"]), seed=3000)
+        names = [f"graphs/s{i:03d}_graph.npz" for i in range(len(graphs))]
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:   # zlib frees the GIL
+            list(pool.map(lambda i: save_graph(graphs[i], f"{root}/{names[i]}"),
+                          range(len(graphs))))
+        out["fixture_s"] = time.perf_counter() - t0
+        predictor = DGDMPredictor(model_path=bundle)
+        if predictor.device.type != "cuda":
+            raise AssertionError(f"the predictor is on {predictor.device}")
+        try:
+            # 1) dynamic batching, counted, each answer held to its padded batch
+            server = InferenceServer(predictor, port=0, host="127.0.0.1", data_root=root,
+                                     dynamic_batch=SERVE["dynamic_batch"],
+                                     batch_wait_ms=SERVE["wait_ms"], rate_limit_per_s=1e4)
+            t0 = time.perf_counter()
+            warmed = server.warmup(num_nodes=BASE["bucket"])
+            torch.cuda.synchronize()
+            out["warmup_s"] = time.perf_counter() - t0
+            if warmed != 5:
+                raise AssertionError(f"warmup ran {warmed} batch sizes, expected 5")
+            recorded, busy = [], []
+            real = predictor.predict_batch
+
+            def spy(batch):
+                t_call = time.perf_counter()
+                results = real(batch)
+                busy.append(time.perf_counter() - t_call)
+                recorded.append((batch, results))
+                return results
+
+            predictor.predict_batch = spy
+            server.start(background=True)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                batched = closed_loop(server.port, names, SERVE["clients"])
+                torch.cuda.synchronize()
+                launches = kernels.launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                metrics = prometheus(server.port)
+                stats = dict(server.batcher.stats)
+            finally:
+                server.stop()
+                del predictor.predict_batch
+            batches = int(stats["batches"])
+            expected = {k: batches * v for k, v in per_forward.items()}
+            if launches != expected or len(recorded) != batches:
+                raise AssertionError(f"batched serving: launches {launches} over {batches} "
+                                     f"batches ({len(recorded)} recorded), expected {expected}")
+            want = {"dgdm_requests_total": len(names), "dgdm_errors_total": 0,
+                    "dgdm_batches_total": batches,
+                    "dgdm_batch_size_mean": round(len(names) / batches, 3),
+                    "dgdm_batch_size_max": stats["max_batch_seen"]}
+            if any(metrics[k] != v for k, v in want.items()) or stats["items"] != len(names):
+                raise AssertionError(f"/metrics {metrics} against {want}, batcher {stats}")
+            slot_of = {}
+            for b, (batch, _) in enumerate(recorded):
+                if len(batch) & (len(batch) - 1):
+                    raise AssertionError(f"a batch of {len(batch)} is no power of two")
+                for s, g in enumerate(batch):
+                    slot_of.setdefault(g.x[0, :16].numpy().tobytes(), (b, s))
+            fresh = [real(batch) for batch, _ in recorded]       # uncounted: the check
+            for i, res in enumerate(batched["answers"]):
+                b, s = slot_of[graphs[i].x[0, :16].numpy().tobytes()]
+                for key in ("probabilities", "attention_weights", "graph_embedding"):
+                    got = np.asarray(res[key], np.float32)
+                    if not (np.array_equal(got, fresh[b][s][key])
+                            and np.array_equal(got, recorded[b][1][s][key])):
+                        raise AssertionError(f"answer {i} ({key}) differs from predict_batch "
+                                             f"of its padded batch {b} slot {s}")
+            out["batched"] = {k: v for k, v in batched.items() if k != "answers"}
+            # the batcher thread's share of the run inside predict_batch (the
+            # rest: waiting for the IO threads to read files and write answers)
+            out["batched"].update({"batches": batches, "mean_batch": len(names) / batches,
+                                   "max_batch": int(stats["max_batch_seen"]),
+                                   "padded_sizes": [len(batch) for batch, _ in recorded],
+                                   "predict_batch_ms": [1e3 * t for t in busy],
+                                   "batcher_busy_share": sum(busy) / batched["wall_s"],
+                                   "server_latency_ms": [1e3 * a["latency_s"]
+                                                         for a in batched["answers"]],
+                                   "launches": launches, "peak_gib": peak,
+                                   "metrics": metrics})
+            out["launches"] = launches
+
+            # 2) the same traffic, serialized
+            server = InferenceServer(predictor, port=0, host="127.0.0.1", data_root=root,
+                                     rate_limit_per_s=1e4)
+            server.start(background=True)
+            try:
+                kernels.reset_launch_counts()
+                serial = closed_loop(server.port, names, SERVE["clients"])
+                torch.cuda.synchronize()
+                s_launches = kernels.launch_counts()
+            finally:
+                server.stop()
+            expected = {k: len(names) * v for k, v in per_forward.items()}
+            if s_launches != expected:
+                raise AssertionError(f"serialized: launches {s_launches}, expected {expected}")
+            d_serial = max(same_answer(a["probabilities"], b["probabilities"], 2e-2,
+                                       "serialized vs batched /predict")
+                           for a, b in zip(serial["answers"], batched["answers"]))
+            out["serialized"] = {k: v for k, v in serial.items() if k != "answers"}
+            out["serialized"]["server_latency_ms"] = [1e3 * a["latency_s"]
+                                                      for a in serial["answers"]]
+            out["serialized"].update({"launches": s_launches, "prob_diff_vs_batched": d_serial})
+            out["batched_over_serialized"] = (batched["requests_per_s"]
+                                              / serial["requests_per_s"])
+
+            # 3) the rate limit: 2 a second, burst 4, 10 requests at once
+            server = InferenceServer(predictor, port=0, host="127.0.0.1", data_root=root,
+                                     dynamic_batch=SERVE["dynamic_batch"],
+                                     batch_wait_ms=SERVE["wait_ms"],
+                                     rate_limit_per_s=SERVE["limit_rate"])
+            server.start(background=True)
+            statuses = [None] * SERVE["limit_requests"]
+            try:
+                def limited(i):
+                    statuses[i] = http_status(server.port, "POST", "/predict",
+                                              {"graph_path": names[i]})[0]
+
+                in_threads(limited, len(statuses))
+                limit_metrics = prometheus(server.port)
+            finally:
+                server.stop()
+            if sorted(statuses) != [200] * 4 + [429] * 6 or \
+                    limit_metrics["dgdm_requests_total"] != 4 or \
+                    limit_metrics["dgdm_errors_total"] != 0:
+                raise AssertionError(f"rate limit: statuses {statuses}, /metrics {limit_metrics}")
+            out["rate_limit"] = {"statuses": statuses, "metrics": limit_metrics}
+
+            # 4) dgdm-serve as a process on a free port, stopped by SIGTERM
+            out["cli"] = serve_cli(bundle, root, names, graphs, predictor)
+
+            # 5) dgdm-predict --save-heatmaps over 2 graphs
+            has_mpl = importlib.util.find_spec("matplotlib") is not None
+            has_plotly = importlib.util.find_spec("plotly") is not None
+            log(f"serve: probe: matplotlib {'importable' if has_mpl else 'absent'}, plotly "
+                f"{'importable' if has_plotly else 'absent'}")
+            out["probe"] = {"matplotlib": has_mpl, "plotly": has_plotly}
+            if has_mpl:
+                heat_in = f"{root}/heat_in"
+                os.makedirs(heat_in)
+                picked = names[:SERVE["heatmap_graphs"]]
+                for n in picked:
+                    shutil.copy(f"{root}/{n}", heat_in)
+                t0 = time.perf_counter()
+                rc = predict_cli.main(["--model", bundle, "--input", heat_in, "--output-dir",
+                                       f"{root}/heat_out", "--save-heatmaps", "--class-names",
+                                       "benign,tumour", "--log-level", "WARNING"])
+                heat_s = time.perf_counter() - t0
+                files = sorted(os.listdir(f"{root}/heat_out"))
+                want = sorted(f"{os.path.basename(n)[:-4]}{ext}" for n in picked
+                              for ext in (".json", "_summary.png", "_summary.html"))
+                if rc != 0 or files != want:
+                    raise AssertionError(f"--save-heatmaps: rc {rc}, files {files}")
+                out["heatmaps"] = {"rc": rc, "files": files, "s": heat_s}
+        finally:
+            predictor.close()
+    b, s = out["batched"], out["serialized"]
+    log(f"serve: DGDM-Base dgdm-serve --dynamic-batch {SERVE['dynamic_batch']}, "
+        f"{SERVE['clients']} clients, {len(names)} graph_path requests: batched "
+        f"{b['requests_per_s']:.1f} requests/s, p50 {b['p50_ms']:.1f} ms, p99 "
+        f"{b['p99_ms']:.1f} ms, {b['batches']} batches (mean {b['mean_batch']:.2f}, max "
+        f"{b['max_batch']}, padded {b['padded_sizes']}), predict_batch ms "
+        f"{[round(t, 1) for t in b['predict_batch_ms']]} (the batcher busy "
+        f"{100 * b['batcher_busy_share']:.0f}% of the run), launches {b['launches']}, peak "
+        f"{b['peak_gib']:.2f} GiB; serialized {s['requests_per_s']:.1f} requests/s, p50 "
+        f"{s['p50_ms']:.1f} ms, p99 {s['p99_ms']:.1f} ms, in the server "
+        f"{statistics.median(s['server_latency_ms']):.1f} ms median; batched / serialized "
+        f"{out['batched_over_serialized']:.2f}x; rate limit "
+        f"{sorted(out['rate_limit']['statuses'])}; CLI ready {out['cli']['ready_s']:.1f} s, "
+        f"stop {out['cli']['stop_s']:.2f} s (exit 0); heatmaps "
+        f"{'written' if 'heatmaps' in out else 'not run: no matplotlib'}; fixture "
+        f"{out['fixture_s']:.1f} s, warmup {out['warmup_s']:.2f} s [{card}]")
+    return out
+
+
+def serve_cli(bundle: str, root: str, names, graphs, predictor) -> dict:
+    """``python -m dgdm_histopath_torch.cli.serve`` on a free port: wait for
+    ``/readyz``, 16 concurrent ``/predict`` within 2e-2 of ``predict_graph``,
+    ``/metrics`` and ``/info``, then SIGTERM: exit 0 within 30 s. The
+    server's log is printed when a step fails."""
+    import os
+    import signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "dgdm_histopath_torch.cli.serve", "--model", bundle,
+           "--port", str(port), "--data-root", root, "--dynamic-batch", str(SERVE["cli_batch"]),
+           "--warmup-nodes", str(BASE["bucket"]), "--rate-limit", "1000"]
+    log_path = f"{root}/serve_cli.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"dgdm-serve exited {proc.returncode} before it was ready")
+            try:
+                if http_status(port, "GET", "/readyz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("dgdm-serve was not ready within 300 s")
+            time.sleep(0.25)
+        ready_s = time.perf_counter() - t0
+        count = SERVE["cli_requests"]
+        answers = [None] * count
+
+        def call(i):
+            answers[i] = http_json(port, "POST", "/predict", {"graph_path": names[i]})
+
+        wall = in_threads(call, count)
+        diff = max(same_answer(a["probabilities"], predictor.predict_graph(g)["probabilities"],
+                               2e-2, "dgdm-serve /predict vs predict_graph")
+                   for a, g in zip(answers, graphs))
+        status, text = http_status(port, "GET", "/metrics")
+        info = http_json(port, "GET", "/info")
+        if status != 200 or f"dgdm_requests_total {count}\n" not in text or \
+                info["serving_stats"]["requests"] != count or info["device"] != "cuda":
+            raise AssertionError(f"dgdm-serve /metrics or /info: {text!r} {info}")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        stop_s = time.perf_counter() - t1
+        with open(log_path) as f:
+            server_log = f.read()
+        if rc != 0 or f"inference server on :{port}" not in server_log or \
+                "server stopped" not in server_log:
+            raise AssertionError(f"dgdm-serve exit {rc}")
+    except BaseException:
+        with open(log_path) as f:
+            log("serve: dgdm-serve log:\n" + f.read()[-4000:])
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"serve: dgdm-serve (port {port}) ready in {ready_s:.1f} s, {count} concurrent /predict "
+        f"in {wall:.2f} s (max prob diff vs predict_graph {diff:.2e}), SIGTERM -> exit {rc} "
+        f"in {stop_s:.2f} s")
+    return {"ready_s": ready_s, "requests": count, "wall_s": wall, "prob_diff": diff,
+            "rc": rc, "stop_s": stop_s}
+
+
 def main() -> int:
     import torch
 
@@ -1955,6 +2326,10 @@ def main() -> int:
     cli = cli_phase(torch, card)
     torch.cuda.empty_cache()
 
+    # last: the serving tier, dynamic batching, the rate limit and dgdm-serve
+    serve = serve_phase(torch, card)
+    torch.cuda.empty_cache()
+
     replaces = {   # kernel -> (its source, the TPU code it stands in for)
         "gather_rows": ("gather_rows.cu", "dgdm_histopath_tpu/ops/pallas/gather_rows.py:56"),
         "gather_agg": ("gather_agg.cu", "dgdm_histopath_tpu/ops/pallas/gather_agg.py:36"),
@@ -1982,6 +2357,7 @@ def main() -> int:
                    "dgdm_train": cli["A"]["launches"][name],
                    "dgdm_train_slide": cli["slide"]["launches"][name],
                    "dgdm_predict": cli["predict"]["launches"][name],
+                   "dgdm_serve": serve["launches"][name],
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}
@@ -2023,7 +2399,8 @@ def main() -> int:
                                   "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
                                   "training_parity": train_parity, "remat": remat,
-                                  "flash_module": flash_module, "cli": cli, "slide": {
+                                  "flash_module": flash_module, "cli": cli,
+                                  "serve": serve, "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},
                                   "large": {"model": l_timing, "parity": l_parity,
                                             "server": l_server,

@@ -17,16 +17,24 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
     metrics = trainer.training_step(batch, epoch=0)         # batch: PaddedGraph
 """
 
-from .evaluation.predictor import DGDMPredictor, load_model_checkpoint
+from .data import HistopathDataModule, HistopathDataset, SlideDataset
+from .evaluation import AttentionVisualizer, DGDMPredictor, load_model_checkpoint
 from .models.dgdm import DGDMModel
 from .models.presets import PRESETS, create_model
-from .ops.graph import PaddedGraph, batch_graphs, build_padded_graph
+from .ops.graph import PaddedGraph, batch_graphs, build_padded_graph, from_edge_index
+from .preprocessing.slide_processor import SlideProcessor
+from .preprocessing.stain_normalization import StainNormalizer
+from .preprocessing.tissue_detection import TissueDetector
+from .preprocessing.tissue_graph_builder import TissueGraphBuilder
 from .training.trainer import DGDMTrainer, TrainerConfig
+from .utils.logging import get_logger, setup_logging
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "DGDMModel", "DGDMPredictor", "DGDMTrainer", "PRESETS", "PaddedGraph",
+    "AttentionVisualizer", "DGDMModel", "DGDMPredictor", "DGDMTrainer",
+    "HistopathDataModule", "HistopathDataset", "PRESETS", "PaddedGraph", "SlideDataset",
+    "SlideProcessor", "StainNormalizer", "TissueDetector", "TissueGraphBuilder",
     "TrainerConfig", "batch_graphs", "build_padded_graph", "create_model",
-    "load_model_checkpoint",
+    "from_edge_index", "get_logger", "load_model_checkpoint", "setup_logging",
 ]

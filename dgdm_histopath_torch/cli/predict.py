@@ -7,7 +7,9 @@ directory of either, to one JSON per input and/or ``predictions.csv``
         --input graphs/ --output-dir preds/ --format both
 
 It runs on the card unless ``--device cpu`` is given. ``--save-heatmaps``
-and ``--quant int8`` are not ported and raise.
+writes ``<slide_id>_summary.png`` and ``<slide_id>_summary.html`` beside each
+result that has attention weights (matplotlib needed for the PNG).
+``--quant int8`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-stain-normalize", action="store_true")
     p.add_argument("--quant", choices=["int8"], default=None,
                    help="w8a8 int8 inference (not ported)")
-    p.add_argument("--save-heatmaps", action="store_true", help="(not ported)")
+    p.add_argument("--save-heatmaps", action="store_true",
+                   help="write a PNG and an interactive HTML summary per input")
     p.add_argument("--format", choices=["json", "csv", "both"], default="json")
     p.add_argument("--class-names", type=str, default=None,
                    help="comma-separated class names")
@@ -72,11 +75,8 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as exc:
         parser.error(f"{exc} (--device cpu)")
-    if args.save_heatmaps:
-        raise NotImplementedError("--save-heatmaps needs evaluation/visualizer.py, which is "
-                                  "not ported yet (ROADMAP queue 1, item 11)")
     from ..data.graph_io import load_graph
-    from ..evaluation.predictor import DGDMPredictor
+    from ..evaluation import AttentionVisualizer, DGDMPredictor
     from ..preprocessing.slide_io import _advise_readahead
 
     predictor = DGDMPredictor(
@@ -97,6 +97,8 @@ def main(argv=None) -> int:
         logger.error("no inputs found under %s", src)
         return 1
 
+    viz = AttentionVisualizer() if args.save_heatmaps else None
+    class_names = args.class_names.split(",") if args.class_names else None
     rows = []
     failed = 0
     try:
@@ -115,6 +117,12 @@ def main(argv=None) -> int:
                 if args.format in ("json", "both"):
                     (out_dir / f"{result['slide_id']}.json").write_text(
                         json.dumps(_serializable(result), indent=2))
+                if viz is not None and "attention_weights" in result:
+                    stem = f"{result['slide_id']}_summary"
+                    viz.prediction_summary(result, class_names=class_names,
+                                           save_path=out_dir / f"{stem}.png")
+                    viz.prediction_summary_interactive(result, class_names=class_names,
+                                                       save_path=out_dir / f"{stem}.html")
                 logger.info("%s -> class=%s conf=%.3f", result["slide_id"],
                             result.get("predicted_class"), result.get("confidence", 0))
             except Exception as exc:  # noqa: BLE001 - one bad input does not stop the run

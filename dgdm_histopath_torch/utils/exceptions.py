@@ -36,6 +36,10 @@ class InferenceError(DGDMException):
     """Prediction-time failure."""
 
 
+class SecurityError(DGDMException):
+    """Security policy violation (a rate limit, path traversal, injection)."""
+
+
 class DataError(DGDMException):
     """Data loading or validation failure."""
 

@@ -1,7 +1,10 @@
-"""Operation timing (the part of the JAX package's ``utils/monitoring.py``
-that training uses): ``monitor_operation`` times a block, records its RSS
+"""Operation timing and health (counterpart of the JAX package's
+``utils/monitoring.py``): ``monitor_operation`` times a block, records its RSS
 delta in a ``MetricsCollector`` and opens a ``torch.profiler`` span of the
-same name, so the block shows in a profiler trace of the card."""
+same name, so the block shows in a profiler trace of the card;
+``device_memory_stats`` reads the CUDA allocator of each card;
+``HealthChecker`` / ``GLOBAL_HEALTH`` run named checks (host memory, a
+device to run on); ``profiler_trace`` writes a TensorBoard trace."""
 
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import threading
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -95,3 +98,81 @@ def monitor_operation(name: str, collector: Optional[MetricsCollector] = None,
                                             extra=dict(extra)))
         if log_level is not None:
             logger.log(log_level, "%s: %.4fs", name, duration)
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """Bytes in use, reserved and at peak per CUDA device (empty without one)."""
+    stats: Dict[str, Dict[str, int]] = {}
+    for i in range(torch.cuda.device_count()):
+        mem = torch.cuda.memory_stats(i)
+        stats[f"cuda:{i}"] = {
+            "bytes_in_use": int(mem.get("allocated_bytes.all.current", 0)),
+            "bytes_reserved": int(mem.get("reserved_bytes.all.current", 0)),
+            "bytes_limit": int(torch.cuda.get_device_properties(i).total_memory),
+            "peak_bytes_in_use": int(mem.get("allocated_bytes.all.peak", 0)),
+        }
+    return stats
+
+
+@dataclass
+class HealthCheck:
+    name: str
+    check: Callable[[], bool]
+    description: str = ""
+
+
+class HealthChecker:
+    """Registry of named health checks with aggregated status reporting."""
+
+    def __init__(self):
+        self._checks: Dict[str, HealthCheck] = {}
+        self.register("host_memory", self._host_memory_ok,
+                      "more than 256 MiB of host memory available")
+        self.register("devices", self._devices_ok,
+                      "at least one device the port can run on is reachable")
+
+    def register(self, name: str, check: Callable[[], bool], description: str = "") -> None:
+        self._checks[name] = HealthCheck(name, check, description)
+
+    @staticmethod
+    def _host_memory_ok() -> bool:
+        try:
+            with open("/proc/meminfo") as f:
+                info = {line.split(":")[0]: int(line.split()[1]) for line in f if ":" in line}
+            return info.get("MemAvailable", 1) * 1024 > 256 * 1024 * 1024
+        except OSError:
+            return True
+
+    @staticmethod
+    def _devices_ok() -> bool:
+        """A CUDA build needs a card; a CPU-only build runs on the CPU."""
+        if torch.version.cuda is None:
+            return True
+        return torch.cuda.device_count() > 0
+
+    def check(self) -> Dict[str, Any]:
+        results = {}
+        for name, hc in self._checks.items():
+            try:
+                ok = bool(hc.check())
+            except Exception as exc:  # noqa: BLE001 - a failing check reports unhealthy
+                ok = False
+                logger.warning("health check %s raised: %s", name, exc)
+            results[name] = ok
+        return {"healthy": all(results.values()), "checks": results, "timestamp": time.time()}
+
+
+GLOBAL_HEALTH = HealthChecker()
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str):
+    """A ``torch.profiler`` trace of the block (the card's kernels too, where
+    there is one), written under ``log_dir`` for TensorBoard."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield

@@ -235,11 +235,21 @@ def test_parallel_flags_raise_naming_item_12(runs, flags):
 
 @pytest.mark.parametrize("flags,item", [(["--save-heatmaps"], 11), (["--quant", "int8"], 13)])
 def test_unported_predict_flags_raise_naming_their_item(runs, flags, item):
+    """``--quant int8`` raises naming its item. ``--save-heatmaps`` (item 11)
+    is ported since: it writes a summary PNG and HTML beside each graph's
+    JSON."""
     root = runs["root"]
+    out = root / f"x{item}"
+    argv = ["--model", str(root / "P" / "final_model.npz"), "--input", str(root / "data"),
+            "--output-dir", str(out), "--device", "cpu", "--log-level", "WARNING", *flags]
+    if item == 11:
+        assert tpredict.main(argv) == 0
+        stems = sorted(p.stem for p in out.glob("*.json"))
+        assert stems and all((out / f"{s}_summary.png").exists()
+                             and (out / f"{s}_summary.html").exists() for s in stems)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-        tpredict.main(["--model", str(root / "P" / "final_model.npz"), "--input",
-                       str(root / "data"), "--output-dir", str(root / "x"), "--device", "cpu",
-                       *flags])
+        tpredict.main(argv)
 
 
 def test_slide_dataset_type_trains_through_the_cli(tmp_path):

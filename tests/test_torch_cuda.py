@@ -20,7 +20,8 @@ slide path on the card against the CPU: kNN neighbour lists equal slot for
 slot (edge features 1e-5), Macenko stain matrices 1e-4 and pixels 5e-3 on
 the 0-255 scale, the tissue mask within 0.05% of its pixels, the f32 ViT-B
 featurizer within 1e-3 of its largest feature, predict_slide's probabilities
-within 1e-4.
+within 1e-4. A /predict answered through the dynamic batcher on the card
+equals ``predict_batch`` of the padded batch it rode in to the bit.
 """
 
 import copy
@@ -765,3 +766,86 @@ def test_train_cli_runs_on_the_card_by_default(cuda_device, tmp_path):
         pkg.handlers[:] = saved[2]
     assert rc == 0 and (tmp_path / "out" / "final_model.npz").exists()
     assert kernels.GATHER_AGG_BWD.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: dynamic batching and the health report
+# ---------------------------------------------------------------------------
+
+def _http(port, method, path, body=None):
+    import http.client
+    import json
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+@pytest.mark.cuda
+def test_batched_predicts_on_card_equal_their_padded_batch(cuda_device):
+    """Concurrent /predict through the dynamic batcher on the card: each
+    answer equals, to the bit, ``predict_batch`` of the padded batch it rode
+    in (a spy records the batches), and the batches are powers of two."""
+    import threading
+
+    from dgdm_histopath_torch.deployment import InferenceServer
+    from dgdm_histopath_torch.deployment.serving import graph_to_json
+    from dgdm_histopath_torch.evaluation.predictor import DGDMPredictor
+
+    model = create_model("dgdm-base", num_classes=2, device="cuda", seed=0, **SMALL_BASE)
+    predictor = DGDMPredictor(model=model)
+    assert predictor.device.type == "cuda"
+    graphs = _small_graphs(5)
+    seen = []
+    real = predictor.predict_batch
+
+    def spy(batch):
+        results = real(batch)
+        seen.append((batch, results))
+        return results
+
+    predictor.predict_batch = spy
+    server = InferenceServer(predictor, port=0, host="127.0.0.1", dynamic_batch=4,
+                             batch_wait_ms=20, rate_limit_per_s=1e4)
+    server.start(background=True)
+    answers = [None] * 10
+    try:
+        def call(i):
+            answers[i] = _http(server.port, "POST", "/predict",
+                               {"graph": graph_to_json(graphs[i % 5])})
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(10)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        server.stop()
+    assert all(len(b) in (1, 2, 4) for b, _ in seen)
+    for i, (status, res) in enumerate(answers):
+        assert status == 200
+        x = graphs[i % 5].x
+        rows = [r for b, rs in seen for g, r in zip(b, rs) if torch.equal(g.x, x)]
+        assert any(np.array_equal(np.asarray(res["probabilities"], np.float32),
+                                  r["probabilities"]) for r in rows)
+
+
+@pytest.mark.cuda
+def test_healthz_on_card_answers_200(cuda_device):
+    from dgdm_histopath_torch.deployment import InferenceServer
+    from dgdm_histopath_torch.evaluation.predictor import DGDMPredictor
+
+    model = create_model("dgdm-base", num_classes=2, device="cuda", seed=0, **SMALL_BASE)
+    server = InferenceServer(DGDMPredictor(model=model), port=0, host="127.0.0.1")
+    server.start(background=True)
+    try:
+        status, report = _http(server.port, "GET", "/healthz")
+    finally:
+        server.stop()
+    assert status == 200 and report["healthy"]
+    assert report["checks"] == {"host_memory": True, "devices": True, "model_loaded": True,
+                                "dependencies": True}

@@ -138,7 +138,13 @@ def test_server_answers_like_the_predictor(predictor, bundle):
             np.testing.assert_array_equal(np.asarray(r["probabilities"], np.float32),
                                           b["probabilities"])
         assert _request(port, "POST", "/predict", {"nothing": 1})[0] == 400
-        assert _request(port, "GET", "/metrics")[0] == 404
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        conn.close()
+        assert resp.status == 200
+        assert "dgdm_requests_total 2\n" in text and "dgdm_errors_total 1\n" in text
         assert server.stats["requests"] == 2 and server.stats["errors"] == 1
     finally:
         server.stop()
