@@ -90,10 +90,30 @@ Phases, each of which raises on a failed check:
      dgdm_histopath_torch.cli.serve`` as a process (ready, 16 answers,
      SIGTERM -> exit 0) and ``cli.predict --save-heatmaps`` where matplotlib
      is importable.
+ 13. the MoE tier (run after phase 9, on its graphs): DGDM-Base with the
+     model section of configs/dgdm_base_moe.yaml (4 experts, top-1,
+     capacity 1.5) at full width: predict_batch and one /predict (9 / 18
+     launches), 8 pretrain + 2 finetune + 1 validation step (9 / 18 / 9 /
+     18 + 3), step time, peak memory and profiles against the Base numbers
+     of this run, the MoE block alone with its kernels by name, routing
+     statistics at bf16, the f32 model on the card against the CPU (logits
+     1e-3, aux loss 1e-5, routing equal), accumulate_grad_batches=2, and
+     ``python -m dgdm_histopath_torch.cli.train train --config
+     configs/dgdm_base_moe.yaml --dataset-type graph --batch-size 32`` (2
+     epochs of 2 steps on 64 graph files) with the predict CLI on its bundle;
+ 14. data parallelism: 2 spawned ranks over gloo sharing the card (16
+     graphs each) and 1 rank over NCCL take 3 f32 Base steps with injected
+     draws, equal to one process on the global batch of 32; each rank's
+     launches 9 / 18 / 9 / 18 + 3 a step.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero without a CUDA device or without the port beside it.
+
+``python3 chip_smoke.py --dp-only`` on a machine of several cards runs the
+build and phase 14 alone, with one NCCL rank a card, and then the train CLI
+with ``--mesh-shape`` of all the cards: its bundle against one process's,
+and a SIGTERM to the launcher, exit 75 and ``resume``, bit-equal.
 """
 
 from __future__ import annotations
@@ -148,6 +168,16 @@ CLI = dict(graphs=160, batch=32, epochs=2, slides=4, slide_px=1024, slide_patch=
 # once; the CLI as a process with batches of 8, 16 requests; heatmaps of 2.
 SERVE = dict(graphs=64, clients=16, dynamic_batch=16, wait_ms=5.0, limit_rate=2.0,
              limit_requests=10, cli_batch=8, cli_requests=16, heatmap_graphs=2)
+# The MoE cell: DGDM-Base with the model section of configs/dgdm_base_moe.yaml
+# (4 experts, top-1, capacity 1.5, hidden 2 x 128) on the Base cell's graphs;
+# its CLI run takes 64 graph files (0.7 / 0.15 / 0.15: 2 training batches of
+# 32 an epoch, one validation and one test batch).
+MOE = dict(BASE, label="DGDM-Base+MoE", config="configs/dgdm_base_moe.yaml",
+           model=dict(moe_experts=4, moe_top_k=1, moe_capacity=1.5), graphs=64)
+# The data-parallel cell: 2 ranks over gloo sharing the card, and one rank a
+# card over NCCL; with ``--dp-only`` on several cards, the train CLI too, on
+# 128 graph files (0.75 / 0.125 / 0.125: 3 training batches of 32 an epoch).
+DP = dict(steps=3, cli_graphs=128, cli_epochs=4)
 
 
 def expected_launches(cell: dict, training: bool, remat: bool = False) -> dict:
@@ -804,7 +834,7 @@ def model_phase(torch, graphs, card: str, cell: dict) -> tuple:
 
     label, batch_size, bucket = cell["label"], cell["batch"], cell["bucket"]
     model = create_model(cell["preset"], num_classes=2, compute_dtype="bfloat16",
-                         device="cuda", seed=0)
+                         device="cuda", seed=0, **cell.get("model", {}))
     if (model.spatial_window, model.graph_window) != (cell["window"], cell["window"]):
         raise AssertionError(f"{label}: window options are not the preset's")
     if cell["window"]:
@@ -907,7 +937,7 @@ def card_vs_cpu(torch, graphs, cell: dict) -> dict:
     from dgdm_histopath_torch import batch_graphs, create_model
 
     cpu_model = create_model(cell["preset"], num_classes=2, compute_dtype="float32",
-                             device="cpu", seed=1)
+                             device="cpu", seed=1, **cell.get("model", {}))
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = batch_graphs(graphs)
 
@@ -1090,7 +1120,7 @@ def training_phase(torch, graphs, card: str, cell: dict, captured=None) -> tuple
 
     def new_trainer():
         model = create_model(cell["preset"], num_classes=2, compute_dtype="bfloat16",
-                             device="cuda", seed=0)
+                             device="cuda", seed=0, **cell.get("model", {}))
         trainer = DGDMTrainer(model, TrainerConfig(
             warmup_steps=WARMUP_STEPS, steps_per_epoch=steps, pretrain_epochs=1,
             max_epochs=2), device="cuda")
@@ -1262,7 +1292,7 @@ def train_step_card_vs_cpu(torch, graphs, cell: dict) -> dict:
     results = {}
     for device in ("cpu", "cuda"):
         model = create_model(cell["preset"], num_classes=2, compute_dtype="float32",
-                             dropout=0.0, device=device, seed=1)
+                             dropout=0.0, device=device, seed=1, **cell.get("model", {}))
         trainer = DGDMTrainer(model, TrainerConfig(warmup_steps=WARMUP_STEPS), device=device)
         trainer.init_state(seed=0)
         metrics = trainer.training_step(batch, 0, draws={k: v.to(device)
@@ -2253,6 +2283,509 @@ def serve_cli(bundle: str, root: str, names, graphs, predictor) -> dict:
             "rc": rc, "stop_s": stop_s}
 
 
+def yaml_model_matches(model, cfg) -> None:
+    """The model has every DGDMModel option of the config's model section."""
+    import dataclasses
+
+    wanted = {f.name: getattr(cfg.model, f.name) for f in dataclasses.fields(cfg.model)
+              if hasattr(model, f.name) and f.name not in ("num_classes", "edge_features")}
+    got = {k: getattr(model, k) for k in wanted}
+    wanted["hidden_dims"] = list(wanted["hidden_dims"])
+    got["hidden_dims"] = list(got["hidden_dims"])
+    if got != wanted:
+        raise AssertionError(f"model options {got} are not the config's {wanted}")
+
+
+def moe_inputs(model, batch) -> tuple:
+    """(outputs, the MoE block's input, its token mask) of a forward."""
+    seen = []
+    hook = model.moe_ffn.register_forward_hook(lambda m, args, out: seen.append(args[:2]))
+    try:
+        out = model(batch)
+    finally:
+        hook.remove()
+    return out, seen[0][0], seen[0][1]
+
+
+def routing_stats(torch, model, batch) -> dict:
+    """Tokens each expert takes, dropped real tokens and the aux loss of one
+    forward of ``batch``."""
+    with torch.inference_mode():
+        out, x, mask = moe_inputs(model, batch)
+        r = model.moe_ffn.route(x, mask)
+    kept = r["kept"].sum((0, 1))
+    real = float(r["mask"].sum())
+    dropped = float(((r["kept"].sum(-1) == 0).float() * r["mask"]).sum())
+    return {"tokens_per_expert": kept.tolist(),
+            "first_choice_per_expert": r["first_choice"].sum((0, 1)).tolist(),
+            "real_tokens": real, "dropped_tokens": dropped,
+            "dropped_share": dropped / max(real, 1.0),
+            "capacity_per_group": int(r["dispatch"].shape[-1]),
+            "groups": int(r["dispatch"].shape[0]), "aux_loss": float(out["moe_aux_loss"])}
+
+
+def moe_card_vs_cpu(torch, graphs) -> dict:
+    """The f32 MoE model on the card against the CPU on 2 graphs: logits
+    within 1e-3, the aux loss within 1e-5, each token's expert and the
+    kept tokens equal."""
+    from dgdm_histopath_torch import batch_graphs, create_model
+
+    cpu = create_model("dgdm-base", num_classes=2, compute_dtype="float32", device="cpu",
+                       seed=1, **MOE["model"])
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = batch_graphs(graphs)
+    with torch.inference_mode():
+        o_cpu, x_cpu, m_cpu = moe_inputs(cpu, batch)
+        o_card, x_card, m_card = moe_inputs(card, batch.to("cuda"))
+        r_cpu, r_card = cpu.moe_ffn.route(x_cpu, m_cpu), card.moe_ffn.route(x_card, m_card)
+    d_logits = (o_card["classification_logits"].cpu() - o_cpu["classification_logits"]
+                ).abs().max().item()
+    d_aux = abs(float(o_card["moe_aux_loss"]) - float(o_cpu["moe_aux_loss"]))
+    same = {k: bool(torch.equal(r_card[k].cpu(), r_cpu[k])) for k in ("first_choice", "kept")}
+    log(f"moe: f32 card vs CPU on 2 graphs: logits {d_logits:.3e} (<= 1e-3), aux loss "
+        f"{d_aux:.3e} (<= 1e-5), expert choices equal {same['first_choice']}, kept tokens "
+        f"equal {same['kept']}")
+    if not (d_logits <= 1e-3 and d_aux <= 1e-5 and all(same.values())):
+        raise AssertionError("the MoE model on the card and on the CPU disagree")
+    return {"logits_max_abs": d_logits, "aux_abs": d_aux, **same}
+
+
+def moe_block_timing(torch, model, batch, card: str) -> dict:
+    """The MoE block alone (norm + routed FFN) at the step's input: forward
+    and forward + backward device times, and its kernels by name."""
+    with torch.no_grad():
+        _, x, mask = moe_inputs(model, batch)
+    x = x.detach().clone().requires_grad_(True)
+
+    def fwd():
+        return model.moe_ffn(x, mask)
+
+    def fwd_bwd():
+        out, aux = model.moe_ffn(x, mask)
+        (out.float().sum() + aux).backward()
+
+    res = {}
+    for name, fn in (("forward", fwd), ("forward_backward", fwd_bwd)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        res[f"{name}_ms"] = start.elapsed_time(end) / 10
+    prof = profile_call(torch, fwd_bwd, "MoE block forward + backward")
+    res["profile"] = prof
+    log(f"moe: block (router, dispatch/combine over [32, 1024, 4, 384], experts) forward "
+        f"{res['forward_ms']:.3f} ms, forward + backward {res['forward_backward_ms']:.3f} ms "
+        f"[{card}]")
+    return res
+
+
+def moe_phase(torch, graphs, card: str, base_train: dict, base_model: dict) -> dict:
+    """The MoE tier: DGDM-Base with the model section of
+    configs/dgdm_base_moe.yaml (4 experts, top-1, capacity 1.5, moe_hidden
+    256, bf16 compute, f32 parameters) on the Base cell's graphs (batch 32,
+    1000 real nodes in bucket 1024, K 8), full width: predict_batch and one
+    /predict (9 / 18 launches), 8 pretrain + 2 finetune + 1 validation step
+    (9 / 18 / 9 / 18 + 3 a step), the profiled step and forward and the peak
+    memory against the plain Base step of this run, routing statistics at
+    bf16, the f32 model on the card against the CPU, one step with
+    ``accumulate_grad_batches=2``, and the train CLI on the config followed
+    by the predict CLI on its bundle."""
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, batch_graphs, create_model
+    from dgdm_histopath_torch.utils.config import load_config
+
+    cfg = load_config(MOE["config"])
+    probe = create_model("dgdm-base", num_classes=2, device="cpu", seed=0, **MOE["model"])
+    yaml_model_matches(probe, cfg)
+    if probe.moe_ffn.hidden_dim != 256:
+        raise AssertionError(f"moe_hidden {probe.moe_ffn.hidden_dim}, expected 256")
+    del probe
+
+    predictor, launches, timing, parity = model_phase(torch, graphs, card, MOE)
+    server = server_one_request(predictor, graphs[0], MOE)
+    batch = batch_graphs(graphs).to("cuda")
+    stats = routing_stats(torch, predictor.model, batch)
+    log(f"moe: routing at bf16 over {stats['groups']} groups of 1024 (capacity "
+        f"{stats['capacity_per_group']}): tokens per expert {stats['tokens_per_expert']}, "
+        f"first choices {stats['first_choice_per_expert']}, dropped "
+        f"{stats['dropped_tokens']:.0f} of {stats['real_tokens']:.0f} real tokens, aux loss "
+        f"{stats['aux_loss']:.4f}")
+    del predictor
+    torch.cuda.empty_cache()
+    train_launches, train_timing, train_parity = training_phase(torch, graphs, card, MOE)
+    torch.cuda.empty_cache()
+    f32 = moe_card_vs_cpu(torch, graphs[:2])
+
+    # gradient accumulation: the first mini-step moves nothing, the second does
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16", device="cuda",
+                         seed=0, **MOE["model"])
+    trainer = DGDMTrainer(model, TrainerConfig(warmup_steps=0, accumulate_grad_batches=2,
+                                               pretrain_epochs=1), device="cuda")
+    trainer.init_state(seed=0)
+    before = [p.detach().clone() for p in trainer.params]
+    first = counted(torch, lambda: trainer.training_step(batch, 0),
+                    expected_launches(BASE, training=True), "accumulation mini-step 1")[0]
+    still = max((p.detach() - q).abs().max().item() for p, q in zip(trainer.params, before))
+    second = trainer.training_step(batch, 0)
+    moved = max((p.detach() - q).abs().max().item() for p, q in zip(trainer.params, before))
+    log(f"moe: accumulate_grad_batches=2: after mini-step 1 the parameters moved {still}, "
+        f"after mini-step 2 {moved:.3e}; losses {first['loss']:.4f} {second['loss']:.4f}")
+    if still != 0.0 or not moved > 0.0 or trainer.mini_step != 0:
+        raise AssertionError("accumulation must hold the parameters for one mini-step and "
+                             "move them on the second")
+    block = moe_block_timing(torch, model, batch, card)
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    base_step = base_train["pretrain_step_ms"]
+    log(f"moe: pretrain step {train_timing['pretrain_step_ms']:.3f} ms against the Base step "
+        f"{base_step:.3f} ms ({train_timing['pretrain_step_ms'] / base_step:.3f}x), peak "
+        f"{train_timing['peak_gib']:.2f} / {base_train['peak_gib']:.2f} GiB; forward "
+        f"{timing['forward_ms']:.3f} / {base_model['forward_ms']:.3f} ms; device "
+        f"{train_timing['profile']['device_busy_ms']} / "
+        f"{base_train['profile']['device_busy_ms']} ms a step [{card}]")
+    cli = moe_cli(torch, card)
+    return {"launches": launches, "timing": timing, "parity": parity, "server": server,
+            "routing_bf16": stats, "train_launches": train_launches,
+            "training": train_timing, "training_parity": train_parity, "f32": f32,
+            "accumulate": {"moved_after_1": still, "moved_after_2": moved,
+                           "loss": [first["loss"], second["loss"]]},
+            "block": block, "cli": cli, "card": card}
+
+
+def moe_cli(torch, card: str) -> dict:
+    """``python -m dgdm_histopath_torch.cli.train train --config
+    configs/dgdm_base_moe.yaml --dataset-type graph --batch-size 32`` over
+    MOE["graphs"] graph files of the Base geometry, cut to 2 epochs (one
+    pretrain, one finetune) of 2 steps, then the predict CLI on its bundle
+    (9 / 18 launches a graph)."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from dgdm_histopath_torch.cli import predict as predict_cli
+    from dgdm_histopath_torch.data.graph_io import save_graph
+
+    with tempfile.TemporaryDirectory() as root:
+        graphs = make_graphs(dict(BASE, batch=MOE["graphs"]), seed=3000)
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            list(pool.map(lambda i: save_graph(graphs[i], f"{root}/g/s{i:03d}_graph.npz"),
+                          range(len(graphs))))
+        rs = np.random.RandomState(1)
+        with open(f"{root}/labels.json", "w") as f:
+            json.dump({f"s{i:03d}": int(v) for i, v in enumerate(rs.randint(0, 2, len(graphs)))},
+                      f)
+        argv = [sys.executable, "-m", "dgdm_histopath_torch.cli.train", "train", "--config",
+                MOE["config"], "--dataset-type", "graph", "--batch-size", "32", "--data-dir",
+                f"{root}/g", "--metadata", f"{root}/labels.json", "--num-classes", "2",
+                "--max-epochs", "2", "--pretrain-epochs", "1", "--output-dir", f"{root}/out",
+                "--log-level", "WARNING"]
+        # the config logs to TensorBoard; csv keeps the run to the checkout's own files
+        env = {**os.environ, "DGDM_LOGGING__LOGGER_TYPE": "csv"}
+        t0 = time.perf_counter()
+        res = subprocess.run(argv, capture_output=True, text=True, timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"dgdm-train on {MOE['config']} exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+        with open(f"{root}/out/history.json") as f:
+            hist = json.load(f)
+        with np.load(f"{root}/out/final_model.npz") as data:
+            meta = json.loads(str(data["__meta__"]))
+        if meta["model_config"].get("moe_experts") != 4 or [h["phase"] for h in hist] != [
+                "pretrain", "finetune"] or "train_moe_aux_loss" not in hist[0]:
+            raise AssertionError(f"MoE CLI run: meta {meta['model_config']}, history {hist}")
+        files = sorted(os.listdir(f"{root}/g"))[:8]
+        os.makedirs(f"{root}/p")
+        for name in files:
+            os.symlink(f"{root}/g/{name}", f"{root}/p/{name}")
+        fwd = expected_launches(BASE, training=False)
+        rc, launches = counted(torch, lambda: predict_cli.main(
+            ["--model", f"{root}/out/final_model.npz", "--input", f"{root}/p", "--output-dir",
+             f"{root}/preds", "--format", "json", "--log-level", "WARNING"]),
+            {k: len(files) * v for k, v in fwd.items()}, "dgdm-predict of the MoE bundle")
+        probs = [json.load(open(f"{root}/preds/{n[:-4]}.json"))["probabilities"] for n in files]
+        if rc != 0 or not all(np.isfinite(p).all() and abs(sum(p) - 1) < 1e-5 for p in probs):
+            raise AssertionError(f"dgdm-predict on the MoE bundle: rc {rc}")
+    log(f"moe: dgdm-train --config {MOE['config']} --dataset-type graph --batch-size 32 on "
+        f"{MOE['graphs']} graphs, 2 epochs: rc 0 in {wall:.1f} s (a process of its own), "
+        f"train_moe_aux_loss {[round(h['train_moe_aux_loss'], 4) for h in hist]}; dgdm-predict "
+        f"on its bundle: {len(files)} graphs, launches {launches} [{card}]")
+    return {"wall_s": wall, "history": hist, "predict_launches": launches,
+            "predict_graphs": len(files)}
+
+
+def dp_rank(rank: int, world: int, backend: str, rendezvous: str, spec_path: str,
+            out_path: str, card_index: int) -> None:
+    """One rank of the data-parallel phase: its process group on
+    ``cuda:card_index``, the f32 Base trainer on the global batch (its
+    rows), the steps with the given draws; writes its metrics, launch
+    counts, step times and parameters."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, create_model
+        from dgdm_histopath_torch.ops import kernels
+        from dgdm_histopath_torch.parallel import make_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(card_index)
+        spec = torch.load(spec_path, weights_only=False)
+        dist.init_process_group(backend, init_method=f"file://{rendezvous}",
+                                world_size=world, rank=rank)
+        model = create_model("dgdm-base", num_classes=2, compute_dtype="float32", dropout=0.0,
+                             device=f"cuda:{card_index}", seed=1)
+        trainer = DGDMTrainer(model, TrainerConfig(**spec["config"]), device=f"cuda:{card_index}",
+                              mesh=make_mesh())
+        trainer.init_state(seed=0)
+        batch = spec["batch"]
+        metrics, launches, ms = [], [], []
+        for draws in spec["draws"]:
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(trainer.training_step(batch, 0, draws=draws))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(kernels.launch_counts())
+        torch.save({"metrics": metrics, "launches": launches, "step_ms": ms,
+                    "params": {k: v.detach().cpu() for k, v in model.named_parameters()}},
+                   out_path)
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent by the exit code
+        traceback.print_exc()
+        os._exit(1)
+
+
+def dp_phase(torch, graphs, card: str, cards: int) -> dict:
+    """The data-parallel path with its kernels: two ranks share cuda:0 over
+    a gloo group (NCCL takes one card a rank), each with 16 of the Base
+    cell's 32 graphs at f32, dropout 0, then ``cards`` ranks over NCCL, one
+    a card (1 on a one-card machine). Three steps equal a single process on
+    the global batch with the same injected draws (each loss within 1e-5 of
+    max(1, |loss|), parameters within 1e-5 of max(1, the tensor's largest
+    entry), as the CPU tests hold them; the key biases, whose true gradient
+    is zero, to the steps' summed learning rate), each rank launching 9 /
+    18 / 9 / 18 + 3 a step. The gloo wall times are those of host-staged
+    collectives on one card, not a data-parallel speed; over NCCL on several
+    cards they are one, at f32, against the one-process step on one card."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, batch_graphs, create_model
+
+    batch = batch_graphs(graphs)
+    gen = torch.Generator().manual_seed(7)
+    b, n = batch.node_mask.shape
+    draws = [{"masked": (torch.rand(b, n, generator=gen) < 0.15) & batch.node_mask,
+              "t": torch.randint(0, 10, (b,), generator=gen),
+              "noise": torch.randn(b, n, 128, generator=gen),
+              "uniform": torch.rand(b, n, generator=gen)} for _ in range(DP["steps"])]
+    config = dict(learning_rate=1e-4, warmup_steps=0, pretrain_epochs=1)
+    expected = expected_launches(BASE, training=True)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as root:
+        torch.save({"batch": batch, "draws": draws, "config": config}, f"{root}/spec.pt")
+        ctx = multiprocessing.get_context("spawn")
+        for name, backend, world in (("gloo", "gloo", 2), ("nccl", "nccl", cards)):
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=dp_rank, args=(
+                r, world, backend, f"{root}/{name}.rdv", f"{root}/spec.pt",
+                f"{root}/{name}{r}.pt", 0 if backend == "gloo" else r)) for r in range(world)]
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(600)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            wall = time.perf_counter() - t0
+            if any(p.exitcode != 0 for p in procs):
+                raise AssertionError(f"{name} ranks exited {[p.exitcode for p in procs]}")
+            out[name] = [torch.load(f"{root}/{name}{r}.pt", weights_only=False)
+                         for r in range(world)]
+            out[f"{name}_wall_s"] = wall
+            for r, res in enumerate(out[name]):
+                if any(c != expected for c in res["launches"]):
+                    raise AssertionError(f"{name} rank {r} launches {res['launches']}")
+
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="float32", dropout=0.0,
+                         device="cuda", seed=1)
+    trainer = DGDMTrainer(model, TrainerConfig(**config), device="cuda")
+    trainer.init_state(seed=0)
+    single, single_ms = [], []
+    for d in draws:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single.append(trainer.training_step(batch, 0, draws={k: v.to("cuda")
+                                                             for k, v in d.items()}))
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    del trainer, model
+    torch.cuda.empty_cache()
+    lr_sum = config["learning_rate"] * DP["steps"]
+    model0 = create_model("dgdm-base", num_classes=2, compute_dtype="float32", dropout=0.0,
+                          device="cpu", seed=1)
+    moved = max((params[k] - p.detach()).abs().max().item()
+                for k, p in model0.named_parameters())
+    report = {"single_moved": moved, "single_step_ms": single_ms}
+    for name in ("gloo", "nccl"):
+        ranks = out[name]
+        if any(r["metrics"] != ranks[0]["metrics"] for r in ranks):
+            raise AssertionError(f"{name}: the ranks report different metrics")
+        loss = max(abs(a[k] - s[k]) / max(1.0, abs(s[k]))
+                   for a, s in zip(ranks[0]["metrics"], single) for k in s)
+        worst, worst_key = 0.0, ""
+        for key, ref in params.items():
+            err = (ranks[0]["params"][key] - ref).abs().max().item()
+            bound = lr_sum if key.endswith(("k_proj.bias", "risk.bias")) else \
+                1e-5 * max(ref.abs().max().item(), 1.0)
+            if err / bound > worst:
+                worst, worst_key = err / bound, key
+        report[name] = {"max_metric_rel": loss, "worst_param_over_bound": worst,
+                        "worst_param": worst_key, "wall_s": out[f"{name}_wall_s"],
+                        "step_ms": [r["step_ms"] for r in ranks],
+                        "launches": ranks[0]["launches"][0]}
+        where = ("on one card, host-staged collectives: not a data-parallel speed"
+                 if name == "gloo" or len(ranks) == 1 else f"one card a rank, against "
+                 f"{[round(x, 1) for x in single_ms]} ms for one process on one card")
+        log(f"dp: {name} world {len(ranks)}, 3 f32 Base steps ({32 // len(ranks)} "
+            f"graphs a rank): metrics within {loss:.3e} of max(1, |x|) of one process on the "
+            f"global batch (<= 1e-5), parameters at {worst:.3f} of their bound ({worst_key}; "
+            f"the steps moved them up to {moved:.2e}); "
+            f"launches a step {ranks[0]['launches'][0]}; step wall "
+            f"{[[round(x, 1) for x in r['step_ms']] for r in ranks]} ms ({where}); "
+            f"processes {out[f'{name}_wall_s']:.1f} s [{card}]")
+        if loss > 1e-5 or worst > 1.0:
+            raise AssertionError(f"{name} data-parallel steps differ from one process")
+    report["single_loss"] = [m["loss"] for m in single]
+    return report
+
+
+def dp_cli(torch, card: str, cards: int) -> dict:
+    """``python -m dgdm_histopath_torch.cli.train train --mesh-shape W``
+    (one rank a card over NCCL) with DGDM-Base's model in the config, on
+    DP["cli_graphs"] graph files of the Base geometry at f32 with dropout 0,
+    so that W ranks and
+    one process take the same draws: run A over W ranks against run S over
+    one process (bundles within 1e-5 of max(1, the tensor's largest entry),
+    the key biases to the steps' summed learning rate); run B stopped by a
+    SIGTERM to the launcher once epoch 0's checkpoint is written (exit 75,
+    a mid-epoch position), then ``resume`` with the same argv: its bundle
+    equal to A's to the bit."""
+    import os
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from dgdm_histopath_torch.data.graph_io import save_graph
+    from dgdm_histopath_torch.models.presets import PRESETS
+
+    # the preset's model in the config (a --preset flag would override the
+    # config's dtype and dropout), at f32 and dropout 0
+    model = {k: list(v) if isinstance(v, tuple) else v
+             for k, v in PRESETS["dgdm-base"].items() if k != "label_note"}
+    model.update(compute_dtype="float32", dropout=0.0)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        graphs = make_graphs(dict(BASE, batch=DP["cli_graphs"]), seed=4000)
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            list(pool.map(lambda i: save_graph(graphs[i], f"{root}/g/s{i:03d}_graph.npz"),
+                          range(len(graphs))))
+        del graphs
+        rs = np.random.RandomState(2)
+        with open(f"{root}/labels.json", "w") as f:
+            json.dump({f"s{i:03d}": int(v) for i, v in
+                       enumerate(rs.randint(0, 2, DP["cli_graphs"]))}, f)
+        with open(f"{root}/config.json", "w") as f:
+            json.dump({"data": {"train_split": 0.75, "val_split": 0.125, "test_split": 0.125,
+                                "batch_size": 32},
+                       "training": {"max_epochs": DP["cli_epochs"], "pretrain_epochs": 2,
+                                    "warmup_steps": WARMUP_STEPS},
+                       "model": model,
+                       "logging": {"logger_type": "csv"}}, f)
+        fixture_s = time.perf_counter() - t0
+
+        def argv(out, world):
+            return [sys.executable, "-m", "dgdm_histopath_torch.cli.train", "train",
+                    "--config", f"{root}/config.json", "--data-dir", f"{root}/g",
+                    "--dataset-type", "graph", "--metadata", f"{root}/labels.json",
+                    "--num-classes", "2", "--seed", "0", "--log-level", "WARNING",
+                    "--mesh-shape", str(world), "--output-dir", f"{root}/{out}"]
+
+        def run(args, what):
+            t0 = time.perf_counter()
+            res = subprocess.run(args, capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                raise AssertionError(f"{what} exited {res.returncode}: {res.stderr[-3000:]}")
+            return time.perf_counter() - t0
+
+        wall = {"A": run(argv("A", cards), f"dgdm-train --mesh-shape {cards}"),
+                "S": run(argv("S", 1), "dgdm-train --mesh-shape 1")}
+        pa, ps = bundle_params(f"{root}/A/final_model.npz"), bundle_params(
+            f"{root}/S/final_model.npz")
+        with open(f"{root}/A/history.json") as f:
+            hist = json.load(f)
+        steps = sum(h["steps"] for h in hist)
+        lr_sum = 1e-4 * steps
+        worst, worst_key = 0.0, ""
+        for key, ref in ps.items():
+            bound = lr_sum if key.endswith(("k_proj/bias", "risk/bias")) else \
+                1e-5 * max(float(np.abs(ref).max()), 1.0)
+            err = float(np.abs(pa[key] - ref).max())
+            if err / bound > worst:
+                worst, worst_key = err / bound, key
+        if set(pa) != set(ps) or worst > 1.0:
+            raise AssertionError(f"{cards} ranks' bundle differs from one process's: {worst_key} "
+                                 f"at {worst:.3f} of its bound")
+        only_rank0 = sorted(os.listdir(f"{root}/A"))
+
+        proc = subprocess.Popen(argv("B", cards), stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        index = f"{root}/B/checkpoints/index.json"
+        while not os.path.exists(index) and proc.poll() is None:
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGTERM)
+        err = proc.communicate(timeout=900)[1]
+        wall["B"] = time.perf_counter() - t0
+        with open(index) as f:
+            position = json.load(f)["records"][-1].get("extra", {}).get("resume", {})
+        if proc.returncode != 75 or not position.get("mid_epoch"):
+            raise AssertionError(f"run B exit code {proc.returncode}, resume record {position}: "
+                                 f"{err[-2000:]}")
+        resume = argv("B", cards)
+        resume[3] = "resume"
+        wall["resume"] = run(resume + ["--checkpoint-dir", f"{root}/B/checkpoints"],
+                             "dgdm-train resume")
+        pb = bundle_params(f"{root}/B/final_model.npz")
+        differ = [k for k in pa if not np.array_equal(pa[k], pb[k])]
+        if differ:
+            raise AssertionError(f"the resumed run differs from run A: {differ[:8]}")
+    log(f"dp: dgdm-train --mesh-shape {cards} (DGDM-Base, NCCL, one card a rank, f32, "
+        f"dropout 0) on {DP['cli_graphs']} graph files, {steps} steps of 32: rc 0 in "
+        f"{wall['A']:.1f} s, one process {wall['S']:.1f} s; bundles within {worst:.3f} of their "
+        f"bound ({worst_key}); rank 0 alone wrote {only_rank0}; SIGTERM to the launcher -> "
+        f"75 at {position} after {wall['B']:.1f} s, resume {wall['resume']:.1f} s, its bundle "
+        f"equal to run A's to the bit ({len(pa)} arrays) [{card}]")
+    return {"wall_s": wall, "steps": steps, "worst_param_over_bound": worst,
+            "worst_param": worst_key, "resume": position, "fixture_s": fixture_s,
+            "outputs": only_rank0, "history": hist}
+
+
 def main() -> int:
     import torch
 
@@ -2280,6 +2813,19 @@ def main() -> int:
         log(f"ptxas: {r['kernel']}: {r['registers']} registers, spill stores "
             f"{r['spill_stores']} / loads {r['spill_loads']} bytes, stack {r['stack']}, "
             f"static smem {r['static_smem']}")
+
+    if sys.argv[1:] == ["--dp-only"]:
+        # data parallelism alone, for a machine of several cards
+        cards = torch.cuda.device_count()
+        dp = dp_phase(torch, make_graphs(BASE), card, cards)
+        dp["cli"] = dp_cli(torch, card, cards) if cards > 1 else None
+        log("details: " + json.dumps({"dp": dp}))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": cards}}))
+        return 0
 
     kern = kernel_phase(torch)
     kern.update(flash_kernel_phase(torch))
@@ -2315,6 +2861,14 @@ def main() -> int:
 
     # so that every phase above runs as it did before this phase existed
     remat = remat_phase(torch, graphs, card, BASE)
+    torch.cuda.empty_cache()
+
+    # the MoE tier (configs/dgdm_base_moe.yaml) against the Base numbers above
+    moe = moe_phase(torch, graphs, card, train_timing, timing)
+    torch.cuda.empty_cache()
+
+    # data parallelism: two gloo ranks sharing the card, one NCCL rank
+    dp = dp_phase(torch, graphs, card, torch.cuda.device_count())
     del graphs
     torch.cuda.empty_cache()
 
@@ -2358,6 +2912,10 @@ def main() -> int:
                    "dgdm_train_slide": cli["slide"]["launches"][name],
                    "dgdm_predict": cli["predict"]["launches"][name],
                    "dgdm_serve": serve["launches"][name],
+                   "moe_predict_batch": moe["launches"][name],
+                   "moe_training_step": moe["train_launches"][name],
+                   "dp_training_step_gloo_rank": dp["gloo"]["launches"][name],
+                   "dp_training_step_nccl_rank": dp["nccl"]["launches"][name],
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}
@@ -2393,14 +2951,15 @@ def main() -> int:
                                             if r["dtype"] == "bfloat16")
             entry["all_shapes"] = kern[name]
         line["kernels"].append(entry)
-    for t in (timing, train_timing, l_timing, l_train_timing):
+    for t in (timing, train_timing, l_timing, l_train_timing, moe["timing"], moe["training"],
+              moe["block"]):
         t["profile"].pop("top")           # printed above, one line per kernel
     log("details: " + json.dumps({"ptxas": ptxas, "kernels": kern, "real_step": real_step,
                                   "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
                                   "training_parity": train_parity, "remat": remat,
                                   "flash_module": flash_module, "cli": cli,
-                                  "serve": serve, "slide": {
+                                  "serve": serve, "moe": moe, "dp": dp, "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},
                                   "large": {"model": l_timing, "parity": l_parity,
                                             "server": l_server,

@@ -15,19 +15,35 @@ one directory per kept epoch), ``logs/metrics.{csv,jsonl}``,
 emergency checkpoint and exit code 75; ``resume`` re-enters the same epoch
 and replays the remaining steps bit for bit. It runs on the card unless
 ``--device cpu`` is given; asking for the card without one is an error.
+
+Data parallelism: the world is ``prod(--mesh-shape)`` (or
+``hardware.mesh_shape``) when given, else every visible card (1 for
+``--device cpu``); ``--devices`` is read by nothing, as in the reference.
+A world above 1 spawns one rank a card (``cuda:r``) over NCCL, or ranks on
+the CPU over gloo, meeting at a file rendezvous in the output directory.
+Rank 0 alone writes the outputs; a SIGTERM to the launcher reaches every
+rank, they stop at the same step and the launcher exits 75 (130 when the
+signal came before training began, as for one process). A mesh axis
+other than ``data`` above 1 raises naming ROADMAP queue 1, item 12.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
+import multiprocessing
+import os
 import signal
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 
+from ..parallel.mesh import make_mesh
 from ..utils.config import DGDMConfig, config_to_dict, load_config, save_config
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger, setup_logging
@@ -36,6 +52,8 @@ from ..utils.validation import InputValidator
 logger = get_logger("cli")
 
 EX_TEMPFAIL = 75     # preempted: the scheduler should run `resume`
+EX_INTERRUPTED = 130  # a signal before training began: nothing to resume
+RENDEZVOUS = ".dist_rendezvous"   # the ranks' file rendezvous in the output directory
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,11 +96,14 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--scheduler", choices=["cosine", "onecycle", "none"], default=None)
         # hardware
         sp.add_argument("--devices", type=int, default=None,
-                        help="data-parallel device count (more than 1 is not ported)")
+                        help="kept for config compatibility; read by nothing, as in "
+                             "the reference (the mesh spans every visible card)")
         sp.add_argument("--mesh-shape", type=str, default=None,
-                        help="comma ints, e.g. '8' or '2,4' (not ported)")
+                        help="comma ints, e.g. '4' (4-way data parallel); an axis other "
+                             "than data above 1 is not ported")
         sp.add_argument("--mesh-axes", type=str, default=None,
-                        help="comma names matching --mesh-shape")
+                        help="comma names matching --mesh-shape; default 'data' or "
+                             "'data,model'")
         sp.add_argument("--precision", choices=["32", "bf16-mixed", "16-mixed"], default=None)
         # logging
         sp.add_argument("--log-level", default="INFO")
@@ -182,7 +203,7 @@ def _build_dataset(cfg: DGDMConfig, args, device):
                         augmentations=cfg.data.augmentations)
 
 
-def _trainer(cfg: DGDMConfig, example, device):
+def _trainer(cfg: DGDMConfig, example, device, mesh=None):
     """``DGDMTrainer.from_config`` with the model's edge width read off the
     data: the JAX model infers it from its input, the port's layers fix it
     at construction."""
@@ -193,7 +214,7 @@ def _trainer(cfg: DGDMConfig, example, device):
                     cfg.model.edge_features, edge_dim)
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                                  edge_features=edge_dim))
-    return DGDMTrainer.from_config(cfg, device=device)
+    return DGDMTrainer.from_config(cfg, device=device, mesh=mesh)
 
 
 def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
@@ -203,7 +224,9 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, out_dir / "config_snapshot.yaml")
+    writer = _rank() == 0
+    if writer:
+        save_config(cfg, out_dir / "config_snapshot.yaml")
 
     dataset = _build_dataset(cfg, args, device)
     if len(dataset) == 0:
@@ -224,8 +247,10 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
     trainer.init_state(cfg.experiment.seed, example)
 
     ckpt_dir = Path(resume_dir) if resume_dir else out_dir / "checkpoints"
-    mgr = CheckpointManager(ckpt_dir, save_top_k=cfg.logging.save_top_k,
-                            monitor=cfg.logging.monitor_metric)
+    # rank 0 writes the checkpoints; every rank restores from them
+    mgr = (CheckpointManager(ckpt_dir, save_top_k=cfg.logging.save_top_k,
+                             monitor=cfg.logging.monitor_metric)
+           if writer or resume_dir else None)
     start_step_in_epoch = 0
     if resume_dir and mgr.last_step is not None:
         trainer.load_state_dict(mgr.restore())
@@ -241,19 +266,23 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
             trainer.current_epoch = mgr.last_step + 1
             logger.info("resumed from epoch %d", trainer.current_epoch)
 
-    train_logger = make_logger(cfg.logging, out_dir / "logs",
-                               run_name=cfg.experiment.name or None)
-    train_logger.log_hparams(config_to_dict(cfg))
+    train_logger = None
+    if writer:
+        train_logger = make_logger(cfg.logging, out_dir / "logs",
+                                   run_name=cfg.experiment.name or None)
+        train_logger.log_hparams(config_to_dict(cfg))
     guard = PreemptionGuard(install=True)
     try:
         result = trainer.fit(
             dm.train_dataloader(), dm.val_dataloader(), max_epochs=cfg.training.max_epochs,
-            checkpoint_manager=mgr, early_stopping_patience=args.early_stopping_patience,
+            checkpoint_manager=mgr if writer else None,
+            early_stopping_patience=args.early_stopping_patience,
             train_logger=train_logger, preemption_guard=guard,
             start_step_in_epoch=start_step_in_epoch)
     finally:
         guard.uninstall()
-        train_logger.close()
+        if train_logger is not None:
+            train_logger.close()
     if result.get("interrupted"):
         logger.warning("training preempted at %s; resume with "
                        "`dgdm-train resume --checkpoint-dir %s`", result.get("resume"),
@@ -264,6 +293,8 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
     if test_losses:
         result["test_loss"] = float(np.mean(test_losses))
         logger.info("test_loss=%.4f", result["test_loss"])
+    if not writer:
+        return 0
 
     model = trainer.model
     model_cfg = {
@@ -282,6 +313,11 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
         "survival_intervals": model.survival_intervals,
         "compute_dtype": cfg.model.compute_dtype,
     }
+    if cfg.model.moe_experts:
+        # the JAX CLI leaves these out, and its bundle of an MoE model then
+        # builds no MoE block; the port writes them so that the bundle loads
+        model_cfg.update(moe_experts=cfg.model.moe_experts, moe_top_k=cfg.model.moe_top_k,
+                         moe_capacity=cfg.model.moe_capacity)
     save_model_bundle(out_dir / "final_model.npz", model, model_cfg,
                       extra={"history_len": len(result["history"])})
     (out_dir / "history.json").write_text(json.dumps(result["history"], indent=2))
@@ -297,13 +333,135 @@ def _validate(cfg: DGDMConfig, args, device) -> int:
     dm = HistopathDataModule(dataset, batch_size=cfg.data.batch_size, seed=cfg.experiment.seed)
     dm.setup()
     example = next(iter(dm.val_dataloader()))
-    trainer = _trainer(cfg, example, device)
+    trainer = _trainer(cfg, example, device, mesh=make_mesh())   # one process
     trainer.init_state(0, example)
     trainer.load_state_dict(CheckpointManager(args.checkpoint_dir).restore(best=True))
     # the reference keeps no epoch in its checkpoints: it validates in the
     # phase of epoch 0
     losses = [float(trainer.validation_step(b, epoch=0)["loss"]) for b in dm.val_dataloader()]
     print(json.dumps({"val_loss": float(np.mean(losses)), "batches": len(losses)}))
+    return 0
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def world_size(cfg: DGDMConfig, device) -> int:
+    """The ranks a run takes: ``prod(mesh_shape)`` when set, else every
+    visible card (one process on the CPU). A mesh axis other than ``data``
+    above 1 raises naming ROADMAP item 12; a CUDA world larger than the
+    visible cards raises."""
+    import torch
+
+    from ..parallel.mesh import check_axes
+    hw = cfg.hardware
+    if hw.mesh_shape:
+        check_axes(hw.mesh_axes, hw.mesh_shape)
+        world = math.prod(hw.mesh_shape)
+    else:
+        world = torch.cuda.device_count() if device.type == "cuda" else 1
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"a world of {world} ranks needs {world} cards; "
+                         f"{torch.cuda.device_count()} are visible (NCCL takes one a rank)")
+    return world
+
+
+def _run(args, cfg: DGDMConfig, device) -> int:
+    if args.command == "resume":
+        return _execute_training(cfg, args, device, resume_dir=args.checkpoint_dir)
+    if args.command == "validate":
+        return _validate(cfg, args, device)
+    return _execute_training(cfg, args, device)
+
+
+@contextlib.contextmanager
+def _exit_on_signal():
+    """SIGINT and SIGTERM exit with 130 until ``fit``'s preemption guard
+    takes them over (and after it gives them back)."""
+    previous = {sig: signal.signal(sig, lambda s, f: sys.exit(EX_INTERRUPTED))
+                for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        yield
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
+def _rank_main(rank: int, world: int, argv, rendezvous: str) -> None:
+    """One rank of a data-parallel run: its process group, its device, the
+    command; exits with the command's code."""
+    with _exit_on_signal():
+        import torch
+        import torch.distributed as dist
+
+        os.environ["LOCAL_WORLD_SIZE"] = str(world)
+        args = build_parser().parse_args(argv)
+        setup_logging(args.log_level, args.log_file)
+        if args.device == "cuda":
+            torch.cuda.set_device(rank)
+            device = torch.device("cuda", rank)
+        else:
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+            device = torch.device("cpu")
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method=f"file://{rendezvous}", world_size=world,
+                                rank=rank)
+        try:
+            code = _run(args, merge_cli_config(args), device)
+        finally:
+            dist.destroy_process_group()
+        sys.exit(code)
+
+
+def _launch(argv, world: int, out_dir: Path) -> int:
+    """Spawn ``world`` ranks and wait for them; a SIGTERM or SIGINT to this
+    process is passed to every rank. Returns the ranks' exit code (75 when
+    they were preempted); a rank that fails stops the others."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rendezvous = (out_dir / RENDEZVOUS).absolute()
+    rendezvous.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, argv, str(rendezvous)),
+                         name=f"dgdm-train-rank{r}") for r in range(world)]
+    for p in procs:
+        p.start()
+
+    def forward(sig, frame):
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGTERM)
+
+    previous = {sig: signal.signal(sig, forward) for sig in (signal.SIGINT, signal.SIGTERM)}
+    stopped = (None, 0, EX_TEMPFAIL, EX_INTERRUPTED)
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in stopped for p in procs):
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+            time.sleep(0.2)
+        for p in procs:
+            p.join()
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+        rendezvous.unlink(missing_ok=True)
+    codes = [p.exitcode for p in procs]
+    logger.info("ranks exited with %s", codes)
+    return launcher_code(codes)
+
+
+def launcher_code(codes) -> int:
+    """The launcher's exit code from its ranks': 1 when one failed, else 130
+    when one was stopped before training began, else 75 when they were
+    preempted, else 0."""
+    if any(c not in (0, EX_TEMPFAIL, EX_INTERRUPTED) for c in codes):
+        return 1
+    for code in (EX_INTERRUPTED, EX_TEMPFAIL):
+        if code in codes:
+            return code
     return 0
 
 
@@ -315,24 +473,16 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as exc:
         parser.error(f"{exc} (--device cpu)")
-    previous = {sig: signal.signal(sig, lambda s, f: sys.exit(130))
-                for sig in (signal.SIGINT, signal.SIGTERM)}
-    try:
-        if args.data_dir is None and args.command != "validate":
-            parser.error("--data-dir is required")
-        InputValidator.validate_path(args.data_dir, "data_dir", must_exist=True)
-        cfg = merge_cli_config(args)
-        if cfg.hardware.devices is not None and cfg.hardware.devices > 1:
-            raise NotImplementedError(f"training on {cfg.hardware.devices} devices is not "
-                                      "ported yet (ROADMAP queue 1, item 12)")
-        if args.command == "resume":
-            return _execute_training(cfg, args, device, resume_dir=args.checkpoint_dir)
-        if args.command == "validate":
-            return _validate(cfg, args, device)
-        return _execute_training(cfg, args, device)
-    finally:
-        for sig, handler in previous.items():
-            signal.signal(sig, handler)
+    if args.data_dir is None and args.command != "validate":
+        parser.error("--data-dir is required")
+    InputValidator.validate_path(args.data_dir, "data_dir", must_exist=True)
+    cfg = merge_cli_config(args)
+    world = 1 if args.command == "validate" else world_size(cfg, device)
+    if world > 1:
+        return _launch(sys.argv[1:] if argv is None else list(argv), world,
+                       Path(args.output_dir))
+    with _exit_on_signal():
+        return _run(args, cfg, device)
 
 
 if __name__ == "__main__":

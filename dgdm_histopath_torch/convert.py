@@ -11,8 +11,11 @@ are the same paths joined by ``.``, with these layout rules:
   ``MultiHeadDotProductAttention`` calls it ``out``)
 * ``Conv.kernel [kh, kw, in, out]``      -> ``weight [out, in, kh, kw]``
 * LayerNorm ``scale`` / ``bias``         -> ``weight`` / ``bias``
-* ``global_query [H, D]``, ``mask_token`` and the ViT's ``cls_token``,
-  ``pos_embed`` and ``ls*_gamma`` are copied as they are.
+* ``global_query [H, D]``, ``mask_token``, the ViT's ``cls_token``,
+  ``pos_embed`` and ``ls*_gamma``, and the MoE's expert parameters
+  ``w_in [E, F, H]``, ``b_in [E, H]``, ``w_out [E, H, F]``, ``b_out [E, F]``
+  are copied as they are (they are not ``kernel``/``bias`` leaves); the
+  MoE's ``router`` is a ``Dense`` and ``moe_norm`` a LayerNorm.
 
 Loading is strict: a missing or unexpected key, or a shape mismatch,
 raises ``CheckpointError``. ``params_to_flax`` applies the rules backwards;

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.graph import PaddedGraph, batch_graphs
+from ..parallel.mesh import local_world_size
 from ..utils.exceptions import DataError
 from ..utils.logging import get_logger
 
@@ -29,8 +30,10 @@ class BucketedLoader:
     An incomplete trailing group is filled up by repeating its last graph
     with ``node_mask`` zeroed (the batch shape stays; a filler graph adds
     nothing to masked losses), or dropped with ``drop_last``. With
-    ``shuffle``, the order of epoch ``e`` of this loader (counted from 0 at
-    its construction) is a permutation drawn from ``seed + e``.
+    ``shuffle``, the order of epoch ``e`` of this loader is a permutation
+    drawn from ``seed + e``; ``e`` counts the passes from 0 at its
+    construction unless ``set_epoch`` names it (``fit`` does, so that a run
+    resumed in a later epoch replays that epoch's order).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
@@ -42,6 +45,10 @@ class BucketedLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch whose order the next pass takes."""
+        self._epoch = int(epoch)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -107,20 +114,29 @@ class BucketedLoader:
             raise error[0]
 
 
-def _process_shards() -> tuple:
-    """(world size, rank) of an initialized ``torch.distributed`` group, else (1, 0)."""
+def _node_shards() -> tuple:
+    """(number of nodes, this node's index) of an initialized
+    ``torch.distributed`` group, else (1, 0). A node is a block of
+    ``local_world_size`` consecutive ranks (``parallel.mesh``)."""
     if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size(), torch.distributed.get_rank()
+        world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+        local = local_world_size(world)
+        return world // local, rank // local
     return 1, 0
 
 
 class HistopathDataModule:
     """Split management and loader construction over any indexable dataset.
 
-    Training batches are sharded over processes: shard ``shard_index`` of
-    ``num_shards`` takes every ``num_shards``-th training item (the same
-    split everywhere); validation and test stay whole. The defaults follow
-    ``torch.distributed`` when a process group is initialized.
+    Training batches are sharded over nodes, as the JAX package shards
+    them over processes: shard ``shard_index`` of ``num_shards`` takes every
+    ``num_shards``-th training item (the same split everywhere); validation
+    and test stay whole. The ranks of one node share its shard: each runs
+    the same loader (same seed, same batches) and the trainer keeps that
+    rank's rows of every batch, as JAX splits a process's batch over its
+    devices; the nodes' batches stacked in node order make the global batch.
+    The defaults follow ``torch.distributed`` when a process group is
+    initialized.
     """
 
     def __init__(self, dataset, batch_size: int = 4, train_split: float = 0.7,
@@ -138,9 +154,9 @@ class HistopathDataModule:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
-        world, rank = _process_shards()
-        num_shards = world if num_shards is None else num_shards
-        shard_index = rank if shard_index is None else shard_index
+        nodes, node = _node_shards()
+        num_shards = nodes if num_shards is None else num_shards
+        shard_index = node if shard_index is None else shard_index
         if not 0 <= shard_index < num_shards:
             raise DataError("shard_index out of range",
                             {"shard_index": shard_index, "num_shards": num_shards})

@@ -1,8 +1,8 @@
 """DGDMModel: the Dynamic Graph Diffusion Model (counterpart of the JAX
 package's ``models/dgdm.py``).
 
-FeatureEncoder → GraphEncoder → SpatialAttention → GraphUNet → (pretrain:
-diffusion objective + reconstruction) → global pooling → heads. The
+FeatureEncoder → GraphEncoder → (MoE FFN) → SpatialAttention → GraphUNet →
+(pretrain: diffusion objective + reconstruction) → global pooling → heads. The
 constructor takes the JAX model's keyword set, so a bundle's
 ``model_config`` builds the same architecture; options this port does not
 have yet raise ``NotImplementedError`` naming their ROADMAP item.
@@ -15,7 +15,7 @@ generator.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -23,7 +23,8 @@ from torch import nn
 from ..nn.attention import SpatialAttention
 from ..nn.diffusion import DiffusionLayer
 from ..nn.graph_layers import GraphUNet
-from ..nn.layers import Dense, as_dtype
+from ..nn.layers import Dense, LayerNorm, as_dtype
+from ..nn.moe import MoEFFN, local_mean
 from ..ops.graph import PaddedGraph, real_edge_index
 from ..ops.kernels.neighbor_transpose import transpose_for_backward
 from ..utils.exceptions import ConfigurationError
@@ -85,6 +86,12 @@ class DGDMModel(nn.Module):
         self.graph_encoder = GraphEncoder(hidden, hidden, graph_layers, attention_heads,
                                           edge_features, activation, dropout, dtype,
                                           band_window=graph_window, remat=use_remat)
+        if moe_experts > 0:
+            # pre-norm routed expert FFN, residual, after the message passing
+            self.moe_norm = LayerNorm(hidden, dtype)
+            self.moe_ffn = MoEFFN(hidden, moe_hidden or 2 * hidden, num_experts=moe_experts,
+                                  top_k=moe_top_k, capacity_factor=moe_capacity,
+                                  activation=activation, dropout=dropout, dtype=dtype)
         if use_spatial_attention:
             self.spatial_attention = SpatialAttention(
                 hidden, attention_heads, dropout, window_size=spatial_window, dtype=dtype,
@@ -147,22 +154,25 @@ class DGDMModel(nn.Module):
                 raise ConfigurationError(f"{name} must be positive")
         if self.moe_experts < 0:
             raise ConfigurationError("moe_experts must be >= 0")
-        if self.moe_experts > 0:
-            raise NotImplementedError(
-                f"moe_experts={self.moe_experts}: the MoE block is not ported yet "
-                "(ROADMAP queue 1, item 12: parallel tiers and MoE)")
+        if self.moe_experts and self.moe_top_k not in (1, 2):
+            raise ConfigurationError("moe_top_k must be 1 or 2")
 
     def forward(self, graph: PaddedGraph, mode: str = "inference",
                 deterministic: bool = True, return_attention: bool = False,
                 generator: Optional[torch.Generator] = None,
                 t: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                noise: Optional[torch.Tensor] = None,
+                batch_mean: Callable = local_mean,
+                moe_group_size: Optional[int] = None) -> Dict[str, Any]:
         """Forward pass over a batched PaddedGraph (leading B axis).
 
         ``mode``: inference | pretrain | finetune. ``generator`` feeds the
         dropout masks (when not ``deterministic``) and, in pretrain mode,
         the diffusion timesteps ``t`` [B] and ``noise`` [B, N, hidden]
-        unless those are given.
+        unless those are given. ``batch_mean(num, count)`` takes the
+        batch-mean losses (the diffusion loss, the MoE's aux loss); a
+        data-parallel trainer passes one whose count spans every rank, and
+        the MoE's routing-group length with ``moe_group_size``.
         """
         if mode not in ("inference", "pretrain", "finetune"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -183,6 +193,13 @@ class DGDMModel(nn.Module):
         if return_attention:
             outputs["edge_attentions"] = enc["attentions"]
 
+        if self.moe_experts > 0:
+            # padded nodes claim no expert capacity and receive zeros
+            moe_out, outputs["moe_aux_loss"] = self.moe_ffn(
+                self.moe_norm(h), node_mask, **rand, batch_mean=batch_mean,
+                group_size=moe_group_size)
+            h = h + moe_out
+
         if self.use_spatial_attention:
             res = self.spatial_attention(h, graph.pos.float(), node_mask,
                                          return_weights=return_attention, **rand)
@@ -202,8 +219,8 @@ class DGDMModel(nn.Module):
                                                       noise=noise)
             mask_f = node_mask[..., None].float()
             sq = (predicted.float() - true_noise.float()) ** 2
-            outputs["diffusion_loss"] = ((sq * mask_f).sum()
-                                         / (mask_f.sum() * sq.shape[-1]).clamp_min(1.0))
+            outputs["diffusion_loss"] = batch_mean((sq * mask_f).sum(),
+                                                   mask_f.sum() * sq.shape[-1])
             outputs["diffusion_t"] = t
             outputs["reconstruction"] = self.recon_head(h)
 
@@ -243,7 +260,9 @@ class DGDMModel(nn.Module):
                       generator: Optional[torch.Generator] = None,
                       masked: Optional[torch.Tensor] = None,
                       t: Optional[torch.Tensor] = None,
-                      noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                      noise: Optional[torch.Tensor] = None,
+                      batch_mean: Callable = local_mean,
+                      moe_group_size: Optional[int] = None) -> Dict[str, Any]:
         """Entity masking + pretrain forward; adds the masked-node
         reconstruction loss and ``masked_nodes`` to the outputs. The draws
         ``masked``, ``t`` and ``noise`` come from ``generator`` unless given."""
@@ -251,11 +270,12 @@ class DGDMModel(nn.Module):
             masked = self._draw_masked(graph, mask_ratio, generator)
         corrupted = self.apply_entity_masking(graph, masked=masked)
         outputs = self(corrupted, mode="pretrain", deterministic=deterministic,
-                       generator=generator, t=t, noise=noise)
+                       generator=generator, t=t, noise=noise, batch_mean=batch_mean,
+                       moe_group_size=moe_group_size)
         m = masked[..., None].float()
         sq = (outputs["reconstruction"].float() - graph.x.float()) ** 2
-        outputs["reconstruction_loss"] = ((sq * m).sum()
-                                          / (m.sum() * graph.x.shape[-1]).clamp_min(1.0))
+        outputs["reconstruction_loss"] = batch_mean((sq * m).sum(),
+                                                    m.sum() * graph.x.shape[-1])
         outputs["masked_nodes"] = masked
         return outputs
 

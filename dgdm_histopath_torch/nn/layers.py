@@ -96,7 +96,8 @@ NORMAL_002 = ("global_query", "mask_token")
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization with flax's defaults: Dense weights lecun-normal
     (truncated normal, variance 1/fan_in), biases zero, LayerNorm ones/zeros,
-    learned queries and the mask token N(0, 0.02)."""
+    learned queries and the mask token N(0, 0.02); a module with a
+    ``draw_parameters(generator)`` method draws its own."""
     for m in module.modules():
         if isinstance(m, Dense):
             std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
@@ -107,6 +108,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif hasattr(m, "draw_parameters"):      # parameters of its own (MoE experts)
+            m.draw_parameters(generator)
     for name, p in module.named_parameters():
         if name.rsplit(".", 1)[-1] in NORMAL_002:
             p.normal_(0.0, 0.02, generator=generator)

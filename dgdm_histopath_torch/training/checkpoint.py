@@ -6,9 +6,11 @@ model bundles (counterpart of the JAX package's ``training/checkpoint.py``).
 ``last_step``) and the same pruning: the ``save_top_k`` best scored steps
 and the last step survive. A step's directory holds one ``state.pt``: the
 trainer's ``state_dict()`` (model parameters, AdamW state, ``step``,
-``seed``, ``current_epoch``), tensors and plain numbers only, so
+``seed``, ``current_epoch``, the gradient-accumulation buffer and
+``mini_step``), tensors and plain numbers only, so
 ``torch.load(weights_only=True)`` reads it. Sidecar metadata stays in the
-JSON index.
+JSON index. Under data parallelism the state is the same on every rank:
+rank 0 alone saves, and every rank restores from the same directory.
 
 Saves run in the background. The optimizer updates parameters and moments
 in place, so ``save`` first copies the state to host memory and only then

@@ -10,12 +10,14 @@ tensors or from an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.graph import gather_neighbors
+
+CONTRASTIVE_NODES = 64      # nodes a graph brings into the InfoNCE similarity matrix
 
 
 def diffusion_loss(predicted_noise: torch.Tensor, true_noise: torch.Tensor,
@@ -42,9 +44,11 @@ def diffusion_loss(predicted_noise: torch.Tensor, true_noise: torch.Tensor,
 
 
 def contrastive_loss(node_embeddings: torch.Tensor, node_mask: torch.Tensor,
-                     temperature: float = 0.1, max_nodes_per_graph: int = 64,
+                     temperature: float = 0.1,
+                     max_nodes_per_graph: int = CONTRASTIVE_NODES,
                      uniform: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     gather: Optional[Callable] = None) -> torch.Tensor:
     """InfoNCE: nodes of the same graph are positives, nodes of the other
     graphs in the batch are negatives. node_embeddings [B, N, F], node_mask
     [B, N].
@@ -54,6 +58,10 @@ def contrastive_loss(node_embeddings: torch.Tensor, node_mask: torch.Tensor,
     padding. ``u`` is ``uniform`` [B, N] in [0, 1) when given, else drawn
     from ``generator`` when given, else absent: then the choice is the
     first real nodes (equal scores keep the lower index, by a stable sort).
+
+    ``gather`` (data parallelism) stacks every rank's subsampled nodes in
+    rank order, with a gradient: the negatives then come from the global
+    batch and the loss is the global batch's.
     """
     b, n, f = node_embeddings.shape
     m = min(n, max_nodes_per_graph)
@@ -71,6 +79,9 @@ def contrastive_loss(node_embeddings: torch.Tensor, node_mask: torch.Tensor,
 
     flat = emb.reshape(b * m, f)
     flat_mask = mask.reshape(b * m)
+    if gather is not None:
+        flat, flat_mask = gather(flat), gather(flat_mask)
+        b = flat.shape[0] // m
     unit = flat / (flat * flat).sum(-1, keepdim=True).clamp_min(1e-12).sqrt()
     sim = unit @ unit.T / temperature
 

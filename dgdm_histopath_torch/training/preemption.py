@@ -11,6 +11,10 @@ Resume is bit-identical: each step's draws come from ``(seed, step)``, the
 checkpoint holds the parameters, the AdamW moments, ``step`` and ``seed``,
 and the fit loop skips the first ``step_in_epoch`` batches of the
 deterministic loader, so the resumed run replays the remaining steps.
+
+Under data parallelism the train CLI's launcher passes a SIGTERM on to every
+rank; ``fit`` has the ranks agree on the flag at each step boundary, so they
+stop together, rank 0 saves, and the launcher exits 75.
 """
 
 from __future__ import annotations

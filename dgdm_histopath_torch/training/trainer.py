@@ -13,7 +13,29 @@ The update rule is optax's ``chain(clip_by_global_norm, adamw)``: the clip
 divides by the norm itself, weight decay falls on every parameter, every
 parameter is updated every step (one that the loss does not reach gets a
 zero gradient), and the learning rate of update ``i`` is ``schedule(i)``
-counted from 0, so with warmup the first update has rate 0.
+counted from 0, so with warmup the first update has rate 0. With
+``accumulate_grad_batches = k > 1`` it is ``optax.MultiSteps``: each call
+folds its gradient into a running mean, ``acc += (g - acc) / (mini + 1)``,
+and every k-th call clips and applies ``acc``; the parameters do not move
+in between, and the rate is indexed by applied updates, not by calls.
+
+Data parallelism (``mesh`` with a ``data`` axis over a process group): each
+rank holds the whole model and takes its block of rows of every global
+batch (filled up to a multiple of the ranks with filler graphs). A node (a
+block of ``LOCAL_WORLD_SIZE`` ranks, all of them by default) loads its own
+training batches and its ranks split each one, so the global batch is the
+nodes' batches stacked in node order; over several nodes the ranks first
+agree on one shape for their rows (``align_node_batches``), and a node whose
+loader runs out early stands in filler graphs until the last one's has.
+Validation batches are the same on every rank and split over all of them.
+Every batch-mean loss divides by the count over the global batch; InfoNCE takes
+its negatives from the global batch and the finetune heads' losses are
+taken over the global batch, through a gather with a gradient. Gradients
+and metrics are summed over the ranks by one all-reduce before the clip, so
+a step over W ranks equals the single-process step on the global batch.
+The draws (entity mask, diffusion ``t`` and noise, the contrastive
+subsample) are drawn at the global shape from ``(seed, step)`` and sliced;
+dropout masks come from a stream of each rank's own.
 
 Randomness: the trainer owns one ``torch.Generator`` on its device and
 reseeds it from ``(seed, step)`` at the start of each step, so a run that
@@ -37,7 +59,7 @@ import logging
 import math
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,18 +69,20 @@ from ..evaluation.metrics import concordance_index
 from ..models.decoders import cox_partial_likelihood, discrete_survival_loss
 from ..models.dgdm import DGDMModel
 from ..nn.layers import init_parameters
+from ..nn.moe import local_mean, routing_group
 from ..ops.graph import PaddedGraph, band_eligible, in_band_fraction
+from ..parallel.mesh import (Mesh, align_node_batches, make_mesh, pad_batch_to_devices,
+                             replicate_tree, shard_batch, shard_rows)
 from ..utils.config import DGDMConfig
 from ..utils.device import resolve_device
 from ..utils.monitoring import monitor_operation
 from ..utils.optimization import PrefetchIterator
-from .losses import contrastive_loss
+from .losses import CONTRASTIVE_NODES, contrastive_loss
 from .preemption import skip_batches
 
 logger = logging.getLogger("dgdm_histopath_torch.training")
 
 VALIDATION_STREAM = 999      # the generator stream of validation draws
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 @dataclass
@@ -74,12 +98,10 @@ class TrainerConfig:
     scheduler_type: str = "cosine"   # cosine | onecycle | none
     warmup_steps: int = 1000
     gradient_clip_val: float = 1.0
-    accumulate_grad_batches: int = 1  # > 1 raises: not ported
+    accumulate_grad_batches: int = 1  # k > 1: optax.MultiSteps(every_k_schedule=k)
     finetune_lr_factor: float = 0.1  # LR drop at the phase switch
     steps_per_epoch: int = 1000      # estimate; the schedule's horizon
-    # read by the MoE block, which the model does not build yet; held so that
-    # a JAX trainer config carries over
-    moe_aux_weight: float = 0.01
+    moe_aux_weight: float = 0.01     # the MoE's Switch load-balance loss coefficient
     # the way past the band guard: training a graph_window model on graphs
     # whose edges are not all in-band drops the out-of-band edges, and
     # init_state raises on such an example batch unless this is set
@@ -148,25 +170,32 @@ def make_lr_schedule(cfg: TrainerConfig) -> Callable[[int], float]:
 def make_optimizer(cfg: TrainerConfig, params: Iterable[torch.nn.Parameter]
                    ) -> torch.optim.AdamW:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8) with decay on every parameter. The
-    trainer clips before it and sets the rate from ``make_lr_schedule``
-    before every ``step()``."""
-    if cfg.accumulate_grad_batches > 1:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"accumulate_grad_batches={cfg.accumulate_grad_batches}", item=12))
+    trainer clips before it (``clip_and_step``) and sets the rate from
+    ``make_lr_schedule`` before every ``step()``."""
+    if cfg.accumulate_grad_batches < 1:
+        raise ValueError(f"accumulate_grad_batches must be >= 1, got "
+                         f"{cfg.accumulate_grad_batches}")
     return torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=cfg.weight_decay)
+
+
+def clip_and_step(params: list, optimizer: torch.optim.Optimizer, lr: float,
+                  max_norm: float) -> torch.Tensor:
+    """Clip the parameters' gradients by their global norm and take one
+    AdamW step at rate ``lr``; returns the norm before clipping."""
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return norm
 
 
 def _fold(seed: int, stream: int) -> int:
     """One generator seed from (seed, stream)."""
     return (seed * 0x9E3779B1 + stream * 0x85EBCA6B + 0x27D4EB2F) % (2 ** 63)
-
-
-def _valid_graphs(batch: PaddedGraph) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Filler graphs (all-padding node_mask) carry zero weight: (valid [B]
-    f32, the number of valid graphs, at least 1)."""
-    valid = batch.node_mask.any(-1).float()
-    return valid, valid.sum().clamp_min(1.0)
 
 
 class DGDMTrainer:
@@ -175,12 +204,13 @@ class DGDMTrainer:
     ``task``: ``"classification"`` | ``"regression"`` | ``"survival"`` |
     ``None`` (self-supervised only); by default read off the model's heads.
     ``device=None`` means ``"cuda"`` and raises when no card is present.
+    ``mesh``: a ``parallel.Mesh``; by default ``make_mesh()``, which spans
+    the initialized process group, or one process when there is none (the
+    single-process path).
     """
 
     def __init__(self, model: DGDMModel, config: Optional[TrainerConfig] = None,
-                 task: Optional[str] = None, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED.format(what="training on a mesh", item=12))
+                 task: Optional[str] = None, device=None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config or TrainerConfig()
@@ -188,16 +218,30 @@ class DGDMTrainer:
             "classification" if model.num_classes else
             ("regression" if model.regression_targets else
              ("survival" if model.survival_mode else None)))
+        self.mesh = mesh if mesh is not None else make_mesh()
+        # the data-parallel path runs wherever there is a process group
+        self._dp: Optional[Mesh] = self.mesh if self.mesh.group is not None else None
         self.lr_schedule = make_lr_schedule(self.config)
         self.optimizer: Optional[torch.optim.AdamW] = None
         self.params: list[torch.nn.Parameter] = []
         self.generator = torch.Generator(device=self.device)
+        # dropout's stream under data parallelism: one of each rank's own
+        self.dropout_generator = (torch.Generator(device=self.device) if self._dp
+                                  else self.generator)
         self.seed = 0
         self.step = 0
+        self.accumulated: list[torch.Tensor] = []    # the running-mean gradient (k > 1)
+        self.mini_step = 0
         self.history: list[Dict[str, Any]] = []
         self.current_epoch = 0
+        self._moe_group: Optional[int] = None
         self._upload_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                                else None)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and logs (rank 0)."""
+        return self._dp is None or self._dp.rank == 0
 
     # ------------------------------------------------------------------
     # state
@@ -205,7 +249,8 @@ class DGDMTrainer:
     def init_state(self, seed: int = 0, example_batch: Optional[PaddedGraph] = None) -> None:
         """Start a run at step 0: a fresh optimizer state over the model's
         parameters as they are (``create_model`` drew them from its seed, a
-        converted bundle brings its own) and ``seed`` for the steps' draws.
+        converted bundle brings its own; under data parallelism rank 0's are
+        broadcast) and ``seed`` for the steps' draws.
 
         ``example_batch`` is held to the band guard: a ``graph_window`` model
         on a batch with under 99% of its edges in-band raises ``ValueError``
@@ -214,7 +259,11 @@ class DGDMTrainer:
             self._check_band(example_batch)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = make_optimizer(self.config, self.params)
-        self.seed, self.step = int(seed), 0
+        self.seed, self.step, self.mini_step = int(seed), 0, 0
+        self.accumulated = ([torch.zeros_like(p) for p in self.params]
+                            if self.config.accumulate_grad_batches > 1 else [])
+        if self._dp:
+            replicate_tree(self.params, self._dp)
         n_params = sum(p.numel() for p in self.params)
         logger.info("training %.2fM parameters on %s", n_params / 1e6, self.device)
 
@@ -236,43 +285,79 @@ class DGDMTrainer:
 
     def state_dict(self) -> Dict[str, Any]:
         """What a resume needs: the model's parameters, the AdamW state,
-        ``step``, ``seed`` and ``current_epoch`` (tensors on the device)."""
+        ``step``, ``seed``, ``current_epoch`` and, with accumulation, the
+        running-mean gradient and ``mini_step`` (tensors on the device)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "seed": self.seed, "current_epoch": self.current_epoch}
+                "step": self.step, "seed": self.seed, "current_epoch": self.current_epoch,
+                "accumulation": {"grads": list(self.accumulated),
+                                 "mini_step": self.mini_step}}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Take up a ``state_dict()`` (from this device or another)."""
+        """Take up a ``state_dict()`` (from this device or another); under
+        data parallelism rank 0's copy is then broadcast."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step, self.seed = int(state["step"]), int(state["seed"])
         self.current_epoch = int(state["current_epoch"])
+        acc = state.get("accumulation", {"grads": [], "mini_step": 0})
+        for mine, saved in zip(self.accumulated, acc["grads"]):
+            mine.copy_(saved)
+        self.mini_step = int(acc["mini_step"])
+        if self._dp:
+            moments = [t for s in self.optimizer.state.values() for t in s.values()
+                       if torch.is_tensor(t) and t.device == self.device]
+            replicate_tree(self.params + moments + self.accumulated, self._dp)
 
     # ------------------------------------------------------------------
     # losses
     # ------------------------------------------------------------------
+    def _mean(self):
+        return self._dp.mean if self._dp else local_mean
+
     def _pretrain_losses(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]]
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         draws = draws or {}
         cfg = self.config
         out = self.model.pretrain_step(
             batch, mask_ratio=cfg.masking_ratio, deterministic=False,
-            generator=self.generator, masked=draws.get("masked"), t=draws.get("t"),
-            noise=draws.get("noise"))
+            generator=self.dropout_generator, masked=draws.get("masked"), t=draws.get("t"),
+            noise=draws.get("noise"), batch_mean=self._mean(),
+            moe_group_size=self._moe_group)
         metrics = {"diffusion_loss": out["diffusion_loss"],
                    "reconstruction_loss": out["reconstruction_loss"]}
         loss = out["diffusion_loss"] + cfg.reconstruction_weight * out["reconstruction_loss"]
         if cfg.use_contrastive_loss:
             closs = contrastive_loss(out["node_embeddings"], batch.node_mask,
                                      cfg.contrastive_temperature,
-                                     uniform=draws.get("uniform"), generator=self.generator)
+                                     uniform=draws.get("uniform"), generator=self.generator,
+                                     gather=self._dp.gather if self._dp else None)
+            if self._dp:              # every rank holds the whole loss: a share each
+                closs = closs / self._dp.size
             metrics["contrastive_loss"] = closs
             loss = loss + closs
+        if "moe_aux_loss" in out:
+            metrics["moe_aux_loss"] = out["moe_aux_loss"]
+            loss = loss + cfg.moe_aux_weight * out["moe_aux_loss"]
         metrics["loss"] = loss
         return loss, metrics
+
+    def _heads(self, out: Dict[str, Any], batch: PaddedGraph) -> Dict[str, torch.Tensor]:
+        """The head outputs, labels and graph validity that the finetune
+        losses read, gathered over the ranks under data parallelism."""
+        heads = {"valid": batch.node_mask.any(-1).float(), "y": batch.y}
+        if self.task == "classification":
+            heads["logits"] = out["classification_logits"].float()
+        elif self.task == "regression":
+            heads["pred"] = out["regression"]["mean"].float()
+        elif self.task == "survival":
+            heads.update({f"surv_{k}": v for k, v in out["survival"].items()})
+        if self._dp:
+            heads = {k: self._dp.gather(v) for k, v in heads.items()}
+        return heads
 
     def _finetune_losses(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]]
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -280,32 +365,119 @@ class DGDMTrainer:
             # unlabeled fallback: keep optimizing the self-supervised objective
             return self._pretrain_losses(batch, draws)
         out = self.model(batch, mode="finetune", deterministic=False,
-                         generator=self.generator)
-        valid, denom = _valid_graphs(batch)
+                         generator=self.dropout_generator, batch_mean=self._mean(),
+                         moe_group_size=self._moe_group)
+        h = self._heads(out, batch)
+        valid, denom = h["valid"], h["valid"].sum().clamp_min(1.0)
         if self.task == "classification":
-            logits = out["classification_logits"].float()
-            labels = batch.y.long()
-            per = F.cross_entropy(logits, labels, reduction="none")
+            labels = h["y"].long()
+            per = F.cross_entropy(h["logits"], labels, reduction="none")
             loss = (per * valid).sum() / denom
-            acc = ((logits.argmax(-1) == labels).float() * valid).sum() / denom
-            return loss, {"loss": loss, "accuracy": acc}
-        if self.task == "regression":
-            pred = out["regression"]["mean"].float()
-            per = ((pred - batch.y.float().reshape(pred.shape)) ** 2).mean(-1)
+            acc = ((h["logits"].argmax(-1) == labels).float() * valid).sum() / denom
+            metrics = {"loss": loss, "accuracy": acc}
+        elif self.task == "regression":
+            pred = h["pred"]
+            per = ((pred - h["y"].float().reshape(pred.shape)) ** 2).mean(-1)
             loss = (per * valid).sum() / denom
-            return loss, {"loss": loss, "mse": loss}
-        if self.task == "survival":
-            loss = self._survival_loss(out["survival"], batch, valid)
-            return loss, {"loss": loss, "survival_loss": loss}
-        raise ValueError(f"finetune requires a task; got {self.task!r}")
+            metrics = {"loss": loss, "mse": loss}
+        elif self.task == "survival":
+            loss = self._survival_loss(h, valid)
+            metrics = {"loss": loss, "survival_loss": loss}
+        else:
+            raise ValueError(f"finetune requires a task; got {self.task!r}")
+        if self._dp:                  # every rank holds the global loss: a share each
+            metrics = {k: v / self._dp.size for k, v in metrics.items()}
+            loss = metrics["loss"]
+        if "moe_aux_loss" in out:
+            metrics["moe_aux_loss"] = out["moe_aux_loss"]
+            loss = loss + self.config.moe_aux_weight * out["moe_aux_loss"]
+            metrics["loss"] = loss
+        return loss, metrics
 
-    def _survival_loss(self, surv: Dict[str, torch.Tensor], batch: PaddedGraph,
-                       valid: torch.Tensor) -> torch.Tensor:
-        """batch.y carries (time, event) pairs: [B, 2]."""
-        time_, event = batch.y[..., 0].float(), batch.y[..., 1].float()
+    def _survival_loss(self, h: Dict[str, torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+        """h["y"] carries (time, event) pairs: [B, 2]."""
+        time_, event = h["y"][..., 0].float(), h["y"][..., 1].float()
         if self.model.survival_mode == "cox":
-            return cox_partial_likelihood(surv["risk"], time_, event, valid=valid)
-        return discrete_survival_loss(surv["hazard_logits"], time_.long(), event, valid=valid)
+            return cox_partial_likelihood(h["surv_risk"], time_, event, valid=valid)
+        return discrete_survival_loss(h["surv_hazard_logits"], time_.long(), event,
+                                      valid=valid)
+
+    # ------------------------------------------------------------------
+    # data parallelism
+    # ------------------------------------------------------------------
+    def _shard(self, batch: PaddedGraph, node: bool = False) -> PaddedGraph:
+        """This rank's rows of a global batch, or with ``node`` of its
+        node's training batch (filled up with filler graphs to a multiple
+        of the ranks that split it); the batch itself without a mesh."""
+        if not self._dp:
+            return batch
+        parts = self._dp.local if node else self._dp.size
+        return shard_batch(pad_batch_to_devices(batch, parts), self._dp, node=node)
+
+    @property
+    def _nodes(self) -> int:
+        return self._dp.nodes if self._dp else 1
+
+    def _global_draws(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]],
+                      contrastive: bool) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the pretrain draws, drawn at the global shape
+        in the order the single-process path draws them (where the caller
+        does not give them; given draws may lack the filler rows)."""
+        dp, gen = self._dp, self.generator
+        b, n = batch.node_mask.shape
+        bg, dev = b * dp.size, batch.x.device
+        given = {}
+        for key, v in (draws or {}).items():
+            v = v.to(dev)
+            if v.shape[0] < bg:       # the filler graphs' rows
+                v = torch.cat([v, v[-1:].repeat((bg - v.shape[0],) + (1,) * (v.dim() - 1))])
+            given[key] = v
+        if "masked" not in given:
+            given["masked"] = torch.rand((bg, n), generator=gen, device=dev) \
+                < self.config.masking_ratio
+        if "t" not in given:
+            given["t"] = torch.randint(0, self.model.num_diffusion_steps, (bg,),
+                                       generator=gen, device=dev)
+        if "noise" not in given:             # drawn in f32, then cast, as randn_like
+            given["noise"] = torch.randn((bg, n, self.model.hidden_dims[-1]), generator=gen,
+                                         device=dev, dtype=torch.float32).to(self.model.dtype)
+        if contrastive and "uniform" not in given and n > CONTRASTIVE_NODES:
+            given["uniform"] = torch.rand((bg, n), generator=gen, device=dev)
+        local = {k: shard_rows(v, dp) for k, v in given.items()}
+        local["masked"] = local["masked"] & batch.node_mask
+        return local
+
+    def _set_moe_group(self, batch: PaddedGraph) -> None:
+        """Under data parallelism the MoE routes in the groups of the global
+        batch: a group may not straddle two ranks."""
+        self._moe_group = None
+        if not (self._dp and self.model.moe_experts):
+            return
+        b, n = batch.node_mask.shape
+        grp = routing_group(b * self._dp.size * n, n, self.model.moe_ffn.group_size)
+        if (b * n) % grp:
+            raise ValueError(f"an MoE routing group of {grp} tokens would straddle two "
+                             f"ranks ({b} graphs of {n} nodes a rank)")
+        self._moe_group = grp
+
+    def _update(self, grads: list) -> None:
+        """Clip + AdamW, or with ``accumulate_grad_batches = k > 1`` fold
+        ``grads`` into the running mean and apply it every k-th call."""
+        k = self.config.accumulate_grad_batches
+        if k == 1:
+            clip_and_step(self.params, self.optimizer, self.lr_schedule(self.step),
+                          self.config.gradient_clip_val)
+            return
+        acc, n = self.accumulated, self.mini_step
+        torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc), n + 1))
+        if n == k - 1:
+            for p, a in zip(self.params, acc):
+                p.grad = a.clone()
+            # the rate follows the applied updates: this is update step // k
+            clip_and_step(self.params, self.optimizer, self.lr_schedule(self.step // k),
+                          self.config.gradient_clip_val)
+            torch._foreach_zero_(acc)
+        self.mini_step = (n + 1) % k
 
     # ------------------------------------------------------------------
     # public API
@@ -316,21 +488,38 @@ class DGDMTrainer:
     def training_step(self, batch: PaddedGraph, epoch: Optional[int] = None,
                       materialize: bool = True,
                       draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
-        """One optimization step; returns the phase's scalar metrics and
-        ``grad_norm`` (the global norm before clipping).
+        """One optimization step (one mini-step with accumulation); returns
+        the phase's scalar metrics and ``grad_norm`` (the global norm of the
+        step's own gradient, before clipping).
 
+        ``batch`` is this node's batch, the global batch when there is one
+        node: under data parallelism each rank takes its rows.
         ``materialize=False`` returns 0-d tensors on the device without a
-        host sync. ``draws`` may hold the pretrain draws ``masked`` [B, N]
-        bool, ``t`` [B], ``noise`` [B, N, hidden] and ``uniform`` [B, N]
-        (the contrastive subsample scores) in place of the generator's.
+        host sync. ``draws`` may hold the pretrain draws of the global
+        batch, ``masked`` [B, N] bool, ``t`` [B], ``noise`` [B, N, hidden]
+        and ``uniform`` [B, N] (the contrastive subsample scores), in place
+        of the generator's.
         """
+        batch = self._shard(batch, node=True).to(self.device)
+        if self._nodes > 1:
+            batch = align_node_batches(batch, None, self._dp)
+        return self._step(batch, epoch, materialize, draws)
+
+    def _step(self, batch: PaddedGraph, epoch: Optional[int], materialize: bool,
+              draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+        """``training_step`` on this rank's rows, on the device."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
         epoch = self.current_epoch if epoch is None else epoch
-        loss_fn = (self._pretrain_losses if self.phase_for_epoch(epoch) == "pretrain"
-                   else self._finetune_losses)
-        batch = batch.to(self.device)
+        pretrain = self.phase_for_epoch(epoch) == "pretrain"
+        loss_fn = self._pretrain_losses if pretrain else self._finetune_losses
         self.generator.manual_seed(_fold(self.seed, self.step))
+        if self._dp:
+            self.dropout_generator.manual_seed(
+                _fold(_fold(self.seed, self.step), 1 + self._dp.rank))
+            self._set_moe_group(batch)
+            if pretrain or batch.y is None:
+                draws = self._global_draws(batch, draws, self.config.use_contrastive_loss)
 
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(batch, draws)
@@ -339,66 +528,71 @@ class DGDMTrainer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        names = sorted(metrics)             # in key order, as the reference returns them
+        values = torch.stack([metrics[k].detach().float() for k in names])
+        if self._dp:
+            # one all-reduce sums the gradients and the metrics' shares
+            values = self._dp.sum_grads(grads, values)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        max_norm = self.config.gradient_clip_val
-        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        torch._foreach_mul_(grads, scale)
-        lr = self.lr_schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        self._update(grads)
         self.step += 1
 
+        metrics = dict(zip(names, values.unbind()))
         metrics["grad_norm"] = norm
-        # in key order, as the reference's jitted step returns them
-        metrics = {k: metrics[k].detach() for k in sorted(metrics)}
+        metrics = {k: metrics[k] for k in sorted(metrics)}
         if materialize:
-            values = torch.stack([v.float() for v in metrics.values()]).tolist()
-            return dict(zip(metrics, values))
+            return dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
         return metrics
 
     @torch.no_grad()
     def validation_step(self, batch: PaddedGraph, epoch: Optional[int] = None,
                         draws: Optional[Dict[str, torch.Tensor]] = None
                         ) -> Dict[str, torch.Tensor]:
-        """Deterministic evaluation of one batch (tensors on the device).
-        Pretrain phase or no labels: ``loss`` = diffusion + reconstruction,
-        its draws taken from the validation stream of the seed."""
+        """Deterministic evaluation of one (global) batch (tensors on the
+        device). Pretrain phase or no labels: ``loss`` = diffusion +
+        reconstruction, its draws taken from the validation stream of the
+        seed. Under data parallelism each rank scores its rows and every
+        rank returns the global batch's values."""
         epoch = self.current_epoch if epoch is None else epoch
-        batch = batch.to(self.device)
+        batch = self._shard(batch).to(self.device)
+        self._set_moe_group(batch)
+        moe = {"batch_mean": self._mean(), "moe_group_size": self._moe_group}
         if self.phase_for_epoch(epoch) == "pretrain" or batch.y is None:
-            draws = draws or {}
             self.generator.manual_seed(_fold(self.seed, VALIDATION_STREAM))
+            if self._dp:
+                draws = self._global_draws(batch, draws, contrastive=False)
+            draws = draws or {}
             out = self.model.pretrain_step(
                 batch, mask_ratio=self.config.masking_ratio, deterministic=True,
                 generator=self.generator, masked=draws.get("masked"), t=draws.get("t"),
-                noise=draws.get("noise"))
-            return {"loss": out["diffusion_loss"] + out["reconstruction_loss"]}
-        out = self.model(batch, mode="inference", deterministic=True)
-        valid, denom = _valid_graphs(batch)
+                noise=draws.get("noise"), **moe)
+            loss = out["diffusion_loss"] + out["reconstruction_loss"]
+            return {"loss": self._dp.all_reduce(loss) if self._dp else loss}
+        out = self.model(batch, mode="inference", deterministic=True, **moe)
+        h = self._heads(out, batch)
+        valid, denom = h["valid"], h["valid"].sum().clamp_min(1.0)
         if self.task == "classification":
-            logits = out["classification_logits"].float()
-            labels = batch.y.long()
+            logits, labels = h["logits"], h["y"].long()
             per = F.cross_entropy(logits, labels, reduction="none")
             correct = (logits.argmax(-1) == labels).float()
             return {"loss": (per * valid).sum() / denom,
                     "accuracy": (correct * valid).sum() / denom, "valid": valid,
                     "probabilities": torch.softmax(logits, -1)}
         if self.task == "survival":
-            surv = out["survival"]
-            loss = self._survival_loss(surv, batch, valid)
-            risk = (surv["risk"].float() if self.model.survival_mode == "cox"
-                    else -surv["survival"].sum(-1))   # -E[survival time] proxy
+            loss = self._survival_loss(h, valid)
+            risk = (h["surv_risk"].float() if self.model.survival_mode == "cox"
+                    else -h["surv_survival"].sum(-1))   # -E[survival time] proxy
             return {"loss": loss, "valid": valid, "risk": risk,
-                    "time": batch.y[..., 0].float(), "event": batch.y[..., 1].float()}
-        pred = out["regression"]["mean"].float()
-        per = ((pred - batch.y.float().reshape(pred.shape)) ** 2).mean(-1)
+                    "time": h["y"][..., 0].float(), "event": h["y"][..., 1].float()}
+        pred = h["pred"]
+        per = ((pred - h["y"].float().reshape(pred.shape)) ** 2).mean(-1)
         return {"loss": (per * valid).sum() / denom, "valid": valid}
 
     def _prepare_batch(self, batch: PaddedGraph):
-        """(batch on the device, its upload's event or None). On the card a
-        host batch is copied to pinned memory and uploaded on the side
-        stream; called on the prefetch thread."""
+        """(this rank's rows of its node's batch on the device, its upload's
+        event or None). On the card a host batch is copied to pinned memory
+        and uploaded on the side stream; called on the prefetch thread."""
+        batch = self._shard(batch, node=True)
         if self._upload_stream is None or batch.x.is_cuda:
             return batch.to(self.device), None
         pinned = batch.pin_memory()
@@ -407,6 +601,31 @@ class DGDMTrainer:
             uploaded = torch.cuda.Event()
             uploaded.record()
         return on_card, uploaded
+
+    def _epoch_steps(self, prepared: Iterable, loader: Iterable) -> Iterator[PaddedGraph]:
+        """This rank's rows of each step of an epoch, on the device. Over
+        several nodes they take the shape all ranks agree on, and once this
+        node's loader has run out while another's has not, filler graphs
+        shaped like its last batch (or its loader's first, when a resumed
+        epoch skipped every batch it had)."""
+        like = None
+        for item in prepared:
+            batch = self._await_upload(item)
+            if self._nodes > 1:
+                batch = like = align_node_batches(batch, None, self._dp)
+            yield batch
+        while self._nodes > 1:
+            if like is None:
+                first = next(iter(loader), None)
+                like = first if first is None else self._shard(first, node=True).to(self.device)
+            like = align_node_batches(None, like, self._dp)
+            if like is None:
+                return
+            yield like
+
+    def _agree(self, flag: bool) -> bool:
+        """``flag`` on any rank (a host-side collective under data parallelism)."""
+        return self._dp.any(flag) if self._dp else flag
 
     def _await_upload(self, prepared) -> PaddedGraph:
         """Make the current stream wait for the batch's upload, and keep its
@@ -430,6 +649,9 @@ class DGDMTrainer:
         ``checkpoint_manager``: a ``CheckpointManager``; after each validated
         epoch it saves ``state_dict()`` at step ``epoch`` with ``val_loss``.
         ``train_logger``: a ``TrainLogger`` that receives every epoch summary.
+        Under data parallelism only rank 0 saves and logs; every rank takes
+        the same steps, scores the same global validation batches and stops
+        at the same step boundary on a preemption (the ranks agree on it).
         ``restore_best_params`` keeps a host copy of the parameters at the
         best validation loss and loads it back when the loop ends.
 
@@ -442,6 +664,8 @@ class DGDMTrainer:
         """
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
+        if not self.is_writer:
+            checkpoint_manager = train_logger = None
         max_epochs = max_epochs or self.config.max_epochs
         best_val, best_params, patience = float("inf"), None, 0
         first_epoch = self.current_epoch
@@ -455,21 +679,22 @@ class DGDMTrainer:
             skip = start_step_in_epoch if epoch == first_epoch else 0
             # n_steps is the position in the epoch, counting the skipped batches
             n_steps = skip
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
             epoch_loader = skip_batches(train_loader, skip) if skip else train_loader
             with monitor_operation(f"train_epoch_{phase}"):
                 prepared = PrefetchIterator((self._prepare_batch(b) for b in epoch_loader),
                                             depth=2)
-                for item in prepared:
+                for batch in self._epoch_steps(prepared, train_loader):
                     # accumulated on the device: one host sync per epoch
-                    m = self.training_step(self._await_upload(item), epoch,
-                                           materialize=False)
+                    m = self._step(batch, epoch, materialize=False)
                     n_steps += 1
                     for k, v in m.items():
                         totals[k] = v if k not in totals else totals[k] + v
                     if n_steps % log_every == 0:
                         logger.info("epoch %d [%s] step %d loss=%.4f", epoch, phase,
                                     n_steps, float(m["loss"]))
-                    if preemption_guard is not None and preemption_guard.triggered:
+                    if preemption_guard is not None and self._agree(preemption_guard.triggered):
                         interrupted = True
                         prepared.close()
                         break
@@ -543,14 +768,18 @@ class DGDMTrainer:
         return np.concatenate(embs, axis=0)
 
     @classmethod
-    def from_config(cls, cfg: DGDMConfig, mesh=None, device=None) -> "DGDMTrainer":
+    def from_config(cls, cfg: DGDMConfig, mesh: Optional[Mesh] = None,
+                    device=None) -> "DGDMTrainer":
         """A trainer over a ``DGDMModel`` built from ``cfg.model`` (the
         classification / regression / survival sections switch their heads
-        on), its parameters drawn from ``cfg.experiment.seed``. A mesh
-        (``mesh`` or ``hardware.mesh_shape``) and ``moe_experts`` raise
-        naming ROADMAP item 12, a ``param_dtype`` other than float32 item 8."""
-        if mesh is not None or cfg.hardware.mesh_shape:
-            raise NotImplementedError(_NOT_PORTED.format(what="training on a mesh", item=12))
+        on), its parameters drawn from ``cfg.experiment.seed``. Without
+        ``mesh``, ``hardware.mesh_shape`` / ``mesh_axes`` give one (a mesh
+        with an axis other than ``data`` above 1 raises naming ROADMAP item
+        12); ``hardware.devices`` is not read, as in the reference. A
+        ``param_dtype`` other than float32 raises naming item 8."""
+        hw = cfg.hardware
+        if mesh is None and hw.mesh_shape:
+            mesh = make_mesh(shape=list(hw.mesh_shape), axes=tuple(hw.mesh_axes))
         m = cfg.model
         model = DGDMModel(
             node_features=m.node_features, hidden_dims=tuple(m.hidden_dims),
@@ -570,4 +799,4 @@ class DGDMTrainer:
             spatial_window=m.spatial_window, graph_window=m.graph_window,
             moe_experts=m.moe_experts, moe_top_k=m.moe_top_k, moe_capacity=m.moe_capacity)
         init_parameters(model, torch.Generator().manual_seed(cfg.experiment.seed))
-        return cls(model, TrainerConfig.from_config(cfg), device=device)
+        return cls(model, TrainerConfig.from_config(cfg), device=device, mesh=mesh)

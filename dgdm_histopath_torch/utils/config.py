@@ -128,7 +128,9 @@ class TrainingConfig:
 class HardwareConfig:
     # kept for config compatibility: the data-parallel device count
     gpus: int = 1
-    devices: Optional[int] = None  # explicit device count; None = all
+    # written by the CLI's --devices and read by nothing, as in the
+    # reference: the mesh spans every visible card unless mesh_shape is set
+    devices: Optional[int] = None
     precision: str = "bf16-mixed"  # 32 | 16-mixed | bf16-mixed
     mesh_shape: Optional[List[int]] = None  # e.g. [8] for pure DP
     mesh_axes: List[str] = field(default_factory=lambda: ["data"])
@@ -219,6 +221,14 @@ class DGDMConfig:
             )
         if sorted(d.node_buckets) != list(d.node_buckets) or not d.node_buckets:
             raise ConfigurationError("data.node_buckets must be non-empty ascending")
+        hw = self.hardware
+        if hw.mesh_shape is not None and len(hw.mesh_shape) != len(hw.mesh_axes):
+            raise ConfigurationError(
+                "hardware.mesh_shape and hardware.mesh_axes must have equal lengths",
+                {"mesh_shape": hw.mesh_shape, "mesh_axes": hw.mesh_axes})
+        if self.advanced.accumulate_grad_batches < 1:
+            raise ConfigurationError("advanced.accumulate_grad_batches must be >= 1",
+                                     {"value": self.advanced.accumulate_grad_batches})
 
 
 _SECTION_TYPES = {f.name: f.type for f in dataclasses.fields(DGDMConfig)}

@@ -89,14 +89,14 @@ def runs(tmp_path_factory):
         jstep = jtr.DGDMTrainer.training_step
         mp.setattr(jtr.DGDMTrainer, "training_step",
                    lambda self, *a, **k: steps.append(1) or jstep(self, *a, **k))
-        tstep = ttr.DGDMTrainer.training_step
+        tstep = ttr.DGDMTrainer._step              # the step that fit takes
 
         def port_step(self, *a, **k):
             out = tstep(self, *a, **k)
             lrs["port"].append(self.optimizer.param_groups[0]["lr"])
             return out
 
-        mp.setattr(ttr.DGDMTrainer, "training_step", port_step)
+        mp.setattr(ttr.DGDMTrainer, "_step", port_step)
         rc = {"jax": jtrain.main(["train", *_argv(root, "--output-dir", str(root / "J"))]),
               "port": ttrain.main(["train", *_argv(root, "--output-dir", str(root / "P"),
                                                    "--device", "cpu")])}
@@ -163,7 +163,7 @@ def test_validate_prints_the_jax_json(runs):
 def test_sigterm_exits_75_and_resume_ends_with_the_whole_runs_bundle(runs, monkeypatch):
     root = runs["root"]
     before = signal.getsignal(signal.SIGTERM)
-    step = ttr.DGDMTrainer.training_step
+    step = ttr.DGDMTrainer._step                   # the step that fit takes
 
     def step_then_sigterm(self, *a, **k):
         out = step(self, *a, **k)
@@ -171,10 +171,10 @@ def test_sigterm_exits_75_and_resume_ends_with_the_whole_runs_bundle(runs, monke
             os.kill(os.getpid(), signal.SIGTERM)
         return out
 
-    monkeypatch.setattr(ttr.DGDMTrainer, "training_step", step_then_sigterm)
+    monkeypatch.setattr(ttr.DGDMTrainer, "_step", step_then_sigterm)
     argv = _argv(root, "--output-dir", str(root / "B"), "--device", "cpu")
     assert ttrain.main(["train", *argv]) == 75
-    monkeypatch.setattr(ttr.DGDMTrainer, "training_step", step)
+    monkeypatch.setattr(ttr.DGDMTrainer, "_step", step)
     index = json.loads((root / "B" / "checkpoints" / "index.json").read_text())
     assert index["records"][-1]["extra"]["resume"] == {"epoch": 0, "step_in_epoch": 2,
                                                        "mid_epoch": True}
@@ -227,10 +227,19 @@ def test_cli_without_a_card_exits_with_an_error(runs, which, capsys):
 
 @pytest.mark.parametrize("flags", [["--mesh-shape", "2,2"], ["--devices", "4"]])
 def test_parallel_flags_raise_naming_item_12(runs, flags):
+    """A (data, model) mesh still raises naming item 12. ``--devices`` is
+    read by nothing, as in the JAX CLI: the run equals the one without it."""
     root = runs["root"]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        ttrain.main(["train", *_argv(root, "--output-dir", str(root / "mesh"), "--device",
-                                     "cpu", *flags)])
+    argv = ["train", *_argv(root, "--output-dir", str(root / "mesh"), "--device", "cpu",
+                            *flags)]
+    if flags[0] == "--mesh-shape":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+            ttrain.main(argv)
+        return
+    assert ttrain.main(argv) == 0
+    with np.load(root / "P" / "final_model.npz") as a, \
+            np.load(root / "mesh" / "final_model.npz") as b:
+        assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
 @pytest.mark.parametrize("flags,item", [(["--save-heatmaps"], 11), (["--quant", "int8"], 13)])

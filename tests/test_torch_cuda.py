@@ -20,7 +20,8 @@ slide path on the card against the CPU: kNN neighbour lists equal slot for
 slot (edge features 1e-5), Macenko stain matrices 1e-4 and pixels 5e-3 on
 the 0-255 scale, the tissue mask within 0.05% of its pixels, the f32 ViT-B
 featurizer within 1e-3 of its largest feature, predict_slide's probabilities
-within 1e-4. A /predict answered through the dynamic batcher on the card
+within 1e-4. The MoE model on the card against the CPU: logits 1e-4, the
+aux loss 1e-5, expert assignments equal. A /predict answered through the dynamic batcher on the card
 equals ``predict_batch`` of the padded batch it rode in to the bit.
 """
 
@@ -849,3 +850,66 @@ def test_healthz_on_card_answers_200(cuda_device):
     assert status == 200 and report["healthy"]
     assert report["checks"] == {"host_memory": True, "devices": True, "model_loaded": True,
                                 "dependencies": True}
+
+
+def _moe_inputs(model, batch):
+    """The MoE block's input (its norm's output) and token mask of a forward."""
+    seen = []
+    hook = model.moe_ffn.register_forward_hook(lambda m, args, out: seen.append(args[:2]))
+    try:
+        with torch.inference_mode():
+            out = model(batch)
+    finally:
+        hook.remove()
+    return out, seen[0]
+
+
+@pytest.mark.cuda
+def test_moe_forward_on_card_matches_cpu(cuda_device):
+    """DGDM-Base's layout with 4 experts, f32: logits within 1e-4, the aux
+    loss within 1e-5, each token's expert and the kept tokens equal; the
+    MoE adds no kernel launch."""
+    cpu, card, batch = _small_pair(cuda_device, moe_experts=4)
+    kernels.reset_launch_counts()
+    _card_vs_cpu(card, cpu, batch, cuda_device)
+    assert kernels.launch_counts()["gather_rows"] == 7
+    (on_cpu, (x_cpu, m_cpu)), (on_card, (x_card, m_card)) = (
+        _moe_inputs(cpu, batch), _moe_inputs(card, batch.to(cuda_device)))
+    assert abs(float(on_cpu["moe_aux_loss"]) - float(on_card["moe_aux_loss"])) <= 1e-5
+    with torch.inference_mode():
+        r_cpu, r_card = cpu.moe_ffn.route(x_cpu, m_cpu), card.moe_ffn.route(x_card, m_card)
+    for key in ("first_choice", "kept", "dispatch"):
+        assert torch.equal(r_card[key].cpu(), r_cpu[key]), key
+
+
+@pytest.mark.cuda
+def test_moe_training_step_on_card_matches_cpu(cuda_device):
+    """One f32 pretrain step of the MoE model (dropout 0, injected draws):
+    loss within 1e-4, gradients within 1e-3 of each tensor's largest entry,
+    the launches of the model without the MoE."""
+    cpu, card, batch = _small_pair(cuda_device, dropout=0.0, moe_experts=4)
+    gen = torch.Generator().manual_seed(0)
+    b, n = batch.node_mask.shape
+    draws = {"masked": (torch.rand(b, n, generator=gen) < 0.15) & batch.node_mask,
+             "t": torch.randint(0, 10, (b,), generator=gen),
+             "noise": torch.randn(b, n, 32, generator=gen),
+             "uniform": torch.rand(b, n, generator=gen)}
+    out = {}
+    for device, model in (("cpu", cpu), (cuda_device, card)):
+        trainer = DGDMTrainer(model, TrainerConfig(warmup_steps=0, learning_rate=1e-3),
+                              device=device)
+        trainer.init_state(0)
+        kernels.reset_launch_counts()
+        metrics = trainer.training_step(batch, 0, draws={k: v.to(device)
+                                                         for k, v in draws.items()})
+        out[str(device)] = (metrics, kernels.launch_counts(),
+                            {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (m_cpu, _, g_cpu), (m_card, c_card, g_card) = out["cpu"], out["cuda"]
+    assert c_card == {"gather_rows": 7, "gather_agg": 14, "gather_rows_bwd": 7,
+                      "gather_agg_bwd": 14, "neighbor_transpose": 3, **NO_FLASH}
+    assert abs(m_cpu["loss"] - m_card["loss"]) <= 1e-4
+    assert abs(m_cpu["moe_aux_loss"] - m_card["moe_aux_loss"]) <= 1e-5
+    floor = 1e-3 * max(float(g.abs().max()) for g in g_cpu.values())
+    for key, ref in g_cpu.items():
+        scale = max(float(ref.abs().max()), floor)
+        assert float((g_card[key] - ref).abs().max()) <= 1e-3 * scale, key

@@ -235,10 +235,17 @@ def test_datamodule_splits_and_shards_match_jax(graph_dir, shards, index):
 
 
 def test_datamodule_shards_follow_torch_distributed(monkeypatch, graph_dir):
+    """Shards follow the nodes of the process group: three nodes of one rank
+    each shard as three JAX processes do; one node of three ranks loads one
+    shard (its ranks split each batch)."""
     assert HistopathDataModule([]).num_shards == 1
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 3)
     monkeypatch.setattr(torch.distributed, "get_rank", lambda: 2)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "3")
+    dm = HistopathDataModule(HistopathDataset(graph_dir / "data"), seed=7)
+    assert (dm.num_shards, dm.shard_index) == (1, 0)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
     dm = HistopathDataModule(HistopathDataset(graph_dir / "data"), seed=7)
     assert (dm.num_shards, dm.shard_index) == (3, 2)
     ref = JaxDataModule(jds.HistopathDataset(graph_dir / "data"), seed=7, num_shards=3,

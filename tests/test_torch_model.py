@@ -144,9 +144,11 @@ def test_flax_layout_rules():
     {"param_dtype": "bfloat16"}, {"compute_dtype": "float16"},
 ])
 def test_unported_options_raise_naming_the_roadmap(override):
-    """The window, band and traffic-dtype options build and reach their
+    """The window, band, traffic-dtype and MoE options build and reach their
     modules. The options not ported yet raise, naming their ROADMAP item."""
     ported = {"spatial_window": lambda m: m.spatial_attention.window_size,
+              "moe_experts": lambda m: (m.moe_ffn.num_experts, m.moe_ffn.top_k,
+                                        m.moe_ffn.hidden_dim, m.moe_norm.normalized_shape),
               "graph_window": lambda m: (m.graph_encoder.layer0.band_window,
                                          m.graph_encoder.layer1.band_window,
                                          m.graph_unet.down0.band_window,
@@ -155,10 +157,13 @@ def test_unported_options_raise_naming_the_roadmap(override):
     (name, value), = override.items()
     if name in ported:
         want = {"spatial_window": 64, "graph_window": (64, 64, 64, None),
-                "attention_traffic_dtype": torch.bfloat16}[name]
+                "attention_traffic_dtype": torch.bfloat16,
+                "moe_experts": (4, 1, 2 * KW["hidden_dims"][-1], (KW["hidden_dims"][-1],))
+                }[name]
         assert ported[name](DGDMModel(**{**KW, **override})) == want
         with pytest.raises(ConfigurationError):
-            DGDMModel(**{**KW, name: -1 if "window" in name else "int8"})
+            DGDMModel(**{**KW, name: -1 if name in ("spatial_window", "graph_window",
+                                                    "moe_experts") else "int8"})
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DGDMModel(**{**KW, **override})

@@ -417,18 +417,22 @@ def test_trainer_steps_replay_from_seed_and_step():
 # ---------------------------------------------------------------------------
 
 def test_unported_trainer_options_raise_naming_the_roadmap(monkeypatch, tmp_path):
-    """The item-12 options raise; the fit options of item 11 (a checkpoint
+    """A mesh with a ``model`` axis raises naming item 12; gradient
+    accumulation is taken; the fit options of item 11 (a checkpoint
     manager, a train logger, a preemption guard, a mid-epoch start) are
     ported and taken; ``TrainerConfig.from_config`` reads a config."""
+    from dgdm_histopath_torch.parallel import make_mesh
     from dgdm_histopath_torch.training import CheckpointManager, PreemptionGuard, TrainLogger
     from dgdm_histopath_torch.utils.config import DGDMConfig
 
     model = DGDMModel(**KW)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        DGDMTrainer(model, device="cpu", mesh=object())
+        DGDMTrainer(model, device="cpu", mesh=make_mesh(axes=("data", "model"), shape=(1, 2)))
     tt = DGDMTrainer(model, TrainerConfig(accumulate_grad_batches=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        tt.init_state(0)
+    tt.init_state(0)
+    before = [p.detach().clone() for p in tt.params]
+    tt.training_step(to_torch_graph(make_batch()), 0)
+    assert tt.mini_step == 1 and all(torch.equal(p, q) for p, q in zip(tt.params, before))
     tt = DGDMTrainer(model, device="cpu")
     with pytest.raises(RuntimeError, match="init_state"):
         tt.training_step(to_torch_graph(make_batch()))
