@@ -105,6 +105,21 @@ Phases, each of which raises on a failed check:
      graphs each) and 1 rank over NCCL take 3 f32 Base steps with injected
      draws, equal to one process on the global batch of 32; each rank's
      launches 9 / 18 / 9 / 18 + 3 a step.
+ 15. int8 (w8a8) inference, after the slide phase and on its patches: the
+     int8 Dense (``torch._int_mm``, padded where cuBLASLt needs it) at every
+     shape the DGDM-Base forward reroutes, the ViT-B/16 shapes at the
+     featurizer's batch of 256 and a batch-1 head, its int32 products equal
+     to the bit to exact f64 sums, with the times of the product, bf16
+     ``F.linear``, the whole int8 Dense and the bf16 Dense against the int8
+     bound; DGDM-Base through ``DGDMPredictor(quant="int8")`` (9 / 18
+     launches, logit cosine > 0.98 against bf16, device time, kernels and
+     peak memory against bf16, the f32 int8 forward on the card against the
+     CPU within 1e-4); the int8 dinov2 featurizer (feature cosine > 0.999
+     against bf16, 1024-patch throughput against bf16) and
+     ``predict_slide`` with ``quant="int8"`` (9 / 18); ``python -m
+     dgdm_histopath_torch.cli.serve --quant int8`` (one /predict, one
+     /predict_batch, SIGTERM -> 0); an int8 edge bundle packaged from the
+     model on the card, loaded and predicting (9 / 18).
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -128,6 +143,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+INT8_OPS_PER_S = 1979e12           # H100 SXM int8 tensor cores, dense
 EXP_PER_S = 132 * 16 * 1.98e9      # H100 SXM special-function units (exp), 16/clk/SM at 1.98 GHz
 # (B, N, K, F) of the gathers at the U-Net levels of DGDM-Base and DGDM-Large
 MAIN_SHAPES = [(32, 1024, 8, 128), (32, 512, 8, 128), (32, 256, 8, 128)]
@@ -178,6 +194,11 @@ MOE = dict(BASE, label="DGDM-Base+MoE", config="configs/dgdm_base_moe.yaml",
 # card over NCCL; with ``--dp-only`` on several cards, the train CLI too, on
 # 128 graph files (0.75 / 0.125 / 0.125: 3 training batches of 32 an epoch).
 DP = dict(steps=3, cli_graphs=128, cli_epochs=4)
+# The int8 cell (ROADMAP item 13): DGDM-Base through DGDMPredictor(quant="int8")
+# on the Base cell's graphs, the dinov2 featurizer at its batch of 256 on the
+# slide cell's patches, dgdm-serve --quant int8 and an int8 edge bundle; the
+# cosine bounds are the JAX package's tests' (tests/test_quant.py:95,182).
+INT8 = dict(vit_batch=256, cosine_model=0.98, cosine_featurizer=0.999, cpu_atol=1e-4)
 
 
 def expected_launches(cell: dict, training: bool, remat: bool = False) -> dict:
@@ -1388,7 +1409,7 @@ def featurizer_throughput(torch, ext, patches_u8) -> dict:
             "bound_ms": bound_ms, "bound_by": "operations", "flops": flops}
 
 
-def slide_phase(torch, card: str, kern: dict) -> dict:
+def slide_phase(torch, card: str, kern: dict, keep: dict) -> dict:
     """The whole-slide cell: DGDM-Base (seed 0, bf16) behind
     ``DGDMPredictor(feature_extractor="dinov2", stain_normalize=True)`` on a
     synthetic 20x slide of >= 1000 tissue patches. ``predict_slide``
@@ -1427,6 +1448,7 @@ def slide_phase(torch, card: str, kern: dict) -> dict:
         infos = [tissue[i] for i in np.linspace(0, len(tissue) - 1,
                                                 proc.max_patches).astype(int)]
     patches = proc.extract_patch_batch(backend, infos)              # [1000, 256, 256, 3]
+    keep.update(backend=backend, patches=patches)                   # for the int8 phase
     ext = builder.extractor
 
     # the featurizer alone first (it warms every kernel of the path)
@@ -2786,6 +2808,410 @@ def dp_cli(torch, card: str, cards: int) -> dict:
             "outputs": only_rank0, "history": hist}
 
 
+# ---------------------------------------------------------------------------
+# 15. int8 (w8a8) inference
+# ---------------------------------------------------------------------------
+
+def int8_dense_row(torch, m: int, k: int, n: int, what: str) -> dict:
+    """One int8 Dense shape ``[m, k] x [k, n]`` on the card: the int32 product
+    (``torch._int_mm``, padded where cuBLASLt needs it) equal to the bit to
+    its plain version (exact f64 sums), ``int8_dense`` within 1e-6 of its
+    plain version's output; device times (CUDA-graph replays) of the int8
+    product, the plain version and bf16 ``F.linear`` on the same shape, and of
+    the whole int8 ``Dense`` (quantize, product, dequantize, bias, cast)
+    against the bf16 ``Dense`` (which casts its f32 weight each call); bound:
+    the product's operations at the dense int8 rate or its bytes at the
+    memory rate, the larger."""
+    import torch.nn.functional as F
+    from dgdm_histopath_torch.models.quantized import _int8_dense_call
+    from dgdm_histopath_torch.nn.layers import Dense
+    from dgdm_histopath_torch.ops.quant import (
+        int8_dense, int8_matmul, int8_matmul_plain, quantize_activations, quantize_weight)
+
+    gen = torch.Generator(device="cuda").manual_seed(m + 7 * k + 13 * n)
+    dense = Dense(k, n, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        dense.weight.normal_(0.0, k ** -0.5, generator=gen)
+        dense.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    x_q, _ = quantize_activations(x)
+    w_q, w_s = quantize_weight(dense.weight, axis=0)
+    acc = int8_matmul(x_q, w_q)
+    acc_equal = torch.equal(acc, int8_matmul_plain(x_q, w_q))
+    out = int8_dense(x, w_q, w_s, dense.bias)
+    ref = int8_dense(x, w_q, w_s, dense.bias, matmul=int8_matmul_plain)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    if not acc_equal or rel > 1e-6:
+        raise AssertionError(f"int8 {what} [{m}, {k}] x [{k}, {n}]: accumulators equal "
+                             f"{acc_equal}, output {rel:.2e} of its scale from the plain version")
+    xb, wb = x, dense.weight.detach().to(torch.bfloat16)
+    with torch.inference_mode():
+        row = {"shape": [m, k, n], "what": what, "padded": m <= 16 or k % 8 > 0 or n % 8 > 0,
+               "acc_equal": acc_equal, "max_rel_err": rel,
+               "int_mm_ms": device_ms(torch, lambda: int8_matmul(x_q, w_q)),
+               "bf16_linear_ms": device_ms(torch, lambda: F.linear(xb, wb)),
+               "plain_ms": device_ms(torch, lambda: int8_matmul_plain(x_q, w_q), reps=3,
+                                     trials=5),
+               "dense_int8_ms": device_ms(torch, lambda: _int8_dense_call(dense, x)),
+               "dense_bf16_ms": device_ms(torch, lambda: dense(x))}
+    by_ops = 2.0 * m * k * n / INT8_OPS_PER_S * 1e3
+    by_bytes = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    row.update(bound_ms=max(by_ops, by_bytes),
+               bound_by="operations" if by_ops >= by_bytes else "bytes")
+    return row
+
+
+def int8_layouts(torch, card: str) -> dict:
+    """``torch._int_mm``'s second operand at the ViT-B/16 mlp1 shape: the
+    transpose of a contiguous ``[N, K]`` int8 weight (the port's layout) and a
+    contiguous ``[K, N]`` matrix; both equal to the exact sums, device times."""
+    from dgdm_histopath_torch.ops.quant import int8_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randint(-127, 128, (INT8["vit_batch"] * 197, 768), device="cuda",
+                      dtype=torch.int8, generator=gen)
+    w = torch.randint(-127, 128, (3072, 768), device="cuda", dtype=torch.int8, generator=gen)
+    want, out = int8_matmul_plain(x, w), {}
+    for name, mat2 in (("weight_nk_transposed", w.t()), ("contiguous_kn", w.t().contiguous())):
+        if not torch.equal(torch._int_mm(x, mat2), want):
+            raise AssertionError(f"_int_mm with mat2 {name} differs from the exact sums")
+        out[name] = device_ms(torch, lambda mat2=mat2: torch._int_mm(x, mat2))
+    log(f"int8: _int_mm [{x.shape[0]}, 768] x [768, 3072]: mat2 the transpose of a contiguous "
+        f"[N, K] weight {out['weight_nk_transposed']:.4f} ms, a contiguous [K, N] matrix "
+        f"{out['contiguous_kn']:.4f} ms [{card}]")
+    return out
+
+
+def int8_model(torch, graphs, card: str) -> dict:
+    """DGDM-Base (seed 0, bf16) on the Base cell's graphs through
+    ``DGDMPredictor(quant="int8")``: predict_batch counted (9 / 18), the
+    shapes of the Dense calls it reroutes, logit cosine against the bf16
+    forward of the same model, forward wall / device time / kernels / peak
+    memory against bf16; the f32 model's int8 forward on the card against the
+    CPU on 2 graphs (logits within 1e-4; the int8 activations that land a
+    step apart counted)."""
+    import numpy as np
+    from dgdm_histopath_torch import DGDMPredictor, batch_graphs, create_model
+    from dgdm_histopath_torch.models import quantized
+    from dgdm_histopath_torch.ops.quant import quantize_activations
+
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16", device="cuda",
+                         seed=0)
+    flt, pred = DGDMPredictor(model=model), DGDMPredictor(model=model, quant="int8")
+    results, launches = counted(torch, lambda: pred.predict_batch(graphs),
+                                expected_launches(BASE, training=False), "int8 predict_batch")
+    for r in results:
+        if not (np.isfinite(r["probabilities"]).all()
+                and abs(float(r["probabilities"].sum()) - 1.0) < 1e-5
+                and np.isfinite(r["graph_embedding"]).all()):
+            raise AssertionError("int8 predict_batch: non-finite outputs")
+    batch = batch_graphs(graphs).to("cuda")
+    inner, shapes = quantized.make_int8_interceptor(), {}
+
+    def recording(mod, x):
+        out = inner(mod, x)
+        if out is not None:
+            key = (x.numel() // x.shape[-1], x.shape[-1], mod.out_features)
+            shapes[key] = shapes.get(key, 0) + 1
+        return out
+    with torch.inference_mode(), quantized.intercept_dense(recording):
+        out8 = model(batch, mode="inference", deterministic=True, return_attention=True)
+    outf = flt.forward(batch)
+
+    def cosine(a, b):
+        a, b = a.float(), b.float()
+        return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    cos_logits = cosine(out8["classification_logits"], outf["classification_logits"])
+    cos_emb = cosine(out8["graph_embedding"], outf["graph_embedding"])
+    timing = {}
+    for name, p in (("int8", pred), ("bf16", flt)):
+        walls = []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.forward(batch)
+            torch.cuda.synchronize()
+            if i >= 3:
+                walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        p.forward(batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_call(torch, lambda p=p: p.forward(batch), f"DGDM-Base {name} forward")
+        prof.pop("top")
+        timing[name] = {"forward_ms": statistics.median(walls), "forward_ms_all": walls,
+                        "peak_gib": peak, "profile": prof}
+    log(f"int8: DGDM-Base batch {BASE['batch']} bucket {BASE['bucket']}: predict_batch "
+        f"launches {launches}; {sum(shapes.values())} Dense calls rerouted over {len(shapes)} "
+        f"shapes; logit cosine vs bf16 min {cos_logits.min().item():.5f} (> "
+        f"{INT8['cosine_model']}), embedding cosine min {cos_emb.min().item():.5f}; forward "
+        f"int8 {timing['int8']['forward_ms']:.2f} ms / device "
+        f"{timing['int8']['profile']['device_busy_ms']} ms in "
+        f"{timing['int8']['profile'].get('kernel_launches')} kernels / peak "
+        f"{timing['int8']['peak_gib']:.2f} GiB against bf16 {timing['bf16']['forward_ms']:.2f} "
+        f"/ {timing['bf16']['profile']['device_busy_ms']} / "
+        f"{timing['bf16']['profile'].get('kernel_launches')} / "
+        f"{timing['bf16']['peak_gib']:.2f} [{card}]")
+    if cos_logits.min().item() <= INT8["cosine_model"]:
+        raise AssertionError(f"int8 logits' cosine against bf16 {cos_logits.tolist()}")
+
+    # the f32 model's int8 forward, card against CPU, on 2 graphs
+    cpu_model = create_model("dgdm-base", num_classes=2, compute_dtype="float32", device="cpu",
+                             seed=1)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    small = batch_graphs(graphs[:2])
+    acts = {"cpu": [], "cuda": []}
+
+    def activations(where):
+        def interceptor(mod, x):
+            out = inner(mod, x)
+            if out is not None:
+                acts[where].append([t.cpu() for t in quantize_activations(x)])
+            return out
+        return interceptor
+    with torch.inference_mode():
+        with quantized.intercept_dense(activations("cuda")):
+            on_card = gpu_model(small.to("cuda"), mode="inference", return_attention=True)
+        with quantized.intercept_dense(activations("cpu")):
+            on_cpu = cpu_model(small, mode="inference", return_attention=True)
+    d_logits = (on_card["classification_logits"].cpu()
+                - on_cpu["classification_logits"]).abs().max().item()
+    # rows whose scale is below 1e-3 of the call's largest (padding and
+    # pooled-away nodes, near zero) count apart: an ulp there is many steps.
+    # A row more than a step apart is matched again against every CPU row of
+    # the call: two near-equal pooling scores that round the other way on the
+    # card put the same nodes in another order
+    steps, faint, moved = [], [], []
+    for (q_card, s_card), (q_cpu, s_cpu) in zip(acts["cuda"], acts["cpu"]):
+        live = (s_cpu >= 1e-3 * s_cpu.max()).reshape(-1).numpy()
+        a, b = (q.reshape(live.size, -1).numpy().astype(np.int32) for q in (q_card, q_cpu))
+        d = np.abs(a - b)
+        steps.append(d[live])
+        faint.append(d[~live])
+        far = np.flatnonzero(live & (d.max(axis=1) > 1))
+        if far.size:
+            nearest = np.concatenate([np.abs(a[far[i:i + 8], None] - b[None]).max(-1).min(-1)
+                                      for i in range(0, far.size, 8)])
+            moved.append({"shape": list(a.shape), "rows_beyond_a_step": int(far.size),
+                          "beyond_a_step_of_every_cpu_row": int((nearest > 1).sum()),
+                          "nearest_cpu_row_steps_max": int(nearest.max())})
+    flips = sum(int((d > 0).sum()) for d in steps)
+    total = sum(d.size for d in steps)
+    faint_flips = sum(int((d > 0).sum()) for d in faint)
+    faint_total = sum(d.size for d in faint)
+    most = max(int(d.max()) for d in steps if d.size)
+    log(f"int8: f32 DGDM-Base int8 forward card vs CPU on 2 graphs: logits {d_logits:.3e} "
+        f"(<= {INT8['cpu_atol']}); {flips} of {total} int8 activations of live rows a step "
+        f"apart (at most {most}), {faint_flips} of {faint_total} in rows below 1e-3 of the "
+        f"largest scale; calls with rows more than a step apart: {moved}")
+    if d_logits > INT8["cpu_atol"]:
+        raise AssertionError("the int8 forward differs between the card and the CPU")
+    return {"model": model, "launches": launches, "timing": timing,
+            "shapes": [{"m": m, "k": k, "n": n, "calls": c}
+                       for (m, k, n), c in sorted(shapes.items())],
+            "cosine_logits_min": cos_logits.min().item(),
+            "cosine_embedding_min": cos_emb.min().item(),
+            "card_vs_cpu": {"logits_max_abs": d_logits, "activation_flips": flips,
+                            "activations": total, "activation_steps_max": most,
+                            "faint_row_flips": faint_flips, "faint_row_activations": faint_total,
+                            "rows_more_than_a_step_apart": moved}}
+
+
+def int8_featurizer(torch, card: str, model, slide: dict) -> dict:
+    """The dinov2 featurizer (ViT-B/16, Macenko on the card, seed 0) with
+    ``quant="int8"`` against bf16 on the slide cell's patches: feature cosine
+    on 256 patches (> 0.999), throughput over 1024 patches each (CUDA events),
+    a profiled int8 batch; then ``predict_slide`` with ``quant="int8"``
+    (counted, 9 / 18) against the bf16 ``predict_slide``."""
+    import numpy as np
+    from dgdm_histopath_torch import DGDMPredictor
+    from dgdm_histopath_torch.models.vit import PatchFeatureExtractor, vit_flops
+
+    patches = slide["patches"]
+    kw = dict(arch="dinov2", stain_normalize_on_device=True, seed=0, device="cuda")
+    ext16, ext8 = PatchFeatureExtractor(**kw), PatchFeatureExtractor(quant="int8", **kw)
+    f16, f8 = ext16.extract(patches[:256]), ext8.extract(patches[:256])
+    cos = (f16 * f8).sum(-1) / (np.linalg.norm(f16, axis=-1) * np.linalg.norm(f8, axis=-1))
+    reps = -(-SLIDE["throughput_patches"] // len(patches))
+    on_card = torch.from_numpy(
+        np.concatenate([patches] * reps)[:SLIDE["throughput_patches"]]).to("cuda")
+    t8, t16 = featurizer_throughput(torch, ext8, on_card), featurizer_throughput(torch, ext16,
+                                                                                 on_card)
+    # int8's bound: the block products at the int8 rate, the patch embedding
+    # and the attention products (bf16 operands) at the bf16 rate
+    t, d, depth = 197, 768, 12
+    int8_ops = depth * 2 * t * d * d * 12 * len(on_card)
+    t8["bound_ms"] = (int8_ops / INT8_OPS_PER_S
+                      + (vit_flops() * len(on_card) - int8_ops) / BF16_FLOPS_PER_S) * 1e3
+    with torch.inference_mode():
+        t8["profile"] = profile_call(torch, lambda: ext8.fused_forward(on_card[:ext8.batch_size]),
+                                     f"int8 featurizer batch of {ext8.batch_size} patches")
+    del on_card
+    log(f"int8: featurizer feature cosine vs bf16 on 256 patches min {cos.min():.6f} (> "
+        f"{INT8['cosine_featurizer']}); {t8['patches']} patches int8 {t8['ms']:.2f} ms (bound "
+        f"{t8['bound_ms']:.2f}) against bf16 {t16['ms']:.2f} ms (bound {t16['bound_ms']:.2f}) "
+        f"[{card}]")
+    if cos.min() <= INT8["cosine_featurizer"]:
+        raise AssertionError(f"int8 features' cosine against bf16 {cos.min()}")
+
+    pred8 = DGDMPredictor(model=model, feature_extractor="dinov2", stain_normalize=True,
+                          quant="int8")
+    pred16 = DGDMPredictor(model=model, feature_extractor="dinov2", stain_normalize=True)
+    t0 = time.perf_counter()
+    r8, launches = counted(torch, lambda: pred8.predict_slide(slide["backend"], slide_id="s"),
+                           expected_launches(BASE, training=False), "int8 predict_slide")
+    wall8 = time.perf_counter() - t0
+    r16 = pred16.predict_slide(slide["backend"], slide_id="s")
+    for p in (pred8, pred16):
+        p.close()
+    d_prob = float(np.abs(r8["probabilities"] - r16["probabilities"]).max())
+    if not (np.isfinite(r8["probabilities"]).all() and r8["num_patches"] == r16["num_patches"]
+            and r8["attention_weights"].shape == (SLIDE["bucket"],)):
+        raise AssertionError("int8 predict_slide: non-finite or misshaped outputs")
+    log(f"int8: predict_slide launches {launches}, {wall8:.3f} s, probabilities "
+        f"{r8['probabilities']} against bf16 {r16['probabilities']} (diff {d_prob:.2e}), "
+        f"featurize {r8['pipeline_timings']['featurize_s']:.3f} s against "
+        f"{r16['pipeline_timings']['featurize_s']:.3f} s [{card}]")
+    t8["profile"].pop("top")
+    return {"cosine_min": float(cos.min()), "int8": t8, "bf16": t16,
+            "predict_slide": {"launches": launches, "wall_s": wall8, "prob_diff_vs_bf16": d_prob,
+                              "timings": r8["pipeline_timings"],
+                              "bf16_timings": r16["pipeline_timings"]}}
+
+
+def int8_serve_and_edge(torch, card: str, graphs) -> dict:
+    """``python -m dgdm_histopath_torch.cli.serve --quant int8`` on a DGDM-Base
+    bundle: one ``/predict`` (through the dynamic batcher) and one
+    ``/predict_batch`` of 3 graphs, each within 1e-5 of the in-process
+    ``DGDMPredictor(quant="int8")``, SIGTERM -> 0; then an int8 edge bundle
+    packaged from the model on the card, loaded and predicting on 4 graphs
+    (counted, 9 / 18), equal to ``int8_apply`` of the loaded model."""
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    import numpy as np
+    from dgdm_histopath_torch import DGDMPredictor, batch_graphs, create_model
+    from dgdm_histopath_torch.data.graph_io import save_graph
+    from dgdm_histopath_torch.deployment import EdgeConfig, EdgeDeploymentManager
+    from dgdm_histopath_torch.models.presets import PRESETS
+    from dgdm_histopath_torch.models.quantized import int8_apply
+    from dgdm_histopath_torch.training.checkpoint import save_model_bundle
+
+    out = {}
+    config = dict(PRESETS["dgdm-base"], num_classes=2, compute_dtype="bfloat16")
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16", device="cuda",
+                         seed=0)
+    with tempfile.TemporaryDirectory() as root:
+        bundle = str(save_model_bundle(f"{root}/final_model.npz", model, config))
+        names = [f"graphs/s{i}_graph.npz" for i in range(4)]
+        for name, g in zip(names, graphs):
+            save_graph(g, f"{root}/{name}")
+        local = DGDMPredictor(model_path=bundle, quant="int8")
+        want = local.predict_batch(graphs[:1]) + local.predict_batch(graphs[1:4])
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        cmd = [sys.executable, "-m", "dgdm_histopath_torch.cli.serve", "--model", bundle,
+               "--port", str(port), "--data-root", root, "--dynamic-batch", "4",
+               "--rate-limit", "1000", "--quant", "int8"]
+        log_path = f"{root}/serve.log"
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                    stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"dgdm-serve --quant int8 exited {proc.returncode}")
+                try:
+                    if http_status(port, "GET", "/readyz")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("dgdm-serve --quant int8 not ready within 300 s")
+                time.sleep(0.25)
+            ready_s = time.perf_counter() - t0
+            one = http_json(port, "POST", "/predict", {"graph_path": names[0]})
+            many = http_json(port, "POST", "/predict_batch", {"graph_paths": names[1:4]})
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+            if rc != 0:
+                raise AssertionError(f"dgdm-serve --quant int8 exit {rc}")
+        except BaseException:
+            with open(log_path) as f:
+                log("int8: dgdm-serve log:\n" + f.read()[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        answers = [one] + many["results"]
+        d_serve = max(same_answer(a["probabilities"], w["probabilities"], 1e-5,
+                                  "dgdm-serve --quant int8 vs DGDMPredictor(quant='int8')")
+                      for a, w in zip(answers, want))
+        out["serve"] = {"ready_s": ready_s, "rc": rc, "prob_diff": d_serve}
+        log(f"int8: dgdm-serve --quant int8 ready in {ready_s:.1f} s; /predict and "
+            f"/predict_batch of 3 within {d_serve:.2e} of DGDMPredictor(quant='int8'); "
+            f"SIGTERM -> {rc}")
+
+        # the edge bundle, packaged from the model on the card
+        t0 = time.perf_counter()
+        path = EdgeDeploymentManager(f"{root}/edge").package(
+            model, None, config, EdgeConfig(quantization="int8"))
+        package_s = time.perf_counter() - t0
+        with np.load(path, allow_pickle=False) as data:
+            stats = json.loads(str(data["__meta__"]))["stats"]
+        engine = EdgeDeploymentManager.load(path)
+        batch = batch_graphs(graphs[:4])
+        res, launches = counted(torch, lambda: engine.predict(batch),
+                                expected_launches(BASE, training=False), "edge predict")
+        with torch.inference_mode():
+            ref = int8_apply(engine.model, batch.to("cuda"), mode="inference")
+        probs = torch.softmax(ref["classification_logits"].float(), -1).cpu().numpy()
+        d_edge = same_answer(res["probabilities"], probs, 1e-6, "edge engine vs int8_apply")
+        if engine.device.type != "cuda" or res["probabilities"].shape != (4, 2):
+            raise AssertionError("edge engine: not on the card or misshaped")
+        out["edge"] = {"stats": stats, "package_s": package_s, "launches": launches,
+                       "latency_s": res["latency_s"], "prob_diff": d_edge,
+                       "bundle_bytes": os.path.getsize(path)}
+        log(f"int8: edge bundle {stats['bytes_before'] / 2 ** 20:.1f} MiB -> "
+            f"{stats['bytes_after'] / 2 ** 20:.1f} MiB ({stats['compression']:.3f}x), npz "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, packaged in {package_s:.2f} s; load + "
+            f"predict on 4 graphs: launches {launches}, {res['latency_s'] * 1e3:.1f} ms, equal "
+            f"to int8_apply within {d_edge:.2e} [{card}]")
+    return out
+
+
+def int8_phase(torch, graphs, card: str, slide: dict) -> dict:
+    """int8 (ROADMAP item 13): the int8 Dense at every shape the Base forward
+    gives it, the ViT-B/16 shapes at the featurizer's batch and a batch-1
+    head; the Base forward, the featurizer and predict_slide, dgdm-serve and
+    the edge bundle."""
+    model_out = int8_model(torch, graphs, card)
+    rows = [int8_dense_row(torch, s["m"], s["k"], s["n"], "DGDM-Base")
+            for s in model_out["shapes"]]
+    m = INT8["vit_batch"] * 197
+    rows += [int8_dense_row(torch, m, k, n, f"ViT-B/16 {what}")
+             for what, k, n in (("qkv", 768, 2304), ("out", 768, 768), ("mlp1", 768, 3072),
+                                ("mlp2", 3072, 768), ("q, k or v alone", 768, 768))]
+    rows.append(int8_dense_row(torch, 1, 128, 128, "batch-1 head"))
+    layouts = int8_layouts(torch, card)
+    for r in rows:
+        log(f"int8: {r['what']} [{r['shape'][0]}, {r['shape'][1]}] x [{r['shape'][1]}, "
+            f"{r['shape'][2]}]{' padded' if r['padded'] else ''}: _int_mm {r['int_mm_ms']:.4f} "
+            f"ms, bf16 linear {r['bf16_linear_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f}; int8 Dense {r['dense_int8_ms']:.4f} "
+            f"against bf16 Dense {r['dense_bf16_ms']:.4f}; accumulators equal, output "
+            f"{r['max_rel_err']:.1e} [{card}]")
+    feat = int8_featurizer(torch, card, model_out.pop("model"), slide)
+    torch.cuda.empty_cache()
+    serve = int8_serve_and_edge(torch, card, graphs[:4])
+    return {**model_out, "dense": rows, "mat2_layouts_ms": layouts, "featurizer": feat, **serve,
+            "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -2869,11 +3295,16 @@ def main() -> int:
 
     # data parallelism: two gloo ranks sharing the card, one NCCL rank
     dp = dp_phase(torch, graphs, card, torch.cuda.device_count())
-    del graphs
     torch.cuda.empty_cache()
 
     # last: the whole-slide path
-    slide = slide_phase(torch, card, kern)
+    slide_keep = {}
+    slide = slide_phase(torch, card, kern, slide_keep)
+    torch.cuda.empty_cache()
+
+    # last: int8 inference, on the Base cell's graphs and the slide's patches
+    int8 = int8_phase(torch, graphs, card, slide_keep)
+    del graphs, slide_keep
     torch.cuda.empty_cache()
 
     # last: training through the CLI, resumed after a SIGTERM, and dgdm-predict
@@ -2914,6 +3345,9 @@ def main() -> int:
                    "dgdm_serve": serve["launches"][name],
                    "moe_predict_batch": moe["launches"][name],
                    "moe_training_step": moe["train_launches"][name],
+                   "int8_predict_batch": int8["launches"][name],
+                   "int8_predict_slide": int8["featurizer"]["predict_slide"]["launches"][name],
+                   "edge_int8_predict": int8["edge"]["launches"][name],
                    "dp_training_step_gloo_rank": dp["gloo"]["launches"][name],
                    "dp_training_step_nccl_rank": dp["nccl"]["launches"][name],
                    "spatial_attention_use_flash": (
@@ -2959,7 +3393,8 @@ def main() -> int:
                                   "training": train_timing,
                                   "training_parity": train_parity, "remat": remat,
                                   "flash_module": flash_module, "cli": cli,
-                                  "serve": serve, "moe": moe, "dp": dp, "slide": {
+                                  "serve": serve, "moe": moe, "dp": dp, "int8": int8,
+                                  "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},
                                   "large": {"model": l_timing, "parity": l_parity,
                                             "server": l_server,

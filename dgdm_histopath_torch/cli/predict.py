@@ -9,7 +9,7 @@ directory of either, to one JSON per input and/or ``predictions.csv``
 It runs on the card unless ``--device cpu`` is given. ``--save-heatmaps``
 writes ``<slide_id>_summary.png`` and ``<slide_id>_summary.html`` beside each
 result that has attention weights (matplotlib needed for the PNG).
-``--quant int8`` is not ported and raises.
+``--quant int8`` predicts with w8a8 int8 inference (``models/quantized.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tissue-threshold", type=float, default=0.8)
     p.add_argument("--no-stain-normalize", action="store_true")
     p.add_argument("--quant", choices=["int8"], default=None,
-                   help="w8a8 int8 inference (not ported)")
+                   help="w8a8 int8 inference (int8 Dense layers)")
     p.add_argument("--save-heatmaps", action="store_true",
                    help="write a PNG and an interactive HTML summary per input")
     p.add_argument("--format", choices=["json", "csv", "both"], default="json")

@@ -8,7 +8,7 @@ SIGTERM or SIGINT (exit 0).
 
 It serves on the card unless ``--device cpu`` is given; asking for the card
 without one is an error. ``--port 0`` takes a free port (logged).
-``--quant int8`` is not ported and raises.
+``--quant int8`` serves w8a8 int8 inference (``models/quantized.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(each power-of-two batch size runs once before "
                         "traffic), e.g. '1024,2048'")
     p.add_argument("--quant", choices=["int8"], default=None,
-                   help="w8a8 int8 inference (not ported)")
+                   help="w8a8 int8 inference (int8 Dense layers)")
     p.add_argument("--feature-extractor", default="none",
                    help="patch featurizer for slide-path requests")
     p.add_argument("--log-level", default="INFO")

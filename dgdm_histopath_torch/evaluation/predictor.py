@@ -27,6 +27,8 @@ import torch
 
 from ..convert import load_jax_bundle
 from ..models.dgdm import DGDMModel
+from ..models.quantized import float_apply, int8_apply
+from ..models.vit import check_quant
 from ..ops.graph import PaddedGraph, batch_graphs
 from ..preprocessing.slide_io import SlideBackend, open_slide
 from ..preprocessing.slide_processor import SlideData, SlideProcessor
@@ -64,7 +66,9 @@ class DGDMPredictor:
     The slide pipeline takes the reference's defaults: 256-px patches at
     20x, at most 1000 patches a slide, the ``"dinov2"`` featurizer, tissue
     fraction 0.8 per patch, Macenko stain normalization, node buckets 128 to
-    2048. A windowed model (``spatial_window`` / ``graph_window``) gets
+    2048. ``quant="int8"``: w8a8 inference (the graph model's ``Dense``
+    layers, and the featurizer when it normalizes stains, as in the JAX
+    predictor). A windowed model (``spatial_window`` / ``graph_window``) gets
     Morton-ordered graphs built inside its band. ``decode_workers``: processes
     that decode patches of path-backed slides (at most ``cpu_count() - 1``;
     1 decodes in this process).
@@ -78,10 +82,7 @@ class DGDMPredictor:
                  stain_normalize: bool = True,
                  node_buckets: Sequence[int] = (128, 256, 512, 1024, 2048),
                  decode_workers: int = 4):
-        if quant == "int8":
-            raise NotImplementedError("int8 inference is not ported yet "
-                                      "(ROADMAP queue 1, item 13)")
-        if quant is not None:
+        if quant not in (None, "int8"):
             raise InferenceError(f"unsupported quant mode: {quant!r}")
         self.quant = quant
         self.device = resolve_device(device)
@@ -96,6 +97,11 @@ class DGDMPredictor:
         # with a neural extractor, stain normalization runs inside its device
         # call: the processor keeps the patches uint8
         fuse_stain = stain_normalize and feature_extractor not in ("none", None)
+        # as in the JAX predictor, the featurizer computes int8 only when it
+        # is the one that normalizes stains
+        featurizer_quant = quant if fuse_stain else None
+        if featurizer_quant:
+            check_quant(feature_extractor, featurizer_quant)
         self.processor = SlideProcessor(
             patch_size=patch_size, magnifications=[magnification], max_patches=max_patches,
             tissue_threshold=tissue_threshold,
@@ -105,7 +111,7 @@ class DGDMPredictor:
         self.graph_builder = TissueGraphBuilder(
             feature_extractor=feature_extractor, node_buckets=list(node_buckets),
             spatial_sort=bool(gw or sw), knn_window=gw,
-            stain_normalize_on_device=fuse_stain, device=self.device)
+            stain_normalize_on_device=fuse_stain, quant=featurizer_quant, device=self.device)
 
     # ------------------------------------------------------------------
     # slides
@@ -295,10 +301,13 @@ class DGDMPredictor:
     # graphs
     # ------------------------------------------------------------------
     def forward(self, batch: PaddedGraph) -> Dict[str, Any]:
-        """The model's inference forward with attention, on the predictor's device."""
+        """The model's inference forward with attention, on the predictor's
+        device; with ``quant="int8"`` every eligible ``Dense`` computes int8
+        (``models/quantized.py``)."""
+        apply = int8_apply if self.quant == "int8" else float_apply
         with torch.inference_mode():
-            return self.model(batch.to(self.device), mode="inference",
-                              deterministic=True, return_attention=True)
+            return apply(self.model, batch.to(self.device), mode="inference",
+                         deterministic=True, return_attention=True)
 
     def predict_graph(self, graph: PaddedGraph) -> Dict[str, Any]:
         """Model forward on a single graph."""

@@ -7,7 +7,7 @@ import math
 import torch
 from torch import nn
 
-from ..nn.layers import Dense
+from ..nn.layers import Dense, DenseGeneral
 from ..ops.graph import masked_global_max, masked_global_mean, masked_softmax
 
 
@@ -30,8 +30,8 @@ class GlobalAttentionPool(nn.Module):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.global_query = nn.Parameter(torch.zeros(num_heads, embed_dim // num_heads))
-        self.k_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.k_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
         self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
 
     def forward(self, x, node_mask, return_weights: bool = False):

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from ..nn.layers import Dense, LayerNorm, as_dtype, gelu, init_parameters
+from ..nn.layers import Dense, DenseGeneral, LayerNorm, as_dtype, gelu, init_parameters
 from ..preprocessing.stain_normalization import (
     DEFAULT_MAX_CONCENTRATIONS,
     DEFAULT_STAIN_MATRIX,
@@ -43,6 +43,7 @@ from ..preprocessing.stain_normalization import (
     rgb_to_od,
 )
 from ..utils.device import resolve_device
+from .vit_int8 import quantize_vit_params, vit_int8_forward
 
 logger = logging.getLogger(__name__)
 
@@ -107,8 +108,9 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
         super().__init__()
         self.num_heads = num_heads
-        self.query, self.key, self.value = (Dense(dim, dim, dtype=dtype) for _ in range(3))
-        self.out = Dense(dim, dim, dtype=dtype)
+        self.query, self.key, self.value = (DenseGeneral(dim, dim, dtype=dtype)
+                                            for _ in range(3))
+        self.out = DenseGeneral(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
@@ -287,6 +289,19 @@ def host_resize_u8(batch: np.ndarray, out_size: int) -> np.ndarray:
     return out
 
 
+def check_quant(arch: str, quant: Optional[str]) -> None:
+    """The JAX extractor's checks of ``quant`` for ``arch``: int8 needs a ViT
+    arch, and the only mode is ``"int8"``."""
+    base = arch[: -len("+stats")] if arch.endswith("+stats") else arch
+    base = base if base in _ARCHS else "dinov2"
+    if quant and base == "stats":
+        raise ValueError("quant='int8' requires a ViT arch (stats has no weights to quantize)")
+    if quant and base == "simple_cnn":
+        raise ValueError("quant='int8' requires a ViT arch (simple_cnn has no quantized path)")
+    if quant not in (None, "int8"):
+        raise ValueError(f"unknown quant mode {quant!r} (None or 'int8')")
+
+
 class PatchFeatureExtractor:
     """Batched patch featurization on ``device`` (``None`` means ``"cuda"``):
     ``extract(patches uint8 [N, S, S, 3]) -> features [N, D] f32``.
@@ -295,7 +310,9 @@ class PatchFeatureExtractor:
     ``"simple_cnn"`` or ``"stats"``; ``"<arch>+stats"`` appends
     :func:`stain_stat_features`; an unknown name means ``"dinov2"``, as in the
     reference. ``dtype``: the encoder's compute dtype. ``params``: a state
-    dict for the encoder (random from ``seed`` without one).
+    dict for the encoder (random from ``seed`` without one). ``quant="int8"``
+    (ViT archs only) runs the encoder through :func:`.vit_int8.vit_int8_forward`
+    on weights quantized once per load.
     """
 
     def __init__(self, arch: str = "dinov2", batch_size: int = 256, seed: int = 0,
@@ -303,9 +320,8 @@ class PatchFeatureExtractor:
                  stain_normalize_on_device: bool = False, stain_alpha: float = 1.0,
                  stain_stats_pixels: int = 4096, host_resize_upload: bool = False,
                  quant: Optional[str] = None, device=None, dtype: str = "bfloat16"):
-        if quant is not None:
-            raise NotImplementedError("int8 featurization is not ported yet "
-                                      "(ROADMAP queue 1, item 13)")
+        check_quant(arch, quant)
+        self.quant = quant
         self.append_stain_stats = arch.endswith("+stats")
         if self.append_stain_stats:
             arch = arch[: -len("+stats")]
@@ -338,10 +354,16 @@ class PatchFeatureExtractor:
                 from ..convert import load_state
                 load_state(self.module, params)
             self.module = self.module.to(self.device).eval()
+        self._refresh_quant_params()
         self._warned_random_init = False
         t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
         self._ref_stains, self._ref_max_c = t(DEFAULT_STAIN_MATRIX), t(DEFAULT_MAX_CONCENTRATIONS)
         self._mean, self._std = t(IMAGENET_MEAN), t(IMAGENET_STD)
+
+    def _refresh_quant_params(self) -> None:
+        """(Re)build the int8 encoder parameters from the module's weights:
+        once per weight load."""
+        self._qparams = quantize_vit_params(self.module) if self.quant == "int8" else None
 
     def fused_forward(self, patches_u8: torch.Tensor) -> torch.Tensor:
         """uint8 [B, S, S, 3] on the device -> features [B, D] f32."""
@@ -354,7 +376,8 @@ class PatchFeatureExtractor:
         stats = stain_stat_features(x) if self.append_stain_stats else None
         if x.shape[1] != self.image_size:
             x = resize_bilinear(x, self.image_size)
-        feats = self.module((x / 255.0 - self._mean) / self._std)
+        x = (x / 255.0 - self._mean) / self._std
+        feats = vit_int8_forward(self._qparams, x) if self.quant == "int8" else self.module(x)
         return feats if stats is None else torch.cat([feats, stats], -1)
 
     def extract(self, patches: np.ndarray) -> np.ndarray:
@@ -397,3 +420,4 @@ class PatchFeatureExtractor:
                     if k.startswith(KEY_PREFIX)}
         load_state(self.module, params_from_flax(flat))
         self.weights_loaded = True
+        self._refresh_quant_params()

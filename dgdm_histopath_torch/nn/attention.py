@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.flash_spatial import distance_bias, flash_spatial_attention
-from .layers import Dense, LayerNorm, dropout
+from .layers import Dense, DenseGeneral, LayerNorm, dropout
 
 
 def scaled_dot_product_attention(
@@ -117,10 +117,10 @@ class SpatialAttention(nn.Module):
         self.traffic_dtype = traffic_dtype
         self.compute_dtype = dtype
         self.pos_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.q_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.k_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.q_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
+        self.k_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
+        self.out_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
         self.norm = LayerNorm(embed_dim, dtype=dtype)
 
     def route(self, n: int, deterministic: bool = True,

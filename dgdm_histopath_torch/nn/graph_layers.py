@@ -43,7 +43,7 @@ from ..ops.graph import (
 )
 from ..ops.kernels.gather_agg import weighted_gather_sum
 from ..ops.kernels.neighbor_transpose import transpose_for_backward
-from .layers import Dense, LayerNorm, dropout, gelu
+from .layers import Dense, DenseGeneral, LayerNorm, dropout, gelu
 
 
 class GraphConvolution(nn.Module):
@@ -98,9 +98,9 @@ class DynamicGraphLayer(nn.Module):
         self.compute_dtype = dtype
         self.in_proj = (Dense(in_features, features, dtype=dtype)
                         if in_features != features else None)
-        self.q_proj = Dense(features, features, dtype=dtype)
-        self.k_proj = Dense(features, features, dtype=dtype)
-        self.edge_k_proj = Dense(edge_dim, features, dtype=dtype) if edge_dim else None
+        self.q_proj = DenseGeneral(features, features, dtype=dtype)
+        self.k_proj = DenseGeneral(features, features, dtype=dtype)
+        self.edge_k_proj = DenseGeneral(edge_dim, features, dtype=dtype) if edge_dim else None
         # the layer prunes the mask once and hands it to both convolutions
         self.conv1 = GraphConvolution(features, features, edge_dim, dtype=dtype)
         self.conv2 = GraphConvolution(features, features, edge_dim, dtype=dtype)

@@ -2,6 +2,9 @@
 
 * ``Dense`` casts input, weight and bias to its compute dtype, as
   ``flax.linen.Dense(dtype=...)`` does; parameters stay f32.
+  ``DenseGeneral`` is the same layer where the JAX package has a flax
+  ``nn.DenseGeneral`` (per-head projections): int8 inference reroutes only
+  ``Dense`` calls, as the JAX interceptor reroutes only ``nn.Dense``.
 * ``LayerNorm`` uses eps 1e-6, takes its statistics in f32 and casts the
   output to the compute dtype.
 * ``gelu`` is the tanh approximation (``flax.linen.gelu``).
@@ -16,7 +19,8 @@ Parameters are created empty-valued (zeros/ones) and drawn by
 from __future__ import annotations
 
 import math
-from typing import Optional
+from contextvars import ContextVar
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +32,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def as_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+# ``interceptor(dense, x) -> output or None``, set for the length of one
+# call (``models.quantized.int8_apply``); a context variable, so that
+# threads serving float and int8 callers do not share it
+DENSE_INTERCEPTOR: ContextVar[Optional[Callable]] = ContextVar("dense_interceptor",
+                                                               default=None)
 
 
 class Dense(nn.Linear):
@@ -46,9 +57,19 @@ class Dense(nn.Linear):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        intercept = DENSE_INTERCEPTOR.get()
+        if intercept is not None:
+            out = intercept(self, x)
+            if out is not None:
+                return out
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class DenseGeneral(Dense):
+    """A ``Dense`` that the JAX package builds as a flax ``nn.DenseGeneral``
+    (per-head outputs or inputs): the same parameters, layout and forward."""
 
 
 class LayerNorm(nn.LayerNorm):

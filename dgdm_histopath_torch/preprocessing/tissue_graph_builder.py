@@ -35,7 +35,7 @@ class TissueGraphBuilder:
     ``extractor``: a featurizer to use; without one, the first call that
     needs features builds ``PatchFeatureExtractor(feature_extractor, ...)``
     on the builder's device, normalizing stains on the device when
-    ``stain_normalize_on_device``.
+    ``stain_normalize_on_device``, computing int8 with ``quant="int8"``.
     """
 
     def __init__(
@@ -51,6 +51,7 @@ class TissueGraphBuilder:
         knn_window: Optional[int] = None,
         per_slide_feature_norm: bool = False,
         stain_normalize_on_device: bool = False,
+        quant: Optional[str] = None,
         device=None,
     ):
         if knn_window is not None and not spatial_sort:
@@ -63,6 +64,7 @@ class TissueGraphBuilder:
         self._extractor = extractor
         self._extractor_batch = feature_batch_size
         self.stain_normalize_on_device = stain_normalize_on_device
+        self.quant = quant
         # Morton-order the nodes before the searches; with knn_window both
         # searches keep to each node's ±1 Morton block band, so every edge
         # is one a banded model (graph_window=knn_window) addresses
@@ -78,7 +80,7 @@ class TissueGraphBuilder:
             self._extractor = PatchFeatureExtractor(
                 arch=self.feature_extractor_name, batch_size=self._extractor_batch,
                 stain_normalize_on_device=self.stain_normalize_on_device,
-                device=self.device)
+                quant=self.quant, device=self.device)
         return self._extractor
 
     @property

@@ -243,22 +243,38 @@ def test_parallel_flags_raise_naming_item_12(runs, flags):
 
 
 @pytest.mark.parametrize("flags,item", [(["--save-heatmaps"], 11), (["--quant", "int8"], 13)])
-def test_unported_predict_flags_raise_naming_their_item(runs, flags, item):
-    """``--quant int8`` raises naming its item. ``--save-heatmaps`` (item 11)
-    is ported since: it writes a summary PNG and HTML beside each graph's
-    JSON."""
+def test_predict_flags_of_items_11_and_13_work(runs, flags, item, monkeypatch):
+    """``--save-heatmaps`` (item 11) writes a summary PNG and HTML beside each
+    graph's JSON. ``--quant int8`` (item 13) predicts each graph through
+    ``int8_apply`` (this model's Dense layers are narrower than 64, so none
+    is rerouted), as ``DGDMPredictor(quant="int8")`` does."""
+    from dgdm_histopath_torch.evaluation import predictor as tpred
+
     root = runs["root"]
     out = root / f"x{item}"
     argv = ["--model", str(root / "P" / "final_model.npz"), "--input", str(root / "data"),
             "--output-dir", str(out), "--device", "cpu", "--log-level", "WARNING", *flags]
+    calls = []
+    int8_apply = tpred.int8_apply
+    monkeypatch.setattr(tpred, "int8_apply", lambda *a, **k: calls.append(1) or
+                        int8_apply(*a, **k))
+    assert tpredict.main(argv) == 0
+    stems = sorted(p.stem for p in out.glob("*.json"))
+    assert len(stems) == 12
     if item == 11:
-        assert tpredict.main(argv) == 0
-        stems = sorted(p.stem for p in out.glob("*.json"))
-        assert stems and all((out / f"{s}_summary.png").exists()
-                             and (out / f"{s}_summary.html").exists() for s in stems)
+        assert not calls
+        assert all((out / f"{s}_summary.png").exists()
+                   and (out / f"{s}_summary.html").exists() for s in stems)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-        tpredict.main(argv)
+    assert len(calls) == 12
+    pred = tpred.DGDMPredictor(model_path=root / "P" / "final_model.npz", device="cpu",
+                               feature_extractor="none", quant="int8")
+    from dgdm_histopath_torch.data import load_graph
+    for s in stems:
+        want = pred.predict_graph(load_graph(root / "data" / f"{s}.npz"))
+        got = json.loads((out / f"{s}.json").read_text())
+        assert got["predicted_class"] == want["predicted_class"]
+        np.testing.assert_allclose(got["probabilities"], want["probabilities"], atol=1e-7)
 
 
 def test_slide_dataset_type_trains_through_the_cli(tmp_path):

@@ -22,7 +22,12 @@ the 0-255 scale, the tissue mask within 0.05% of its pixels, the f32 ViT-B
 featurizer within 1e-3 of its largest feature, predict_slide's probabilities
 within 1e-4. The MoE model on the card against the CPU: logits 1e-4, the
 aux loss 1e-5, expert assignments equal. A /predict answered through the dynamic batcher on the card
-equals ``predict_batch`` of the padded batch it rode in to the bit.
+equals ``predict_batch`` of the padded batch it rode in to the bit. int8:
+``torch._int_mm`` on the card (its operands padded to >16 rows and K, N
+multiples of 8) equals the exact f64 sums, and so does ``int8_dense``'s
+int32 product; its int8 activations and weights equal the CPU's; the int8
+model launches the float model's kernels, its logits within 1e-3 of the CPU's
+int8 logits (an activation an ulp apart can quantize a step apart).
 """
 
 import copy
@@ -263,7 +268,7 @@ def test_autograd_through_the_wrappers_runs_the_backward_kernels_on_card(cuda_de
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
-def _small_pair(device, **overrides):
+def _small_pair(device, features=32, **overrides):
     """A small f32 model on the CPU, its copy on the card, and 2 graphs."""
     rs = np.random.RandomState(0)
     graphs = []
@@ -275,11 +280,11 @@ def _small_pair(device, **overrides):
         idx = np.argsort(d2, axis=1, kind="stable")[:, :k]
         dist = np.sqrt(np.take_along_axis(d2, idx, 1))
         attr = np.stack([dist, np.exp(-10 * dist), 0 * dist], -1)
-        graphs.append(build_padded_graph(rs.randn(n, 32).astype(np.float32), pos, idx,
+        graphs.append(build_padded_graph(rs.randn(n, features).astype(np.float32), pos, idx,
                                          attr, np.ones((n, k), bool), bucket=128))
-    cpu = create_model("dgdm-base", num_classes=3, device="cpu", node_features=32,
-                       hidden_dims=(64, 32), graph_layers=2, compute_dtype="float32",
-                       **overrides)
+    kw = dict(node_features=features, hidden_dims=(64, 32), graph_layers=2,
+              compute_dtype="float32")
+    cpu = create_model("dgdm-base", num_classes=3, device="cpu", **{**kw, **overrides})
     return cpu, copy.deepcopy(cpu).to(device), batch_graphs(graphs)
 
 
@@ -913,3 +918,66 @@ def test_moe_training_step_on_card_matches_cpu(cuda_device):
     for key, ref in g_cpu.items():
         scale = max(float(ref.abs().max()), floor)
         assert float((g_card[key] - ref).abs().max()) <= 1e-3 * scale, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 128, 128), (16, 64, 32), (17, 20, 13), (40, 768, 512),
+                                   (3, 3072, 768)])
+def test_int8_matmul_pads_what_cublaslt_refuses(cuda_device, m, k, n):
+    """Rows <= 16 and K, N not multiples of 8 are zero-padded: the int32
+    result equals the exact sums, as on the CPU."""
+    from dgdm_histopath_torch.ops.quant import int8_matmul, int8_matmul_plain
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=cuda_device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=cuda_device, dtype=torch.int8)
+    out = int8_matmul(x, w)
+    assert out.shape == (m, n) and out.dtype == torch.int32
+    assert torch.equal(out, int8_matmul_plain(x, w))
+    assert torch.equal(out.cpu(), int8_matmul(x.cpu(), w.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 512, 768, 512), (1, 1, 128, 128), (4, 197, 768, 3072)])
+def test_int8_dense_on_card_matches_its_plain_version_and_the_cpu(cuda_device, shape):
+    from dgdm_histopath_torch.ops.quant import (
+        int8_dense, int8_matmul_plain, quantize_activations, quantize_weight)
+
+    b, m, k, n = shape
+    g = torch.Generator().manual_seed(k)
+    x, w = torch.randn(b, m, k, generator=g), torch.randn(n, k, generator=g) * 0.05
+    bias = torch.randn(n, generator=g)
+    w_q, s = quantize_weight(w.to(cuda_device), axis=0)
+    want_q, want_s = quantize_weight(w, axis=0)
+    assert torch.equal(w_q.cpu(), want_q) and torch.equal(s.cpu(), want_s)
+    xq = quantize_activations(x.to(cuda_device))[0]
+    assert torch.equal(xq.cpu(), quantize_activations(x)[0])
+    out = int8_dense(x.to(cuda_device), w_q, s.reshape(-1), bias.to(cuda_device))
+    plain = int8_dense(x.to(cuda_device), w_q, s.reshape(-1), bias.to(cuda_device),
+                       matmul=int8_matmul_plain)
+    assert torch.equal(out, plain)
+    cpu = int8_dense(x, w_q.cpu(), s.reshape(-1).cpu(), bias)
+    torch.testing.assert_close(out.cpu(), cpu, rtol=0, atol=1e-6 * float(cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_int8_model_on_card_launches_the_kernels_and_matches_cpu(cuda_device):
+    from dgdm_histopath_torch.evaluation.predictor import DGDMPredictor
+    from dgdm_histopath_torch.models.quantized import int8_apply
+
+    cpu, card, batch = _small_pair(cuda_device, features=128, hidden_dims=(128, 64))
+    pred = DGDMPredictor(model=card, device=cuda_device, feature_extractor="none",
+                         quant="int8")
+    kernels.reset_launch_counts()
+    out = pred.forward(batch)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"gather_rows": 7, "gather_agg": 14, "gather_rows_bwd": 0,
+                                       "gather_agg_bwd": 0, "neighbor_transpose": 0, **NO_FLASH}
+    with torch.inference_mode():
+        ref = int8_apply(cpu, batch, mode="inference", deterministic=True,
+                         return_attention=True)
+        flt = card(batch.to(cuda_device))
+    logits = out["classification_logits"].cpu()
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits, ref["classification_logits"], rtol=0, atol=1e-3)
+    assert float((logits - flt["classification_logits"].cpu()).abs().max()) > 1e-4

@@ -29,7 +29,7 @@ import pytest
 
 from conftest import make_synthetic_graph
 from dgdm_histopath_torch.cli import serve as tserve
-from dgdm_histopath_torch.data import save_graph
+from dgdm_histopath_torch.data import load_graph, save_graph
 from dgdm_histopath_torch.deployment import InferenceServer
 from dgdm_histopath_torch.deployment import serving as tserving
 from dgdm_histopath_torch.evaluation.predictor import DGDMPredictor
@@ -444,10 +444,54 @@ def test_dgdm_serve_without_a_card_refuses_to_start(setup, monkeypatch, capsys):
     assert "no CUDA device is available" in capsys.readouterr().err
 
 
-def test_dgdm_serve_quant_int8_raises_naming_the_roadmap(setup):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13"):
-        tserve.main(["--model", str(setup[0]), "--device", "cpu", "--quant", "int8",
-                     "--log-level", "ERROR"])
+def test_dgdm_serve_quant_int8_serves_the_int8_forward(setup, monkeypatch):
+    """``dgdm-serve --quant int8`` in this process: a /predict through the
+    dynamic batcher and a /predict_batch, each through ``int8_apply``, equal
+    to ``DGDMPredictor(quant="int8")``; stopped, it returns 0."""
+    from dgdm_histopath_torch import deployment
+    from dgdm_histopath_torch.evaluation import predictor as tpred
+
+    bundle, _, _, _, root = setup
+    servers, calls, answers = [], [], {}
+
+    class Recorded(InferenceServer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            servers.append(self)
+    monkeypatch.setattr(deployment, "InferenceServer", Recorded)
+    int8_apply = tpred.int8_apply
+    monkeypatch.setattr(tpred, "int8_apply", lambda *a, **k: calls.append(1) or
+                        int8_apply(*a, **k))
+
+    def client():
+        deadline = time.monotonic() + 120
+        while not (servers and getattr(servers[0], "_httpd", None)):
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        try:
+            port = _port_of(servers[0])
+            while _call(port, "GET", "/readyz")[0] != 200:
+                time.sleep(0.05)
+            answers["one"] = _call(port, "POST", "/predict",
+                                   {"graph_path": "graphs/g0_graph.npz"})
+            answers["batch"] = _call(port, "POST", "/predict_batch", {
+                "graph_paths": ["graphs/g1_graph.npz", "graphs/g2_graph.npz"]})
+        finally:
+            servers[0].stop()
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    assert tserve.main(["--model", str(bundle), "--device", "cpu", "--quant", "int8",
+                        "--port", "0", "--dynamic-batch", "4", "--data-root", str(root),
+                        "--log-level", "ERROR"]) == 0
+    thread.join(timeout=60)
+    assert servers[0].predictor.quant == "int8" and len(calls) == 2
+    pred = DGDMPredictor(model_path=bundle, device="cpu", feature_extractor="none", quant="int8")
+    want = pred.predict_batch([load_graph(root / "graphs" / f"g{i}_graph.npz") for i in range(3)])
+    (s1, one), (s2, batch) = answers["one"], answers["batch"]
+    assert s1 == s2 == 200 and batch["count"] == 2
+    for got, ref in zip([one, *batch["results"]], want):
+        assert got["predicted_class"] == ref["predicted_class"]
+        np.testing.assert_allclose(got["probabilities"], ref["probabilities"], atol=1e-6)
 
 
 def test_dgdm_serve_flags_are_the_jax_flags():

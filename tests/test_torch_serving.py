@@ -91,8 +91,14 @@ def test_checkpoint_errors(tmp_path, bundle):
     np.savez(bad, **data)
     with pytest.raises(InferenceError, match="structure mismatch"):
         load_model_checkpoint(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DGDMPredictor(model_path=bundle[0], device="cpu", quant="int8")
+    with pytest.raises(InferenceError, match="unsupported quant mode"):
+        DGDMPredictor(model_path=bundle[0], device="cpu", quant="int4")
+    # item 13 is ported: a checkpoint loads for int8 inference, the
+    # featurizer it would build computes int8 too
+    pred = DGDMPredictor(model_path=bundle[0], device="cpu", quant="int8")
+    assert pred.quant == pred.graph_builder.quant == "int8"
+    out = pred.predict_graph(_torch_graph(bundle[2][1]))
+    assert np.isfinite(out["probabilities"]).all() and out["biomarkers"]
 
 
 def test_graph_json_round_trip_is_exact(bundle):

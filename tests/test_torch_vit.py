@@ -141,8 +141,11 @@ def test_archs_and_feature_dims(arch, dim):
     assert ext.feature_dim == ref.feature_dim == dim and ext.arch == ref.arch
     out = ext.extract(_tissue_patches(n=2, size=32))
     assert out.shape == (2, dim) and np.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # int8 (item 13) needs a ViT arch, in both packages
+    with pytest.raises(ValueError, match="requires a ViT arch"):
         vit.PatchFeatureExtractor(arch=arch, device="cpu", quant="int8")
+    with pytest.raises(ValueError, match="requires a ViT arch"):
+        jvit.PatchFeatureExtractor(arch=arch, quant="int8")
 
 
 def test_load_npz_weights_reads_a_jax_bundle(tmp_path):
