@@ -121,9 +121,31 @@ Phases, each of which raises on a failed check:
      /predict_batch, SIGTERM -> 0); an int8 edge bundle packaged from the
      model on the card, loaded and predicting (9 / 18).
 
+ 16. the parallel tiers, after phase 14 on its graphs: 8 spawned gloo ranks
+     share the card. Two run tensor parallelism over (data 1, model 2) on
+     DGDM-Base at full width (f32, 2 pretrain steps with injected draws and
+     a finetune step: metrics within 1e-5 of max(1, |x|) of one process,
+     parameters within 1e-5 of max(1, each tensor's largest entry), launches
+     9 / 18 / 9 / 18 + 3 a step, each rank's parameter + AdamW bytes), the
+     GPipe encoder over (1, 2) pipe stages (Base's GraphEncoder, 4
+     microbatches: output and gradients within 1e-4), the MoE block of
+     configs/dgdm_base_moe.yaml with its experts over (1, 2) (2e-5, routing
+     equal) and the halo tier over a model axis of 2 on the Morton-sorted
+     Base graphs (halo_gather equal to the dense gather on every real slot,
+     sp_graph_conv within 1e-5 of GraphConvolution, H and the halo
+     fraction); then 4 and 8 of them run ``dryrun_multichip``. Last, both
+     gather kernels with a rectangular table at the halo shapes against
+     their plain versions (bit-equal, 1e-5), timed.
+
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero without a CUDA device or without the port beside it.
+
+``python3 chip_smoke.py --parallel-only`` runs the build and phase 16 alone;
+on a machine of four cards its tiers run over NCCL, one rank a card (TP
+(2, 2), PP over 4 stages, EP (2, 2), the halo over 4, ``dryrun_multichip(4)``),
+followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
+SIGTERM, exit 75 and ``resume``, bit-equal.
 
 ``python3 chip_smoke.py --dp-only`` on a machine of several cards runs the
 build and phase 14 alone, with one NCCL rank a card, and then the train CLI
@@ -279,19 +301,21 @@ def scatter_error(torch, out, ref32) -> dict:
             "max_ulp_err": (err / ulp.clamp_min(1e-5)).max().item()}
 
 
-def csr_adjacency(torch, idx, w, dtype, transpose: bool = False):
-    """The [B·N, B·N] CSR matrix A with A[b·N + n, b·N + idx[b, n, k]] summing
-    w[b, n, k] over the in-range slots (A^T with ``transpose``): then
+def csr_adjacency(torch, idx, w, dtype, transpose: bool = False, n_src=None):
+    """The [B·N, B·N_src] CSR matrix A with A[b·N + n, b·N_src + idx[b, n, k]]
+    summing w[b, n, k] over the in-range slots (A^T with ``transpose``): then
     ``A @ h`` is gather_agg and ``A^T @ g`` the dh half of its backward. The
     operand of the library yardstick, built outside its timing."""
     b, n, k = idx.shape
-    valid = (idx >= 0) & (idx < n)
-    base = n * torch.arange(b, device=idx.device).view(b, 1, 1)
-    rows = (torch.arange(n, device=idx.device).view(1, n, 1) + base).expand(b, n, k)[valid]
-    cols = (idx.long() + base)[valid]
+    n_src = n if n_src is None else n_src
+    valid = (idx >= 0) & (idx < n_src)
+    arange = torch.arange(b, device=idx.device).view(b, 1, 1)
+    rows = (torch.arange(n, device=idx.device).view(1, n, 1) + n * arange).expand(b, n, k)[valid]
+    cols = (idx.long() + n_src * arange)[valid]
+    shape = (b * n, b * n_src)
     if transpose:
-        rows, cols = cols, rows
-    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), w[valid].to(dtype), (b * n, b * n))
+        rows, cols, shape = cols, rows, shape[::-1]
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), w[valid].to(dtype), shape)
     return coo.coalesce().to_sparse_csr()
 
 
@@ -299,10 +323,10 @@ def sparse_mm_ms(torch, idx, w, dense, transpose: bool = False) -> tuple:
     """(device ms, dtype) of ``torch.sparse.mm`` of the CSR adjacency with
     ``dense`` [B, N, F]: in dense's dtype where cuSPARSE takes it, else in
     f32 (the dtype is recorded beside the time)."""
-    b, n, f = dense.shape
+    b, n_src, f = dense.shape
     for dtype in dict.fromkeys((dense.dtype, torch.float32)):
-        x = dense.reshape(b * n, f).to(dtype)
-        a = csr_adjacency(torch, idx, w, dtype, transpose)
+        x = dense.reshape(b * n_src, f).to(dtype)
+        a = csr_adjacency(torch, idx, w, dtype, transpose, None if transpose else n_src)
         try:
             torch.sparse.mm(a, x)
             torch.cuda.synchronize()
@@ -412,21 +436,33 @@ def backward_checks(torch, gen, src, idx, w, tag, out: dict, timed: bool) -> Non
             bytes=tbytes))
 
 
+def rows_read(torch, idx, n_src: int) -> int:
+    """The table rows a gather must read at least: the distinct in-range
+    indices of each graph of ``idx`` [B, N, K] over a table of ``n_src``
+    rows (fewer than ``B * n_src`` where the queries touch part of the
+    table, as the halo's outgoing-rows gather does)."""
+    flat = idx.long().reshape(idx.shape[0], -1)
+    ok = (flat >= 0) & (flat < n_src)
+    keys = flat + n_src * torch.arange(idx.shape[0], device=idx.device).view(-1, 1)
+    return int(torch.unique(keys[ok]).numel())
+
+
 def gather_rows_row(torch, src, idx, tag: dict) -> dict:
-    """The key-gather kernel at one shape: bit-equal to its plain version,
-    its device time, the plain version's and ``torch.gather``'s, and its
-    bound (src and idx read once, the gathered rows written once)."""
+    """The key-gather kernel at one shape (src [B, N_src, F], idx [B, N, K]):
+    bit-equal to its plain version, its device time, the plain version's and
+    ``torch.gather``'s, and its bound (each table row that an in-range index
+    names and idx read once, the gathered rows written once)."""
     from dgdm_histopath_torch.ops.kernels.gather_rows import gather_rows, gather_rows_plain
 
-    b, n, f = src.shape
-    k = idx.shape[-1]
+    b, n_src, f = src.shape
+    n, k = idx.shape[1:]
     e = src.element_size()
     res = gather_rows(src, idx)
     torch.cuda.synchronize()
     if not torch.equal(res, gather_rows_plain(src, idx)):
         raise AssertionError(f"gather_rows differs from its plain version at {tag}")
-    lib_idx = idx.long().clamp(0, n - 1).reshape(b, n * k, 1).expand(b, n * k, f)
-    rbytes = b * n * k * f * e + b * n * f * e + b * n * k * 4
+    lib_idx = idx.long().clamp(0, n_src - 1).reshape(b, n * k, 1).expand(b, n * k, f)
+    rbytes = b * n * k * f * e + rows_read(torch, idx, n_src) * f * e + b * n * k * 4
     return dict(tag, max_abs_err=0.0,
                 ms=device_ms(torch, lambda: gather_rows(src, idx)),
                 plain_ms=device_ms(torch, lambda: gather_rows_plain(src, idx)),
@@ -439,19 +475,22 @@ def gather_agg_row(torch, src, idx, w, tag: dict) -> dict:
     """The forward aggregation kernel at one shape: held to its plain version
     (1e-5: both sum K f32 terms, in other orders), its device time, the plain
     version's and the library call's (``torch.sparse.mm`` of the CSR
-    adjacency), and its bound (each input read once, f32 out written once)."""
+    adjacency), and its bound (idx, w and each table row that an in-range
+    index names read once, f32 out written once). src may hold another row
+    count than idx ([B, N_src, F] and [B, N, K])."""
     from dgdm_histopath_torch.ops.kernels.gather_agg import (
         weighted_gather_sum, weighted_gather_sum_plain)
 
-    b, n, f = src.shape
-    k = idx.shape[-1]
+    b, n_src, f = src.shape
+    n, k = idx.shape[1:]
     agg = weighted_gather_sum(src, idx, w)
     ref = weighted_gather_sum_plain(src, idx, w)
     torch.cuda.synchronize()
     err = (agg - ref).abs().max().item()
     if not torch.allclose(agg, ref, atol=1e-5, rtol=1e-5):
         raise AssertionError(f"gather_agg off its plain version by {err} at {tag}")
-    abytes = b * n * f * src.element_size() + 2 * b * n * k * 4 + b * n * f * 4
+    abytes = (rows_read(torch, idx, n_src) * f * src.element_size() + 2 * b * n * k * 4
+              + b * n * f * 4)
     flops = 2 * b * n * k * f
     t_bytes = abytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -2696,7 +2735,7 @@ def dp_phase(torch, graphs, card: str, cards: int) -> dict:
     return report
 
 
-def dp_cli(torch, card: str, cards: int) -> dict:
+def dp_cli(torch, card: str, cards: int, mesh: str = None) -> dict:
     """``python -m dgdm_histopath_torch.cli.train train --mesh-shape W``
     (one rank a card over NCCL) with DGDM-Base's model in the config, on
     DP["cli_graphs"] graph files of the Base geometry at f32 with dropout 0,
@@ -2706,7 +2745,8 @@ def dp_cli(torch, card: str, cards: int) -> dict:
     the key biases to the steps' summed learning rate); run B stopped by a
     SIGTERM to the launcher once epoch 0's checkpoint is written (exit 75,
     a mid-epoch position), then ``resume`` with the same argv: its bundle
-    equal to A's to the bit."""
+    equal to A's to the bit. ``mesh``: the ``--mesh-shape`` of runs A and B
+    (default: ``cards``, data parallel; "2,2": data x model)."""
     import os
     import signal
     import tempfile
@@ -2741,12 +2781,14 @@ def dp_cli(torch, card: str, cards: int) -> dict:
                        "logging": {"logger_type": "csv"}}, f)
         fixture_s = time.perf_counter() - t0
 
-        def argv(out, world):
+        mesh = mesh or str(cards)
+
+        def argv(out, shape):
             return [sys.executable, "-m", "dgdm_histopath_torch.cli.train", "train",
                     "--config", f"{root}/config.json", "--data-dir", f"{root}/g",
                     "--dataset-type", "graph", "--metadata", f"{root}/labels.json",
                     "--num-classes", "2", "--seed", "0", "--log-level", "WARNING",
-                    "--mesh-shape", str(world), "--output-dir", f"{root}/{out}"]
+                    "--mesh-shape", str(shape), "--output-dir", f"{root}/{out}"]
 
         def run(args, what):
             t0 = time.perf_counter()
@@ -2755,7 +2797,7 @@ def dp_cli(torch, card: str, cards: int) -> dict:
                 raise AssertionError(f"{what} exited {res.returncode}: {res.stderr[-3000:]}")
             return time.perf_counter() - t0
 
-        wall = {"A": run(argv("A", cards), f"dgdm-train --mesh-shape {cards}"),
+        wall = {"A": run(argv("A", mesh), f"dgdm-train --mesh-shape {mesh}"),
                 "S": run(argv("S", 1), "dgdm-train --mesh-shape 1")}
         pa, ps = bundle_params(f"{root}/A/final_model.npz"), bundle_params(
             f"{root}/S/final_model.npz")
@@ -2771,11 +2813,11 @@ def dp_cli(torch, card: str, cards: int) -> dict:
             if err / bound > worst:
                 worst, worst_key = err / bound, key
         if set(pa) != set(ps) or worst > 1.0:
-            raise AssertionError(f"{cards} ranks' bundle differs from one process's: {worst_key} "
+            raise AssertionError(f"--mesh-shape {mesh}'s bundle differs from one process's: {worst_key} "
                                  f"at {worst:.3f} of its bound")
         only_rank0 = sorted(os.listdir(f"{root}/A"))
 
-        proc = subprocess.Popen(argv("B", cards), stdout=subprocess.DEVNULL,
+        proc = subprocess.Popen(argv("B", mesh), stdout=subprocess.DEVNULL,
                                 stderr=subprocess.PIPE, text=True)
         t0 = time.perf_counter()
         index = f"{root}/B/checkpoints/index.json"
@@ -2789,7 +2831,7 @@ def dp_cli(torch, card: str, cards: int) -> dict:
         if proc.returncode != 75 or not position.get("mid_epoch"):
             raise AssertionError(f"run B exit code {proc.returncode}, resume record {position}: "
                                  f"{err[-2000:]}")
-        resume = argv("B", cards)
+        resume = argv("B", mesh)
         resume[3] = "resume"
         wall["resume"] = run(resume + ["--checkpoint-dir", f"{root}/B/checkpoints"],
                              "dgdm-train resume")
@@ -2797,7 +2839,7 @@ def dp_cli(torch, card: str, cards: int) -> dict:
         differ = [k for k in pa if not np.array_equal(pa[k], pb[k])]
         if differ:
             raise AssertionError(f"the resumed run differs from run A: {differ[:8]}")
-    log(f"dp: dgdm-train --mesh-shape {cards} (DGDM-Base, NCCL, one card a rank, f32, "
+    log(f"dp: dgdm-train --mesh-shape {mesh} (DGDM-Base, NCCL, one card a rank, f32, "
         f"dropout 0) on {DP['cli_graphs']} graph files, {steps} steps of 32: rc 0 in "
         f"{wall['A']:.1f} s, one process {wall['S']:.1f} s; bundles within {worst:.3f} of their "
         f"bound ({worst_key}); rank 0 alone wrote {only_rank0}; SIGTERM to the launcher -> "
@@ -2805,7 +2847,480 @@ def dp_cli(torch, card: str, cards: int) -> dict:
         f"equal to run A's to the bit ({len(pa)} arrays) [{card}]")
     return {"wall_s": wall, "steps": steps, "worst_param_over_bound": worst,
             "worst_param": worst_key, "resume": position, "fixture_s": fixture_s,
-            "outputs": only_rank0, "history": hist}
+            "outputs": only_rank0, "history": hist, "mesh": mesh}
+
+
+# ---------------------------------------------------------------------------
+# 16. the parallel tiers: TP, PP, EP, node sharding with the halo exchange
+# ---------------------------------------------------------------------------
+
+# Every tier on one card runs as gloo ranks sharing it, held against one
+# process in the same call (host-staged collectives: correctness, not speed);
+# with --parallel-only on four cards over NCCL, one rank a card.
+PAR = dict(tp_epochs=(0, 0, 1), pp_micro=4, dryruns=(4, 8))
+
+
+def par_meshes(world: int) -> dict:
+    """The mesh shapes of each tier for a world of 2 (one card) or 4."""
+    if world == 2:
+        return {"tp": (1, 2), "pp": (1, 2), "ep": (1, 2), "halo": (1, 2)}
+    return {"tp": (2, 2), "pp": (1, 4), "ep": (2, 2), "halo": (1, 4)}
+
+
+def par_rank(rank: int, size: int, backend: str, root: str, jobs: list) -> None:
+    """One rank of the parallel phase: for each (job, world) in ``jobs`` the
+    process group of that world (made anew where the size changes; ranks
+    beyond it sit the job out), the job, its result in ``root``."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = rank if backend == "nccl" else 0
+        torch.cuda.set_device(card)
+        spec = torch.load(f"{root}/spec.pt", weights_only=False)
+        current, results = None, {}
+        for i, (job, world) in enumerate(jobs):
+            if world != current:
+                current = world
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                if rank < world:
+                    dist.init_process_group(backend, init_method=f"file://{root}/rdv{i}",
+                                            world_size=world, rank=rank)
+            if rank < world:
+                results[job] = PAR_JOBS[job](torch, spec, f"cuda:{card}")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.save(results, f"{root}/result{rank}.pt")
+    except BaseException:  # noqa: BLE001 - reported to the parent by the exit code
+        traceback.print_exc()
+        os._exit(1)
+
+
+def counted_call(torch, fn):
+    """(fn(), this call's kernel launches): the counts set to 0 just before."""
+    from dgdm_histopath_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def par_tp(torch, spec, device) -> dict:
+    """DGDM-Base (f32, dropout 0) tensor-parallel over (data, model): two
+    pretrain steps with the given draws and a finetune step; each step's
+    metrics, launches and wall time, the whole parameters, this rank's
+    parameter and AdamW bytes."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, create_model
+    from dgdm_histopath_torch.parallel import make_mesh
+    from dgdm_histopath_torch.parallel.tp import optimizer_bytes, param_bytes
+
+    shape = par_meshes(dist.get_world_size())["tp"]
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="float32", dropout=0.0,
+                         device=device, seed=1)
+    trainer = DGDMTrainer(model, TrainerConfig(**spec["config"]), device=device,
+                          mesh=make_mesh(axes=("data", "model"), shape=shape))
+    trainer.init_state(seed=0)
+    metrics, launches, ms = [], [], []
+    for epoch, draws in zip(PAR["tp_epochs"], spec["draws"]):
+        draws = None if draws is None else {k: v.to(device) for k, v in draws.items()}
+        t0 = time.perf_counter()
+        m, counts = counted_call(torch, lambda: trainer.training_step(
+            spec["batch"], epoch, draws=draws))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+        launches.append(counts)
+    return {"metrics": metrics, "launches": launches, "step_ms": ms, "shape": shape,
+            "sharded": len(model.tp_layout),
+            "params": {k: v.cpu() for k, v in trainer.model_state_dict().items()},
+            "bytes": (param_bytes(trainer.params), optimizer_bytes(trainer.optimizer))}
+
+
+def par_pp(torch, spec, device) -> dict:
+    """Base's GraphEncoder pipelined over (1, S) (data, pipe), ``num_micro``
+    4: output, gradients of sum(out²) (this stage's layers and the
+    projections), the launches of forward + backward."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch import create_model
+    from dgdm_histopath_torch.parallel import make_mesh, pp_graph_encoder_apply
+
+    shape = par_meshes(dist.get_world_size())["pp"]
+    mesh = make_mesh(axes=("data", "pipe"), shape=shape)
+    enc = create_model("dgdm-base", num_classes=2, compute_dtype="float32", dropout=0.0,
+                       device=device, seed=1).graph_encoder
+    g = spec["pp"]
+
+    def run():
+        y = pp_graph_encoder_apply(enc, mesh, *(t.to(device) for t in g),
+                                   num_micro=PAR["pp_micro"])
+        (y ** 2).sum().backward()
+        return y.detach()
+
+    y, launches = counted_call(torch, run)
+    t0 = time.perf_counter()
+    enc.zero_grad()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return {"out": y.cpu(), "launches": launches, "wall_ms": wall, "shape": shape,
+            "stage": mesh.axis("pipe").index,
+            "grads": {k: p.grad.cpu() for k, p in enc.named_parameters() if p.grad is not None}}
+
+
+def par_ep(torch, spec, device) -> dict:
+    """The MoE block of configs/dgdm_base_moe.yaml with its experts over (data,
+    expert): output, aux loss, routing and the gradients of sum(out²) + aux."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch.nn.moe import MoEFFN
+    from dgdm_histopath_torch.parallel import make_mesh, place_experts
+
+    shape = par_meshes(dist.get_world_size())["ep"]
+    mesh = make_mesh(axes=("data", "expert"), shape=shape)
+    moe = MoEFFN(**spec["moe_kw"]).to(device)
+    moe.load_state_dict(spec["moe_state"])
+    placed = place_experts(moe, mesh)
+    x = spec["moe_x"].to(device).requires_grad_()
+    mask = spec["mask"].to(device)
+    out, aux = moe(x, mask)
+    ((out ** 2).sum() + aux).backward()
+    kept = moe.route(x.detach(), mask)["kept"]
+    return {"placed": placed, "out": out.detach().cpu(), "aux": float(aux.detach()), "dx": x.grad.cpu(),
+            "kept": kept.cpu(), "index": mesh.axis("expert").index, "shape": shape,
+            "grads": {k: p.grad.cpu() for k, p in moe.named_parameters()}}
+
+
+def par_halo(torch, spec, device) -> dict:
+    """This rank's node block of the Morton-sorted Base graphs: halo_gather
+    and sp_graph_conv over the model axis, each with its launches."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch.nn.graph_layers import GraphConvolution
+    from dgdm_histopath_torch.parallel import (halo_gather, make_mesh, shard_graph_nodes,
+                                               sp_graph_conv)
+
+    shape = par_meshes(dist.get_world_size())["halo"]
+    mesh = make_mesh(axes=("data", "model"), shape=shape)
+    plan = spec["plans"][shape[1]]
+    block = shard_graph_nodes(spec["sorted"], mesh).to(device)
+    conv = GraphConvolution(*spec["conv"]).to(device)
+    conv.load_state_dict(spec["conv_state"])
+    gathered, g_launch = counted_call(torch, lambda: halo_gather(block.x, plan, mesh))
+    with torch.no_grad():
+        sp, s_launch = counted_call(torch, lambda: sp_graph_conv(
+            conv, block.x, block.nbr_idx, block.nbr_mask, plan, mesh,
+            edge_attr=block.edge_attr))
+    return {"gather": gathered.cpu(), "sp": sp.cpu(), "launches": g_launch,
+            "sp_launches": s_launch, "index": mesh.axis("model").index, "tp": shape[1]}
+
+
+def par_dryrun(n: int):
+    def job(torch, spec, device) -> dict:
+        from dgdm_histopath_torch.parallel import dryrun_multichip
+
+        t0 = time.perf_counter()
+        out = dryrun_multichip(n, device)
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+    return job
+
+
+PAR_JOBS = {"tp": par_tp, "pp": par_pp, "ep": par_ep, "halo": par_halo,
+            **{f"dryrun{n}": par_dryrun(n) for n in PAR["dryruns"]}}
+
+
+def par_spec(torch, graphs) -> tuple:
+    """The inputs of every job (on the host) and the one-process references
+    on the card: the Base batch with labels and three steps' draws, the
+    encoder input of the Base graphs, the MoE block and its input, the
+    Morton-sorted graphs and their plans."""
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, batch_graphs, create_model
+    from dgdm_histopath_torch.nn.graph_layers import GraphConvolution
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    from dgdm_histopath_torch.nn.moe import MoEFFN
+    from dgdm_histopath_torch.parallel import halo
+
+    gen = torch.Generator().manual_seed(11)
+    batch = batch_graphs(graphs)
+    b, n = batch.node_mask.shape
+    batch = batch.replace(y=torch.randint(0, 2, (b,), generator=gen))
+    draws = [{"masked": (torch.rand(b, n, generator=gen) < 0.15) & batch.node_mask,
+              "t": torch.randint(0, 10, (b,), generator=gen),
+              "noise": torch.randn(b, n, 128, generator=gen),
+              "uniform": torch.rand(b, n, generator=gen)} if e == 0 else None
+             for e in PAR["tp_epochs"]]
+    config = dict(learning_rate=1e-4, warmup_steps=0, pretrain_epochs=1)
+    ref: dict = {}
+
+    # TP: one process, the same steps
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="float32", dropout=0.0,
+                         device="cuda", seed=1)
+    trainer = DGDMTrainer(model, TrainerConfig(**config), device="cuda")
+    trainer.init_state(seed=0)
+    ref["tp"] = [trainer.training_step(batch, e, draws=None if d is None else {
+        k: v.to("cuda") for k, v in d.items()}) for e, d in zip(PAR["tp_epochs"], draws)]
+    ref["tp_params"] = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    ref["tp_bytes"] = (sum(p.numel() * 4 for p in trainer.params),
+                       sum(t.numel() * t.element_size() for s in trainer.optimizer.state.values()
+                           for t in s.values() if torch.is_tensor(t) and t.dim() > 0))
+    del trainer
+
+    # the encoder's input: the feature encoder's output of the Base graphs
+    fresh = create_model("dgdm-base", num_classes=2, compute_dtype="float32", dropout=0.0,
+                         device="cuda", seed=1)
+    on = batch.to("cuda")
+    with torch.no_grad():
+        h0 = fresh.feature_encoder(on.x)
+    pp_in = (h0.cpu(), batch.nbr_idx, batch.nbr_mask, batch.node_mask, batch.edge_attr)
+    enc = fresh.graph_encoder
+    y = enc(h0, on.nbr_idx, on.nbr_mask, on.node_mask, edge_attr=on.edge_attr)["embeddings"]
+    (y ** 2).sum().backward()
+    ref["pp"] = y.detach().cpu()
+    ref["pp_grads"] = {k: p.grad.cpu() for k, p in enc.named_parameters() if p.grad is not None}
+
+    # EP: the MoE block of configs/dgdm_base_moe.yaml, replicated
+    moe_kw = dict(features=128, hidden_dim=256, num_experts=4, top_k=1, capacity_factor=1.5,
+                  dtype=torch.float32)
+    moe = init_parameters(MoEFFN(**moe_kw), torch.Generator().manual_seed(12)).to("cuda")
+    x = h0.detach().clone().requires_grad_()
+    out, aux = moe(x, on.node_mask)
+    ((out ** 2).sum() + aux).backward()
+    ref["ep"] = {"out": out.detach().cpu(), "aux": float(aux.detach()), "dx": x.grad.cpu(),
+                 "kept": moe.route(h0, on.node_mask)["kept"].cpu(),
+                 "grads": {k: p.grad.cpu() for k, p in moe.named_parameters()}}
+
+    # the halo tier: Morton-sorted Base graphs, their features as the encoder sees them
+    t0 = time.perf_counter()
+    sorted_graphs = [halo.spatial_sort(g) for g in graphs]
+    srt = batch_graphs(sorted_graphs)
+    with torch.no_grad():
+        srt = srt.replace(x=fresh.feature_encoder(srt.x.to("cuda")).cpu())
+    plans = {tp: halo.build_halo_plan(srt.nbr_idx, srt.nbr_mask, tp) for tp in (2, 4)}
+    plan_s = time.perf_counter() - t0
+    conv = init_parameters(GraphConvolution(128, 128, 3), torch.Generator().manual_seed(13))
+    conv = conv.to("cuda")
+    s_on = srt.to("cuda")
+    with torch.no_grad():
+        ref["conv"] = conv(s_on.x, s_on.nbr_idx, s_on.nbr_mask, s_on.edge_attr).cpu()
+        from dgdm_histopath_torch.ops.kernels.gather_rows import gather_rows
+        ref["dense_gather"] = gather_rows(s_on.x, s_on.nbr_idx).cpu()
+    ref["halo"] = {tp: {"H": p.halo_size, "fraction": halo.halo_fraction(
+        srt.nbr_idx, srt.nbr_mask, tp)} for tp, p in plans.items()}
+    ref["plan_s"] = plan_s
+    spec = {"batch": batch, "draws": draws, "config": config, "pp": pp_in,
+            "moe_kw": moe_kw, "moe_state": {k: v.cpu() for k, v in moe.state_dict().items()},
+            "moe_x": h0.cpu(), "mask": batch.node_mask, "sorted": srt, "plans": plans,
+            "conv": (128, 128, 3), "conv_state": {k: v.cpu() for k, v in conv.state_dict().items()}}
+    del fresh, moe, conv, model
+    torch.cuda.empty_cache()
+    return spec, ref
+
+
+def par_rect_kernels(torch, spec) -> dict:
+    """Both kernels with a rectangular table at the halo tier's shapes
+    (model axis 2, rank 0): the outgoing rows (gather_rows from the
+    [B, n_loc, 128] block, [B, 2, H] slots), the local step (gather_rows
+    and gather_agg over the [B, n_loc + 2H, 128] table, [B, n_loc, 8]
+    slots), bf16 and f32, held to their plain versions and timed."""
+    from dgdm_histopath_torch.parallel.halo import local_plan
+    from dgdm_histopath_torch.parallel.mesh import Axis, Mesh
+
+    plan = spec["plans"][2]
+    mesh = Mesh(("data", "model"), (1, 2), lines={"model": Axis("model", 2, 0)})
+    send, idx = (t.cuda() for t in local_plan(plan, mesh, device="cpu"))
+    n_loc = plan.n_local
+    block = spec["sorted"].x[:, :n_loc].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = {"gather_rows": [], "gather_agg": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = block.to(dtype).contiguous()
+        table = torch.randn(x.shape[0], n_loc + 2 * plan.halo_size, x.shape[-1],
+                            generator=gen, device="cuda").to(dtype)
+        w = torch.rand(idx.shape, generator=gen, device="cuda")
+        dt = str(dtype).replace("torch.", "")
+        rows["gather_rows"].append(gather_rows_row(torch, x, send, dict(
+            case="outgoing rows", shape=tuple(send.shape), src=tuple(x.shape), dtype=dt)))
+        rows["gather_rows"].append(gather_rows_row(torch, table, idx, dict(
+            case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
+        rows["gather_agg"].append(gather_agg_row(torch, table, idx, w, dict(
+            case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"kernel {name:12s} rectangular {r['case']:13s} src {r['src']} idx "
+                f"{r['shape']} {r['dtype']:8s} err {r['max_abs_err']:.2e}  ms {r['ms']:.4f}"
+                f"  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return rows
+
+
+def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
+    """Every rank's results against the one-process references; raises on a
+    failed bound."""
+    out = {}
+    # TP
+    ranks = [r["tp"] for r in got]
+    if any(r["metrics"] != ranks[0]["metrics"] for r in ranks):
+        raise AssertionError("tp: the ranks report different metrics")
+    loss = max(abs(a[k] - s[k]) / max(1.0, abs(s[k]))
+               for a, s in zip(ranks[0]["metrics"], ref["tp"]) for k in s)
+    lr_sum = 1e-4 * len(PAR["tp_epochs"])
+    worst, worst_key = 0.0, ""
+    for key, r in ref["tp_params"].items():
+        err = (ranks[0]["params"][key] - r).abs().max().item()
+        bound = lr_sum if key.endswith(("k_proj.bias", "risk.bias")) else \
+            1e-5 * max(r.abs().max().item(), 1.0)
+        if err / bound > worst:
+            worst, worst_key = err / bound, key
+    expected = expected_launches(BASE, training=True)
+    bad = [c for r in ranks for c in r["launches"] if c != expected]
+    out["tp"] = {"shape": ranks[0]["shape"], "max_metric_rel": loss,
+                 "worst_param_over_bound": worst, "worst_param": worst_key,
+                 "launches": ranks[0]["launches"][0], "step_ms": [r["step_ms"] for r in ranks],
+                 "sharded": ranks[0]["sharded"], "rank_bytes": [r["bytes"] for r in ranks],
+                 "one_process_bytes": ref["tp_bytes"]}
+    log(f"parallel: TP {ranks[0]['shape']} (data, model), DGDM-Base f32 batch 32 bucket 1024, "
+        f"2 pretrain + 1 finetune steps: metrics within {loss:.3e} of max(1, |x|) of one "
+        f"process (<= 1e-5), parameters at {worst:.3f} of their bound ({worst_key}); "
+        f"{ranks[0]['sharded']} parameters sharded; launches a step {ranks[0]['launches']} "
+        f"(one process: {expected}); rank param + AdamW bytes "
+        f"{[sum(r['bytes']) for r in ranks]} against {sum(ref['tp_bytes'])} for one process; "
+        f"step wall {[[round(x, 1) for x in r['step_ms']] for r in ranks]} ms [{card}]")
+    if loss > 1e-5 or worst > 1.0 or bad:
+        raise AssertionError(f"tensor-parallel steps differ from one process (launches {bad})")
+
+    # PP
+    ranks = [r["pp"] for r in got]
+    stages = ranks[0]["shape"][1]
+    fwd = max((r["out"] - ref["pp"]).abs().max().item() for r in ranks)
+    scale = max(ref["pp"].abs().max().item(), 1.0)
+    grads = {}
+    for r in ranks:
+        per = 4 // stages
+        mine = tuple(f"layer{r['stage'] * per + i}." for i in range(per))
+        for k, v in r["grads"].items():
+            if not k.startswith("layer") or k.startswith(mine):
+                grads.setdefault(k, v)
+    gerr = max((grads[k] - v).abs().max().item() / max(v.abs().max().item(), 1.0)
+               for k, v in ref["pp_grads"].items())
+    out["pp"] = {"shape": ranks[0]["shape"], "max_out_err": fwd, "max_grad_rel": gerr,
+                 "launches": ranks[0]["launches"], "wall_ms": [r["wall_ms"] for r in ranks],
+                 "bubble": (stages - 1) / (PAR["pp_micro"] + stages - 1)}
+    log(f"parallel: PP {ranks[0]['shape']} (data, pipe), Base GraphEncoder (4 layers of 128, 8 "
+        f"heads) B 32 N 1024, {PAR['pp_micro']} microbatches: output within {fwd:.2e} "
+        f"(bound 1e-4 x {scale:.1f}), gradients within {gerr:.2e} of max(1, |g|) (<= 1e-4); a "
+        f"stage's launches, forward + backward {ranks[0]['launches']}; wall "
+        f"{[round(r['wall_ms'], 1) for r in ranks]} ms; bubble {out['pp']['bubble']:.3f} "
+        f"[{card}]")
+    if fwd > 1e-4 * scale or gerr > 1e-4 or set(grads) != set(ref["pp_grads"]):
+        raise AssertionError("the pipelined encoder differs from the sequential one")
+
+    # EP
+    ranks = [r["ep"] for r in got]
+    e = ref["ep"]
+    errs = {"out": max((r["out"] - e["out"]).abs().max().item() for r in ranks),
+            "aux": max(abs(r["aux"] - e["aux"]) for r in ranks),
+            "dx": max((r["dx"] - e["dx"]).abs().max().item() for r in ranks)}
+    n_loc = 4 // ranks[0]["shape"][1]
+    for r in ranks:
+        for k, g in e["grads"].items():
+            mine = g[r["index"] * n_loc:(r["index"] + 1) * n_loc] if k in (
+                "w_in", "b_in", "w_out", "b_out") else g
+            errs[k] = max(errs.get(k, 0.0), (r["grads"][k] - mine).abs().max().item())
+    routing = all(torch.equal(r["kept"], e["kept"]) for r in ranks)
+    out["ep"] = {"shape": ranks[0]["shape"], "errors": errs, "routing_equal": routing}
+    log(f"parallel: EP {ranks[0]['shape']} (data, expert), the MoE block of "
+        f"configs/dgdm_base_moe.yaml on [32, 1024, 128]: max errors {errs} (<= 2e-5), "
+        f"routing equal {routing} [{card}]")
+    if max(errs.values()) > 2e-5 or not routing:
+        raise AssertionError("the expert-parallel block differs from the replicated one")
+
+    # the halo tier
+    ranks = [r["halo"] for r in got]
+    tp = ranks[0]["tp"]
+    n_loc = ref["conv"].shape[1] // tp
+    equal, sp_err = True, 0.0
+    for r in ranks:
+        blk = slice(r["index"] * n_loc, (r["index"] + 1) * n_loc)
+        m = ref["sorted_mask"][:, blk][..., None]
+        equal &= torch.equal(r["gather"] * m, ref["dense_gather"][:, blk] * m)
+        node = ref["sorted_node"][:, blk][..., None]
+        sp_err = max(sp_err, ((r["sp"] - ref["conv"][:, blk]) * node).abs().max().item())
+    hh = ref["halo"][tp]
+    out["halo"] = {"tp": tp, "bit_equal": equal, "sp_graph_conv_err": sp_err, "H": hh["H"],
+                   "halo_fraction": hh["fraction"], "launches": ranks[0]["launches"],
+                   "sp_launches": ranks[0]["sp_launches"], "plan_s": ref["plan_s"],
+                   "all": ref["halo"]}
+    log(f"parallel: halo, model axis {tp}, the Base cell's graphs Morton-sorted: halo_gather "
+        f"equal to the dense gather on every real slot {equal}; sp_graph_conv within "
+        f"{sp_err:.2e} of GraphConvolution (<= 1e-5); H {hh['H']}, halo_fraction "
+        f"{hh['fraction']:.4f} ({ref['halo']}); launches halo_gather {ranks[0]['launches']}, "
+        f"sp_graph_conv {ranks[0]['sp_launches']}; plans built in {ref['plan_s']:.2f} s [{card}]")
+    if not equal or sp_err > 1e-5:
+        raise AssertionError("the halo tier differs from the dense path")
+
+    for n in PAR["dryruns"]:
+        if f"dryrun{n}" in got[0]:
+            r = got[0][f"dryrun{n}"]
+            out[f"dryrun{n}"] = {"line": r["line"], "wall_s": r["wall_s"]}
+            log(f"parallel: {r['line']} ({r['wall_s']:.1f} s on rank 0) [{card}]")
+    return out
+
+
+def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
+    """The tiers through their entry points. One card: 8 gloo ranks share it;
+    2 of them run TP (1, 2) on DGDM-Base at full width, PP, EP and the halo
+    tier, then 4 and 8 run ``dryrun_multichip``. Four cards (``cards >= 4``):
+    4 NCCL ranks, one a card, run TP (2, 2), PP (1, 4), EP (2, 2), the halo
+    over 4 and ``dryrun_multichip(4)``. Each tier against one process of
+    this call; then both kernels with a rectangular table at the halo shapes."""
+    import multiprocessing
+    import tempfile
+
+    backend, world = ("nccl", 4) if cards >= 4 else ("gloo", 2)
+    dry = [n for n in PAR["dryruns"] if backend == "gloo" or n <= cards]
+    jobs = [(j, world) for j in ("tp", "pp", "ep", "halo")] + [(f"dryrun{n}", n) for n in dry]
+    size = max(w for _, w in jobs)
+    t0 = time.perf_counter()
+    spec, ref = par_spec(torch, graphs)
+    ref["sorted_mask"] = spec["sorted"].nbr_mask
+    ref["sorted_node"] = spec["sorted"].node_mask
+    ref_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        torch.save(spec, f"{root}/spec.pt")
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=par_rank, args=(r, size, backend, root, jobs))
+                 for r in range(size)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(900)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"parallel ranks exited {[p.exitcode for p in procs]}")
+        got = [torch.load(f"{root}/result{r}.pt", weights_only=False) for r in range(world)]
+    out = par_compare(torch, got, ref, world, card)
+    out.update(backend=backend, world=world, ranks_wall_s=wall, reference_s=ref_s)
+    how = ("one a card" if backend == "nccl" else
+           "sharing the card, host-staged collectives: not a parallel speed")
+    log(f"parallel: {size} {backend} ranks ({how}) in {wall:.1f} s, the one-process "
+        f"references {ref_s:.1f} s [{card}]")
+    if backend == "gloo":
+        out["rect"] = par_rect_kernels(torch, spec)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3240,6 +3755,19 @@ def main() -> int:
             f"{r['spill_stores']} / loads {r['spill_loads']} bytes, stack {r['stack']}, "
             f"static smem {r['static_smem']}")
 
+    if sys.argv[1:] == ["--parallel-only"]:
+        # the parallel tiers alone; on four cards over NCCL, with dgdm-train --mesh-shape 2,2
+        cards = torch.cuda.device_count()
+        par = parallel_phase(torch, make_graphs(BASE), card, cards)
+        par["cli"] = dp_cli(torch, card, cards, "2,2") if cards >= 4 else None
+        log("details: " + json.dumps({"parallel": par}, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": cards}}))
+        return 0
+
     if sys.argv[1:] == ["--dp-only"]:
         # data parallelism alone, for a machine of several cards
         cards = torch.cuda.device_count()
@@ -3297,6 +3825,10 @@ def main() -> int:
     dp = dp_phase(torch, graphs, card, torch.cuda.device_count())
     torch.cuda.empty_cache()
 
+    # the other parallel tiers (TP, PP, EP, the halo) and the multichip dry runs
+    par = parallel_phase(torch, graphs, card, 1)
+    torch.cuda.empty_cache()
+
     # last: the whole-slide path
     slide_keep = {}
     slide = slide_phase(torch, card, kern, slide_keep)
@@ -3350,6 +3882,10 @@ def main() -> int:
                    "edge_int8_predict": int8["edge"]["launches"][name],
                    "dp_training_step_gloo_rank": dp["gloo"]["launches"][name],
                    "dp_training_step_nccl_rank": dp["nccl"]["launches"][name],
+                   "tp_training_step_rank": par["tp"]["launches"][name],
+                   "pp_stage_forward_backward": par["pp"]["launches"][name],
+                   "halo_gather": par["halo"]["launches"][name],
+                   "sp_graph_conv": par["halo"]["sp_launches"][name],
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}
@@ -3377,6 +3913,10 @@ def main() -> int:
                                             if r["max_ulp_err"] is not None)
         if name in real_step:
             entry["real_step_ms"] = {r["shape"][1]: r["ms"] for r in real_step[name]}
+        if name in par["rect"]:
+            entry["halo_rectangular"] = {f"{r['case']} {r['dtype']}": {
+                k: r[k] for k in ("src", "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+                for r in par["rect"][name]}
         if name in slide["kernels_k24"]:
             entry["slide_k24_ms"] = {f"{r['case']} {r['dtype']}": r["ms"]
                                      for r in slide["kernels_k24"][name]}
@@ -3394,6 +3934,7 @@ def main() -> int:
                                   "training_parity": train_parity, "remat": remat,
                                   "flash_module": flash_module, "cli": cli,
                                   "serve": serve, "moe": moe, "dp": dp, "int8": int8,
+                                  "parallel": {k: v for k, v in par.items() if k != "rect"},
                                   "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},
                                   "large": {"model": l_timing, "parity": l_parity,

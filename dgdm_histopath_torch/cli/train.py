@@ -16,15 +16,17 @@ emergency checkpoint and exit code 75; ``resume`` re-enters the same epoch
 and replays the remaining steps bit for bit. It runs on the card unless
 ``--device cpu`` is given; asking for the card without one is an error.
 
-Data parallelism: the world is ``prod(--mesh-shape)`` (or
+Parallelism: the world is ``prod(--mesh-shape)`` (or
 ``hardware.mesh_shape``) when given, else every visible card (1 for
 ``--device cpu``); ``--devices`` is read by nothing, as in the reference.
-A world above 1 spawns one rank a card (``cuda:r``) over NCCL, or ranks on
-the CPU over gloo, meeting at a file rendezvous in the output directory.
-Rank 0 alone writes the outputs; a SIGTERM to the launcher reaches every
+``--mesh-shape a,b`` takes the axes ``data,model`` unless ``--mesh-axes``
+names others: ``a``-way data parallel, ``b``-way tensor parallel
+(``parallel/tp.py``). A world above 1 spawns one rank a card (``cuda:r``)
+over NCCL, or ranks on the CPU over gloo, meeting at a file rendezvous in
+the output directory. Rank 0 alone writes the outputs (whole tensors,
+gathered over the ``model`` axis); a SIGTERM to the launcher reaches every
 rank, they stop at the same step and the launcher exits 75 (130 when the
-signal came before training began, as for one process). A mesh axis
-other than ``data`` above 1 raises naming ROADMAP queue 1, item 12.
+signal came before training began, as for one process).
 """
 
 from __future__ import annotations
@@ -99,8 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="kept for config compatibility; read by nothing, as in "
                              "the reference (the mesh spans every visible card)")
         sp.add_argument("--mesh-shape", type=str, default=None,
-                        help="comma ints, e.g. '4' (4-way data parallel); an axis other "
-                             "than data above 1 is not ported")
+                        help="comma ints, e.g. '4' (4-way data parallel) or '2,2' "
+                             "(data x model tensor-parallel)")
         sp.add_argument("--mesh-axes", type=str, default=None,
                         help="comma names matching --mesh-shape; default 'data' or "
                              "'data,model'")
@@ -293,6 +295,7 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
     if test_losses:
         result["test_loss"] = float(np.mean(test_losses))
         logger.info("test_loss=%.4f", result["test_loss"])
+    state = trainer.model_state_dict()      # whole tensors, gathered on every rank
     if not writer:
         return 0
 
@@ -319,7 +322,7 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
         model_cfg.update(moe_experts=cfg.model.moe_experts, moe_top_k=cfg.model.moe_top_k,
                          moe_capacity=cfg.model.moe_capacity)
     save_model_bundle(out_dir / "final_model.npz", model, model_cfg,
-                      extra={"history_len": len(result["history"])})
+                      extra={"history_len": len(result["history"])}, state=state)
     (out_dir / "history.json").write_text(json.dumps(result["history"], indent=2))
     logger.info("training complete; outputs in %s", out_dir)
     return 0
@@ -350,8 +353,7 @@ def _rank() -> int:
 
 def world_size(cfg: DGDMConfig, device) -> int:
     """The ranks a run takes: ``prod(mesh_shape)`` when set, else every
-    visible card (one process on the CPU). A mesh axis other than ``data``
-    above 1 raises naming ROADMAP item 12; a CUDA world larger than the
+    visible card (one process on the CPU). A CUDA world larger than the
     visible cards raises."""
     import torch
 

@@ -38,9 +38,14 @@
 // shape of the two presets (PERF.md), so K = 8 keeps its own; one-element
 // lanes serve only inputs off 16-byte alignment and take the any-K path.
 //
-// h is bf16 or f32; w is f32. An index outside [0, N) contributes nothing
-// (the zero row of the TPU one-hot kernel): its loaded values and its weight
-// are taken as 0. Any N, K and F are taken.
+// h is bf16 or f32; w is f32. An index outside [0, N_src) contributes
+// nothing (the zero row of the TPU one-hot kernel): its loaded values and its
+// weight are taken as 0. Any N, K and F are taken.
+//
+// h may hold another row count than the query: h [B, N_src, F], idx and w
+// [B, N, K]. The node-sharded (halo) tier sums a rank's N local rows over
+// its [local || halo] table of N_src = N + tp*H rows; the model's own
+// aggregations are square (N_src = N).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -125,7 +130,7 @@ template <typename T, int V, int KC>
 __global__ void __launch_bounds__(kThreads, 1)
 gather_agg_kernel(const T* __restrict__ h, const int32_t* __restrict__ idx,
                   const float* __restrict__ w, float* __restrict__ out,
-                  int rows, int n, int k_runtime, int f, int lane_bits) {
+                  int rows, int n, int n_src, int k_runtime, int f, int lane_bits) {
   using L = Lane<T, V>;
   const int k = KC > 0 ? KC : k_runtime;
   const int sub = threadIdx.x & ((1 << lane_bits) - 1);
@@ -135,7 +140,7 @@ gather_agg_kernel(const T* __restrict__ h, const int32_t* __restrict__ idx,
   for (int64_t row = tid >> lane_bits; row < rows; row += groups) {
     // a 32-bit division (B * N < 2^31): the 64-bit one is a subroutine call
     const int graph = static_cast<int>(row) / n;
-    const T* hb = h + static_cast<int64_t>(graph) * n * f;
+    const T* hb = h + static_cast<int64_t>(graph) * n_src * f;
     const int32_t* ir = idx + row * k;
     const float* wr = w + row * k;
     for (int f0 = sub * V; f0 < f; f0 += span) {
@@ -152,12 +157,12 @@ gather_agg_kernel(const T* __restrict__ h, const int32_t* __restrict__ idx,
         typename L::Raw raw[kChunk];
 #pragma unroll
         for (int s = 0; s < kChunk; ++s) {
-          const bool ok = static_cast<unsigned>(j[s]) < static_cast<unsigned>(n);
+          const bool ok = static_cast<unsigned>(j[s]) < static_cast<unsigned>(n_src);
           raw[s] = L::load(hb + static_cast<int64_t>(ok ? j[s] : 0) * f + f0);
         }
 #pragma unroll
         for (int s = 0; s < kChunk; ++s) {             // k order
-          if (static_cast<unsigned>(j[s]) >= static_cast<unsigned>(n)) {
+          if (static_cast<unsigned>(j[s]) >= static_cast<unsigned>(n_src)) {
             raw[s] = typename L::Raw{};                // contributes nothing
             ws[s] = 0.f;
           }
@@ -172,15 +177,15 @@ gather_agg_kernel(const T* __restrict__ h, const int32_t* __restrict__ idx,
 
 template <typename T, int V, int KC>
 cudaError_t launch(const void* h, const int32_t* idx, const float* w, float* out,
-                   int64_t rows, int64_t n, int k, int f, cudaStream_t stream) {
+                   int64_t rows, int64_t n, int64_t n_src, int k, int f, cudaStream_t stream) {
   int lane_bits = 0;                                   // G = 2^lane_bits lanes a row
   while (lane_bits < 5 && (V << lane_bits) < f) ++lane_bits;
   const int64_t rows_per_block = kThreads >> lane_bits;
   int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
   if (blocks > (1LL << 30)) blocks = 1LL << 30;        // grid-stride covers the rest
   gather_agg_kernel<T, V, KC><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(h), idx, w, out, static_cast<int>(rows), static_cast<int>(n), k,
-      f, lane_bits);
+      static_cast<const T*>(h), idx, w, out, static_cast<int>(rows), static_cast<int>(n),
+      static_cast<int>(n_src), k, f, lane_bits);
   return cudaGetLastError();
 }
 
@@ -190,34 +195,36 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // then any K); the K = 8 path where idx and w start on 16 bytes too
 template <typename T>
 cudaError_t launch_dtype(const void* h, const int32_t* idx, const float* w, float* out,
-                         int64_t rows, int64_t n, int k, int f, cudaStream_t stream) {
+                         int64_t rows, int64_t n, int64_t n_src, int k, int f,
+                         cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   if (!(aligned16(h) && f % V == 0))
-    return launch<T, 1, 0>(h, idx, w, out, rows, n, k, f, stream);
+    return launch<T, 1, 0>(h, idx, w, out, rows, n, n_src, k, f, stream);
   if (k == kChunk && aligned16(idx) && aligned16(w))
-    return launch<T, V, kChunk>(h, idx, w, out, rows, n, k, f, stream);
-  return launch<T, V, 0>(h, idx, w, out, rows, n, k, f, stream);
+    return launch<T, V, kChunk>(h, idx, w, out, rows, n, n_src, k, f, stream);
+  return launch<T, V, 0>(h, idx, w, out, rows, n, n_src, k, f, stream);
 }
 
 }  // namespace
 
 // Launches on `stream`, on the caller's current device. `out` is a fresh
-// contiguous f32 tensor (16-byte aligned rows wherever h's are). B * N, K
-// and F must be below 2^31 (the wrapper checks).
+// contiguous f32 tensor (16-byte aligned rows wherever h's are). h holds
+// n_src rows a graph, idx and w n rows of k slots. B * N, N_src, K and F
+// must be below 2^31 (the wrapper checks).
 extern "C" int gather_agg_launch(const void* h, const void* idx, const void* w,
                                  void* out, int64_t batch, int64_t n, int64_t k,
-                                 int64_t f, int h_is_bf16, void* stream) {
+                                 int64_t n_src, int64_t f, int h_is_bf16, void* stream) {
   const int64_t rows = batch * n;
-  if (rows >= (1LL << 31) || k >= (1LL << 31) || f >= (1LL << 31))
+  if (rows >= (1LL << 31) || n_src >= (1LL << 31) || k >= (1LL << 31) || f >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ix = static_cast<const int32_t*>(idx);
   const auto* wp = static_cast<const float*>(w);
   auto* op = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      h_is_bf16 ? launch_dtype<__nv_bfloat16>(h, ix, wp, op, rows, n, static_cast<int>(k),
-                                              static_cast<int>(f), s)
-                : launch_dtype<float>(h, ix, wp, op, rows, n, static_cast<int>(k),
+      h_is_bf16 ? launch_dtype<__nv_bfloat16>(h, ix, wp, op, rows, n, n_src,
+                                              static_cast<int>(k), static_cast<int>(f), s)
+                : launch_dtype<float>(h, ix, wp, op, rows, n, n_src, static_cast<int>(k),
                                       static_cast<int>(f), s);
   return static_cast<int>(err);
 }

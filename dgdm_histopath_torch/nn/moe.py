@@ -133,6 +133,20 @@ class MoEFFN(nn.Module):
         return {"dispatch": dispatch, "combine": combine, "probs": probs,
                 "first_choice": first_choice, "kept": kept, "mask": mask, "xg": xg}
 
+    def experts(self, xg: torch.Tensor, dispatch: torch.Tensor, combine: torch.Tensor,
+                deterministic: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Dispatch the grouped tokens ``xg [G, S, F]`` to the experts, run
+        their FFNs and combine: ``[G, S, F]`` in the compute dtype."""
+        dt = self.compute_dtype
+        ein = torch.einsum("gsec,gsf->egcf", dispatch.to(dt), xg.to(dt))
+        h = torch.einsum("egcf,efh->egch", ein, self.w_in.to(dt))
+        h = self.act(h + self.b_in[:, None, None, :].to(dt))
+        if not deterministic:
+            h = dropout(h, self.dropout, generator)
+        eout = torch.einsum("egch,ehf->egcf", h, self.w_out.to(dt))
+        eout = eout + self.b_out[:, None, None, :].to(dt)
+        return torch.einsum("egcf,gsec->gsf", eout, combine.to(dt))
+
     def forward(self, x: torch.Tensor, token_mask: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
                 batch_mean: Callable = local_mean, group_size: Optional[int] = None
@@ -142,16 +156,8 @@ class MoEFFN(nn.Module):
         if x.shape[-1] != self.features:
             raise ValueError(f"x feature dim {x.shape[-1]} != features {self.features}")
         r = self.route(x, token_mask, group_size)
-        dt = self.compute_dtype
-        xg, mask, probs = r["xg"], r["mask"], r["probs"]
-        ein = torch.einsum("gsec,gsf->egcf", r["dispatch"].to(dt), xg.to(dt))
-        h = torch.einsum("egcf,efh->egch", ein, self.w_in.to(dt))
-        h = self.act(h + self.b_in[:, None, None, :].to(dt))
-        if not deterministic:
-            h = dropout(h, self.dropout, generator)
-        eout = torch.einsum("egch,ehf->egcf", h, self.w_out.to(dt))
-        eout = eout + self.b_out[:, None, None, :].to(dt)
-        out = torch.einsum("egcf,gsec->gsf", eout, r["combine"].to(dt))
+        mask, probs = r["mask"], r["probs"]
+        out = self.experts(r["xg"], r["dispatch"], r["combine"], deterministic, generator)
 
         # Switch load balance over the real tokens, first choice, per group
         real = mask.sum(1)

@@ -23,6 +23,11 @@ tensors over their plain versions. It takes idx's transposed list as
 
 An index outside ``[0, N)`` contributes nothing in both versions (the TPU
 one-hot kernel's zero row): ``dw`` is 0 there and ``dh`` gets nothing.
+
+h may hold another row count than the indices: h [B, N_src, F], idx and w
+[B, N, K] (``parallel/halo.py::sp_graph_conv`` sums over a rank's
+[local || halo] table). Such a sum is forward only, as the JAX package's
+halo tier is: its backward raises.
 """
 
 from __future__ import annotations
@@ -43,8 +48,8 @@ from .neighbor_transpose import (
 
 KERNEL = CudaKernel("gather_agg", "gather_agg_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # h, idx, w, out
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
-    ctypes.c_int, ctypes.c_void_p])                                      # bf16?, stream
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,                      # B, N, K
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])      # N_src, F, bf16?, stream
 
 KERNEL_BWD = CudaKernel("gather_agg_bwd", "gather_agg_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, h, idx, w
@@ -57,7 +62,7 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 def weighted_gather_sum_plain(h: torch.Tensor, idx: torch.Tensor,
                               w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: h [B, N, F], idx/w [B, N, K] -> [B, N, F] f32."""
+    """Plain PyTorch version: h [B, N_src, F], idx/w [B, N, K] -> [B, N, F] f32."""
     return (gather_rows_plain(h, idx).float() * w[..., None]).sum(-2)
 
 
@@ -80,9 +85,9 @@ def weighted_gather_sum_bwd_plain(g: torch.Tensor, h: torch.Tensor, idx: torch.T
 
 def _check(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
     if h.dim() != 3 or idx.dim() != 3 or w.shape != idx.shape:
-        raise ValueError(f"need h [B, N, F], idx and w [B, N, K], got "
+        raise ValueError(f"need h [B, N_src, F], idx and w [B, N, K], got "
                          f"{tuple(h.shape)}, {tuple(idx.shape)}, {tuple(w.shape)}")
-    if idx.shape[:2] != h.shape[:2]:
+    if idx.shape[0] != h.shape[0]:
         raise ValueError(f"idx {tuple(idx.shape)} does not match h {tuple(h.shape)}")
     if h.dtype not in DTYPES:
         raise TypeError(f"weighted_gather_sum takes bf16 or f32 h, got {h.dtype}")
@@ -96,17 +101,17 @@ def _check(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
 def _launch_fwd(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not (h.is_contiguous() and idx.is_contiguous() and w.is_contiguous()):
         raise ValueError("weighted_gather_sum needs contiguous h, idx and w")
-    b, n, f = h.shape
-    k = idx.shape[-1]
-    if max(b * n, k, f) >= 2 ** 31:
-        raise ValueError(f"weighted_gather_sum takes B * N, K and F below 2^31, got "
-                         f"{b * n}, {k}, {f}")
+    b, n_src, f = h.shape
+    n, k = idx.shape[1:]
+    if max(b * n, n_src, k, f) >= 2 ** 31:
+        raise ValueError(f"weighted_gather_sum takes B * N, N_src, K and F below 2^31, got "
+                         f"{b * n}, {n_src}, {k}, {f}")
     out = torch.empty((b, n, f), dtype=torch.float32, device=h.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(h.device):     # the kernel launches on the current device
         KERNEL.launch(h.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                      b, n, k, f, int(h.dtype == torch.bfloat16),
+                      b, n, k, n_src, f, int(h.dtype == torch.bfloat16),
                       torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -122,6 +127,8 @@ def weighted_gather_sum_bwd(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
     needed. Both halves are summed in a fixed order: bit-identical from run
     to run."""
     _check(h, idx, w)
+    if h.shape[1] != idx.shape[1]:
+        raise ValueError("weighted_gather_sum_bwd takes a square table (N_src = N)")
     if g.shape != h.shape or g.dtype != torch.float32 or g.device != h.device:
         raise ValueError(f"need f32 g {tuple(h.shape)} on {h.device}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
@@ -165,6 +172,9 @@ class _WeightedGatherSum(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         h, idx, w, offsets, slots = ctx.saved_tensors
+        if h.shape[1] != idx.shape[1]:
+            raise RuntimeError("a sum over a table of another row count (the halo tier) is "
+                               "forward only")
         nbr_t = None if offsets is None else NeighborTranspose(offsets, slots)
         need_dh, need_dw = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
         if g.device.type == "cpu":
@@ -180,7 +190,8 @@ def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                         nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n] = Σ_k w[b, n, k] · h[b, idx[b, n, k]]``: the CUDA kernels
     (forward and backward) for CUDA tensors, the plain versions for CPU
-    tensors. [B, N, F] f32 out. ``nbr_t``: idx's transposed list for the
+    tensors. h [B, N_src, F], idx and w [B, N, K] -> [B, N, F] f32 (forward
+    only where N_src != N). ``nbr_t``: idx's transposed list for the
     backward, where the caller has it."""
     _check(h, idx, w)
     if h.device.type not in ("cpu", "cuda"):

@@ -22,6 +22,11 @@ where not.
 An index outside ``[0, N)`` gives a zero row in both versions (the TPU
 one-hot kernel's result), where ``take_along_axis`` would clamp; in the
 backward it adds nothing.
+
+The source may hold another row count than the indices: src [B, N_src, F]
+and idx [B, N, K] (the halo tier's gathers, ``parallel/halo.py``). Such a
+rectangular gather is forward only, as the JAX package's halo tier is: its
+backward raises.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from .neighbor_transpose import (
 KERNEL = CudaKernel("gather_rows", "gather_rows_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # src, idx, out
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,          # B, N, K
-    ctypes.c_int64, ctypes.c_void_p])                        # row bytes, stream
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p])        # N_src, row bytes, stream
 
 KERNEL_BWD = CudaKernel("gather_rows_bwd", "gather_rows_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, offsets, slots, out
@@ -61,10 +66,10 @@ def index_in_range(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tenso
 
 
 def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: src [B, N, F], idx [B, N, K] -> [B, N, K, F]."""
-    b, n, f = src.shape
-    k = idx.shape[-1]
-    valid, safe = index_in_range(idx, n)
+    """Plain PyTorch version: src [B, N_src, F], idx [B, N, K] -> [B, N, K, F]."""
+    b, n_src, f = src.shape
+    n, k = idx.shape[1:]
+    valid, safe = index_in_range(idx, n_src)
     safe = safe.reshape(b, n * k, 1).expand(b, n * k, f)
     rows = torch.gather(src, 1, safe).reshape(b, n, k, f)
     return torch.where(valid[..., None], rows, torch.zeros((), dtype=src.dtype,
@@ -104,9 +109,9 @@ def gather_rows_bwd_plain(idx: torch.Tensor, g: torch.Tensor,
 
 def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
     if src.dim() != 3 or idx.dim() != 3:
-        raise ValueError(f"need src [B, N, F] and idx [B, N, K], got "
+        raise ValueError(f"need src [B, N_src, F] and idx [B, N, K], got "
                          f"{tuple(src.shape)} and {tuple(idx.shape)}")
-    if idx.shape[:2] != src.shape[:2]:
+    if idx.shape[0] != src.shape[0]:
         raise ValueError(f"idx {tuple(idx.shape)} does not match src {tuple(src.shape)}")
     if src.dtype not in DTYPES:
         raise TypeError(f"gather_rows takes bf16 or f32 src, got {src.dtype}")
@@ -119,13 +124,13 @@ def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
 def _launch_fwd(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if not (src.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_rows needs contiguous src and idx")
-    b, n, f = src.shape
-    k = idx.shape[-1]
+    b, n_src, f = src.shape
+    n, k = idx.shape[1:]
     out = torch.empty((b, n, k, f), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(src.device):   # the kernel launches on the current device
-        KERNEL.launch(src.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, k,
+        KERNEL.launch(src.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, k, n_src,
                       f * src.element_size(), torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -171,6 +176,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, idx, offsets, slots):
         ctx.save_for_backward(idx, offsets, slots)
+        ctx.square = src.shape[1] == idx.shape[1]
         if src.device.type == "cpu":
             return gather_rows_plain(src, idx)
         return _launch_fwd(src, idx)
@@ -178,6 +184,9 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
+        if not ctx.square:
+            raise RuntimeError("a gather from a table of another row count (the halo tier) "
+                               "is forward only")
         idx, offsets, slots = ctx.saved_tensors
         nbr_t = None if offsets is None else NeighborTranspose(offsets, slots)
         bwd = gather_rows_bwd_plain if g.device.type == "cpu" else gather_rows_bwd
@@ -188,7 +197,8 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor,
                 nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n, k] = src[b, idx[b, n, k]]``: the CUDA kernels (forward and
     backward) for a CUDA tensor, the plain versions for a CPU tensor.
-    src [B, N, F] bf16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's dtype.
+    src [B, N_src, F] bf16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's
+    dtype (forward only where N_src != N).
     ``nbr_t``: idx's transposed list for the backward, where the caller has it."""
     _check(src, idx)
     if src.device.type not in ("cpu", "cuda"):

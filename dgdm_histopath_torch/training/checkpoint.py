@@ -195,13 +195,16 @@ class CheckpointManager:
 
 
 def save_model_bundle(path: str | Path, model: torch.nn.Module, model_config: Dict[str, Any],
-                      extra: Optional[Dict[str, Any]] = None) -> Path:
-    """Single-file npz of ``model``'s parameters under their flax paths
+                      extra: Optional[Dict[str, Any]] = None,
+                      state: Optional[Dict[str, torch.Tensor]] = None) -> Path:
+    """Single-file npz of ``model``'s parameters (``state`` where given: a
+    tensor-parallel model's whole tensors) under their flax paths
     (``p:params/encoder/Dense_0/kernel``) and a ``__meta__`` JSON with
     ``model_config``, in the JAX package's ``named_paths_v2`` format."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    arrays = {KEY_PREFIX + k: v for k, v in params_to_flax(model.state_dict(), model).items()}
+    state = model.state_dict() if state is None else state
+    arrays = {KEY_PREFIX + k: v for k, v in params_to_flax(state, model).items()}
     meta = {"model_config": model_config, "format": "named_paths_v2",
             "num_leaves": len(arrays), "extra": extra or {}}
     np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)

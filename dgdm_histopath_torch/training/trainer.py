@@ -35,7 +35,20 @@ and metrics are summed over the ranks by one all-reduce before the clip, so
 a step over W ranks equals the single-process step on the global batch.
 The draws (entity mask, diffusion ``t`` and noise, the contrastive
 subsample) are drawn at the global shape from ``(seed, step)`` and sliced;
-dropout masks come from a stream of each rank's own.
+dropout masks come from a stream of each data rank's own.
+
+Tensor parallelism (a ``model`` axis above 1, ``parallel/tp.py``): the
+wide ``Dense`` kernels are laid out as the JAX trainer lays them
+(``place_state``): each rank keeps its shards of them and of their AdamW
+moments and computes those layers with collectives over its ``model``
+line. The ranks of a line take the same rows and draws (the data path
+above runs over the ``data`` axis only), so they hold the same loss; the
+replicated parameters' gradients are broadcast from the line's first rank,
+and the clip's norm counts each sharded leaf's squares once over the line.
+``state_dict()`` holds whole tensors, equal to one process's, and
+``load_state_dict`` cuts them to this rank's shards again. An axis that is
+neither ``data`` nor ``model`` (``expert``, ``pipe``) leaves the parameters
+replicated, as the JAX trainer does: its ranks compute replicas.
 
 Randomness: the trainer owns one ``torch.Generator`` on its device and
 reseeds it from ``(seed, step)`` at the start of each step, so a run that
@@ -71,8 +84,10 @@ from ..models.dgdm import DGDMModel
 from ..nn.layers import init_parameters
 from ..nn.moe import local_mean, routing_group
 from ..ops.graph import PaddedGraph, band_eligible, in_band_fraction
-from ..parallel.mesh import (Mesh, align_node_batches, make_mesh, pad_batch_to_devices,
-                             replicate_tree, shard_batch, shard_rows)
+from ..parallel.mesh import (MODEL_AXIS, Mesh, align_node_batches, make_mesh,
+                             pad_batch_to_devices, replicate_tree, shard_batch, shard_rows)
+from ..parallel.tp import (describe_sharding, gather_state, grad_norm, nest, place_state_tp,
+                           shard_state, tp_size, unify_replicated)
 from ..utils.config import DGDMConfig
 from ..utils.device import resolve_device
 from ..utils.monitoring import monitor_operation
@@ -180,11 +195,13 @@ def make_optimizer(cfg: TrainerConfig, params: Iterable[torch.nn.Parameter]
 
 
 def clip_and_step(params: list, optimizer: torch.optim.Optimizer, lr: float,
-                  max_norm: float) -> torch.Tensor:
-    """Clip the parameters' gradients by their global norm and take one
-    AdamW step at rate ``lr``; returns the norm before clipping."""
+                  max_norm: float, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Clip the parameters' gradients by their global norm (``norm`` where
+    the caller has it) and take one AdamW step at rate ``lr``; returns the
+    norm before clipping."""
     grads = [p.grad for p in params]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     for group in optimizer.param_groups:
@@ -206,7 +223,8 @@ class DGDMTrainer:
     ``device=None`` means ``"cuda"`` and raises when no card is present.
     ``mesh``: a ``parallel.Mesh``; by default ``make_mesh()``, which spans
     the initialized process group, or one process when there is none (the
-    single-process path).
+    single-process path). Its ``data`` axis splits the batch, its ``model``
+    axis lays the parameters out tensor-parallel.
     """
 
     def __init__(self, model: DGDMModel, config: Optional[TrainerConfig] = None,
@@ -219,8 +237,10 @@ class DGDMTrainer:
             ("regression" if model.regression_targets else
              ("survival" if model.survival_mode else None)))
         self.mesh = mesh if mesh is not None else make_mesh()
-        # the data-parallel path runs wherever there is a process group
+        # the data-parallel path runs wherever the data axis has a group
         self._dp: Optional[Mesh] = self.mesh if self.mesh.group is not None else None
+        self._tp = self.mesh.axis(MODEL_AXIS) if tp_size(self.mesh) > 1 else None
+        self._sharded: list[bool] = []      # per parameter: a tensor-parallel shard
         self.lr_schedule = make_lr_schedule(self.config)
         self.optimizer: Optional[torch.optim.AdamW] = None
         self.params: list[torch.nn.Parameter] = []
@@ -241,7 +261,7 @@ class DGDMTrainer:
     @property
     def is_writer(self) -> bool:
         """Whether this process writes checkpoints and logs (rank 0)."""
-        return self._dp is None or self._dp.rank == 0
+        return self.mesh.world_rank == 0
 
     # ------------------------------------------------------------------
     # state
@@ -249,23 +269,63 @@ class DGDMTrainer:
     def init_state(self, seed: int = 0, example_batch: Optional[PaddedGraph] = None) -> None:
         """Start a run at step 0: a fresh optimizer state over the model's
         parameters as they are (``create_model`` drew them from its seed, a
-        converted bundle brings its own; under data parallelism rank 0's are
-        broadcast) and ``seed`` for the steps' draws.
+        converted bundle brings its own; over several ranks rank 0's are
+        broadcast, then ``place_state`` lays them out) and ``seed`` for the
+        steps' draws.
 
         ``example_batch`` is held to the band guard: a ``graph_window`` model
         on a batch with under 99% of its edges in-band raises ``ValueError``
         (or warns, with ``allow_out_of_band_graphs``)."""
         if example_batch is not None:
             self._check_band(example_batch)
+        if getattr(self.model, "tp_layout", None) is None:
+            replicate_tree(list(self.model.parameters()), self.mesh, "world")
+        self.place_state()
         self.params = [p for p in self.model.parameters() if p.requires_grad]
+        layout = self.model.tp_layout
+        self._sharded = [name in layout for name, p in self.model.named_parameters()
+                         if p.requires_grad]
         self.optimizer = make_optimizer(self.config, self.params)
         self.seed, self.step, self.mini_step = int(seed), 0, 0
         self.accumulated = ([torch.zeros_like(p) for p in self.params]
                             if self.config.accumulate_grad_batches > 1 else [])
-        if self._dp:
-            replicate_tree(self.params, self._dp)
         n_params = sum(p.numel() for p in self.params)
         logger.info("training %.2fM parameters on %s", n_params / 1e6, self.device)
+
+    def place_state(self) -> Dict[str, int]:
+        """Lay the model's parameters out on the mesh (at init; a restored
+        state is cut to the same layout by ``load_state_dict``): under a
+        ``model`` axis above 1 this rank keeps its shards of the
+        tensor-parallel kernels (``parallel.tp.place_state_tp``); otherwise
+        every parameter stays whole. Returns ``{name: sharded dim}``."""
+        layout = place_state_tp(self.model, self.mesh)
+        if self._tp is not None:
+            from ..convert import params_to_flax
+            tree = nest(params_to_flax({k: v for k, v in self.model.named_parameters()},
+                                       self.model))
+            logger.info("tensor-parallel layout over %d ranks: %d parameters sharded (%s)",
+                        self._tp.size, len(layout), describe_sharding(tree, self.mesh))
+        return layout
+
+    def _tp_state(self, state: Dict[str, Any], cut: bool) -> Dict[str, Any]:
+        """A ``state_dict()``'s model, moments and accumulated gradients as
+        whole tensors (gathered over the ``model`` line: a collective), or
+        with ``cut`` a saved state's whole tensors cut to this rank's
+        shards."""
+        layout, tp = self.model.tp_layout, self._tp
+        move = shard_state if cut else gather_state
+        names = [n for n, p in self.model.named_parameters() if p.requires_grad]
+
+        def moments(i, s):
+            dims = {k: layout[names[i]] for k in s if names[i] in layout and k != "step"}
+            return move(s, dims, tp)
+
+        opt = {**state["optimizer"], "state": {int(i): moments(int(i), s) for i, s in
+                                               state["optimizer"]["state"].items()}}
+        acc = state.get("accumulation", {"grads": [], "mini_step": 0})
+        grads = [move({n: g}, layout, tp)[n] for n, g in zip(names, acc["grads"])]
+        return {**state, "model": move(state["model"], layout, tp), "optimizer": opt,
+                "accumulation": {**acc, "grads": grads}}
 
     def _check_band(self, batch: PaddedGraph) -> None:
         gw = self.model.graph_window
@@ -286,19 +346,33 @@ class DGDMTrainer:
     def state_dict(self) -> Dict[str, Any]:
         """What a resume needs: the model's parameters, the AdamW state,
         ``step``, ``seed``, ``current_epoch`` and, with accumulation, the
-        running-mean gradient and ``mini_step`` (tensors on the device)."""
+        running-mean gradient and ``mini_step`` (tensors on the device).
+        Under tensor parallelism the tensors are whole, gathered over the
+        ``model`` line (every rank of it must call this)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "step": self.step, "seed": self.seed, "current_epoch": self.current_epoch,
-                "accumulation": {"grads": list(self.accumulated),
-                                 "mini_step": self.mini_step}}
+        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                 "step": self.step, "seed": self.seed, "current_epoch": self.current_epoch,
+                 "accumulation": {"grads": list(self.accumulated),
+                                  "mini_step": self.mini_step}}
+        return self._tp_state(state, cut=False) if self._tp is not None else state
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters and buffers as whole tensors (a collective
+        over the ``model`` line under tensor parallelism)."""
+        state = self.model.state_dict()
+        if self._tp is not None:
+            state = gather_state(state, self.model.tp_layout, self._tp)
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Take up a ``state_dict()`` (from this device or another); under
-        data parallelism rank 0's copy is then broadcast."""
+        """Take up a ``state_dict()`` (from this device or another; whole
+        tensors, which tensor parallelism cuts to this rank's shards); under
+        data parallelism the first data rank's copy is then broadcast."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
+        if self._tp is not None:
+            state = self._tp_state(state, cut=True)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step, self.seed = int(state["step"]), int(state["seed"])
@@ -460,13 +534,22 @@ class DGDMTrainer:
                              f"ranks ({b} graphs of {n} nodes a rank)")
         self._moe_group = grp
 
-    def _update(self, grads: list) -> None:
+    def _grad_norm(self, grads: list) -> torch.Tensor:
+        """The global norm of the whole gradient (under tensor parallelism
+        from this rank's shards and the replicated leaves)."""
+        if self._tp is not None:
+            return grad_norm(grads, self._sharded, self._tp)
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+    def _update(self, grads: list, norm: Optional[torch.Tensor] = None) -> None:
         """Clip + AdamW, or with ``accumulate_grad_batches = k > 1`` fold
-        ``grads`` into the running mean and apply it every k-th call."""
+        ``grads`` into the running mean and apply it every k-th call.
+        ``norm``: the global norm of ``grads`` where the caller has it."""
         k = self.config.accumulate_grad_batches
         if k == 1:
             clip_and_step(self.params, self.optimizer, self.lr_schedule(self.step),
-                          self.config.gradient_clip_val)
+                          self.config.gradient_clip_val,
+                          self._grad_norm(grads) if norm is None else norm)
             return
         acc, n = self.accumulated, self.mini_step
         torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc), n + 1))
@@ -475,7 +558,7 @@ class DGDMTrainer:
                 p.grad = a.clone()
             # the rate follows the applied updates: this is update step // k
             clip_and_step(self.params, self.optimizer, self.lr_schedule(self.step // k),
-                          self.config.gradient_clip_val)
+                          self.config.gradient_clip_val, self._grad_norm(acc))
             torch._foreach_zero_(acc)
         self.mini_step = (n + 1) % k
 
@@ -530,11 +613,14 @@ class DGDMTrainer:
         grads = [p.grad for p in self.params]
         names = sorted(metrics)             # in key order, as the reference returns them
         values = torch.stack([metrics[k].detach().float() for k in names])
+        if self._tp is not None:
+            # the replicas of a model line stay equal to the bit
+            unify_replicated(grads, self._sharded, self._tp)
         if self._dp:
             # one all-reduce sums the gradients and the metrics' shares
             values = self._dp.sum_grads(grads, values)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        self._update(grads)
+        norm = self._grad_norm(grads)
+        self._update(grads, norm)
         self.step += 1
 
         metrics = dict(zip(names, values.unbind()))
@@ -624,8 +710,8 @@ class DGDMTrainer:
             yield like
 
     def _agree(self, flag: bool) -> bool:
-        """``flag`` on any rank (a host-side collective under data parallelism)."""
-        return self._dp.any(flag) if self._dp else flag
+        """``flag`` on any rank (a host-side collective over several ranks)."""
+        return self.mesh.any(flag) if self.mesh.world is not None else flag
 
     def _await_upload(self, prepared) -> PaddedGraph:
         """Make the current stream wait for the batch's upload, and keep its
@@ -649,7 +735,8 @@ class DGDMTrainer:
         ``checkpoint_manager``: a ``CheckpointManager``; after each validated
         epoch it saves ``state_dict()`` at step ``epoch`` with ``val_loss``.
         ``train_logger``: a ``TrainLogger`` that receives every epoch summary.
-        Under data parallelism only rank 0 saves and logs; every rank takes
+        Over several ranks only rank 0 saves and logs (under tensor
+        parallelism every rank gathers the state it saves); every rank takes
         the same steps, scores the same global validation batches and stops
         at the same step boundary on a preemption (the ranks agree on it).
         ``restore_best_params`` keeps a host copy of the parameters at the
@@ -664,8 +751,17 @@ class DGDMTrainer:
         """
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
+        # under tensor parallelism every rank gathers the state the writer saves
+        gathering = self._tp is not None and self._agree(
+            checkpoint_manager is not None and self.is_writer)
         if not self.is_writer:
             checkpoint_manager = train_logger = None
+
+        def save(**kwargs) -> None:
+            if checkpoint_manager is not None or gathering:
+                state = self.state_dict()
+                if checkpoint_manager is not None:
+                    checkpoint_manager.save(state, step=self.current_epoch, **kwargs)
         max_epochs = max_epochs or self.config.max_epochs
         best_val, best_params, patience = float("inf"), None, 0
         first_epoch = self.current_epoch
@@ -701,9 +797,7 @@ class DGDMTrainer:
             if interrupted:
                 resume_info = {"epoch": epoch, "step_in_epoch": n_steps, "mid_epoch": True}
                 logger.warning("preemption: stopping at epoch %d step %d", epoch, n_steps)
-                if checkpoint_manager is not None:
-                    checkpoint_manager.save(self.state_dict(), step=epoch,
-                                            extra={"resume": resume_info})
+                save(extra={"resume": resume_info})
                 break
             summary: Dict[str, Any] = {f"train_{k}": float(v) / max(n_steps - skip, 1)
                                        for k, v in totals.items()}
@@ -724,9 +818,7 @@ class DGDMTrainer:
                     v = cat("valid") > 0
                     summary["val_cindex"] = concordance_index(
                         cat("time")[v], cat("risk")[v], cat("event")[v])
-                if checkpoint_manager is not None:
-                    checkpoint_manager.save(self.state_dict(), step=epoch,
-                                            metric=summary["val_loss"])
+                save(metric=summary["val_loss"])
                 if summary["val_loss"] < best_val - 1e-6:
                     best_val, patience = summary["val_loss"], 0
                     if restore_best_params:
@@ -773,9 +865,9 @@ class DGDMTrainer:
         """A trainer over a ``DGDMModel`` built from ``cfg.model`` (the
         classification / regression / survival sections switch their heads
         on), its parameters drawn from ``cfg.experiment.seed``. Without
-        ``mesh``, ``hardware.mesh_shape`` / ``mesh_axes`` give one (a mesh
-        with an axis other than ``data`` above 1 raises naming ROADMAP item
-        12); ``hardware.devices`` is not read, as in the reference. A
+        ``mesh``, ``hardware.mesh_shape`` / ``mesh_axes`` give one (with a
+        ``model`` axis the tensor-parallel layout); ``hardware.devices`` is
+        not read, as in the reference. A
         ``param_dtype`` other than float32 raises naming item 8."""
         hw = cfg.hardware
         if mesh is None and hw.mesh_shape:

@@ -11,6 +11,7 @@ import json
 import logging
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -187,10 +188,16 @@ def test_trainer_from_config_builds_the_configured_model_from_its_seed():
     ({"hardware": {"mesh_shape": [1, 4], "mesh_axes": ["data", "expert"]}}, 12),
 ])
 def test_unported_config_options_raise_naming_their_item(over, item):
-    """A mesh with an axis other than ``data`` above 1 and bfloat16
-    parameters raise naming their item; ``moe_experts`` and
-    ``accumulate_grad_batches`` build and take a step."""
+    """bfloat16 parameters raise naming their item; a mesh with an axis other
+    than ``data`` above 1 is taken (item 12) and, without a process group,
+    asks for its ranks; ``moe_experts`` and ``accumulate_grad_batches`` build
+    and take a step."""
     cfg = tconfig.load_config(overrides=over)
+    if item == 12:
+        ranks = int(np.prod(over["hardware"]["mesh_shape"]))
+        with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
+            DGDMTrainer.from_config(cfg, device="cpu")
+        return
     if item is not None:
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
             DGDMTrainer.from_config(cfg, device="cpu").init_state(0)

@@ -7,7 +7,8 @@ has only PyTorch:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: gather_rows is a copy (bit-equal); gather_agg sums K f32 terms
-in another order than the plain version (1e-5); a training step with
+in another order than the plain version (1e-5), also over a table of
+another row count than its indices (the halo tier); a training step with
 ``use_remat`` recomputes the same kernels on the same inputs (1e-6 of each
 gradient tensor's largest entry against the plain step); the transposed neighbor
 list is fixed by idx (bit-equal); the two backward kernels sum each row in
@@ -118,6 +119,38 @@ def test_gather_agg_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     ok = (idx >= 0) & (idx < shape[1])
     torch.testing.assert_close(out, weighted_gather_sum_plain(src, idx.clamp(0, shape[1] - 1),
                                                               w * ok), atol=1e-5, rtol=1e-5)
+
+
+# rectangular tables (the halo tier): (B, N query rows, K, F, N_src table rows)
+RECT_SHAPES = [(32, 512, 8, 128, 620), (32, 2, 57, 128, 512), (3, 100, 5, 24, 37),
+               (2, 37, 40, 1, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RECT_SHAPES)
+def test_rectangular_gathers_match_plain_on_card(cuda_device, dtype, shape):
+    """A table of N_src rows read by N rows of K slots (indices -2 ..
+    N_src + 1): gather_rows bit-equal to its plain version, gather_agg
+    within 1e-5, one launch each; the backward of either raises (the halo
+    tier is forward only)."""
+    b, n, k, f, n_src = shape
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    src = torch.randn(b, n_src, f, device=cuda_device, generator=g).to(dtype)
+    idx = torch.randint(-2, n_src + 2, (b, n, k), device=cuda_device, generator=g,
+                        dtype=torch.int32)
+    w = torch.rand(b, n, k, device=cuda_device, generator=g)
+    rows, agg = kernels.GATHER_ROWS.launches, kernels.GATHER_AGG.launches
+    out = gather_rows(src, idx)
+    summed = weighted_gather_sum(src, idx, w)
+    torch.cuda.synchronize()
+    assert (kernels.GATHER_ROWS.launches, kernels.GATHER_AGG.launches) == (rows + 1, agg + 1)
+    assert out.shape == (b, n, k, f) and torch.equal(out, gather_rows_plain(src, idx))
+    torch.testing.assert_close(summed, weighted_gather_sum_plain(src, idx, w),
+                               atol=1e-5, rtol=1e-5)
+    leaf = src.float().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        gather_rows(leaf.to(dtype), idx).sum().backward()
 
 
 @pytest.mark.cuda

@@ -331,10 +331,14 @@ def test_moe_group_straddling_two_ranks_raises(dp):
 
 
 def test_mesh_axes_shapes_and_filler_graphs():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+    """Every axis is taken (item 12): a mesh of more than one rank needs a
+    process group of as many; the axes must be named apart."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh(axes=("data", "model"), shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+    with pytest.raises(ValueError, match="needs 4 ranks"):
         make_mesh(axes=("data", "expert"), shape=(2, 2))
+    with pytest.raises(ValueError, match="distinct"):
+        make_mesh(axes=("data", "data"), shape=(1, 1))
     with pytest.raises(ValueError, match="equal|differ"):
         make_mesh(axes=("data",), shape=(1, 1))
     with pytest.raises(ValueError, match="needs 2 ranks"):
@@ -542,8 +546,8 @@ def test_cli_world_size_and_the_inert_devices_option(graph_files):
         ttrain.world_size(cfg, torch.device("cuda"))
     cfg = ttrain.merge_cli_config(ttrain.build_parser().parse_args(
         _cli(graph_files, "x", "--mesh-shape", "2,2", "--mesh-axes", "data,expert")))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
-        ttrain.world_size(cfg, torch.device("cpu"))
+    assert ttrain.world_size(cfg, torch.device("cpu")) == 4
+    assert cfg.hardware.mesh_axes == ["data", "expert"]
 
 
 def test_clip_and_step_is_the_trainers_update_rule():

@@ -417,8 +417,8 @@ def test_trainer_steps_replay_from_seed_and_step():
 # ---------------------------------------------------------------------------
 
 def test_unported_trainer_options_raise_naming_the_roadmap(monkeypatch, tmp_path):
-    """A mesh with a ``model`` axis raises naming item 12; gradient
-    accumulation is taken; the fit options of item 11 (a checkpoint
+    """A mesh with a ``model`` axis is taken (item 12) and asks for its ranks;
+    gradient accumulation is taken; the fit options of item 11 (a checkpoint
     manager, a train logger, a preemption guard, a mid-epoch start) are
     ported and taken; ``TrainerConfig.from_config`` reads a config."""
     from dgdm_histopath_torch.parallel import make_mesh
@@ -426,7 +426,7 @@ def test_unported_trainer_options_raise_naming_the_roadmap(monkeypatch, tmp_path
     from dgdm_histopath_torch.utils.config import DGDMConfig
 
     model = DGDMModel(**KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         DGDMTrainer(model, device="cpu", mesh=make_mesh(axes=("data", "model"), shape=(1, 2)))
     tt = DGDMTrainer(model, TrainerConfig(accumulate_grad_batches=4), device="cpu")
     tt.init_state(0)

@@ -6,11 +6,15 @@ values and tensors), starts ``world`` spawned processes over a gloo group
 that meets at a ``file://`` rendezvous under ``tmp`` (no port, so parallel
 test workers never collide), runs each spec's ``job`` in turn in every rank
 (with the spec's ``env`` set while it runs: ``LOCAL_WORLD_SIZE=1`` makes the
-two ranks two nodes) and returns, per rank, the list of results.
+two ranks two nodes) and returns, per rank, the list of results. A spec's
+``module`` names the module of its job (``torch_parallel_worker``), and its
+``world`` a smaller group for it: ranks from ``world`` on sit it out (their
+result is None), and the group is made anew where the size changes.
 """
 
 from __future__ import annotations
 
+import importlib
 import multiprocessing
 import os
 import sys
@@ -24,8 +28,8 @@ def spawn_ranks(world: int, specs: list, tmp: Path, timeout: float = 300.0) -> l
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     torch.save(specs, tmp / "spec.pt")
-    rendezvous = tmp / "rendezvous"
-    rendezvous.unlink(missing_ok=True)
+    for stale in tmp.glob("rendezvous*"):
+        stale.unlink()
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_main, args=(r, world, str(tmp))) for r in range(world)]
     for p in procs:
@@ -48,16 +52,26 @@ def _main(rank: int, world: int, tmp: str) -> None:
     import torch.distributed as dist
 
     tmp = Path(tmp)
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    here = Path(__file__).resolve()
+    sys.path[:0] = [str(here.parents[1]), str(here.parent)]
     torch.set_num_threads(1)
     try:
         specs = torch.load(tmp / "spec.pt", weights_only=False)
-        dist.init_process_group("gloo", init_method=f"file://{tmp / 'rendezvous'}",
-                                world_size=world, rank=rank)
+        result, size = [], None
         try:
-            result = [_run_job(spec, rank) for spec in specs]
+            for i, spec in enumerate(specs):
+                if spec.get("world", world) != size:
+                    size = spec.get("world", world)
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+                    if rank < size:
+                        dist.init_process_group(
+                            "gloo", init_method=f"file://{tmp / f'rendezvous{i}'}",
+                            world_size=size, rank=rank)
+                result.append(_run_job(spec, rank) if rank < size else None)
         finally:
-            dist.destroy_process_group()
+            if dist.is_initialized():
+                dist.destroy_process_group()
         torch.save(result, tmp / f"result{rank}.pt")
     except BaseException:  # noqa: BLE001 - reported to the parent
         (tmp / f"error{rank}.txt").write_text(traceback.format_exc())
@@ -67,8 +81,9 @@ def _main(rank: int, world: int, tmp: str) -> None:
 def _run_job(spec, rank):
     saved = {k: os.environ.get(k) for k in spec.get("env", {})}
     os.environ.update(spec.get("env", {}))
+    jobs = importlib.import_module(spec["module"]).JOBS if "module" in spec else JOBS
     try:
-        return JOBS[spec["job"]](spec, rank)
+        return jobs[spec["job"]](spec, rank)
     finally:
         for k, v in saved.items():
             if v is None:
