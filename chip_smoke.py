@@ -133,9 +133,15 @@ Phases, each of which raises on a failed check:
      equal) and the halo tier over a model axis of 2 on the Morton-sorted
      Base graphs (halo_gather equal to the dense gather on every real slot,
      sp_graph_conv within 1e-5 of GraphConvolution, H and the halo
-     fraction); then 4 and 8 of them run ``dryrun_multichip``. Last, both
-     gather kernels with a rectangular table at the halo shapes against
-     their plain versions (bit-equal, 1e-5), timed.
+     fraction) and DGDM-Base at full width over node-sharded inputs
+     (``sp_forward`` over (1, 2) on 8 Morton-sorted Base graphs: f32 logits
+     within 1e-4 of one process, bf16 logits against one process and f32,
+     the pooled selections slot for slot, each rank's launches against its
+     prediction, peak memory a rank against one process, and the same on
+     one graph of 8000 nodes in the 8192 bucket); then 4 and 8 of them run
+     ``dryrun_multichip``. Last, both gather kernels with a rectangular
+     table at the halo shapes against their plain versions (bit-equal,
+     1e-5), timed.
 
 It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -143,7 +149,8 @@ non-zero without a CUDA device or without the port beside it.
 
 ``python3 chip_smoke.py --parallel-only`` runs the build and phase 16 alone;
 on a machine of four cards its tiers run over NCCL, one rank a card (TP
-(2, 2), PP over 4 stages, EP (2, 2), the halo over 4, ``dryrun_multichip(4)``),
+(2, 2), PP over 4 stages, EP (2, 2), the halo and ``sp_forward`` over a
+model axis of 4, ``dryrun_multichip(4)``),
 followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
 SIGTERM, exit 75 and ``resume``, bit-equal.
 
@@ -2851,20 +2858,38 @@ def dp_cli(torch, card: str, cards: int, mesh: str = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# 16. the parallel tiers: TP, PP, EP, node sharding with the halo exchange
+# 16. the parallel tiers: TP, PP, EP, node sharding with the halo exchange and
+#     the model over node-sharded inputs
 # ---------------------------------------------------------------------------
 
 # Every tier on one card runs as gloo ranks sharing it, held against one
 # process in the same call (host-staged collectives: correctness, not speed);
 # with --parallel-only on four cards over NCCL, one rank a card.
 PAR = dict(tp_epochs=(0, 0, 1), pp_micro=4, dryruns=(4, 8))
+# The model over node-sharded inputs: DGDM-Base at full width on the first 8
+# of the Base cell's graphs, Morton-sorted (f32 and bf16), and one graph of
+# 8000 real nodes in the 8192 bucket, the JAX tier's own case (bf16).
+SP = dict(batch=8, f32_atol=1e-4)
+SP_BIG = dict(BASE, batch=1, bucket=8192, n_real=8000, seed=300)
 
 
 def par_meshes(world: int) -> dict:
     """The mesh shapes of each tier for a world of 2 (one card) or 4."""
     if world == 2:
-        return {"tp": (1, 2), "pp": (1, 2), "ep": (1, 2), "halo": (1, 2)}
-    return {"tp": (2, 2), "pp": (1, 4), "ep": (2, 2), "halo": (1, 4)}
+        return {"tp": (1, 2), "pp": (1, 2), "ep": (1, 2), "halo": (1, 2), "sp": (1, 2)}
+    return {"tp": (2, 2), "pp": (1, 4), "ep": (2, 2), "halo": (1, 4), "sp": (1, 4)}
+
+
+def sp_expected_launches(cell: dict) -> dict:
+    """A rank's launches in one ``sp_forward``: a forward's (each
+    DynamicGraphLayer one key gather and two aggregations) and, at each of the
+    full-N layers (the encoder's and the U-Net's down0 and up0), one
+    gather_rows more for each of the three halo tables it reads (the key
+    table and both convolutions' features). The pooled levels read
+    all-gathered tables and launch as one process does."""
+    full = cell["encoder_layers"] + 2
+    return {**expected_launches(cell, training=False),
+            "gather_rows": cell["layers"] + 3 * full}
 
 
 def par_rank(rank: int, size: int, backend: str, root: str, jobs: list) -> None:
@@ -3023,6 +3048,64 @@ def par_halo(torch, spec, device) -> dict:
             "sp_launches": s_launch, "index": mesh.axis("model").index, "tp": shape[1]}
 
 
+def sp_measure(torch, fn) -> dict:
+    """One forward ``fn()`` without a gradient: its output, its launches
+    (counted alone), its peak memory (of the process, and above what was
+    allocated before it) and the wall time of a second call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out, launches = counted_call(torch, fn)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fn()
+    torch.cuda.synchronize()
+    return {"out": out, "launches": launches, "peak_gib": peak / 2 ** 30,
+            "above_gib": (peak - before) / 2 ** 30, "wall_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def sp_model(torch, dtype: str, device):
+    from dgdm_histopath_torch import create_model
+
+    return create_model("dgdm-base", num_classes=2, compute_dtype=dtype, dropout=0.0,
+                        device=device, seed=1)
+
+
+def sp_result(r: dict, sel, emb: bool) -> dict:
+    """The host copy of a measured forward: logits, selections, numbers."""
+    out = r.pop("out")
+    r.update(logits=out["classification_logits"].float().cpu(), sel=[t.cpu() for t in sel])
+    if emb:
+        r["emb"] = out["node_embeddings"].float().cpu()
+    return r
+
+
+def par_sp(torch, spec, device) -> dict:
+    """DGDM-Base over node-sharded inputs (``sp_forward``) on this rank's block,
+    f32 and bf16 on the 8 sorted Base graphs and bf16 on the 8192-node graph:
+    logits, selections, launches, peak memory and wall time of each."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes, sp_forward
+
+    shape = par_meshes(dist.get_world_size())["sp"]
+    mesh = make_mesh(axes=("data", "model"), shape=shape)
+    out = {"tp": shape[1], "index": mesh.axis("model").index}
+    for name, dtype, batch, plans in (("float32", "float32", "sp_batch", "sp_plans"),
+                                      ("bfloat16", "bfloat16", "sp_batch", "sp_plans"),
+                                      ("big", "bfloat16", "sp_big", "sp_big_plans")):
+        model = sp_model(torch, dtype, device)
+        block = shard_graph_nodes(spec[batch], mesh).to(device)
+        plan = spec[plans][shape[1]]
+        r = sp_measure(torch, lambda: sp_forward(model, block, plan, mesh))
+        out[name] = sp_result(r, r["out"]["pool_sel_idx"], emb=name == "float32")
+        del model, block
+        torch.cuda.empty_cache()
+    return out
+
+
 def par_dryrun(n: int):
     def job(torch, spec, device) -> dict:
         from dgdm_histopath_torch.parallel import dryrun_multichip
@@ -3034,7 +3117,7 @@ def par_dryrun(n: int):
     return job
 
 
-PAR_JOBS = {"tp": par_tp, "pp": par_pp, "ep": par_ep, "halo": par_halo,
+PAR_JOBS = {"tp": par_tp, "pp": par_pp, "ep": par_ep, "halo": par_halo, "sp": par_sp,
             **{f"dryrun{n}": par_dryrun(n) for n in PAR["dryruns"]}}
 
 
@@ -3122,7 +3205,38 @@ def par_spec(torch, graphs) -> tuple:
             "conv": (128, 128, 3), "conv_state": {k: v.cpu() for k, v in conv.state_dict().items()}}
     del fresh, moe, conv, model
     torch.cuda.empty_cache()
+    sp_spec(torch, graphs, spec, ref)
     return spec, ref
+
+
+def sp_spec(torch, graphs, spec: dict, ref: dict, device="cuda") -> None:
+    """The inputs of the ``sp_forward`` job (the sorted graphs and their
+    plans for a model axis of 2 and 4) into ``spec``, and one process's
+    forward of the same model on each into ``ref["sp"]``."""
+    from dgdm_histopath_torch import batch_graphs
+    from dgdm_histopath_torch.parallel import halo
+
+    t0 = time.perf_counter()
+    spec["sp_batch"] = batch_graphs([halo.spatial_sort(g) for g in graphs[:SP["batch"]]])
+    spec["sp_big"] = batch_graphs([halo.spatial_sort(g)
+                                   for g in make_graphs(SP_BIG, seed=SP_BIG["seed"])])
+    for key, plans in (("sp_batch", "sp_plans"), ("sp_big", "sp_big_plans")):
+        spec[plans] = {tp: halo.build_halo_plan(spec[key].nbr_idx, spec[key].nbr_mask, tp)
+                       for tp in (2, 4)}
+    ref["sp_inputs_s"] = time.perf_counter() - t0
+    ref["sp"] = {"halo_size": {tp: p.halo_size for tp, p in spec["sp_plans"].items()}}
+    for name, dtype, key in (("float32", "float32", "sp_batch"),
+                             ("bfloat16", "bfloat16", "sp_batch"), ("big", "bfloat16", "sp_big")):
+        model = sp_model(torch, dtype, device)
+        sel = {}
+        for d in range(2):
+            getattr(model.graph_unet, f"pool{d}").register_forward_hook(
+                lambda m, i, o, d=d: sel.__setitem__(d, o["sel_idx"]))
+        on = spec[key].to(device)
+        r = sp_measure(torch, lambda: model(on))
+        ref["sp"][name] = sp_result(r, [sel[0], sel[1]], emb=name == "float32")
+        del model, on
+        torch.cuda.empty_cache()
 
 
 def par_rect_kernels(torch, spec) -> dict:
@@ -3267,6 +3381,8 @@ def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
     if not equal or sp_err > 1e-5:
         raise AssertionError("the halo tier differs from the dense path")
 
+    out["sp"] = sp_compare(torch, [r["sp"] for r in got], ref["sp"], card)
+
     for n in PAR["dryruns"]:
         if f"dryrun{n}" in got[0]:
             r = got[0][f"dryrun{n}"]
@@ -3275,19 +3391,102 @@ def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
     return out
 
 
+def sel_agreement(got, want) -> tuple:
+    """(the share of pooled slots holding the same node, the share of (graph,
+    level) pairs whose selected node sets are equal)."""
+    slots = sum((a == b).sum().item() for a, b in zip(got, want)) / sum(b.numel() for b in want)
+    sets = [bool((a.sort().values == b.sort().values).all())
+            for x, y in zip(got, want) for a, b in zip(x, y)]
+    return slots, sum(sets) / len(sets)
+
+
+def sp_compare(torch, ranks: list, ref: dict, card: str) -> dict:
+    """Each rank's ``sp_forward`` against one process on the same inputs:
+    f32 logits within SP["f32_atol"] and node embeddings reported; bf16
+    logits no further from the f32 one-process logits than 3x one process's
+    bf16 plus 1e-3; selections compared slot for slot; every rank's launches
+    as predicted; on the 8192-node graph each rank's peak above its resident
+    memory below one process's. Raises on a failed bound."""
+    tp = ranks[0]["tp"]
+    expected = sp_expected_launches(BASE)
+    f32 = ref["float32"]
+    n_loc = f32["emb"].shape[1] // tp
+    out = {"tp": tp, "expected_launches": expected}
+    for name in ("float32", "bfloat16", "big"):
+        one = ref[name]
+        agree = [sel_agreement(r[name]["sel"], one["sel"]) for r in ranks]
+        out[name] = {
+            "logits_err": max((r[name]["logits"] - one["logits"]).abs().max().item()
+                              for r in ranks),
+            "finite": all(bool(torch.isfinite(r[name]["logits"]).all()) for r in ranks),
+            "sel_slots_equal": min(a[0] for a in agree),
+            "sel_sets_equal": min(a[1] for a in agree),
+            "launches": [r[name]["launches"] for r in ranks], "one_launches": one["launches"],
+            "peak_gib": [r[name]["peak_gib"] for r in ranks], "one_peak_gib": one["peak_gib"],
+            "above_gib": [r[name]["above_gib"] for r in ranks],
+            "one_above_gib": one["above_gib"],
+            "wall_ms": [r[name]["wall_ms"] for r in ranks], "one_wall_ms": one["wall_ms"]}
+    out["emb_err"] = max((r["float32"]["emb"] - f32["emb"][:, r["index"] * n_loc:
+                                                         (r["index"] + 1) * n_loc])
+                         .abs().max().item() for r in ranks)
+    # the rows a rank receives for one f32 table of 128 features: a halo
+    # table at the full-N levels, an all-gathered one at the pooled levels
+    h, b, n = ref["halo_size"][tp], SP["batch"], f32["emb"].shape[1]
+    out["table_bytes"] = {"halo, N": b * (tp - 1) * h * 128 * 4,
+                          **{f"all-gather, N/{2 ** d}": b * (tp - 1) * (n >> d) // tp * 128 * 4
+                             for d in (1, 2)}}
+    log(f"parallel: sp_forward bytes a rank receives a table (f32, F 128, batch {b}): "
+        f"{out['table_bytes']} (H {h}) [{card}]")
+    bf = out["bfloat16"]
+    bf["one_vs_f32"] = (ref["bfloat16"]["logits"] - f32["logits"]).abs().max().item()
+    bf["sp_vs_f32"] = max((r["bfloat16"]["logits"] - f32["logits"]).abs().max().item()
+                          for r in ranks)
+    bf["bound"] = 3 * bf["one_vs_f32"] + 1e-3
+    def gathers(c):
+        return {k: c[k] for k in ("gather_rows", "gather_agg")}
+
+    for name, what in (("float32", f"Base f32 batch {SP['batch']} bucket 1024"),
+                       ("bfloat16", f"Base bf16 batch {SP['batch']} bucket 1024"),
+                       ("big", "Base bf16 one graph of 8000 nodes, bucket 8192")):
+        r = out[name]
+        log(f"parallel: sp_forward (1, {tp}) (data, model), {what}: logits within "
+            f"{r['logits_err']:.2e} of one process, finite {r['finite']}; pooled slots equal "
+            f"{r['sel_slots_equal']:.4f}, selected sets equal {r['sel_sets_equal']:.3f}; a "
+            f"rank's launches {gathers(r['launches'][0])} (predicted {gathers(expected)}; one "
+            f"process {gathers(r['one_launches'])}); peak GiB a rank "
+            f"{[round(x, 3) for x in r['peak_gib']]} "
+            f"({[round(x, 3) for x in r['above_gib']]} above resident) against "
+            f"{r['one_peak_gib']:.3f} ({r['one_above_gib']:.3f}) for one process; wall "
+            f"{[round(x, 1) for x in r['wall_ms']]} ms against {r['one_wall_ms']:.1f} [{card}]")
+    log(f"parallel: sp_forward f32 node embeddings within {out['emb_err']:.2e} of one "
+        f"process's block; bf16 logits {bf['sp_vs_f32']:.3e} from the f32 one-process logits "
+        f"(one process's bf16 {bf['one_vs_f32']:.3e}, bound {bf['bound']:.3e}) [{card}]")
+    failed = {"f32 logits": out["float32"]["logits_err"] > SP["f32_atol"],
+              "launches": any(c != expected for n in ("float32", "bfloat16", "big")
+                              for c in out[n]["launches"]),
+              "finite": not all(out[n]["finite"] for n in ("float32", "bfloat16", "big")),
+              "bf16 logits": bf["sp_vs_f32"] > bf["bound"],
+              "8192-node peak": max(out["big"]["above_gib"]) >= out["big"]["one_above_gib"]}
+    if any(failed.values()):
+        raise AssertionError(f"sp_forward: {[k for k, v in failed.items() if v]} failed")
+    return out
+
+
 def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
     """The tiers through their entry points. One card: 8 gloo ranks share it;
-    2 of them run TP (1, 2) on DGDM-Base at full width, PP, EP and the halo
-    tier, then 4 and 8 run ``dryrun_multichip``. Four cards (``cards >= 4``):
-    4 NCCL ranks, one a card, run TP (2, 2), PP (1, 4), EP (2, 2), the halo
-    over 4 and ``dryrun_multichip(4)``. Each tier against one process of
+    2 of them run TP (1, 2) on DGDM-Base at full width, PP, EP, the halo
+    tier and ``sp_forward``, then 4 and 8 run ``dryrun_multichip``. Four
+    cards (``cards >= 4``): 4 NCCL ranks, one a card, run TP (2, 2), PP (1,
+    4), EP (2, 2), the halo and ``sp_forward`` over 4 and
+    ``dryrun_multichip(4)``. Each tier against one process of
     this call; then both kernels with a rectangular table at the halo shapes."""
     import multiprocessing
     import tempfile
 
     backend, world = ("nccl", 4) if cards >= 4 else ("gloo", 2)
     dry = [n for n in PAR["dryruns"] if backend == "gloo" or n <= cards]
-    jobs = [(j, world) for j in ("tp", "pp", "ep", "halo")] + [(f"dryrun{n}", n) for n in dry]
+    jobs = ([(j, world) for j in ("tp", "pp", "ep", "halo", "sp")]
+            + [(f"dryrun{n}", n) for n in dry])
     size = max(w for _, w in jobs)
     t0 = time.perf_counter()
     spec, ref = par_spec(torch, graphs)
@@ -3302,8 +3501,11 @@ def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
                  for r in range(size)]
         for p in procs:
             p.start()
-        for p in procs:
-            p.join(900)
+        # a rank that fails leaves the others waiting in a collective: stop all
+        deadline = time.monotonic() + 900
+        while (any(p.is_alive() for p in procs) and time.monotonic() < deadline
+               and not any(p.exitcode not in (None, 0) for p in procs)):
+            time.sleep(0.5)
         for p in procs:
             if p.is_alive():
                 p.kill()
@@ -3886,6 +4088,7 @@ def main() -> int:
                    "pp_stage_forward_backward": par["pp"]["launches"][name],
                    "halo_gather": par["halo"]["launches"][name],
                    "sp_graph_conv": par["halo"]["sp_launches"][name],
+                   "sp_forward_rank": par["sp"]["float32"]["launches"][0][name],
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}

@@ -230,7 +230,14 @@ class DGDMModel(nn.Module):
         else:
             pooled = self.pool(h, node_mask)
         outputs["graph_embedding"] = pooled
+        outputs.update(self.heads(pooled, **rand))
+        return outputs
 
+    def heads(self, pooled: torch.Tensor, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """The prediction heads' outputs on the pooled embedding [B, F]."""
+        rand = dict(deterministic=deterministic, generator=generator)
+        outputs: Dict[str, Any] = {}
         if self.num_classes is not None:
             outputs["classification_logits"] = self.classification_head(pooled, **rand)
         if self.regression_targets > 0:

@@ -67,6 +67,8 @@ class GraphEncoder(nn.Module):
     ``torch.utils.checkpoint``, so its activations are recomputed in the
     backward instead of kept (:meth:`_checkpointed`). The activation and
     dropout after each layer stay outside, as in the reference.
+    With ``nbrs`` (``nn.graph_layers.Neighbors``: a node block's neighbours,
+    ``parallel/sp.py``) every layer reads its neighbours through it.
     Returns ``{"embeddings", "layer_outputs"[, "attentions"]}``."""
 
     def __init__(self, in_features: int, hidden_dim: int, num_layers: int = 4,
@@ -90,7 +92,8 @@ class GraphEncoder(nn.Module):
 
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None, nbr_t=None) -> Dict[str, object]:
+                generator: Optional[torch.Generator] = None, nbr_t=None,
+                nbrs=None) -> Dict[str, object]:
         h = self.input_proj(x)
         if nbr_t is None:
             nbr_t = transpose_for_backward(nbr_idx)
@@ -105,10 +108,11 @@ class GraphEncoder(nn.Module):
             layer = getattr(self, f"layer{i}")
             if remat:
                 res = self._checkpointed(layer, h, nbr_idx, masked_nbr, e, deterministic,
-                                         generator, nbr_t)
+                                         generator, nbr_t, nbrs)
             else:
                 res = layer(h, nbr_idx, masked_nbr, e, return_attention=return_attention,
-                            deterministic=deterministic, generator=generator, nbr_t=nbr_t)
+                            deterministic=deterministic, generator=generator, nbr_t=nbr_t,
+                            nbrs=nbrs)
             if return_attention:
                 h, attn = res
                 attentions.append(attn)
@@ -125,7 +129,8 @@ class GraphEncoder(nn.Module):
         return result
 
     @staticmethod
-    def _checkpointed(layer, h, nbr_idx, nbr_mask, e, deterministic, generator, nbr_t):
+    def _checkpointed(layer, h, nbr_idx, nbr_mask, e, deterministic, generator, nbr_t,
+                      nbrs=None):
         """``layer`` under a non-reentrant checkpoint. Its dropout draws come
         from ``generator``, whose state ``checkpoint`` does not save (its
         ``preserve_rng_state`` covers only the global generators): the
@@ -147,7 +152,7 @@ class GraphEncoder(nn.Module):
             first = False
             try:
                 return layer(h, nbr_idx, nbr_mask, e, deterministic=deterministic,
-                             generator=generator, nbr_t=nbr_t)
+                             generator=generator, nbr_t=nbr_t, nbrs=nbrs)
             finally:                              # also when the recompute stops early
                 if found is not None:
                     generator.set_state(found)

@@ -34,12 +34,16 @@ class GlobalAttentionPool(nn.Module):
         self.v_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
         self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
 
-    def forward(self, x, node_mask, return_weights: bool = False):
+    def logits_values(self, x):
+        """Per node: (the query's logits [..., N, H] f32, values [..., N, H, D])."""
         heads = (self.num_heads, self.embed_dim // self.num_heads)
         k = self.k_proj(x).unflatten(-1, heads)                  # [..., N, H, D]
         v = self.v_proj(x).unflatten(-1, heads)
         logits = torch.einsum("hd,...nhd->...nh", self.global_query.to(k.dtype), k)
-        logits = logits.float() * (1.0 / math.sqrt(heads[1]))
+        return logits.float() * (1.0 / math.sqrt(heads[1])), v
+
+    def forward(self, x, node_mask, return_weights: bool = False):
+        logits, v = self.logits_values(x)
         weights = masked_softmax(logits, node_mask[..., None], dim=-2)   # over N
         pooled = torch.einsum("...nh,...nhd->...hd", weights.to(v.dtype), v)
         out = self.out_proj(pooled.flatten(-2))

@@ -157,18 +157,30 @@ class SpatialAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, node_mask: torch.Tensor,
                 return_weights: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, keys=None):
         """x [B, N, D], pos [B, N, 2], node_mask [B, N] bool. When not
-        deterministic, dropout falls on the attention weights."""
+        deterministic, dropout falls on the attention weights.
+
+        ``keys``: where the queries' N rows are a block of a larger graph
+        (``parallel/sp.py``), a function taking a per-node tensor of this
+        block [B, N, ...] to that of every key [B, N_k, ...]; the keys'
+        projections, positions and mask go through it, and the route must be
+        dense."""
         pos_enc = sinusoidal_position_encoding_2d(pos, self.embed_dim).to(x.dtype)
         h = x + self.pos_proj(pos_enc)
         heads = (self.num_heads, self.embed_dim // self.num_heads)
+        if keys is None:
+            keys = lambda t: t  # noqa: E731 - every key is a query row
         q = self.q_proj(h).unflatten(-1, heads)
-        k = self.k_proj(h).unflatten(-1, heads)
-        v = self.v_proj(h).unflatten(-1, heads)
+        k = keys(self.k_proj(h)).unflatten(-1, heads)
+        v = keys(self.v_proj(h)).unflatten(-1, heads)
         posf = pos.float()
+        kpos, key_mask = keys(posf), keys(node_mask)
         rate = 0.0 if deterministic else self.dropout
-        route = self.route(x.shape[-2], deterministic, return_weights)
+        route = self.route(k.shape[-3], deterministic, return_weights)
+        if route != "dense" and k.shape[-3] != q.shape[-3]:
+            raise ValueError(f"the {route} route attends within one graph's rows; a block "
+                             f"of {q.shape[-3]} queries over {k.shape[-3]} keys takes dense")
         weights = None
         if route == "flash":
             ctx = flash_spatial_attention(q, k, v, posf, node_mask, tau=self.distance_tau)
@@ -176,8 +188,8 @@ class SpatialAttention(nn.Module):
             ctx = self._windowed(q, k, v, posf, node_mask, rate, generator)
         else:
             ctx, weights = scaled_dot_product_attention(
-                q, k, v, bias=distance_bias(posf, posf, self.distance_tau)[..., None, :, :],
-                key_mask=node_mask, dropout_rate=rate, generator=generator,
+                q, k, v, bias=distance_bias(posf, kpos, self.distance_tau)[..., None, :, :],
+                key_mask=key_mask, dropout_rate=rate, generator=generator,
                 traffic_dtype=self.traffic_dtype)
         out = self.out_proj(ctx.to(self.compute_dtype).flatten(-2))
         out = self.norm(x + out)

@@ -27,7 +27,7 @@ gathers' backwards.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,6 +44,18 @@ from ..ops.graph import (
 from ..ops.kernels.gather_agg import weighted_gather_sum
 from ..ops.kernels.neighbor_transpose import transpose_for_backward
 from .layers import Dense, DenseGeneral, LayerNorm, dropout, gelu
+
+
+class Neighbors(NamedTuple):
+    """Where a layer reads its neighbours' rows from. ``idx`` [B, N, K]
+    indexes the rows of ``table(t)`` [B, N_src, F] for each per-node tensor
+    t [B, N, F] the layer gathers from (masked slots outside [0, N_src));
+    ``norm`` is (edge_norm [B, N, K], self_norm [B, N]) of
+    :func:`symmetric_norm` over the whole graph, at these N rows."""
+
+    idx: torch.Tensor
+    table: Callable[[torch.Tensor], torch.Tensor]
+    norm: Tuple[torch.Tensor, torch.Tensor]
 
 
 class GraphConvolution(nn.Module):
@@ -63,15 +75,19 @@ class GraphConvolution(nn.Module):
         self.edge_lin = Dense(edge_dim, features, bias=False, dtype=dtype) if edge_dim else None
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, nbr_idx, nbr_mask, edge_attr=None, edge_weight=None, nbr_t=None):
+    def forward(self, x, nbr_idx, nbr_mask, edge_attr=None, edge_weight=None, nbr_t=None,
+                nbrs: Optional[Neighbors] = None):
         h = self.lin(x)
-        nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
-        norm, self_norm = symmetric_norm(nbr_idx, nbr_mask)
+        if nbrs is None:
+            nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
+            (norm, self_norm), table = symmetric_norm(nbr_idx, nbr_mask), h
+        else:
+            (norm, self_norm), table, nbr_idx = nbrs.norm, nbrs.table(h), nbrs.idx
         weight = norm.to(h.dtype)
         if edge_weight is not None:
             weight = weight * edge_weight.to(h.dtype)
         weight = weight * nbr_mask.to(h.dtype)
-        agg = weighted_gather_sum(h, nbr_idx, weight.float(), nbr_t).to(h.dtype)
+        agg = weighted_gather_sum(table, nbr_idx, weight.float(), nbr_t).to(h.dtype)
         if self.edge_lin is not None and edge_attr is not None:
             e_sum = (edge_attr.to(h.dtype) * weight[..., None]).sum(-2)
             agg = agg + self.edge_lin(e_sum)
@@ -84,7 +100,9 @@ class DynamicGraphLayer(nn.Module):
     over each node's K slots), two attention-weighted ``GraphConvolution``s,
     then residual + LayerNorm. Returns (out, attn [B, N, K, H]) when asked.
     When not deterministic, dropout falls on the attention weights and
-    between the two convolutions."""
+    between the two convolutions. With ``nbrs`` the key gather and both
+    convolutions read their neighbours through it (``nbr_idx`` is then
+    unused)."""
 
     def __init__(self, in_features: int, features: int, num_heads: int = 8,
                  edge_dim: Optional[int] = None, dropout: float = 0.0,
@@ -108,12 +126,17 @@ class DynamicGraphLayer(nn.Module):
 
     def forward(self, x, nbr_idx, nbr_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None, nbr_t=None):
+                generator: Optional[torch.Generator] = None, nbr_t=None,
+                nbrs: Optional[Neighbors] = None):
         heads = (self.num_heads, self.features // self.num_heads)
+        if nbrs is not None and self.band_window is not None:
+            raise ValueError("a banded layer reads absolute node ids; it takes no nbrs")
         nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
         x_in = self.in_proj(x) if self.in_proj is not None else x
         q = self.q_proj(x_in).unflatten(-1, heads)                 # [B, N, H, D]
-        k_nbr = gather_neighbors(self.k_proj(x_in), nbr_idx, nbr_t)   # [B, N, K, H*D]
+        keys = self.k_proj(x_in)
+        k_nbr = (gather_neighbors(keys, nbr_idx, nbr_t) if nbrs is None      # [B, N, K, H*D]
+                 else gather_neighbors(nbrs.table(keys), nbrs.idx))
         scores = torch.einsum("...nhd,...nkhd->...nkh", q,
                               k_nbr.unflatten(-1, heads)).float()
         if edge_attr is not None and self.edge_k_proj is not None:
@@ -134,10 +157,10 @@ class DynamicGraphLayer(nn.Module):
         if not deterministic:
             attn = dropout(attn, self.dropout, generator)
         edge_weight = attn.mean(-1)                                    # [B, N, K]
-        h = gelu(self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t))
+        h = gelu(self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t, nbrs))
         if not deterministic:
             h = dropout(h, self.dropout, generator)
-        h = self.conv2(h, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t)
+        h = self.conv2(h, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t, nbrs)
         out = self.norm(x_in + h)
         if return_attention:
             return out, attn
@@ -156,12 +179,19 @@ class AdaptiveGraphPooling(nn.Module):
         self.ratio = ratio
         self.score = Dense(features, 1, dtype=dtype)
 
-    def forward(self, x, node_mask, nbr_idx, nbr_mask, edge_attr=None):
-        keep = max(1, int(round(self.ratio * x.shape[-2])))
+    def keep(self, n: int) -> int:
+        """The pooled size of a level of ``n`` nodes."""
+        return max(1, int(round(self.ratio * n)))
+
+    def gate(self, x):
+        """(score [..., N] f32, the score-gated rows [..., N, F]): per node."""
         score = torch.tanh(self.score(x)[..., 0].float())
-        gate = torch.sigmoid(score).to(x.dtype)[..., None]
-        c = compact_top_k_nodes(x * gate, nbr_idx, nbr_mask, node_mask,
-                                score, keep, edge_attr)
+        return score, x * torch.sigmoid(score).to(x.dtype)[..., None]
+
+    def forward(self, x, node_mask, nbr_idx, nbr_mask, edge_attr=None):
+        score, gated = self.gate(x)
+        c = compact_top_k_nodes(gated, nbr_idx, nbr_mask, node_mask, score,
+                                self.keep(x.shape[-2]), edge_attr)
         c["score"] = score
         return c
 

@@ -12,10 +12,11 @@ real, 8 neighbours), one a rank.
 * at ``n >= 4`` (even): tensor parallelism on ``(2, n/2)`` (some kernels
   sharded, a finetune step finite); node sharding (``shard_graph_nodes``)
   and the halo tier on the same mesh: ``halo_gather`` equal to the dense
-  gather on every real slot of Morton-sorted graphs, and ``sp_graph_conv``
-  against ``GraphConvolution`` within 1e-5. Where the JAX run checks a whole
-  model's logits over node-sharded inputs (GSPMD), this run reports that
-  forward as queued (ROADMAP queue 1, item 12's remainder);
+  gather on every real slot of Morton-sorted graphs, ``sp_graph_conv``
+  against ``GraphConvolution`` within 1e-5, and the whole model over
+  node-sharded inputs (``sp_forward``, f32, where the JAX run checks its
+  GSPMD forward's ``sp_logits_finite``): logits finite and within 1e-4 of
+  the one-process forward;
 * the windowed + banded model (W = 64, band-built graphs) under data
   parallelism;
 * at ``n >= 4``: the GPipe encoder on ``(data 2, pipe n/2)`` against the
@@ -60,14 +61,14 @@ def _graph(seed: int, band_window=None):
                        y=torch.tensor(seed % 2, dtype=torch.int32))
 
 
-def _model(**kw):
+def _model(compute_dtype: str = "bfloat16", **kw):
     from ..models.dgdm import DGDMModel
     from ..nn.layers import init_parameters
 
     model = DGDMModel(node_features=FEAT, hidden_dims=HIDDEN, num_diffusion_steps=4,
                       attention_heads=HEADS, graph_layers=2, num_classes=2,
                       use_spatial_attention=True, use_hierarchical=True, pooling="attention",
-                      compute_dtype="bfloat16", **kw)
+                      compute_dtype=compute_dtype, **kw)
     return init_parameters(model, torch.Generator().manual_seed(0))
 
 
@@ -161,10 +162,12 @@ def dryrun_multichip(n_devices: int, device: Any = None) -> Dict[str, Any]:
         keep = mine.node_mask[..., None]
         sp_err = _close(sp.cpu() * keep, ref_mine * keep, 1e-5, "sp_graph_conv")
         frac = halo_fraction(srt.nbr_idx, srt.nbr_mask, half)
-        out.update(halo_size=plan.halo_size, halo_fraction=frac, sp_graph_conv_err=sp_err)
-        msgs.append(f"sp_graph_conv_parity_ok(err={sp_err:.1e}) sp_model_forward=queued"
-                    f"(ROADMAP item 12) halo_gather_parity_ok(H={plan.halo_size}, "
-                    f"cross={frac:.3f})")
+        sp_shape, sp_model_err = _sp_check(srt, mine, plan, mesh2, device)
+        out.update(halo_size=plan.halo_size, halo_fraction=frac, sp_graph_conv_err=sp_err,
+                   sp_forward_err=sp_model_err)
+        msgs.append(f"sp_graph_conv_parity_ok(err={sp_err:.1e}) sp_logits_finite={sp_shape} "
+                    f"sp_forward_parity_ok(err={sp_model_err:.1e}) "
+                    f"halo_gather_parity_ok(H={plan.halo_size}, cross={frac:.3f})")
         del tp
 
     # windowed + banded under the data mesh, on band-built Morton graphs
@@ -192,6 +195,23 @@ def dryrun_multichip(n_devices: int, device: Any = None) -> Dict[str, Any]:
         print(line, flush=True)
     out["line"] = line
     return out
+
+
+def _sp_check(batch, block, plan, mesh, device) -> tuple:
+    """The f32 model over this rank's node block (``sp_forward``) against its
+    one-process forward: logits finite and within 1e-4. Returns (the
+    logits' shape, the error)."""
+    from .sp import sp_forward
+
+    model = _model("float32").to(device).eval()
+    with torch.no_grad():
+        ref = model(batch.to(device))["classification_logits"]
+    got = sp_forward(model, block.to(device), plan, mesh)["classification_logits"]
+    if not torch.isfinite(got).all():
+        raise AssertionError("sp_forward logits are not finite")
+    rows = got.shape[0]
+    d = mesh.rank
+    return tuple(got.shape), _close(got, ref[d * rows:(d + 1) * rows], 1e-4, "sp_forward")
 
 
 def _banded(seed: int, win: int):

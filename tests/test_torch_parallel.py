@@ -12,9 +12,13 @@ max(1, |x|), parameters 1e-5, the
 shift-invariant key biases to the steps' summed learning rate) and against
 the JAX trainer on one device as the JAX test does (loss rel 2e-4,
 parameters atol 2e-4); ``halo_gather`` equal to the bit to JAX's;
-``sp_graph_conv`` 1e-5; the pipeline's outputs and gradients 1e-4; the
-expert-parallel block 2e-5 with routing equal. The layouts are held leaf
-for leaf against ``tp_param_specs`` / ``ep_param_specs`` on the JAX tree.
+``sp_graph_conv`` 1e-5; ``sp_forward`` (the model over node-sharded
+inputs) 1e-4 of JAX ``DGDMModel.apply`` (the JAX test's bound,
+tests/test_spmd.py::TestNodeSharding) and 1e-5 of the port's one-process
+forward, every pooled level's selection equal; the pipeline's outputs and
+gradients 1e-4; the expert-parallel block 2e-5 with routing equal. The
+layouts are held leaf for leaf against ``tp_param_specs`` /
+``ep_param_specs`` on the JAX tree.
 """
 
 import numpy as np
@@ -43,10 +47,10 @@ from dgdm_histopath_torch.nn.graph_layers import GraphConvolution
 from dgdm_histopath_torch.nn.layers import DenseGeneral, init_parameters
 from dgdm_histopath_torch.nn.moe import MoEFFN
 from dgdm_histopath_torch.parallel import (constrain_nodes, dryrun_multichip, halo,
-                                           make_pp_layers_fn,
-                                           node_sharding, pp_bubble_fraction,
-                                           shard_graph_nodes, shard_tree_like,
-                                           stack_layer_params, unstack_layer_params)
+                                           level_sizes, make_pp_layers_fn, node_sharding,
+                                           pp_bubble_fraction, shard_graph_nodes,
+                                           shard_tree_like, sp_forward, stack_layer_params,
+                                           unstack_layer_params)
 from dgdm_histopath_torch.parallel.ep import count_expert_sharded, ep_param_specs
 from dgdm_histopath_torch.parallel.mesh import Axis, Mesh
 from dgdm_histopath_torch.parallel.tp import (describe_sharding, flatten_specs, nest,
@@ -70,6 +74,11 @@ MOE = dict(features=32, hidden_dim=64, num_experts=4, group_size=64, dtype=torch
 MOE_CASES = {"top1": dict(top_k=1, capacity_factor=1.5), "top2_drops": dict(top_k=2,
                                                                            capacity_factor=0.5)}
 PP_HID, PP_HEADS, PP_LAYERS = 32, 4, 4
+# a tiny DGDM-Base: 4 graph layers, spatial attention, the depth-2 U-Net,
+# attention pooling, edge features, every head, f32
+SP_MODEL = {**MODEL, "graph_layers": 4, "regression_targets": 1, "survival_mode": "discrete",
+            "survival_intervals": 4}
+SP_BUCKETS, SP_SHAPES, SP_GRAPHS = (32, 64), ((1, 4), (2, 2)), 4
 
 
 def spmd_batch():
@@ -142,6 +151,46 @@ def jax_halo_reference(ref):
     ref["conv_state"] = params_from_flax(_flat(params))
 
 
+def sp_batch(n):
+    """Morton-sorted graphs of bucket n with 4-7 padding nodes each."""
+    return j_batch([jhalo.spatial_sort(make_synthetic_graph(seed=20 + i, n_nodes=n,
+                                                            n_real=n - 4 - i, feat_dim=16))
+                    for i in range(SP_GRAPHS)])
+
+
+def jax_sp_reference(ref):
+    """JAX ``DGDMModel.apply`` (inference) of the tiny Base on each bucket,
+    one parameter tree."""
+    jm = JaxDGDM(**SP_MODEL, gather_impl="xla")
+    batches = {n: sp_batch(n) for n in SP_BUCKETS}
+    rngs = {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1),
+            "masking": jax.random.PRNGKey(2)}
+    params = jm.init(rngs, batches[32], mode="pretrain", deterministic=True)
+    fwd = jax.jit(lambda p, g: jm.apply(p, g, mode="inference", deterministic=True))
+    ref["sp_state"] = params_from_flax(_flat(params))
+    ref["sp_forward"] = {n: {k: np.asarray(v) for k, v in fwd(params, b).items()
+                             if k in ("classification_logits", "graph_embedding")}
+                         for n, b in batches.items()}
+    ref["sp_batches"] = {n: to_torch_graph(b) for n, b in batches.items()}
+
+
+def sp_one_process(state, batches):
+    """The port's one-process forward of each batch, with every pooled
+    level's selection."""
+    model = DGDMModel(**SP_MODEL)
+    model.load_state_dict(state)
+    sel = {}
+    for d in range(2):
+        getattr(model.graph_unet, f"pool{d}").register_forward_hook(
+            lambda m, i, o, d=d: sel.__setitem__(d, o["sel_idx"]))
+    out = {}
+    with torch.no_grad():
+        for n, b in batches.items():
+            out[n] = model(b)
+            out[n]["pool_sel_idx"] = [sel[0], sel[1]]
+    return out
+
+
 def pp_batch():
     return j_batch([make_synthetic_graph(seed=i, n_nodes=32, n_real=28, feat_dim=16)
                     for i in range(4)])
@@ -194,6 +243,7 @@ def par(tmp_path_factory):
         jax_tp_reference(ref)
         jax_layouts(ref)
         jax_halo_reference(ref)
+        jax_sp_reference(ref)
         jax_pp_reference(ref)
 
     # the port's full model for the pretrain scenarios: seeded parameters
@@ -223,6 +273,9 @@ def par(tmp_path_factory):
                           "state": v["state"], "edges": v["edges"], "graph": ref["pp_graph"]}
                    for name, v in ref["pp"].items()}
 
+    sp_plans = {(tp, n): halo.build_halo_plan(b.nbr_idx, b.nbr_mask, tp)
+                for n, b in ref["sp_batches"].items() for tp in {t for _, t in SP_SHAPES}}
+
     def tp(shape, model, state, steps, config, **kw):
         return {"module": WORKER, "job": "tp_steps", "shape": shape, "model": model,
                 "state": state, "steps": steps, "config": config, **kw}
@@ -239,6 +292,9 @@ def par(tmp_path_factory):
         "halo": {"module": WORKER, "job": "halo", "batch": port_halo_batch, "plan": plan,
                  "conv": (16, 24, 3), "conv_state": ref["conv_state"], "one": one,
                  "one_plan": one_plan},
+        "sp_model": {"module": WORKER, "job": "sp_model", "model": SP_MODEL,
+                     "state": ref["sp_state"], "batches": ref["sp_batches"], "plans": sp_plans,
+                     "shapes": SP_SHAPES},
         "pp": {"module": WORKER, "job": "pp", "variants": pp_variants, "num_micro": 2},
         "collectives": {"module": WORKER, "job": "collectives"},
         "dryrun": {"module": WORKER, "job": "dryrun"},
@@ -255,7 +311,8 @@ def par(tmp_path_factory):
     single = {"pretrain": single_run(state0, pre_steps, [(t4, 0, None), (t4, 1, None)]),
               "one_rank": single_run(state0, [(t4, 0, None)]),
               "spmd": single_run(ref["spmd_state0"], spmd_steps, model=SPMD_MODEL,
-                                 config=SPMD_CFG)}
+                                 config=SPMD_CFG),
+              "sp": sp_one_process(ref["sp_state"], ref["sp_batches"])}
     return {"ref": ref, "got": got, "single": single, "plan": plan, "one_plan": one_plan,
             "moe": (moe_x, moe_mask, moe_states), "state0": state0}
 
@@ -416,6 +473,71 @@ def test_halo_gather_equals_jax_to_the_bit_and_sp_graph_conv(par):
         assert torch.equal(r["block"].nbr_idx, hb.nbr_idx[:, block])
 
 
+@pytest.mark.parametrize("n", SP_BUCKETS)
+@pytest.mark.parametrize("shape", SP_SHAPES)
+def test_sp_forward_matches_jax_and_one_process(par, shape, n):
+    """``sp_forward`` of the tiny Base on Morton-sorted graphs of bucket n,
+    over (data, model) ``shape``: each rank's logits within 1e-4 of JAX
+    ``DGDMModel.apply`` and 1e-5 of the port's one-process forward (the
+    other heads and the graph embedding 1e-5 too), equal on every rank of a
+    model line; every pooled level's selection equal to one process's; the
+    rank's ``node_embeddings`` within 1e-5 of its block of one process's."""
+    dp, tp = shape
+    rows, n_loc = SP_GRAPHS // dp, n // tp
+    one, jax_ref = par["single"]["sp"][n], par["ref"]["sp_forward"][n]
+    ranks = [r[shape, n] for r in par["got"]["sp_model"]]
+    for rank, out in enumerate(ranks):
+        d, m = divmod(rank, tp)
+        b = slice(d * rows, (d + 1) * rows)
+        for key in ("classification_logits", "graph_embedding"):
+            np.testing.assert_allclose(out[key].numpy(), jax_ref[key][b], atol=1e-4, rtol=0,
+                                       err_msg=key)
+        for got, want in ((out["classification_logits"], one["classification_logits"]),
+                          (out["graph_embedding"], one["graph_embedding"]),
+                          (out["regression"]["mean"], one["regression"]["mean"]),
+                          (out["survival"]["survival"], one["survival"]["survival"]),
+                          (out["node_embeddings"],
+                           one["node_embeddings"][:, m * n_loc:(m + 1) * n_loc])):
+            np.testing.assert_allclose(got.numpy(), want[b].numpy(), atol=1e-5, rtol=0)
+        assert len(out["pool_sel_idx"]) == 2
+        for got, want in zip(out["pool_sel_idx"], one["pool_sel_idx"]):
+            assert torch.equal(got, want[b])
+        assert torch.equal(out["classification_logits"],
+                           ranks[d * tp]["classification_logits"])
+
+
+@pytest.mark.parametrize("option", ["mode", "dropout", "return_attention", "moe",
+                                    "spatial_window", "graph_window", "use_flash"])
+def test_sp_forward_refuses_the_options_it_does_not_cover(option):
+    """Training (another mode, dropout), returned attention, the MoE,
+    DGDM-Large's windows and flash attention raise naming ROADMAP item 12."""
+    kw = {"moe": {"moe_experts": 4}, "spatial_window": {"spatial_window": 8},
+          "graph_window": {"graph_window": 8}}.get(option, {})
+    model = DGDMModel(**{**SP_MODEL, **kw})
+    if option == "use_flash":
+        model.spatial_attention.use_flash = True
+    call = {"mode": {"mode": "pretrain"}, "dropout": {"deterministic": False},
+            "return_attention": {"return_attention": True}}.get(option, {})
+    g = to_torch_graph(sp_batch(32))
+    mesh = Mesh(("data", "model"), (1, 1))
+    plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp=1)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        sp_forward(model, g, plan, mesh, **call)
+
+
+def test_sp_forward_rejects_a_level_that_does_not_divide():
+    """A 24-node bucket over a model axis of 4: 24 and 12 divide, the second
+    pooled level's 6 nodes do not."""
+    g = to_torch_graph(j_batch([make_synthetic_graph(seed=0, n_nodes=24, n_real=20,
+                                                     feat_dim=16)] * 2))
+    mesh = Mesh(("data", "model"), (1, 4), lines={"model": Axis("model", 4, 0)})
+    plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp=4)
+    model = DGDMModel(**SP_MODEL)
+    assert level_sizes(model, 24) == [24, 12, 6]
+    with pytest.raises(ValueError, match="6 nodes is not divisible by model axis 4"):
+        sp_forward(model, shard_graph_nodes(g, mesh), plan, mesh)
+
+
 @pytest.mark.parametrize("variant", ["edges", "no_edges", "banded"])
 def test_pipeline_matches_jax_and_the_sequential_encoder(par, variant):
     """4 stages of one layer, 2 microbatches: the output on every rank within
@@ -471,9 +593,10 @@ def test_dryrun_multichip_on_four_ranks(par):
     outs = par["got"]["dryrun"]
     line = outs[0]["line"]
     for part in ("dryrun_multichip(4) OK", "tp_sharded_params=", "sp_graph_conv_parity_ok",
-                 "sp_model_forward=queued", "halo_gather_parity_ok", "pp_parity_ok(stages=2)",
-                 "ep_parity_ok(experts=4/ep=2)", "combined=skipped"):
+                 "sp_logits_finite=(2, 2)", "sp_forward_parity_ok", "halo_gather_parity_ok",
+                 "pp_parity_ok(stages=2)", "ep_parity_ok(experts=4/ep=2)", "combined=skipped"):
         assert part in line, line
+    assert "queued" not in line and outs[0]["sp_forward_err"] <= 1e-4
     assert all(o["pretrain_loss"] == outs[0]["pretrain_loss"] for o in outs)
     assert np.isfinite(outs[0]["windowed_banded_loss"]) and outs[0]["tp_sharded_params"] > 0
 

@@ -117,6 +117,21 @@ def halo(spec, rank) -> dict:
             "block": block}
 
 
+def sp_model(spec, rank) -> dict:
+    """``sp_forward`` of the model on each (mesh shape, batch): this rank's
+    outputs."""
+    from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes, sp_forward
+
+    model = _model(spec).eval()
+    out = {}
+    for shape in spec["shapes"]:
+        mesh = make_mesh(axes=("data", "model"), shape=shape)
+        for n, batch in spec["batches"].items():
+            block = shard_graph_nodes(batch, mesh)
+            out[shape, n] = sp_forward(model, block, spec["plans"][shape[1], n], mesh)
+    return out
+
+
 def pp(spec, rank) -> dict:
     """The GPipe encoder over (1, S) (data, pipe) for each variant: its output
     and the gradients of ``sum(out ** 2)`` this rank holds."""
@@ -181,5 +196,5 @@ def dryrun(spec, rank) -> dict:
 
 
 JOBS = {"tp_steps": tp_steps, "tp_checkpoint": tp_checkpoint, "ep_block": ep_block,
-        "halo": halo, "pp": pp, "collectives": collectives, "one_rank": one_rank,
-        "dryrun": dryrun}
+        "halo": halo, "sp_model": sp_model, "pp": pp, "collectives": collectives,
+        "one_rank": one_rank, "dryrun": dryrun}
