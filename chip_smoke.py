@@ -143,7 +143,29 @@ Phases, each of which raises on a failed check:
      table at the halo shapes against their plain versions (bit-equal,
      1e-5), timed.
 
-It prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
+ 17. half precision (ROADMAP item 8), after phase 15 on its graphs: the four
+     gather kernels in f16 at the Base shapes (B=32, N in {1024, 512, 256},
+     K=8, F=128) and both flash kernels in f16 at the three flash shapes,
+     against their plain versions (gather_rows bit-equal, gather_agg and dw
+     1e-5, the backward sums one f16 ulp, flash 1e-4 plus one f16 ulp; at
+     tau = 1e-3 5e-3 plus one ulp; an all-masked graph gives zeros), timed
+     beside the bf16 rows; ``SpatialAttention(use_flash=True)`` in f16,
+     counted (one launch of each flash kernel); DGDM-Base at full width
+     through ``DGDMTrainer``: 2 bf16 steps (f32 parameters), then 8 pretrain + 2
+     finetune steps with ``compute_dtype: float16`` (each 9 / 18 / 9 / 18 +
+     3 launches, losses finite), 4 steps with ``param_dtype: bfloat16``
+     (parameter + AdamW bytes and peak memory against f32 parameters), a
+     profiled step of each; one set of f32 parameters computing in f32, bf16
+     and f16 (each half type's logits against f32's); ``pooling: set2set``:
+     a counted finetune step and an f32 bundle through
+     ``DGDMPredictor.predict_batch`` on the card against the CPU (1e-3 on
+     log-probabilities); ``dgdm-train --pooling set2set`` with
+     ``model.compute_dtype: float16`` in a written config for one epoch on 40
+     graph files, and its bundle answering one /predict through
+     ``dgdm-serve``.
+
+It prints a ``{"kernels": [...]}`` JSON line (the f16 instantiations as
+``<name>_f16`` entries), then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
 non-zero without a CUDA device or without the port beside it.
 
@@ -153,6 +175,10 @@ on a machine of four cards its tiers run over NCCL, one rank a card (TP
 model axis of 4, ``dryrun_multichip(4)``),
 followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
 SIGTERM, exit 75 and ``resume``, bit-equal.
+
+``python3 chip_smoke.py --dtype-only`` runs the build and phase 17 alone
+(its bf16 kernel rows timed there too), and prints the f16 entries of the
+kernel line.
 
 ``python3 chip_smoke.py --dp-only`` on a machine of several cards runs the
 build and phase 14 alone, with one NCCL rank a card, and then the train CLI
@@ -292,17 +318,24 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
     return statistics.median(times)
 
 
+def half_ulp(torch, x, dtype):
+    """One ulp of each element of the f32 tensor ``x`` in the half type
+    ``dtype`` (bf16: 8 significant bits, f16: 11)."""
+    bits = 8 if dtype == torch.bfloat16 else 11
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - bits)
+
+
 def scatter_error(torch, out, ref32) -> dict:
     """A backward gather-sum kernel's result against the plain f32 sums
-    ``ref32``. f32: atol = rtol = 1e-5 (the two sum in other orders). bf16:
-    the kernel rounds its f32 sums once, so it is held to one bf16 ulp of the
-    plain rounded result, plus the 1e-5 of the f32 sums near zero."""
+    ``ref32``. f32: atol = rtol = 1e-5 (the two sum in other orders). bf16
+    and f16: the kernel rounds its f32 sums once, so it is held to one ulp of
+    the plain rounded result, plus the 1e-5 of the f32 sums near zero."""
     if out.dtype == torch.float32:
         err = (out - ref32).abs()
         ok = bool((err <= 1e-5 + 1e-5 * ref32.abs()).all())
         return {"ok": ok, "max_abs_err": err.max().item(), "max_ulp_err": None}
     ref = ref32.to(out.dtype).float()
-    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    ulp = half_ulp(torch, ref, out.dtype)
     err = (out.float() - ref).abs()
     return {"ok": bool((err <= ulp + 1e-5).all()), "max_abs_err": err.max().item(),
             "max_ulp_err": (err / ulp.clamp_min(1e-5)).max().item()}
@@ -614,6 +647,98 @@ def morton_order(pos):
     return np.argsort(code, kind="stable")
 
 
+def flash_inputs(torch, gen, b, n, n_real, h, d, dtype):
+    q, k, v = (torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    pos = torch.rand(b, n, 2, device="cuda", generator=gen)
+    mask = torch.arange(n, device="cuda").expand(b, n) < n_real
+    return q, k, v, pos, mask
+
+
+def flash_versions(h, d, n):
+    """(kernel name, plain version) of the route of a [*, n, h, d] input."""
+    from dgdm_histopath_torch.ops.kernels import flash_spatial as fs
+
+    route = fs.flash_route(n, h, d)
+    name = {"packed": "flash_spatial_packed", "headmajor": "flash_spatial"}[route]
+    plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
+    return name, plain
+
+
+def flash_error(torch, out, ref, mask, tag, atol=1e-4) -> float:
+    """A flash kernel's result against a reference on the valid rows: atol,
+    and for bf16 and f16 one ulp of each element in that type more."""
+    ref32 = ref.float()
+    tol = torch.full_like(ref32, atol)
+    if out.dtype != torch.float32:
+        tol = tol + half_ulp(torch, ref32, out.dtype)
+    err = (out.float() - ref32).abs() * mask[:, :, None, None]
+    if not ((err <= tol).all() and torch.isfinite(out).all() and out.dtype == ref.dtype):
+        raise AssertionError(f"flash kernel off its plain version by {err.max().item()}, "
+                             f"{(err / tol).max().item():.2f} of the limit, at {tag}")
+    return err.max().item()
+
+
+def flash_row(torch, gen, b, n, n_real, h, d, dtype) -> tuple:
+    """(kernel name, row): one flash kernel at one shape against its plain
+    version and the dense reference, one launch counted, with its device
+    time, the plain version's, the dense formulation's and
+    ``scaled_dot_product_attention``'s (its additive mask built apart), and
+    its bound (the two products' operations on valid keys at the tensor-core
+    rate for bf16 / f16, at the f32 rate for f32; or the bytes)."""
+    import torch.nn.functional as F
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.ops.kernels import flash_spatial as fs
+
+    name, plain = flash_versions(h, d, n)
+    q, k, v, pos, mask = flash_inputs(torch, gen, b, n, n_real, h, d, dtype)
+    tag = dict(shape=[b, n, h, d], real_nodes=n_real, dtype=str(dtype).replace("torch.", ""))
+    before = kernels.KERNELS[name].launches
+    out = fs.flash_spatial_attention(q, k, v, pos, mask, tau=0.1)
+    torch.cuda.synchronize()
+    if kernels.KERNELS[name].launches != before + 1:
+        raise AssertionError(f"{name} was not launched at {tag}")
+    err = flash_error(torch, out, plain(q, k, v, pos, mask, 0.1), mask, tag)
+    flash_error(torch, out, fs.dense_reference(q, k, v, pos, mask, 0.1), mask, tag)
+
+    # the library yardstick: SDPA with bias and mask as one additive
+    # [B, 1, N, N] attn_mask (its construction timed apart)
+    def make_attn_mask():
+        bias = fs.distance_bias(pos, pos, 0.1)[:, None]
+        return bias.masked_fill(~mask[:, None, None, :], float("-inf")).to(dtype)
+
+    attn_mask = make_attn_mask()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask).transpose(1, 2)
+    lib_err = ((lib.float() - out.float()).abs() * mask[:, :, None, None]).max().item()
+    e = q.element_size()
+    nbytes = 4 * b * n * h * d * e + pos.numel() * 4 + mask.numel()
+    flops = 4 * h * d * n * int(mask.sum().item())      # valid keys only
+    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    r = dict(
+        tag, max_abs_err=err, library_abs_diff=lib_err,
+        ms=device_ms(torch, lambda: fs.flash_spatial_attention(q, k, v, pos, mask)),
+        plain_ms=device_ms(torch, lambda: plain(q, k, v, pos, mask, 0.1), 4, 7),
+        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask), 10, 11),
+        library_mask_ms=device_ms(torch, make_attn_mask, 4, 7),
+        dense_ms=device_ms(torch, lambda: fs.dense_reference(q, k, v, pos, mask, 0.1), 4, 7),
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        f32_fma_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops)
+    # a reckoning for the log, not a measurement: one exp per (query,
+    # head, key), every query row, the key tiles that hold a valid key
+    # (64 keys a tile), at the data sheet's exp rate
+    exp_floor_ms = b * n * h * min(n, -(-n_real // 64) * 64) / EXP_PER_S * 1e3
+    log(f"kernel {name:20s} {str(tag['shape']):20s} {tag['dtype']:8s} err "
+        f"{r['max_abs_err']:.2e}  ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  dense "
+        f"{r['dense_ms']:.4f}  library {r['library_ms']:.4f} (+ mask "
+        f"{r['library_mask_ms']:.4f}, differs {lib_err:.1e})  bound {r['bound_ms']:.4f} "
+        f"({r['bound_by']}; as f32 FMAs {r['f32_fma_ms']:.4f}; exp floor "
+        f"{exp_floor_ms:.4f})")
+    return name, r
+
+
 def flash_kernel_phase(torch) -> dict:
     """The two flash spatial-attention kernels on the card against their plain
     versions. f32 results are held to 1e-4 on valid rows (the kernel sums in
@@ -622,90 +747,16 @@ def flash_kernel_phase(torch) -> dict:
     values (1e-4 apart at most) straddle a rounding boundary they differ by
     one bf16 ulp of that element (2^-9 for a value in [0.5, 1)); every
     element is held to its own ulp plus the 1e-4."""
-    import torch.nn.functional as F
     from dgdm_histopath_torch.ops import kernels
     from dgdm_histopath_torch.ops.kernels import flash_spatial as fs
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {"flash_spatial_packed": [], "flash_spatial": []}
 
-    def inputs(b, n, n_real, h, d, dtype):
-        q, k, v = (torch.randn(b, n, h, d, device="cuda", generator=gen).to(dtype)
-                   for _ in range(3))
-        pos = torch.rand(b, n, 2, device="cuda", generator=gen)
-        mask = torch.arange(n, device="cuda").expand(b, n) < n_real
-        return q, k, v, pos, mask
-
-    def versions(h, d, n):
-        route = fs.flash_route(n, h, d)
-        name = {"packed": "flash_spatial_packed", "headmajor": "flash_spatial"}[route]
-        plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
-        return name, plain
-
-    def error(out, ref, mask, tag, atol=1e-4) -> float:
-        ref32 = ref.float()
-        tol = torch.full_like(ref32, atol)
-        if out.dtype == torch.bfloat16:
-            tol = tol + torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32).exponent - 8)
-        err = (out.float() - ref32).abs() * mask[:, :, None, None]
-        if not ((err <= tol).all() and torch.isfinite(out).all() and out.dtype == ref.dtype):
-            raise AssertionError(f"flash kernel off its plain version by {err.max().item()}, "
-                                 f"{(err / tol).max().item():.2f} of the limit, at {tag}")
-        return err.max().item()
-
     for (b, n, n_real, h, d) in FLASH_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            name, plain = versions(h, d, n)
-            q, k, v, pos, mask = inputs(b, n, n_real, h, d, dtype)
-            tag = dict(shape=[b, n, h, d], real_nodes=n_real,
-                       dtype=str(dtype).replace("torch.", ""))
-            before = kernels.KERNELS[name].launches
-            out = fs.flash_spatial_attention(q, k, v, pos, mask, tau=0.1)
-            torch.cuda.synchronize()
-            if kernels.KERNELS[name].launches != before + 1:
-                raise AssertionError(f"{name} was not launched at {tag}")
-            err = error(out, plain(q, k, v, pos, mask, 0.1), mask, tag)
-            error(out, fs.dense_reference(q, k, v, pos, mask, 0.1), mask, tag)
-
-            # the library yardstick: SDPA with bias and mask as one additive
-            # [B, 1, N, N] attn_mask (its construction timed apart)
-            def make_attn_mask():
-                bias = fs.distance_bias(pos, pos, 0.1)[:, None]
-                return bias.masked_fill(~mask[:, None, None, :], float("-inf")).to(dtype)
-
-            attn_mask = make_attn_mask()
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask).transpose(1, 2)
-            lib_err = ((lib.float() - out.float()).abs() * mask[:, :, None, None]).max().item()
-            e = q.element_size()
-            nbytes = 4 * b * n * h * d * e + pos.numel() * 4 + mask.numel()
-            flops = 4 * h * d * n * int(mask.sum().item())      # valid keys only
-            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-            rows[name].append(dict(
-                tag, max_abs_err=err, library_abs_diff=lib_err,
-                ms=device_ms(torch, lambda: fs.flash_spatial_attention(q, k, v, pos, mask)),
-                plain_ms=device_ms(torch, lambda: plain(q, k, v, pos, mask, 0.1), 4, 7),
-                library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=attn_mask), 10, 11),
-                library_mask_ms=device_ms(torch, make_attn_mask, 4, 7),
-                dense_ms=device_ms(torch, lambda: fs.dense_reference(q, k, v, pos, mask, 0.1),
-                                   4, 7),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                f32_fma_ms=flops / F32_FLOPS_PER_S * 1e3, bytes=nbytes, flops=flops))
-            r = rows[name][-1]
-            # a reckoning for the log, not a measurement: one exp per (query,
-            # head, key), every query row, the key tiles that hold a valid key
-            # (64 keys a tile), at the data sheet's exp rate
-            exp_floor_ms = b * n * h * min(n, -(-n_real // 64) * 64) / EXP_PER_S * 1e3
-            log(f"kernel {name:20s} {str(tag['shape']):20s} {tag['dtype']:8s} err "
-                f"{r['max_abs_err']:.2e}  ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  dense "
-                f"{r['dense_ms']:.4f}  library {r['library_ms']:.4f} (+ mask "
-                f"{r['library_mask_ms']:.4f}, differs {lib_err:.1e})  bound {r['bound_ms']:.4f} "
-                f"({r['bound_by']}; as f32 FMAs {r['f32_fma_ms']:.4f}; exp floor "
-                f"{exp_floor_ms:.4f})")
-            del attn_mask, lib
+            name, row = flash_row(torch, gen, b, n, n_real, h, d, dtype)
+            rows[name].append(row)
 
     # a sharp bias, tau = 1e-3, bf16: the tensor-core kernels start q.k's
     # accumulator from the bias in units of the unscaled product (up to
@@ -713,27 +764,28 @@ def flash_kernel_phase(torch) -> dict:
     # reference's limit at this tau (5e-3) plus one bf16 ulp of each element
     sharp = {}
     for (b, n, n_real, h, d) in FLASH_SHAPES:
-        name, plain = versions(h, d, n)
-        q, k, v, pos, mask = inputs(b, n, n_real, h, d, torch.bfloat16)
+        name, plain = flash_versions(h, d, n)
+        q, k, v, pos, mask = flash_inputs(torch, gen, b, n, n_real, h, d, torch.bfloat16)
         tag = f"{name} {[b, n, h, d]} bfloat16 tau 1e-3"
         before = kernels.KERNELS[name].launches
         out = fs.flash_spatial_attention(q, k, v, pos, mask, tau=1e-3)
         torch.cuda.synchronize()
         if kernels.KERNELS[name].launches != before + 1:
             raise AssertionError(f"{name} was not launched at {tag}")
-        sharp[tag] = error(out, plain(q, k, v, pos, mask, 1e-3), mask, tag, atol=5e-3)
+        sharp[tag] = flash_error(torch, out, plain(q, k, v, pos, mask, 1e-3), mask, tag, atol=5e-3)
     log(f"kernel checks: flash bf16 at tau = 1e-3 within 5e-3 + 1 ulp of the plain versions, "
         f"largest errors {sharp}")
 
     # a graph without a valid node gives zeros; its neighbor in the batch is untouched
     for (h, d) in ((8, 16), (16, 8), (4, 64)):
         for dtype in (torch.bfloat16, torch.float32):
-            name, plain = versions(h, d, 256)
-            q, k, v, pos, mask = inputs(3, 256, 200, h, d, dtype)
+            name, plain = flash_versions(h, d, 256)
+            q, k, v, pos, mask = flash_inputs(torch, gen, 3, 256, 200, h, d, dtype)
             mask[1] = False
             out = fs.flash_spatial_attention(q, k, v, pos, mask)
             torch.cuda.synchronize()
-            error(out, plain(q, k, v, pos, mask, 0.1), mask, f"{name} all-masked {dtype}")
+            flash_error(torch, out, plain(q, k, v, pos, mask, 0.1), mask,
+                        f"{name} all-masked {dtype}")
             if not ((out[1] == 0).all() and (out[0] != 0).any() and (out[2] != 0).any()):
                 raise AssertionError(f"{name}: an all-masked graph must give zeros")
             v2 = v.clone()
@@ -747,16 +799,16 @@ def flash_kernel_phase(torch) -> dict:
     for (h, d) in ((1, 128), (2, 64), (32, 4), (3, 24), (2, 5), (1, 200), (2, 128), (8, 8),
                    (8, 16), (16, 8)):
         for dtype in (torch.bfloat16, torch.float32):
-            name, plain = versions(h, d, 128)
-            q, k, v, pos, mask = inputs(2, 128, 100, h, d, dtype)
+            name, plain = flash_versions(h, d, 128)
+            q, k, v, pos, mask = flash_inputs(torch, gen, 2, 128, 100, h, d, dtype)
             before = kernels.KERNELS[name].launches
             out = fs.flash_spatial_attention(q, k, v, pos, mask)
             torch.cuda.synchronize()
             if kernels.KERNELS[name].launches != before + 1:
                 raise AssertionError(f"{name} was not launched at {h}x{d} {dtype}")
-            error(out, plain(q, k, v, pos, mask, 0.1), mask, f"{name} {h}x{d} {dtype}")
+            flash_error(torch, out, plain(q, k, v, pos, mask, 0.1), mask, f"{name} {h}x{d} {dtype}")
     # N that does not tile takes the dense route: no launch, and it is counted
-    q, k, v, pos, mask = inputs(2, 100, 90, 8, 16, torch.float32)
+    q, k, v, pos, mask = flash_inputs(torch, gen, 2, 100, 90, 8, 16, torch.float32)
     before, dense_before = kernels.launch_counts(), fs.dense_route_calls()
     if not (torch.equal(fs.flash_spatial_attention(q, k, v, pos, mask),
                         fs.dense_reference(q, k, v, pos, mask, 0.1))
@@ -769,8 +821,8 @@ def flash_kernel_phase(torch) -> dict:
     grads = {}
     for (b, n, n_real, h, d) in ((4, 1024, 1000, 8, 16), (2, 2048, 2000, 16, 8),
                                  (2, 1024, 1000, 4, 64)):
-        name, plain = versions(h, d, n)
-        q, k, v, pos, mask = inputs(b, n, n_real, h, d, torch.float32)
+        name, plain = flash_versions(h, d, n)
+        q, k, v, pos, mask = flash_inputs(torch, gen, b, n, n_real, h, d, torch.float32)
         g = torch.randn(b, n, h, d, device="cuda", generator=gen) * mask[:, :, None, None]
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         got = torch.autograd.grad(fs.flash_spatial_attention(*leaves, pos, mask), leaves, g)
@@ -1628,8 +1680,8 @@ def slide_phase(torch, card: str, kern: dict, keep: dict) -> dict:
             "kernels_k24": rows, "card": card}
 
 
-def write_cli_fixture(root: str) -> dict:
-    """The graph-training cell's files under ``root``: CLI["graphs"] DGDM-Base
+def write_cli_fixture(root: str, count: int = CLI["graphs"]) -> dict:
+    """The graph-training cell's files under ``root``: ``count`` DGDM-Base
     graphs of ``make_graphs`` (1000 real nodes in bucket 1024, 768-d, K = 8,
     3 edge features) written by the port's ``save_graph``, a seeded two-class
     ``labels.json`` and a JSON config (splits, batch, epochs, csv logging)."""
@@ -1640,7 +1692,7 @@ def write_cli_fixture(root: str) -> dict:
     from dgdm_histopath_torch.data.graph_io import save_graph
 
     t0 = time.perf_counter()
-    graphs = make_graphs(dict(BASE, batch=CLI["graphs"]), seed=1000)
+    graphs = make_graphs(dict(BASE, batch=count), seed=1000)
     data = f"{root}/graphs"
     rs = np.random.RandomState(0)
     labels = {f"slide{i:03d}": int(v) for i, v in enumerate(rs.randint(0, 2, len(graphs)))}
@@ -2279,9 +2331,10 @@ def serve_phase(torch, card: str) -> dict:
     return out
 
 
-def serve_cli(bundle: str, root: str, names, graphs, predictor) -> dict:
+def serve_cli(bundle: str, root: str, names, graphs, predictor,
+              count: int = SERVE["cli_requests"]) -> dict:
     """``python -m dgdm_histopath_torch.cli.serve`` on a free port: wait for
-    ``/readyz``, 16 concurrent ``/predict`` within 2e-2 of ``predict_graph``,
+    ``/readyz``, ``count`` concurrent ``/predict`` within 2e-2 of ``predict_graph``,
     ``/metrics`` and ``/info``, then SIGTERM: exit 0 within 30 s. The
     server's log is printed when a step fails."""
     import os
@@ -2312,7 +2365,6 @@ def serve_cli(bundle: str, root: str, names, graphs, predictor) -> dict:
                 raise AssertionError("dgdm-serve was not ready within 300 s")
             time.sleep(0.25)
         ready_s = time.perf_counter() - t0
-        count = SERVE["cli_requests"]
         answers = [None] * count
 
         def call(i):
@@ -3929,6 +3981,401 @@ def int8_phase(torch, graphs, card: str, slide: dict) -> dict:
             "card": card}
 
 
+# The half-precision cell (ROADMAP item 8): the kernels in f16 at the Base
+# gather shapes and the flash shapes; DGDM-Base at full width with
+# ``compute_dtype: float16`` over f32 parameters (8 pretrain + 2 finetune
+# steps), with ``param_dtype: bfloat16`` (4 steps), and with ``pooling:
+# set2set`` (a finetune step, a bundle served by ``DGDMPredictor``); and
+# ``dgdm-train --pooling set2set`` with ``model.compute_dtype: float16`` for
+# one epoch on DTYPE["cli_graphs"] graph files of the Base geometry, its
+# bundle answering a /predict through ``dgdm-serve``.
+DTYPE = dict(pretrain_steps=8, finetune_steps=2, bf16_param_steps=4, cli_graphs=40,
+             set2set_atol=1e-3)
+
+
+def dtype_kernels(torch, bf16_rows) -> dict:
+    """The four gather kernels and both flash kernels in f16 against their
+    plain versions on the card, timed like the bf16 rows: gather_rows
+    bit-equal, gather_agg and dw within 1e-5, the backward sums within one
+    f16 ulp of the plain rounded sums, flash within 1e-4 plus one f16 ulp of
+    each element (its f16 split of p). ``bf16_rows``: the bf16 rows of the
+    kernel phase at the same shapes, or None (then timed here)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {name: [] for name in ("gather_rows", "gather_agg", "gather_rows_bwd",
+                                 "gather_agg_bwd", "neighbor_transpose")}
+    bf16 = {name: [] for name in out} if bf16_rows is None else None
+    for (b, n, k, f) in MAIN_SHAPES:
+        for dtype in ((torch.bfloat16, torch.float16) if bf16 is not None
+                      else (torch.float16,)):
+            src = torch.randn(b, n, f, device="cuda", generator=gen).to(dtype)
+            idx = torch.randint(0, n, (b, n, k), device="cuda", generator=gen,
+                                dtype=torch.int32)
+            w = torch.rand(b, n, k, device="cuda", generator=gen)
+            tag = dict(shape=[b, n, k, f], dtype=str(dtype).replace("torch.", ""))
+            dst = out if dtype == torch.float16 else bf16
+            dst["gather_rows"].append(gather_rows_row(torch, src, idx, tag))
+            dst["gather_agg"].append(gather_agg_row(torch, src, idx, w, tag))
+            backward_checks(torch, gen, src, idx, w, tag, dst, timed=True)
+            log_kernel_rows(dst, ("gather_rows", "gather_agg", "gather_rows_bwd",
+                                  "gather_agg_bwd"))
+    flash = {"flash_spatial_packed": [], "flash_spatial": []}
+    for (b, n, n_real, h, d) in FLASH_SHAPES:
+        for dtype in ((torch.bfloat16, torch.float16) if bf16 is not None
+                      else (torch.float16,)):
+            name, row = flash_row(torch, gen, b, n, n_real, h, d, dtype)
+            if dtype == torch.float16:
+                flash[name].append(row)
+            else:
+                bf16.setdefault(name, []).append(row)
+    # tau = 1e-3 (the bias largest in the accumulator) and an all-masked graph
+    from dgdm_histopath_torch.ops.kernels import flash_spatial as fs
+    for (b, n, n_real, h, d) in FLASH_SHAPES:
+        name, plain = flash_versions(h, d, n)
+        q, k, v, pos, mask = flash_inputs(torch, gen, min(b, 4), n, n_real, h, d,
+                                          torch.float16)
+        got = fs.flash_spatial_attention(q, k, v, pos, mask, tau=1e-3)
+        flash_error(torch, got, plain(q, k, v, pos, mask, 1e-3), mask,
+                    f"{name} f16 tau 1e-3", atol=5e-3)
+        mask[0] = False
+        got = fs.flash_spatial_attention(q, k, v, pos, mask)
+        if not ((got[0] == 0).all() and torch.isfinite(got).all()):
+            raise AssertionError(f"{name} f16: an all-masked graph must give zeros")
+    out.update(flash)
+    ref = bf16_rows if bf16 is None else bf16
+    ratio = {}
+    for name, rows in out.items():
+        for r in rows:
+            twin = [x for x in ref.get(name, []) if x["shape"] == r["shape"]
+                    and x["dtype"] == "bfloat16" and "case" not in x]
+            if twin:
+                r["bf16_ms"] = twin[0]["ms"]
+                ratio.setdefault(name, []).append(r["ms"] / twin[0]["ms"])
+    log(f"dtype: f16 kernel time / bf16 at the same shapes {ratio}; flash f16 within 5e-3 + "
+        f"1 ulp at tau 1e-3, zeros for an all-masked graph")
+    return out
+
+
+def dtype_flash_module(torch) -> dict:
+    """``SpatialAttention(use_flash=True)`` in f16 (packed at 128 x 8 heads,
+    B 32; head-major at 256 x 4, B 8), counted: the counters set to 0 just
+    before the forward and read just after; against ``use_flash=False``
+    within the bf16 pair's bounds (0.1 worst, 1e-2 mean)."""
+    from dgdm_histopath_torch.nn.attention import SpatialAttention
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    from dgdm_histopath_torch.ops import kernels
+
+    res = {}
+    for name, embed, heads, b in (("flash_spatial_packed", 128, 8, 32),
+                                  ("flash_spatial", 256, 4, 8)):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        x = torch.randn(b, 1024, embed, device="cuda", generator=gen).half()
+        pos = torch.rand(b, 1024, 2, device="cuda", generator=gen)
+        mask = torch.arange(1024, device="cuda").expand(b, 1024) < 1000
+        flash = SpatialAttention(embed, heads, use_flash=True, dtype=torch.float16)
+        init_parameters(flash, torch.Generator().manual_seed(3))
+        dense = SpatialAttention(embed, heads, use_flash=False, dtype=torch.float16)
+        dense.load_state_dict(flash.state_dict())
+        flash, dense = flash.to("cuda").eval(), dense.to("cuda").eval()
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            y = flash(x, pos, mask)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            diff = (y.float() - dense(x, pos, mask).float()).abs()
+        if counts != {k: int(k == name) for k in counts}:
+            raise AssertionError(f"f16 SpatialAttention(use_flash=True) launches {counts}")
+        if not (diff.max().item() <= 0.1 and diff.mean().item() <= 1e-2
+                and torch.isfinite(y).all()):
+            raise AssertionError(f"f16 flash and dense modules differ by {diff.max().item()}")
+        res[name] = {"launches": counts, "max_abs_diff": diff.max().item(),
+                     "mean_abs_diff": diff.mean().item(), "batch": b}
+    return res
+
+
+def param_bytes(trainer) -> int:
+    """Parameter + optimizer-state bytes a trainer holds."""
+    total = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+    for st in trainer.optimizer.state.values():
+        total += sum(t.numel() * t.element_size() for t in st.values() if hasattr(t, "numel"))
+    return total
+
+
+def dtype_training(torch, graphs, card: str) -> dict:
+    """DGDM-Base at full width through ``DGDMTrainer``: bf16 compute over f32
+    parameters (3 steps, the third profiled), ``compute_dtype: float16`` over
+    f32 parameters (8 pretrain + 2 finetune steps, each counted against the
+    Base cell's launches, losses finite; a profiled step), and
+    ``param_dtype: bfloat16`` with bf16 compute (4 steps): its parameter +
+    optimizer bytes and peak memory against the f32 parameters'."""
+    import math
+
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, batch_graphs, create_model
+
+    batch = batch_graphs(graphs).to("cuda")
+    labeled = batch.replace(y=torch.arange(BASE["batch"], device="cuda") % 2)
+    expected = expected_launches(BASE, training=True)
+
+    def trainer_for(compute, param):
+        model = create_model(BASE["preset"], num_classes=2, compute_dtype=compute,
+                             param_dtype=param, device="cuda", seed=0)
+        tr = DGDMTrainer(model, TrainerConfig(
+            warmup_steps=WARMUP_STEPS, steps_per_epoch=DTYPE["pretrain_steps"],
+            pretrain_epochs=1, max_epochs=2), device="cuda")
+        tr.init_state(seed=0, example_batch=batch)
+        return tr
+
+    def run(tr, epochs, what):
+        steps, wall, peaks, first = [], [], [], None
+        for epoch in epochs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics, launches = counted(torch, lambda: tr.training_step(
+                labeled if epoch else batch, epoch), expected, f"{what} step {len(steps)}")
+            first = first or launches
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"{what} step {len(steps)}: non-finite {bad}")
+            steps.append(metrics)
+        return steps, wall, peaks, first
+
+    res = {}
+    for key, compute, param, epochs in (
+            ("bf16", "bfloat16", "float32", [0, 0]),
+            ("f16", "float16", "float32",
+             [0] * DTYPE["pretrain_steps"] + [1] * DTYPE["finetune_steps"]),
+            ("bf16_params", "bfloat16", "bfloat16", [0] * DTYPE["bf16_param_steps"])):
+        tr = trainer_for(compute, param)
+        if {p.dtype for n, p in tr.model.named_parameters()} != {getattr(torch, param)}:
+            raise AssertionError(f"{key}: parameters not in {param}")
+        steps, wall, peaks, launches = run(tr, epochs, f"DGDM-Base {compute}/{param}")
+        profile = profile_call(torch, lambda: tr.training_step(batch, 0),
+                               f"DGDM-Base pretrain step {compute} compute, {param} parameters")
+        profile.pop("top")
+        res[key] = {"compute_dtype": compute, "param_dtype": param, "launches": launches,
+                    "loss": [m["loss"] for m in steps],
+                    "grad_norm": [m["grad_norm"] for m in steps],
+                    "step_wall_ms": wall, "peak_gib": max(peaks[1:] or peaks),
+                    "param_optimizer_bytes": param_bytes(tr), "profile": profile}
+        if key == "f16":
+            res[key]["finetune"] = steps[DTYPE["pretrain_steps"]:]
+        del tr
+        torch.cuda.empty_cache()
+    ratio = {"device_ms_f16_over_bf16": res["f16"]["profile"]["device_busy_ms"]
+             / res["bf16"]["profile"]["device_busy_ms"],
+             "bytes_bf16_params_over_f32": res["bf16_params"]["param_optimizer_bytes"]
+             / res["bf16"]["param_optimizer_bytes"],
+             "peak_bf16_params_over_f32": res["bf16_params"]["peak_gib"]
+             / res["bf16"]["peak_gib"]}
+    res["ratio"] = ratio
+    log(f"dtype: DGDM-Base steps, device ms bf16 {res['bf16']['profile']['device_busy_ms']} / "
+        f"f16 {res['f16']['profile']['device_busy_ms']} / bf16 parameters "
+        f"{res['bf16_params']['profile']['device_busy_ms']}; f16 losses "
+        f"{[round(x, 4) for x in res['f16']['loss']]}; parameter + optimizer bytes "
+        f"{res['bf16']['param_optimizer_bytes']} (f32) / "
+        f"{res['bf16_params']['param_optimizer_bytes']} (bf16), peak "
+        f"{res['bf16']['peak_gib']:.3f} / {res['bf16_params']['peak_gib']:.3f} GiB; {ratio} "
+        f"[{card}]")
+    return res
+
+
+def dtype_logits(torch, graphs, card: str) -> dict:
+    """One set of f32 parameters computing in f32, bf16 and f16 on the card
+    (batch 32, bucket 1024, inference): each half type's logits against the
+    f32 logits; each forward counted (9 / 18)."""
+    from dgdm_histopath_torch import batch_graphs, create_model
+
+    batch = batch_graphs(graphs).to("cuda")
+    ref_model = create_model(BASE["preset"], num_classes=2, compute_dtype="float32",
+                             device="cuda", seed=0)
+    state = ref_model.state_dict()
+    logits = {}
+    for compute in ("float32", "bfloat16", "float16"):
+        model = create_model(BASE["preset"], num_classes=2, compute_dtype=compute,
+                             device="cuda", seed=0)
+        model.load_state_dict(state)
+        with torch.inference_mode():
+            out, _ = counted(torch, lambda: model(batch), expected_launches(BASE, False),
+                             f"DGDM-Base {compute} forward")
+        logits[compute] = out["classification_logits"].float()
+        if not torch.isfinite(logits[compute]).all():
+            raise AssertionError(f"{compute} logits are not finite")
+    dist = {k: (logits[k] - logits["float32"]).abs().max().item()
+            for k in ("bfloat16", "float16")}
+    log(f"dtype: DGDM-Base logits against f32 on the card, max abs: bf16 {dist['bfloat16']:.3e}, "
+        f"f16 {dist['float16']:.3e} ({dist['float16'] / dist['bfloat16']:.3f} of bf16's) "
+        f"[{card}]")
+    return {"max_abs_vs_f32": dist, "logit_scale": logits["float32"].abs().max().item()}
+
+
+def dtype_set2set(torch, graphs, card: str, root: str) -> dict:
+    """DGDM-Base with ``pooling: set2set``: one counted finetune step on the
+    card (bf16 compute), then an f32 model's bundle through
+    ``DGDMPredictor.predict_batch`` on the card (9 / 18 launches) against
+    the same bundle's predictor on the CPU: logits within
+    DTYPE["set2set_atol"] (f32 sums in other orders through the LSTM's three
+    rounds), probabilities finite and summing to 1."""
+    import numpy as np
+    from dgdm_histopath_torch import DGDMPredictor, DGDMTrainer, TrainerConfig, batch_graphs
+    from dgdm_histopath_torch import create_model
+    from dgdm_histopath_torch.models.presets import PRESETS
+    from dgdm_histopath_torch.training.checkpoint import save_model_bundle
+
+    batch = batch_graphs(graphs).to("cuda")
+    labeled = batch.replace(y=torch.arange(BASE["batch"], device="cuda") % 2)
+    model = create_model(BASE["preset"], num_classes=2, pooling="set2set", device="cuda",
+                         seed=0)
+    tr = DGDMTrainer(model, TrainerConfig(warmup_steps=0, pretrain_epochs=0), device="cuda")
+    tr.init_state(seed=0, example_batch=batch)
+    metrics, _ = counted(torch, lambda: tr.training_step(labeled, 1),
+                         expected_launches(BASE, True), "set2set finetune step")
+    del tr, model
+    cfg = dict(pooling="set2set", compute_dtype="float32")
+    cpu_model = create_model(BASE["preset"], num_classes=2, device="cpu", seed=5, **cfg)
+    preset = {k: v for k, v in PRESETS[BASE["preset"]].items() if k != "label_note"}
+    path = save_model_bundle(f"{root}/set2set.npz", cpu_model,
+                             {**preset, **cfg, "num_classes": 2})
+    on_card = DGDMPredictor(model_path=path, device="cuda")
+    on_cpu = DGDMPredictor(model_path=path, device="cpu")
+    res, launches = counted(torch, lambda: on_card.predict_batch(graphs[:4]),
+                            expected_launches(BASE, False), "set2set predict_batch")
+    ref = on_cpu.predict_batch(graphs[:4])
+    # log-probabilities: the logits less their log-sum-exp (predict_batch
+    # returns no logits); they agree where the logits do
+    diff = max(float(np.abs(np.log(a["probabilities"]) - np.log(b["probabilities"])).max())
+               for a, b in zip(res, ref))
+    if not (diff <= DTYPE["set2set_atol"] and all(
+            abs(float(r["probabilities"].sum()) - 1.0) < 1e-5 for r in res)):
+        raise AssertionError(f"set2set card vs CPU: log-probabilities differ by {diff}")
+    log(f"dtype: set2set finetune step {metrics}; predict_batch of its f32 bundle on the card "
+        f"against the CPU: log-probabilities within {diff:.2e} (<= {DTYPE['set2set_atol']}), "
+        f"launches {launches} [{card}]")
+    return {"finetune": metrics, "card_vs_cpu_logprob": diff, "launches": launches}
+
+
+def dtype_cli(torch, card: str, root: str) -> dict:
+    """``dgdm-train train --pooling set2set`` with ``model.compute_dtype:
+    float16`` in a JSON config (the config's other model defaults are
+    DGDM-Base's), one epoch on
+    DTYPE["cli_graphs"] graph files (a process of its own), then its bundle
+    (set2set, f16 in its model_config) through ``dgdm-serve``: one /predict
+    within 2e-2 of ``predict_graph``, SIGTERM -> exit 0."""
+    import os
+
+    import numpy as np
+    from dgdm_histopath_torch import DGDMPredictor
+    from dgdm_histopath_torch.data.graph_io import load_graph
+
+    fx = write_cli_fixture(root, DTYPE["cli_graphs"])
+    with open(fx["config"]) as f:
+        cfg = json.load(f)
+    cfg["model"] = {"compute_dtype": "float16"}
+    cfg["training"].update(max_epochs=1, pretrain_epochs=1)
+    with open(f"{root}/f16.json", "w") as f:
+        json.dump(cfg, f)
+    argv = [sys.executable, "-m", "dgdm_histopath_torch.cli.train", "train", "--config",
+            f"{root}/f16.json", "--pooling", "set2set",
+            "--dataset-type", "graph", "--data-dir", fx["data"], "--metadata", fx["labels"],
+            "--num-classes", "2", "--output-dir", f"{root}/out", "--log-level", "WARNING"]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"dgdm-train --pooling set2set (f16) exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    bundle = f"{root}/out/final_model.npz"
+    with np.load(bundle) as data:
+        meta = json.loads(str(data["__meta__"]))
+    mc = meta["model_config"]
+    if (mc.get("pooling"), mc.get("compute_dtype")) != ("set2set", "float16"):
+        raise AssertionError(f"the f16 set2set bundle says {mc}")
+    with open(f"{root}/out/history.json") as f:
+        hist = json.load(f)
+    if len(hist) != 1 or not all(np.isfinite(v) for v in hist[0].values()
+                                 if isinstance(v, float)):
+        raise AssertionError(f"dgdm-train f16 history {hist}")
+    predictor = DGDMPredictor(model_path=bundle, device="cuda")
+    if predictor.model.dtype != torch.float16 or predictor.model.pooling != "set2set":
+        raise AssertionError("the served bundle is not an f16 set2set model")
+    names = sorted(os.listdir(fx["data"]))[:1]
+    graphs = [load_graph(f"{fx['data']}/{n}") for n in names]
+    served = serve_cli(bundle, fx["data"], names, graphs, predictor, count=1)
+    log(f"dtype: dgdm-train --pooling set2set, model.compute_dtype float16, 1 epoch on "
+        f"{DTYPE['cli_graphs']} graphs: rc 0 in {wall:.1f} s, history {hist}; dgdm-serve "
+        f"answered /predict from its bundle [{card}]")
+    return {"wall_s": wall, "history": hist, "serve": served, "model_config": mc}
+
+
+KERNEL_SOURCES = {   # kernel -> (its source, the TPU code it stands in for)
+    "gather_rows": ("gather_rows.cu", "dgdm_histopath_tpu/ops/pallas/gather_rows.py:56"),
+    "gather_agg": ("gather_agg.cu", "dgdm_histopath_tpu/ops/pallas/gather_agg.py:36"),
+    "gather_rows_bwd": ("gather_rows_bwd.cu", "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86"),
+    "gather_agg_bwd": ("gather_agg_bwd.cu", "dgdm_histopath_tpu/ops/pallas/gather_agg.py:101"),
+    "neighbor_transpose": ("neighbor_transpose.cu",
+                           "none: new, the list the backwards of "
+                           "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86 and "
+                           "gather_agg.py:101 read"),
+    "flash_spatial_packed": ("flash_spatial.cu",
+                             "dgdm_histopath_tpu/ops/pallas/flash_spatial.py:101"),
+    "flash_spatial": ("flash_spatial.cu", "dgdm_histopath_tpu/ops/pallas/flash_spatial.py:47"),
+}
+
+
+def f16_kernel_entries(dtype: dict) -> list:
+    """The kernel line's f16 entries: each kernel's f16 instantiation at the
+    first shape timed (Base B32 N1024 K8 F128; the flash shapes of run R),
+    its launches on its f16 main path (the f16 Base training step for the
+    gathers, the f16 ``SpatialAttention(use_flash=True)`` forward for the
+    flash kernels), counted there. The list kernel is index-only: no f16."""
+    entries = []
+    for name, rows in dtype["kernels"].items():
+        if not rows:
+            continue
+        source, where = KERNEL_SOURCES[name]
+        r = rows[0]
+        flash = name.startswith("flash")
+        launches = (dtype["flash_module"][name]["launches"][name] if flash
+                    else dtype["training"]["f16"]["launches"][name])
+        if launches < 1:
+            raise AssertionError(f"{name} f16 was launched no time on its main path")
+        entries.append({
+            "name": f"{name}_f16", "route": "cuda",
+            "source": f"dgdm_histopath_torch/csrc/{source}", "replaces": where,
+            "launches": launches, "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": r.get("library", "scaled_dot_product_attention" if flash else None),
+            "bf16_ms": r.get("bf16_ms"),
+            "shape": ("B{} N{} H{} D{} f16".format(*r["shape"]) if flash
+                      else "B{} N{} K{} F{} f16".format(*r["shape"]))})
+    return entries
+
+
+def dtype_phase(torch, graphs, card: str, bf16_rows=None) -> dict:
+    """Phase 17: half precision (ROADMAP item 8). ``bf16_rows``: the kernel
+    phase's rows to set the f16 times beside (timed here when None)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"kernels": dtype_kernels(torch, bf16_rows)}
+    torch.cuda.empty_cache()
+    out["flash_module"] = dtype_flash_module(torch)
+    out["training"] = dtype_training(torch, graphs, card)
+    out["logits"] = dtype_logits(torch, graphs, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        out["set2set"] = dtype_set2set(torch, graphs, card, root)
+        torch.cuda.empty_cache()
+        out["cli"] = dtype_cli(torch, card, root)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"dtype: phase 17 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3981,6 +4428,18 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": cards}}))
+        return 0
+
+    if sys.argv[1:] == ["--dtype-only"]:
+        # phase 17 alone: the kernels and DGDM-Base in half precision
+        dtype = dtype_phase(torch, make_graphs(BASE), card)
+        log("details: " + json.dumps({"dtype": dtype}, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": f16_kernel_entries(dtype)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
         return 0
 
     kern = kernel_phase(torch)
@@ -4038,7 +4497,13 @@ def main() -> int:
 
     # last: int8 inference, on the Base cell's graphs and the slide's patches
     int8 = int8_phase(torch, graphs, card, slide_keep)
-    del graphs, slide_keep
+    del slide_keep
+    torch.cuda.empty_cache()
+
+    # half precision (item 8): the kernels in f16 beside the bf16 rows above,
+    # DGDM-Base in f16 / with bf16 parameters / with set2set, the f16 CLI run
+    dtype = dtype_phase(torch, graphs, card, kern)
+    del graphs
     torch.cuda.empty_cache()
 
     # last: training through the CLI, resumed after a SIGTERM, and dgdm-predict
@@ -4049,22 +4514,7 @@ def main() -> int:
     serve = serve_phase(torch, card)
     torch.cuda.empty_cache()
 
-    replaces = {   # kernel -> (its source, the TPU code it stands in for)
-        "gather_rows": ("gather_rows.cu", "dgdm_histopath_tpu/ops/pallas/gather_rows.py:56"),
-        "gather_agg": ("gather_agg.cu", "dgdm_histopath_tpu/ops/pallas/gather_agg.py:36"),
-        "gather_rows_bwd": ("gather_rows_bwd.cu",
-                            "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86"),
-        "gather_agg_bwd": ("gather_agg_bwd.cu",
-                           "dgdm_histopath_tpu/ops/pallas/gather_agg.py:101"),
-        "neighbor_transpose": ("neighbor_transpose.cu",
-                               "none: new, the list the backwards of "
-                               "dgdm_histopath_tpu/ops/pallas/gather_rows.py:86 and "
-                               "gather_agg.py:101 read"),
-        "flash_spatial_packed": ("flash_spatial.cu",
-                                 "dgdm_histopath_tpu/ops/pallas/flash_spatial.py:101"),
-        "flash_spatial": ("flash_spatial.cu",
-                          "dgdm_histopath_tpu/ops/pallas/flash_spatial.py:47"),
-    }
+    replaces = KERNEL_SOURCES
     line = {"kernels": []}
     for name, (source, where) in replaces.items():
         main_shape = kern[name][0]                 # the first shape timed, bf16
@@ -4128,6 +4578,7 @@ def main() -> int:
                                             if r["dtype"] == "bfloat16")
             entry["all_shapes"] = kern[name]
         line["kernels"].append(entry)
+    line["kernels"] += f16_kernel_entries(dtype)
     for t in (timing, train_timing, l_timing, l_train_timing, moe["timing"], moe["training"],
               moe["block"]):
         t["profile"].pop("top")           # printed above, one line per kernel
@@ -4137,6 +4588,7 @@ def main() -> int:
                                   "training_parity": train_parity, "remat": remat,
                                   "flash_module": flash_module, "cli": cli,
                                   "serve": serve, "moe": moe, "dp": dp, "int8": int8,
+                                  "dtype": dtype,
                                   "parallel": {k: v for k, v in par.items() if k != "rect"},
                                   "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},

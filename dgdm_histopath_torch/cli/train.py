@@ -316,6 +316,10 @@ def _execute_training(cfg: DGDMConfig, args, device, resume_dir=None) -> int:
         "survival_intervals": model.survival_intervals,
         "compute_dtype": cfg.model.compute_dtype,
     }
+    if cfg.model.param_dtype != "float32":
+        # the JAX CLI leaves it out; without it the bundle would build f32
+        # parameters and round-trip its bf16 / f16 leaves through them
+        model_cfg["param_dtype"] = cfg.model.param_dtype
     if cfg.model.moe_experts:
         # the JAX CLI leaves these out, and its bundle of an MoE model then
         # builds no MoE block; the port writes them so that the bundle loads

@@ -11,11 +11,21 @@ are the same paths joined by ``.``, with these layout rules:
   ``MultiHeadDotProductAttention`` calls it ``out``)
 * ``Conv.kernel [kh, kw, in, out]``      -> ``weight [out, in, kh, kw]``
 * LayerNorm ``scale`` / ``bias``         -> ``weight`` / ``bias``
+* the Set2Set pool's ``OptimizedLSTMCell`` (``pool/lstm/{ii,if,ig,io}``
+  kernels, ``pool/lstm/{hi,hf,hg,ho}`` kernels and biases) are ``Dense``
+  leaves: ``kernel [in, out]`` -> ``weight [out, in]``
 * ``global_query [H, D]``, ``mask_token``, the ViT's ``cls_token``,
   ``pos_embed`` and ``ls*_gamma``, and the MoE's expert parameters
   ``w_in [E, F, H]``, ``b_in [E, H]``, ``w_out [E, H, F]``, ``b_out [E, F]``
   are copied as they are (they are not ``kernel``/``bias`` leaves); the
   MoE's ``router`` is a ``Dense`` and ``moe_norm`` a LayerNorm.
+
+Leaves keep their precision: f16 stays f16, bf16 stays bf16 (a JAX array
+of ``ml_dtypes`` bfloat16, or the raw 2-byte void ``|V2`` that ``np.load``
+gives for one, read by its bit pattern), every other float becomes f32. Back
+in flax's layout a bf16 tensor is a ``|V2`` array of its bit patterns: the
+bytes ``np.savez`` writes for an ``ml_dtypes`` bfloat16 array, and what
+``np.load`` reads back for one. The port needs no ``ml_dtypes``.
 
 Loading is strict: a missing or unexpected key, or a shape mismatch,
 raises ``CheckpointError``. ``params_to_flax`` applies the rules backwards;
@@ -61,6 +71,32 @@ def _convert_leaf(module: list, leaf: str, a: np.ndarray) -> Tuple[str, np.ndarr
     return leaf, a
 
 
+def is_bf16_bits(a: np.ndarray) -> bool:
+    """Whether ``a`` holds bf16 values as 2-byte patterns: an ``ml_dtypes``
+    bfloat16 array, or the ``|V2`` void that ``np.load`` makes of one."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and a.dtype.names is None
+
+
+def leaf_tensor(a: np.ndarray) -> torch.Tensor:
+    """A flax leaf as a tensor of its precision: bf16 by bit view, f16 as
+    it is, any other float as f32."""
+    if is_bf16_bits(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()
+                                ).view(torch.bfloat16)
+    if a.dtype == np.float16:
+        return torch.from_numpy(np.ascontiguousarray(a).copy())
+    return torch.tensor(a, dtype=torch.float32)
+
+
+def leaf_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array for flax's layout: bf16 as ``|V2`` bit
+    patterns, f16 as f16, any other float as f32."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy() if t.dtype == torch.float16 else t.float().numpy()
+
+
 def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """``{"params/a/b/kernel": array}`` -> ``{"a.b.weight": tensor}``."""
     state = {}
@@ -69,7 +105,7 @@ def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if parts[0] == "params":
             parts = parts[1:]
         name, value = _convert_leaf(parts[:-1], parts[-1], np.asarray(arr))
-        state[".".join(parts[:-1] + [name])] = torch.tensor(value, dtype=torch.float32)
+        state[".".join(parts[:-1] + [name])] = leaf_tensor(value)
     return state
 
 
@@ -99,11 +135,11 @@ def params_to_flax(state: Mapping[str, torch.Tensor], model: nn.Module
                    ) -> Dict[str, np.ndarray]:
     """``{"a.b.weight": tensor}`` -> ``{"params/a/b/kernel": array}``: the
     inverse of :func:`params_from_flax` for ``model``'s state dict. Arrays
-    are f32 on the host."""
+    are on the host, in each tensor's precision (:func:`leaf_array`)."""
     layouts = _head_layouts(model)
     flat = {}
     for key, value in state.items():
-        a = value.detach().float().cpu().numpy()
+        a = leaf_array(value)
         module, _, leaf = key.rpartition(".")
         kind, heads = layouts.get(module, (None, 1))
         if leaf == "weight" and a.ndim == 1:               # LayerNorm

@@ -22,7 +22,10 @@
 // thread blocks on Hopper run in no order, so a block loops over the key tiles
 // itself and keeps m, l and the accumulator in registers.
 //
-// bf16 inputs: tensor cores (flash_spatial_{packed,headmajor}_mma_kernel).
+// bf16 and f16 inputs: tensor cores (flash_spatial_{packed,headmajor}_mma_kernel,
+// one instantiation per type; mma.sync .bf16 or .f16, which share the fragment
+// layout, so ldmatrix and every index below serve both). The text below says
+// bf16 for either; only the split of p differs (split_pair).
 //   * A warp owns 16 query rows and HG heads; a block has WR warps (WR row
 //     groups of 16 rows, the same HG heads) and the grid's y tiles the heads.
 //     q fragments are loaded once into registers (from a shared-memory copy,
@@ -95,7 +98,9 @@
 // mask (one byte per node) are contiguous and 16-byte aligned.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -104,6 +109,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 // ---------------------------------------------------------------------------
 // f32: FMAs from shared-memory tiles
@@ -390,7 +396,7 @@ flash_spatial_headmajor_kernel(const float* __restrict__ q, const float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync), cp.async double buffering
+// bf16 and f16: tensor cores (mma.sync), cp.async double buffering
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -434,29 +440,49 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, uint32
                : "=r"(r0), "=r"(r1) : "r"(addr));
 }
 
-// d = a . b + c, a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate.
-// A pure register operation: no volatile, the compiler may schedule it.
+// d = a . b + c, a 16 x 16 (row), b 16 x 8 (col), T (bf16 or f16) in, f32
+// accumulate; the two types share the fragment layout, so ldmatrix and the
+// repacking of P serve both. A pure register operation: no volatile, the
+// compiler may schedule it.
+template <typename T>
 __device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                         uint32_t b1, const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  if constexpr (std::is_same_v<T, bf16>) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  }
 }
 
+template <typename T>
 __device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                         uint32_t b1) {
-  mma_k16(c, a, b0, b1, c);
+  mma_k16<T>(c, a, b0, b1, c);
 }
 
 // d = a . b + c, a 16 x 8 (row), b 8 x 8 (col)
+template <typename T>
 __device__ __forceinline__ void mma_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0,
                                        const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  if constexpr (std::is_same_v<T, bf16>) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b0), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b0), "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -479,15 +505,56 @@ __device__ __forceinline__ float pair_bias(float qx, float qy, float kx, float k
   return valid ? -sqrt_approx(fmaxf(dx * dx + dy * dy, 1e-12f)) * mul : kNegInf;
 }
 
-// (hi, lo) bf16 pairs of two f32 values x0 (low half) and x1: hi truncates,
-// lo = x - hi rounded to nearest, so hi + lo is within 2^-16 of x.
+// (hi, lo) pairs of T of two f32 values x0 (low half) and x1 in [0, 1]: hi
+// rounds toward zero, lo = x - hi rounded to nearest, and hi + lo stands for
+// x. bf16: hi keeps the top 16 bits of x's pattern (a truncation), and
+// hi + lo is within 2^-16 of x. f16 has a 5-bit exponent, so the bit trick
+// does not carry over: hi = __float2half_rz(x) (11 significant bits down
+// to 2^-14, subnormal steps of 2^-24 below), lo the rest rounded, within
+// 2^-22 of x where it is normal and 2^-25 absolute where it is subnormal
+// (lo underflows below ~6e-8); against the accumulated l >= 1 that is below
+// one f16 rounding of the output.
+template <typename T>
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const uint32_t u0 = __float_as_uint(x0);
-  const uint32_t u1 = __float_as_uint(x1);
-  hi = __byte_perm(u0, u1, 0x7632);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __uint_as_float(u0 & 0xffff0000u),
-                                                 x1 - __uint_as_float(u1 & 0xffff0000u));
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+  if constexpr (std::is_same_v<T, bf16>) {
+    const uint32_t u0 = __float_as_uint(x0);
+    const uint32_t u1 = __float_as_uint(x1);
+    hi = __byte_perm(u0, u1, 0x7632);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __uint_as_float(u0 & 0xffff0000u),
+                                                   x1 - __uint_as_float(u1 & 0xffff0000u));
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  } else {
+    const __half h0 = __float2half_rz(x0);
+    const __half h1 = __float2half_rz(x1);
+    const __half2 h = __halves2half2(h0, h1);
+    const __half2 l = __floats2half2_rn(x0 - __half2float(h0), x1 - __half2float(h1));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
+// Two 1.0 of T in one register: the column of ones that sums p into l.
+template <typename T>
+__device__ __forceinline__ constexpr uint32_t ones_pair() {
+  return std::is_same_v<T, bf16> ? 0x3f803f80u : 0x3c003c00u;
+}
+
+// x0 (low half) and x1 rounded to nearest into a pair of T.
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(float x0, float x1) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  } else {
+    const __half2 p = __floats2half2_rn(x0, x1);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T round_one(float x) {
+  if constexpr (std::is_same_v<T, bf16>) return __float2bfloat16(x);
+  else return __float2half(x);
 }
 
 // Tiling of one kernel instance. DP: a head's columns in shared memory (8 or
@@ -505,9 +572,9 @@ struct MmaCfg {
   static constexpr int kND = DP / 8;                  // n8 column tiles of the output
   static constexpr int kQRegs = DP == 8 ? 2 : 4 * kKS;  // q fragment registers per head
   static constexpr bool kQInRegs = HG * DP <= 128;     // else ldmatrix per tile
-  static constexpr int kTile = BK * kStride;          // bf16 of one K or V tile
+  static constexpr int kTile = BK * kStride;          // 2-byte values of one K or V tile
   static constexpr size_t kSmem =
-      sizeof(bf16) * (kRowsQ * kStride + 4 * kTile) + sizeof(float) * 2 * BK * 2 + 2 * BK;
+      2 * (kRowsQ * kStride + 4 * kTile) + sizeof(float) * 2 * BK * 2 + 2 * BK;
   static_assert(DP == 8 || DP % 16 == 0, "DP is 8 or a multiple of 16");
   static_assert(BK == 16 || BK == 32 || BK == 64, "BK is 16, 32 or 64");
   static_assert(DP != 8 || BK >= 32, "DP = 8 takes K fragments 4 key tiles at a time");
@@ -517,8 +584,8 @@ struct MmaCfg {
 // (`src` at (first row, first head, column 0), rows src_stride apart) into a
 // shared tile whose heads are DP columns apart. 16- or 8-byte cp.async where
 // d allows it, else plain loads and stores.
-template <int DP, int NH, int ROWS>
-__device__ __forceinline__ void copy_rows(bf16* dst, int stride, const bf16* src,
+template <typename T, int DP, int NH, int ROWS>
+__device__ __forceinline__ void copy_rows(T* dst, int stride, const T* src,
                                           int64_t src_stride, int d) {
   if (DP % 8 == 0 && d == DP) {                      // the common case, all constants
     constexpr int cpr = DP / 8;
@@ -540,7 +607,7 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int stride, const bf16* src
       const int h = c / cpr;
       const int e = (c - h * cpr) << sh;
       const uint32_t to = smem_u32(dst + r * stride + h * DP + e);
-      const bf16* from = src + r * src_stride + h * d + e;
+      const T* from = src + r * src_stride + h * d + e;
       if (sh == 3) cp_async16(to, from);
       else cp_async8(to, from);
     }
@@ -560,16 +627,16 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int stride, const bf16* src
 // onward; grid (N / (16 WR), H / HG, B). scale_l2 = scale * log2(e);
 // bias_s = log2(e) / (tau * scale_l2) = 1 / (tau * scale): the bias in units
 // of the unscaled q.k, so that the product's accumulator starts from it.
-template <int DP, int HG, int WR, int BK>
+template <typename T, int DP, int HG, int WR, int BK>
 __device__ __forceinline__ void flash_mma_block(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ pos, const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ pos, const uint8_t* __restrict__ mask, T* __restrict__ out,
     int n, int heads, int d, float scale_l2, float bias_s) {
   using C = MmaCfg<DP, HG, WR, BK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* const qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* const ks = qs + C::kRowsQ * C::kStride;      // [2][BK][kStride]
-  bf16* const vs = ks + 2 * C::kTile;                // [2][BK][kStride]
+  T* const qs = reinterpret_cast<T*>(smem_raw);
+  T* const ks = qs + C::kRowsQ * C::kStride;         // [2][BK][kStride]
+  T* const vs = ks + 2 * C::kTile;                   // [2][BK][kStride]
   float* const kpos = reinterpret_cast<float*>(vs + 2 * C::kTile);   // [2][BK][2]
   uint8_t* const kmask = reinterpret_cast<uint8_t*>(kpos + 4 * BK);  // [2][BK]
 
@@ -589,16 +656,16 @@ __device__ __forceinline__ void flash_mma_block(
     __syncthreads();
   }
   auto issue_tile = [&](int j0, int s) {
-    copy_rows<DP, HG, BK>(ks + s * C::kTile, C::kStride,
-                                 k + (node0 + j0) * hd + h0 * d, hd, d);
-    copy_rows<DP, HG, BK>(vs + s * C::kTile, C::kStride,
-                                 v + (node0 + j0) * hd + h0 * d, hd, d);
+    copy_rows<T, DP, HG, BK>(ks + s * C::kTile, C::kStride,
+                             k + (node0 + j0) * hd + h0 * d, hd, d);
+    copy_rows<T, DP, HG, BK>(vs + s * C::kTile, C::kStride,
+                             v + (node0 + j0) * hd + h0 * d, hd, d);
     for (int i = threadIdx.x; i < BK / 2; i += C::kThreads)       // 2 keys' (x, y)
       cp_async16(smem_u32(kpos + s * 2 * BK + 4 * i), pos + (node0 + j0) * 2 + 4 * i);
     for (int i = threadIdx.x; i < BK / 16; i += C::kThreads)
       cp_async16(smem_u32(kmask + s * BK + 16 * i), mask + node0 + j0 + 16 * i);
   };
-  copy_rows<DP, HG, C::kRowsQ>(qs, C::kStride, q + (node0 + q0) * hd + h0 * d, hd, d);
+  copy_rows<T, DP, HG, C::kRowsQ>(qs, C::kStride, q + (node0 + q0) * hd + h0 * d, hd, d);
   issue_tile(0, 0);
   cp_async_commit();
 
@@ -623,8 +690,8 @@ __device__ __forceinline__ void flash_mma_block(
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][nd][e] = 0.f;
   }
-  const uint32_t kOnes = 0x3f803f80u;                // two bf16 1.0
-  const bf16* const qwarp = qs + wr * 16 * C::kStride;
+  const uint32_t kOnes = ones_pair<T>();             // two 1.0 of T
+  const T* const qwarp = qs + wr * 16 * C::kStride;
   // q fragments of (head column offset col, k16 step) by ldmatrix
   auto load_q = [&](uint32_t* f, int col, int step) {
     if constexpr (DP == 8) {
@@ -674,8 +741,8 @@ __device__ __forceinline__ void flash_mma_block(
           bias[j][2 * r + 1] = pair_bias(qx[r], qy[r], p.z, p.w, (mk >> 8) != 0, bias_s);
         }
       }
-      const bf16* const kt = ks + s * C::kTile;
-      const bf16* const vt = vs + s * C::kTile;
+      const T* const kt = ks + s * C::kTile;
+      const T* const vt = vs + s * C::kTile;
 #pragma unroll
       for (int i = 0; i < HG; ++i) {
         const int col = i * DP;
@@ -690,7 +757,8 @@ __device__ __forceinline__ void flash_mma_block(
             uint32_t b[4];
             ldsm_x4(b, smem_u32(kt + ((j + (lane >> 3)) * 8 + (lane & 7)) * C::kStride + col));
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) mma_k8(sc[j + jj], a[0], a[1], b[jj], bias[j + jj]);
+            for (int jj = 0; jj < 4; ++jj)
+              mma_k8<T>(sc[j + jj], a[0], a[1], b[jj], bias[j + jj]);
           }
         } else {
 #pragma unroll
@@ -708,8 +776,8 @@ __device__ __forceinline__ void flash_mma_block(
               uint32_t b[4];
               ldsm_x4(b, smem_u32(kt + ((j + (m >> 1)) * 8 + (lane & 7)) * C::kStride + col +
                                   step * 16 + (m & 1) * 8));
-              mma_k16(sc[j], a, b[0], b[1], step == 0 ? bias[j] : sc[j]);
-              mma_k16(sc[j + 1], a, b[2], b[3], step == 0 ? bias[j + 1] : sc[j + 1]);
+              mma_k16<T>(sc[j], a, b[0], b[1], step == 0 ? bias[j] : sc[j]);
+              mma_k16<T>(sc[j + 1], a, b[2], b[3], step == 0 ? bias[j + 1] : sc[j + 1]);
             }
           }
         }
@@ -747,17 +815,17 @@ __device__ __forceinline__ void flash_mma_block(
 #pragma unroll
         for (int kc = 0; kc < BK / 16; ++kc) {
           uint32_t hi[4], lo[4];
-          split_pair(sc[2 * kc][0], sc[2 * kc][1], hi[0], lo[0]);
-          split_pair(sc[2 * kc][2], sc[2 * kc][3], hi[1], lo[1]);
-          split_pair(sc[2 * kc + 1][0], sc[2 * kc + 1][1], hi[2], lo[2]);
-          split_pair(sc[2 * kc + 1][2], sc[2 * kc + 1][3], hi[3], lo[3]);
-          mma_k16(l_acc[i], hi, kOnes, kOnes);
-          mma_k16(l_acc[i], lo, kOnes, kOnes);
+          split_pair<T>(sc[2 * kc][0], sc[2 * kc][1], hi[0], lo[0]);
+          split_pair<T>(sc[2 * kc][2], sc[2 * kc][3], hi[1], lo[1]);
+          split_pair<T>(sc[2 * kc + 1][0], sc[2 * kc + 1][1], hi[2], lo[2]);
+          split_pair<T>(sc[2 * kc + 1][2], sc[2 * kc + 1][3], hi[3], lo[3]);
+          mma_k16<T>(l_acc[i], hi, kOnes, kOnes);
+          mma_k16<T>(l_acc[i], lo, kOnes, kOnes);
           if constexpr (DP == 8) {
             uint32_t b0, b1;
             ldsm_x2_trans(b0, b1, smem_u32(vt + (kc * 16 + (lane & 15)) * C::kStride + col));
-            mma_k16(acc[i][0], hi, b0, b1);
-            mma_k16(acc[i][0], lo, b0, b1);
+            mma_k16<T>(acc[i][0], hi, b0, b1);
+            mma_k16<T>(acc[i][0], lo, b0, b1);
           } else {
             const int m = lane >> 3;
 #pragma unroll
@@ -765,10 +833,10 @@ __device__ __forceinline__ void flash_mma_block(
               uint32_t b[4];
               ldsm_x4_trans(b, smem_u32(vt + (kc * 16 + (m & 1) * 8 + (lane & 7)) * C::kStride +
                                         col + (nd + (m >> 1)) * 8));
-              mma_k16(acc[i][nd], hi, b[0], b[1]);
-              mma_k16(acc[i][nd + 1], hi, b[2], b[3]);
-              mma_k16(acc[i][nd], lo, b[0], b[1]);
-              mma_k16(acc[i][nd + 1], lo, b[2], b[3]);
+              mma_k16<T>(acc[i][nd], hi, b[0], b[1]);
+              mma_k16<T>(acc[i][nd + 1], hi, b[2], b[3]);
+              mma_k16<T>(acc[i][nd], lo, b[0], b[1]);
+              mma_k16<T>(acc[i][nd + 1], lo, b[2], b[3]);
             }
           }
         }
@@ -783,40 +851,39 @@ __device__ __forceinline__ void flash_mma_block(
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float denom = fmaxf(l_acc[i][2 * r], 1e-20f);
-      bf16* const orow = out + (node0 + row0 + 8 * r) * hd + static_cast<int64_t>(head) * d;
+      T* const orow = out + (node0 + row0 + 8 * r) * hd + static_cast<int64_t>(head) * d;
 #pragma unroll
       for (int nd = 0; nd < C::kND; ++nd) {
         const int dim = nd * 8 + 2 * t;
         const float x0 = acc[i][nd][2 * r] / denom;
         const float x1 = acc[i][nd][2 * r + 1] / denom;
         if ((d & 1) == 0) {
-          if (dim < d)
-            *reinterpret_cast<__nv_bfloat162*>(orow + dim) = __floats2bfloat162_rn(x0, x1);
+          if (dim < d) *reinterpret_cast<uint32_t*>(orow + dim) = pack_pair<T>(x0, x1);
         } else {
-          if (dim < d) orow[dim] = __float2bfloat16(x0);
-          if (dim + 1 < d) orow[dim + 1] = __float2bfloat16(x1);
+          if (dim < d) orow[dim] = round_one<T>(x0);
+          if (dim + 1 < d) orow[dim + 1] = round_one<T>(x1);
         }
       }
     }
   }
 }
 
-template <int DP, int HG, int WR, int BK, int MINB>
+template <typename T, int DP, int HG, int WR, int BK, int MINB>
 __global__ void __launch_bounds__(32 * WR, MINB)
-flash_spatial_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const float* __restrict__ pos,
-                                const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+flash_spatial_packed_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const float* __restrict__ pos,
+                                const uint8_t* __restrict__ mask, T* __restrict__ out,
                                 int n, int heads, int d, float scale_l2, float bias_s) {
-  flash_mma_block<DP, HG, WR, BK>(q, k, v, pos, mask, out, n, heads, d, scale_l2, bias_s);
+  flash_mma_block<T, DP, HG, WR, BK>(q, k, v, pos, mask, out, n, heads, d, scale_l2, bias_s);
 }
 
-template <int DP, int HG, int WR, int BK, int MINB>
+template <typename T, int DP, int HG, int WR, int BK, int MINB>
 __global__ void __launch_bounds__(32 * WR, MINB)
-flash_spatial_headmajor_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                   const bf16* __restrict__ v, const float* __restrict__ pos,
-                                   const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+flash_spatial_headmajor_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                   const T* __restrict__ v, const float* __restrict__ pos,
+                                   const uint8_t* __restrict__ mask, T* __restrict__ out,
                                    int n, int heads, int d, float scale_l2, float bias_s) {
-  flash_mma_block<DP, HG, WR, BK>(q, k, v, pos, mask, out, n, heads, d, scale_l2, bias_s);
+  flash_mma_block<T, DP, HG, WR, BK>(q, k, v, pos, mask, out, n, heads, d, scale_l2, bias_s);
 }
 
 // ---------------------------------------------------------------------------
@@ -873,23 +940,23 @@ cudaError_t launch_width_fma(const Args& a) {
   return cudaErrorInvalidValue;
 }
 
-template <int DP, int HG, int WR, int BK, int MINB, bool PACKED>
+template <typename T, int DP, int HG, int WR, int BK, int MINB, bool PACKED>
 cudaError_t launch_mma(const Args& a) {
   using C = MmaCfg<DP, HG, WR, BK>;
   if (a.heads % HG != 0 || a.n % C::kRowsQ != 0 || a.n % BK != 0)
     return cudaErrorInvalidValue;
-  void (*kern)(const bf16*, const bf16*, const bf16*, const float*, const uint8_t*, bf16*,
+  void (*kern)(const T*, const T*, const T*, const float*, const uint8_t*, T*,
                int, int, int, float, float);
-  if constexpr (PACKED) kern = flash_spatial_packed_mma_kernel<DP, HG, WR, BK, MINB>;
-  else kern = flash_spatial_headmajor_mma_kernel<DP, HG, WR, BK, MINB>;
+  if constexpr (PACKED) kern = flash_spatial_packed_mma_kernel<T, DP, HG, WR, BK, MINB>;
+  else kern = flash_spatial_headmajor_mma_kernel<T, DP, HG, WR, BK, MINB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n / C::kRowsQ, a.heads / HG, a.batch);
   kern<<<grid, C::kThreads, C::kSmem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const float*>(a.pos),
-      static_cast<const uint8_t*>(a.mask), static_cast<bf16*>(a.out), a.n, a.heads, a.d,
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.pos),
+      static_cast<const uint8_t*>(a.mask), static_cast<T*>(a.out), a.n, a.heads, a.d,
       a.scale * kLog2e, a.inv_tau / a.scale);
   return cudaGetLastError();
 }
@@ -902,21 +969,21 @@ cudaError_t launch_mma(const Args& a) {
 // HG heads while their accumulators and q fragments stay in registers.
 // Head-major: one head per warp, 128 rows per block (half the K/V traffic from
 // L2 of 64 rows); D > 128 takes shorter key tiles.
-template <bool PACKED>
+template <typename T, bool PACKED>
 cudaError_t launch_width_mma(const Args& a) {
   if constexpr (PACKED) {
-    if (a.d <= 8) return launch_mma<8, 4, 4, 64, 2, true>(a);
-    if (a.d <= 16) return launch_mma<16, 4, 4, 64, 2, true>(a);
-    if (a.d <= 32) return launch_mma<32, 2, 4, 64, 1, true>(a);
-    if (a.d <= 64) return launch_mma<64, 1, 4, 64, 1, true>(a);
-    if (a.d <= 128) return launch_mma<128, 1, 4, 32, 1, true>(a);
+    if (a.d <= 8) return launch_mma<T, 8, 4, 4, 64, 2, true>(a);
+    if (a.d <= 16) return launch_mma<T, 16, 4, 4, 64, 2, true>(a);
+    if (a.d <= 32) return launch_mma<T, 32, 2, 4, 64, 1, true>(a);
+    if (a.d <= 64) return launch_mma<T, 64, 1, 4, 64, 1, true>(a);
+    if (a.d <= 128) return launch_mma<T, 128, 1, 4, 32, 1, true>(a);
   } else {
-    if (a.d <= 8) return launch_mma<8, 1, 8, 64, 2, false>(a);
-    if (a.d <= 16) return launch_mma<16, 1, 8, 64, 2, false>(a);
-    if (a.d <= 32) return launch_mma<32, 1, 8, 64, 2, false>(a);
-    if (a.d <= 64) return launch_mma<64, 1, 8, 64, 2, false>(a);
-    if (a.d <= 128) return launch_mma<128, 1, 4, 32, 1, false>(a);
-    if (a.d <= 256) return launch_mma<256, 1, 4, 16, 1, false>(a);
+    if (a.d <= 8) return launch_mma<T, 8, 1, 8, 64, 2, false>(a);
+    if (a.d <= 16) return launch_mma<T, 16, 1, 8, 64, 2, false>(a);
+    if (a.d <= 32) return launch_mma<T, 32, 1, 8, 64, 2, false>(a);
+    if (a.d <= 64) return launch_mma<T, 64, 1, 8, 64, 2, false>(a);
+    if (a.d <= 128) return launch_mma<T, 128, 1, 4, 32, 1, false>(a);
+    if (a.d <= 256) return launch_mma<T, 256, 1, 4, 16, 1, false>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -924,37 +991,42 @@ cudaError_t launch_width_mma(const Args& a) {
 template <bool PACKED>
 int launch(const void* q, const void* k, const void* v, const void* pos, const void* mask,
            void* out, int64_t batch, int64_t n, int64_t heads, int64_t d, float scale,
-           float inv_tau, int is_bf16, void* stream) {
+           float inv_tau, int dtype, void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0 || d <= 0 || batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (PACKED && heads * d != 128) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, pos, mask, out, static_cast<int>(batch), static_cast<int>(n),
                static_cast<int>(heads), static_cast<int>(d), scale, inv_tau,
                static_cast<cudaStream_t>(stream)};
-  // the dtype alone picks the path: tensor cores for bf16, FMAs for f32
-  const cudaError_t err = is_bf16 ? launch_width_mma<PACKED>(a) : launch_width_fma<PACKED>(a);
+  // the dtype alone picks the path: tensor cores for bf16 and f16, FMAs for f32
+  cudaError_t err;
+  if (dtype == 1) err = launch_width_mma<bf16, PACKED>(a);
+  else if (dtype == 2) err = launch_width_mma<f16, PACKED>(a);
+  else if (dtype == 0) err = launch_width_fma<PACKED>(a);
+  else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Both launch on `stream`, on the caller's current device.
+// Both launch on `stream`, on the caller's current device. `dtype` of q, k, v
+// and out: 0 f32 (FMAs), 1 bf16, 2 f16 (tensor cores).
 extern "C" int flash_spatial_packed_launch(const void* q, const void* k, const void* v,
                                            const void* pos, const void* mask, void* out,
                                            int64_t batch, int64_t n, int64_t heads,
                                            int64_t d, float scale, float inv_tau,
-                                           int is_bf16, void* stream) {
+                                           int dtype, void* stream) {
   return launch<true>(q, k, v, pos, mask, out, batch, n, heads, d, scale, inv_tau,
-                      is_bf16, stream);
+                      dtype, stream);
 }
 
 extern "C" int flash_spatial_headmajor_launch(const void* q, const void* k, const void* v,
                                               const void* pos, const void* mask, void* out,
                                               int64_t batch, int64_t n, int64_t heads,
                                               int64_t d, float scale, float inv_tau,
-                                              int is_bf16, void* stream) {
+                                              int dtype, void* stream) {
   return launch<false>(q, k, v, pos, mask, out, batch, n, heads, d, scale, inv_tau,
-                       is_bf16, stream);
+                       dtype, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

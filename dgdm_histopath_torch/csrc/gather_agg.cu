@@ -22,7 +22,7 @@
 // slots. The h loads carry no condition (an index out of range reads row 0
 // and is zeroed after): a conditional load is sunk by the compiler next to
 // its FMAs, one in flight again. h is read through the read-only path, 16
-// bytes a lane (8 bf16 or 4 f32) where rows and pointer are 16-byte aligned,
+// bytes a lane (8 bf16 / f16 or 4 f32) where rows and pointer are 16-byte aligned,
 // else one element a lane.
 // Sums are f32 in registers, in k order. out leaves as 16-byte streaming
 // stores (st.global.cs): written once and never read here, it should not
@@ -38,7 +38,8 @@
 // shape of the two presets (PERF.md), so K = 8 keeps its own; one-element
 // lanes serve only inputs off 16-byte alignment and take the any-K path.
 //
-// h is bf16 or f32; w is f32. An index outside [0, N_src) contributes
+// h is bf16, f16 or f32 (an f16 lane converts its halves as a bf16 lane
+// does, exactly, to f32); w is f32. An index outside [0, N_src) contributes
 // nothing (the zero row of the TPU one-hot kernel): its loaded values and its
 // weight are taken as 0. Any N, K and F are taken.
 //
@@ -48,6 +49,7 @@
 // aggregations are square (N_src = N).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
 
 namespace {
@@ -76,6 +78,20 @@ template <> struct Lane<__nv_bfloat16, 1> {
   using Raw = __nv_bfloat16;
   __device__ static Raw load(const __nv_bfloat16* p) { return __ldg(p); }
   __device__ static float get(const Raw& r, int) { return __bfloat162float(r); }
+};
+template <> struct Lane<__half, 8> {
+  using Raw = uint4;
+  __device__ static Raw load(const __half* p) { return __ldg(reinterpret_cast<const uint4*>(p)); }
+  __device__ static float get(const Raw& r, int i) {
+    const unsigned word = (&r.x)[i >> 1];
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(
+        (i & 1) ? (word >> 16) : (word & 0xffffu))));
+  }
+};
+template <> struct Lane<__half, 1> {
+  using Raw = __half;
+  __device__ static Raw load(const __half* p) { return __ldg(p); }
+  __device__ static float get(const Raw& r, int) { return __half2float(r); }
 };
 template <> struct Lane<float, 4> {
   using Raw = float4;
@@ -209,11 +225,11 @@ cudaError_t launch_dtype(const void* h, const int32_t* idx, const float* w, floa
 
 // Launches on `stream`, on the caller's current device. `out` is a fresh
 // contiguous f32 tensor (16-byte aligned rows wherever h's are). h holds
-// n_src rows a graph, idx and w n rows of k slots. B * N, N_src, K and F
-// must be below 2^31 (the wrapper checks).
+// n_src rows a graph in `dtype` (0 f32, 1 bf16, 2 f16), idx and w n rows of
+// k slots. B * N, N_src, K and F must be below 2^31 (the wrapper checks).
 extern "C" int gather_agg_launch(const void* h, const void* idx, const void* w,
                                  void* out, int64_t batch, int64_t n, int64_t k,
-                                 int64_t n_src, int64_t f, int h_is_bf16, void* stream) {
+                                 int64_t n_src, int64_t f, int dtype, void* stream) {
   const int64_t rows = batch * n;
   if (rows >= (1LL << 31) || n_src >= (1LL << 31) || k >= (1LL << 31) || f >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -221,11 +237,16 @@ extern "C" int gather_agg_launch(const void* h, const void* idx, const void* w,
   const auto* wp = static_cast<const float*>(w);
   auto* op = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      h_is_bf16 ? launch_dtype<__nv_bfloat16>(h, ix, wp, op, rows, n, n_src,
-                                              static_cast<int>(k), static_cast<int>(f), s)
-                : launch_dtype<float>(h, ix, wp, op, rows, n, n_src, static_cast<int>(k),
-                                      static_cast<int>(f), s);
+  const int ki = static_cast<int>(k), fi = static_cast<int>(f);
+  cudaError_t err;
+  if (dtype == 1)
+    err = launch_dtype<__nv_bfloat16>(h, ix, wp, op, rows, n, n_src, ki, fi, s);
+  else if (dtype == 2)
+    err = launch_dtype<__half>(h, ix, wp, op, rows, n, n_src, ki, fi, s);
+  else if (dtype == 0)
+    err = launch_dtype<float>(h, ix, wp, op, rows, n, n_src, ki, fi, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

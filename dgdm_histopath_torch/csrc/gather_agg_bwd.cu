@@ -20,7 +20,7 @@
 // the ~220 MB that reach the SMs make L2 bandwidth this design's floor.
 // Design: a block of 16 half-warps owns 16 consecutive rows of one graph and
 // computes one half, dw or dh (the first B*N/16 blocks dw, the rest dh); 16
-// lanes cover F with 16-byte loads of h (8 bf16 or 4 f32 features a lane; one
+// lanes cover F with 16-byte loads of h (8 bf16 / f16 or 4 f32 features a lane; one
 // feature when rows are not 16-byte aligned). For dw a half-warp keeps its
 // slice of g[n, :], loads the K h rows (8 at once), and reduces each dot over
 // its 16 lanes with shuffles in a fixed order. For dh it sums w * g over its
@@ -39,6 +39,7 @@
 // N, K and F are taken.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
 
 namespace {
@@ -89,6 +90,31 @@ template <> struct HRow<__nv_bfloat16, 8> {
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+template <> struct HRow<__half, 8> {
+  using Raw = uint4;
+  __device__ static Raw load(const __half* p) { return *reinterpret_cast<const uint4*>(p); }
+  __device__ static float dot(const float* g, const Raw& r) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      d = fmaf(g[2 * i], v.x, d);
+      d = fmaf(g[2 * i + 1], v.y, d);
+    }
+    return d;
+  }
+  __device__ static void store(__half* p, const double* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // f64 -> f32 -> f16, as the plain version rounds
+      const __half2 x = __floats2half2_rn(static_cast<float>(v[2 * i]),
+                                          static_cast<float>(v[2 * i + 1]));
+      w[i] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
 template <> struct HRow<float, 1> {
   using Raw = float;
   __device__ static Raw load(const float* p) { return *p; }
@@ -103,6 +129,14 @@ template <> struct HRow<__nv_bfloat16, 1> {
   }
   __device__ static void store(__nv_bfloat16* p, const double* v) {
     *p = __float2bfloat16_rn(static_cast<float>(v[0]));
+  }
+};
+template <> struct HRow<__half, 1> {
+  using Raw = __half;
+  __device__ static Raw load(const __half* p) { return *p; }
+  __device__ static float dot(const float* g, const Raw& r) { return g[0] * __half2float(r); }
+  __device__ static void store(__half* p, const double* v) {
+    *p = __float2half_rn(static_cast<float>(v[0]));
   }
 };
 
@@ -131,6 +165,9 @@ template <> struct GRow<1> {
 __device__ inline void store_one(float* p, double v) { *p = static_cast<float>(v); }
 __device__ inline void store_one(__nv_bfloat16* p, double v) {
   *p = __float2bfloat16_rn(static_cast<float>(v));
+}
+__device__ inline void store_one(__half* p, double v) {
+  *p = __float2half_rn(static_cast<float>(v));
 }
 
 // acc[0:E] = f64 sum of the f32 products w[s] * g[s / k] over the slots
@@ -296,15 +333,17 @@ cudaError_t launch(const float* g, const void* h, const int32_t* idx, const floa
 }  // namespace
 
 // Launches on `stream`, on the caller's current device. g [B, N, F] f32, h
-// [B, N, F] bf16 or f32, idx [B, N, K] int32, w [B, N, K] f32; offsets
-// [B, N + 1] and slots [B, N*K] from neighbor_transpose (read only for dh).
-// dh [B, N, F] in h's dtype (null: not wanted), dw [B, N, K] f32 (null: not
+// [B, N, F] in `dtype` (0 f32, 1 bf16, 2 f16), idx [B, N, K] int32, w
+// [B, N, K] f32; offsets [B, N + 1] and slots [B, N*K] from
+// neighbor_transpose (read only for dh). dh [B, N, F] in h's dtype (null:
+// not wanted; a sum beyond the dtype's range is written as +-inf, as the
+// reference's f32 sum cast to h's dtype is), dw [B, N, K] f32 (null: not
 // wanted). `vec`: rows are 16-byte aligned (F times h's element size a
 // multiple of 16, base pointers aligned).
 extern "C" int gather_agg_bwd_launch(const void* g, const void* h, const void* idx,
                                      const void* w, const void* offsets, const void* slots,
                                      void* dh, void* dw, int64_t batch, int64_t n,
-                                     int64_t k, int64_t f, int h_is_bf16, int vec,
+                                     int64_t k, int64_t f, int dtype, int vec,
                                      void* stream) {
   if (batch * n == 0 || (dh == nullptr && dw == nullptr)) return 0;
   if (dh == nullptr && (k == 0 || f == 0)) return 0;
@@ -316,12 +355,17 @@ extern "C" int gather_agg_bwd_launch(const void* g, const void* h, const void* i
   const auto* sl = static_cast<const int32_t*>(slots);
   auto* dwp = static_cast<float*>(dw);
   cudaError_t err;
-  if (h_is_bf16)
+  if (dtype == 1)
     err = vec ? launch<__nv_bfloat16, 8>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
               : launch<__nv_bfloat16, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
-  else
+  else if (dtype == 2)
+    err = vec ? launch<__half, 8>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
+              : launch<__half, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
+  else if (dtype == 0)
     err = vec ? launch<float, 4>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
               : launch<float, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

@@ -16,7 +16,7 @@
 // ~23 us at 3.35 TB/s. This design reads g once, the list (~1.2 MB) and
 // writes dsrc once. Design: a block of 16 half-warps owns 16 consecutive
 // destination rows of one graph, two blocks an SM. A half-warp sums one row:
-// 16 lanes cover F with 16-byte loads (8 bf16 or 4 f32 features a lane; one
+// 16 lanes cover F with 16-byte loads (8 bf16 / f16 or 4 f32 features a lane; one
 // feature when the rows are not 16-byte aligned), and it loads up to 8 slots'
 // rows at once. A row with more than 32 slots (pooling sends every dropped
 // neighbor to node 0, ~N*K/2 slots at a pooled level) is summed by the whole
@@ -26,7 +26,7 @@
 // chain of ~N*K/32/16 round trips to memory. Sums are f64 in
 // registers (an add costs nothing here: the loads bound the kernel), so a
 // sum of thousands of f32 terms is exact to well below f32's rounding and
-// its f32 or bf16 result, rounded once (through f32), hardly depends on the
+// its f32, bf16 or f16 result, rounded once (through f32), hardly depends on the
 // order; with f32 sums a hub row's result moved by 1e-4 between orders.
 //
 // Every sum runs in an order fixed by idx alone, so the result is
@@ -34,6 +34,7 @@
 // and add nothing (the forward gave a zero row there). Any N, K and F.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
 
 namespace {
@@ -83,6 +84,29 @@ template <> struct Row<__nv_bfloat16, 8> {
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+template <> struct Row<__half, 8> {
+  using Raw = uint4;
+  __device__ static Raw load(const __half* p) { return *reinterpret_cast<const uint4*>(p); }
+  __device__ static void add(double* acc, const Raw& r) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      acc[2 * i] += v.x;
+      acc[2 * i + 1] += v.y;
+    }
+  }
+  __device__ static void store(__half* p, const double* v) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // f64 -> f32 -> f16, as the plain version rounds
+      const __half2 x = __floats2half2_rn(static_cast<float>(v[2 * i]),
+                                          static_cast<float>(v[2 * i + 1]));
+      w[i] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
 template <> struct Row<float, 1> {
   using Raw = float;
   __device__ static Raw load(const float* p) { return *p; }
@@ -97,10 +121,21 @@ template <> struct Row<__nv_bfloat16, 1> {
     *p = __float2bfloat16_rn(static_cast<float>(v[0]));
   }
 };
+template <> struct Row<__half, 1> {
+  using Raw = __half;
+  __device__ static Raw load(const __half* p) { return *p; }
+  __device__ static void add(double* acc, const Raw& r) { acc[0] += __half2float(r); }
+  __device__ static void store(__half* p, const double* v) {
+    *p = __float2half_rn(static_cast<float>(v[0]));
+  }
+};
 
 __device__ inline void store_one(float* p, double v) { *p = static_cast<float>(v); }
 __device__ inline void store_one(__nv_bfloat16* p, double v) {
   *p = __float2bfloat16_rn(static_cast<float>(v));
+}
+__device__ inline void store_one(__half* p, double v) {
+  *p = __float2half_rn(static_cast<float>(v));
 }
 
 // acc[0:E] = f64 sum of g rows sl[j], j in [j0, j1), in j order, at features
@@ -198,23 +233,31 @@ cudaError_t launch(const void* g, const int32_t* off, const int32_t* sl, void* o
 }  // namespace
 
 // Launches on `stream`, on the caller's current device. g [B, N*K, F] and
-// out [B, N, F] in one dtype (bf16 or f32), offsets [B, N + 1] and slots
-// [B, N*K] from neighbor_transpose. `vec`: rows are 16-byte aligned (F times
-// the element size a multiple of 16, base pointers aligned).
+// out [B, N, F] in one dtype (`dtype`: 0 f32, 1 bf16, 2 f16), offsets
+// [B, N + 1] and slots [B, N*K] from neighbor_transpose. `vec`: rows are
+// 16-byte aligned (F times the element size a multiple of 16, base pointers
+// aligned). A sum beyond the largest finite value of the dtype is written as
+// +-inf (f16 saturates at 65504), as the f32 sums of the TPU kernel, cast to
+// g's dtype, are.
 extern "C" int gather_rows_bwd_launch(const void* g, const void* offsets, const void* slots,
                                       void* out, int64_t batch, int64_t n, int64_t k,
-                                      int64_t f, int g_is_bf16, int vec, void* stream) {
+                                      int64_t f, int dtype, int vec, void* stream) {
   if (batch * n * f == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int32_t*>(offsets);
   const auto* sl = static_cast<const int32_t*>(slots);
   cudaError_t err;
-  if (g_is_bf16)
+  if (dtype == 1)
     err = vec ? launch<__nv_bfloat16, 8>(g, off, sl, out, batch, n, k, f, s)
               : launch<__nv_bfloat16, 1>(g, off, sl, out, batch, n, k, f, s);
-  else
+  else if (dtype == 2)
+    err = vec ? launch<__half, 8>(g, off, sl, out, batch, n, k, f, s)
+              : launch<__half, 1>(g, off, sl, out, batch, n, k, f, s);
+  else if (dtype == 0)
     err = vec ? launch<float, 4>(g, off, sl, out, batch, n, k, f, s)
               : launch<float, 1>(g, off, sl, out, batch, n, k, f, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

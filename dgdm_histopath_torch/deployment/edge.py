@@ -28,7 +28,8 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from ..convert import KEY_PREFIX, load_state, params_from_flax, params_to_flax
+from ..convert import (KEY_PREFIX, is_bf16_bits, leaf_tensor, load_state, params_from_flax,
+                       params_to_flax)
 from ..models.quantized import float_apply, int8_apply
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
@@ -284,11 +285,15 @@ class EdgeDeploymentManager:
         for name in sorted(flat, key=lambda n: n.split("/")):     # the flax tree's order
             arr = flat[name]
             before += arr.nbytes
-            if config.quantization == "int8" and arr.dtype.kind == "f" and arr.size > 16:
-                stored, scale = _quantize_leaf(arr)
+            # a bf16 leaf is quantized from its f32 values, as
+            # quantize_params_int8 does (the JAX package, whose bf16 leaves
+            # are not of kind "f", stores them raw)
+            values = leaf_tensor(arr).float().numpy() if is_bf16_bits(arr) else arr
+            if config.quantization == "int8" and values.dtype.kind == "f" and values.size > 16:
+                stored, scale = _quantize_leaf(values)
                 leaf_meta[name] = {"kind": "int8", "scale": scale}
-            elif config.quantization == "bf16" and arr.dtype.kind == "f":
-                stored = _to_bf16_bits(arr)
+            elif config.quantization == "bf16" and values.dtype.kind == "f":
+                stored = _to_bf16_bits(values)
                 leaf_meta[name] = {"kind": "bf16"}
             else:
                 stored = arr

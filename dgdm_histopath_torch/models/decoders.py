@@ -76,14 +76,16 @@ class _MLPHead(nn.Module):
     dropout (when not deterministic)."""
 
     def __init__(self, in_features: int, hidden_dims: Sequence[int],
-                 dropout: float, dtype: torch.dtype):
+                 dropout: float, dtype: torch.dtype,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dt = dict(dtype=dtype, param_dtype=param_dtype)
         self.n_hidden = len(hidden_dims)
         self.dropout = dropout
         prev = in_features
         for i, dim in enumerate(hidden_dims):
-            self.add_module(f"hidden{i}", Dense(prev, dim, dtype=dtype))
-            self.add_module(f"hidden{i}_norm", LayerNorm(dim, dtype=dtype))
+            self.add_module(f"hidden{i}", Dense(prev, dim, **self.dt))
+            self.add_module(f"hidden{i}_norm", LayerNorm(dim, **self.dt))
             prev = dim
         self.trunk_features = prev
 
@@ -100,9 +102,9 @@ class _MLPHead(nn.Module):
 class ClassificationHead(_MLPHead):
     def __init__(self, in_features: int, num_classes: int,
                  hidden_dims: Sequence[int] = (128,), dropout: float = 0.0,
-                 dtype=torch.float32):
-        super().__init__(in_features, hidden_dims, dropout, dtype)
-        self.logits = Dense(self.trunk_features, num_classes, dtype=dtype)
+                 dtype=torch.float32, param_dtype=torch.float32):
+        super().__init__(in_features, hidden_dims, dropout, dtype, param_dtype)
+        self.logits = Dense(self.trunk_features, num_classes, **self.dt)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -114,10 +116,11 @@ class RegressionHead(_MLPHead):
 
     def __init__(self, in_features: int, num_targets: int = 1,
                  hidden_dims: Sequence[int] = (128,), dropout: float = 0.0,
-                 predict_uncertainty: bool = False, dtype=torch.float32):
-        super().__init__(in_features, hidden_dims, dropout, dtype)
-        self.mean = Dense(self.trunk_features, num_targets, dtype=dtype)
-        self.log_var = (Dense(self.trunk_features, num_targets, dtype=dtype)
+                 predict_uncertainty: bool = False, dtype=torch.float32,
+                 param_dtype=torch.float32):
+        super().__init__(in_features, hidden_dims, dropout, dtype, param_dtype)
+        self.mean = Dense(self.trunk_features, num_targets, **self.dt)
+        self.log_var = (Dense(self.trunk_features, num_targets, **self.dt)
                         if predict_uncertainty else None)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
@@ -134,15 +137,15 @@ class SurvivalHead(_MLPHead):
 
     def __init__(self, in_features: int, mode: str = "cox", num_intervals: int = 10,
                  hidden_dims: Sequence[int] = (128,), dropout: float = 0.0,
-                 dtype=torch.float32):
-        super().__init__(in_features, hidden_dims, dropout, dtype)
+                 dtype=torch.float32, param_dtype=torch.float32):
+        super().__init__(in_features, hidden_dims, dropout, dtype, param_dtype)
         if mode not in ("cox", "discrete"):
             raise ValueError("survival mode must be cox|discrete")
         self.mode = mode
         if mode == "cox":
-            self.risk = Dense(self.trunk_features, 1, dtype=dtype)
+            self.risk = Dense(self.trunk_features, 1, **self.dt)
         else:
-            self.hazards = Dense(self.trunk_features, num_intervals, dtype=dtype)
+            self.hazards = Dense(self.trunk_features, num_intervals, **self.dt)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -4,8 +4,10 @@ package's ``models/dgdm.py``).
 FeatureEncoder → GraphEncoder → (MoE FFN) → SpatialAttention → GraphUNet →
 (pretrain: diffusion objective + reconstruction) → global pooling → heads. The
 constructor takes the JAX model's keyword set, so a bundle's
-``model_config`` builds the same architecture; options this port does not
-have yet raise ``NotImplementedError`` naming their ROADMAP item.
+``model_config`` builds the same architecture. ``compute_dtype`` (bfloat16,
+float16 or float32) is the type every layer computes in; ``param_dtype``
+(the same three) the type every parameter is stored in, as the JAX model
+passes it to each module (the MoE router stays f32 there and here).
 
 Every random draw (dropout masks, diffusion timesteps and noise, entity
 masking) comes from the ``torch.Generator`` the caller passes, on the
@@ -78,43 +80,45 @@ class DGDMModel(nn.Module):
         self.hidden_dims = list(hidden_dims)
         self._validate()
         dtype = as_dtype(compute_dtype)
+        pdtype = as_dtype(param_dtype)
         self.dtype = dtype
         hidden = hidden_dims[-1]
+        dt = dict(dtype=dtype, param_dtype=pdtype)
 
         self.feature_encoder = FeatureEncoder(node_features, hidden_dims, activation,
-                                              normalization, dropout, dtype)
+                                              normalization, dropout, **dt)
         self.graph_encoder = GraphEncoder(hidden, hidden, graph_layers, attention_heads,
                                           edge_features, activation, dropout, dtype,
-                                          band_window=graph_window, remat=use_remat)
+                                          band_window=graph_window, remat=use_remat,
+                                          param_dtype=pdtype)
         if moe_experts > 0:
             # pre-norm routed expert FFN, residual, after the message passing
-            self.moe_norm = LayerNorm(hidden, dtype)
+            self.moe_norm = LayerNorm(hidden, **dt)
             self.moe_ffn = MoEFFN(hidden, moe_hidden or 2 * hidden, num_experts=moe_experts,
                                   top_k=moe_top_k, capacity_factor=moe_capacity,
-                                  activation=activation, dropout=dropout, dtype=dtype)
+                                  activation=activation, dropout=dropout, **dt)
         if use_spatial_attention:
             self.spatial_attention = SpatialAttention(
-                hidden, attention_heads, dropout, window_size=spatial_window, dtype=dtype,
+                hidden, attention_heads, dropout, window_size=spatial_window,
                 traffic_dtype=(None if attention_traffic_dtype is None
-                               else as_dtype(attention_traffic_dtype)))
+                               else as_dtype(attention_traffic_dtype)), **dt)
         if use_hierarchical:
             self.graph_unet = GraphUNet(hidden, hidden, depth=2, num_heads=attention_heads,
-                                        edge_dim=edge_features, dropout=dropout, dtype=dtype,
-                                        band_window=graph_window)
-        self.diffusion = DiffusionLayer(hidden, num_diffusion_steps, diffusion_schedule,
-                                        dtype=dtype)
-        self.pool = make_pool(pooling, hidden, attention_heads, dtype=dtype)
+                                        edge_dim=edge_features, dropout=dropout,
+                                        band_window=graph_window, **dt)
+        self.diffusion = DiffusionLayer(hidden, num_diffusion_steps, diffusion_schedule, **dt)
+        self.pool = make_pool(pooling, hidden, attention_heads, **dt)
         if num_classes is not None:
             self.classification_head = ClassificationHead(hidden, num_classes, (hidden,),
-                                                          dropout, dtype)
+                                                          dropout, **dt)
         if regression_targets > 0:
             self.regression_head = RegressionHead(hidden, regression_targets, (hidden,),
-                                                  dropout, dtype=dtype)
+                                                  dropout, **dt)
         if survival_mode is not None:
             self.survival_head = SurvivalHead(hidden, survival_mode, survival_intervals,
-                                              (hidden,), dropout, dtype)
-        self.mask_token = nn.Parameter(torch.zeros(node_features))
-        self.recon_head = Dense(hidden, node_features, dtype=dtype)
+                                              (hidden,), dropout, **dt)
+        self.mask_token = nn.Parameter(torch.zeros(node_features, dtype=pdtype))
+        self.recon_head = Dense(hidden, node_features, **dt)
 
     def _validate(self) -> None:
         if self.node_features <= 0:
@@ -134,16 +138,6 @@ class DGDMModel(nn.Module):
             raise ConfigurationError("compute_dtype must be bfloat16|float16|float32")
         if self.param_dtype not in ("bfloat16", "float32", "float16"):
             raise ConfigurationError("param_dtype must be bfloat16|float16|float32")
-        if self.compute_dtype == "float16":
-            raise NotImplementedError(
-                "compute_dtype='float16' is not ported yet: the gather kernels take "
-                "bfloat16 and float32 (ROADMAP queue 1, item 8: param_dtype, set2set "
-                "and float16 still to port)")
-        if self.param_dtype != "float32":
-            raise NotImplementedError(
-                f"param_dtype={self.param_dtype!r}: only float32 parameters are ported "
-                "(ROADMAP queue 1, item 8: param_dtype, set2set and float16 still "
-                "to port)")
         if self.gather_impl not in GATHER_IMPLS:
             raise ConfigurationError(f"gather_impl must be one of {GATHER_IMPLS}")
         if self.survival_mode not in (None, "cox", "discrete"):

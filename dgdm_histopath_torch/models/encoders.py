@@ -22,20 +22,22 @@ class FeatureEncoder(nn.Module):
 
     def __init__(self, in_features: int, hidden_dims: Sequence[int],
                  activation: str = "gelu", normalization: str = "layer",
-                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
         if normalization not in ("layer", "none"):
             raise ValueError(f"unknown normalization {normalization!r}")
         self.act = get_activation(activation)
         self.dims = list(hidden_dims)
         prev = in_features
         for i, dim in enumerate(self.dims):
-            self.add_module(f"dense{i}", Dense(prev, dim, dtype=dtype))
+            self.add_module(f"dense{i}", Dense(prev, dim, **dt))
             if normalization == "layer":
-                self.add_module(f"norm{i}", LayerNorm(dim, dtype=dtype))
+                self.add_module(f"norm{i}", LayerNorm(dim, **dt))
             if prev != dim:
-                self.add_module(f"res_proj{i}", Dense(prev, dim, bias=False, dtype=dtype))
+                self.add_module(f"res_proj{i}", Dense(prev, dim, bias=False, **dt))
             prev = dim
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
@@ -75,20 +77,21 @@ class GraphEncoder(nn.Module):
                  num_heads: int = 8, edge_dim: Optional[int] = 3,
                  activation: str = "gelu", dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, band_window: Optional[int] = None,
-                 remat: bool = False):
+                 remat: bool = False, param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
         self.remat = remat
         self.dropout = dropout
         self.act = get_activation(activation)
-        self.input_proj = Dense(in_features, hidden_dim, dtype=dtype)
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        self.input_proj = Dense(in_features, hidden_dim, **dt)
         e = hidden_dim // num_heads
-        self.edge_proj = Dense(edge_dim, e, dtype=dtype) if edge_dim else None
+        self.edge_proj = Dense(edge_dim, e, **dt) if edge_dim else None
         for i in range(num_layers):
             self.add_module(f"layer{i}", DynamicGraphLayer(
                 hidden_dim, hidden_dim, num_heads, e if edge_dim else None, dropout,
-                dtype, band_window))
-        self.output_proj = Dense(hidden_dim, hidden_dim, dtype=dtype)
+                dtype, band_window, param_dtype=param_dtype))
+        self.output_proj = Dense(hidden_dim, hidden_dim, **dt)
 
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,

@@ -106,7 +106,8 @@ class SpatialAttention(nn.Module):
                  flash_auto_min_nodes: int = 1 << 30,
                  window_size: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
-                 traffic_dtype: Optional[torch.dtype] = None):
+                 traffic_dtype: Optional[torch.dtype] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.dropout = dropout
@@ -116,12 +117,13 @@ class SpatialAttention(nn.Module):
         self.window_size = window_size
         self.traffic_dtype = traffic_dtype
         self.compute_dtype = dtype
-        self.pos_proj = Dense(embed_dim, embed_dim, dtype=dtype)
-        self.q_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
-        self.k_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
-        self.v_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
-        self.out_proj = DenseGeneral(embed_dim, embed_dim, dtype=dtype)
-        self.norm = LayerNorm(embed_dim, dtype=dtype)
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        self.pos_proj = Dense(embed_dim, embed_dim, **dt)
+        self.q_proj = DenseGeneral(embed_dim, embed_dim, **dt)
+        self.k_proj = DenseGeneral(embed_dim, embed_dim, **dt)
+        self.v_proj = DenseGeneral(embed_dim, embed_dim, **dt)
+        self.out_proj = DenseGeneral(embed_dim, embed_dim, **dt)
+        self.norm = LayerNorm(embed_dim, **dt)
 
     def route(self, n: int, deterministic: bool = True,
               return_weights: bool = False) -> str:

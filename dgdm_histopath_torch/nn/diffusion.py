@@ -34,17 +34,19 @@ class DenoiserMLP(nn.Module):
     conditioning, so the JAX module's optional ``cond_proj`` is not held."""
 
     def __init__(self, features: int, hidden: int = 0, time_embed_dim: int = 128,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = hidden or 4 * features
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
         self.time_embed_dim = time_embed_dim
-        self.time_mlp1 = Dense(time_embed_dim, hidden, dtype=dtype)
-        self.time_mlp2 = Dense(hidden, hidden, dtype=dtype)
-        self.in_proj = Dense(features, hidden, dtype=dtype)
-        self.norm1 = LayerNorm(hidden, dtype=dtype)
-        self.mid_proj = Dense(hidden, hidden, dtype=dtype)
-        self.norm2 = LayerNorm(hidden, dtype=dtype)
-        self.out_proj = Dense(hidden, features, dtype=dtype)
+        self.time_mlp1 = Dense(time_embed_dim, hidden, **dt)
+        self.time_mlp2 = Dense(hidden, hidden, **dt)
+        self.in_proj = Dense(features, hidden, **dt)
+        self.norm1 = LayerNorm(hidden, **dt)
+        self.mid_proj = Dense(hidden, hidden, **dt)
+        self.norm2 = LayerNorm(hidden, **dt)
+        self.out_proj = Dense(hidden, features, **dt)
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         t_emb = sinusoidal_time_embedding(t, self.time_embed_dim)
@@ -62,13 +64,15 @@ class DiffusionLayer(nn.Module):
     pretraining."""
 
     def __init__(self, features: int, num_steps: int = 10, schedule: str = "cosine",
-                 time_embed_dim: int = 128, dtype: torch.dtype = torch.float32):
+                 time_embed_dim: int = 128, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_steps = num_steps
         self.compute_dtype = dtype
         for name, value in make_schedule(num_steps, schedule)._asdict().items():
             self.register_buffer(name, value, persistent=False)
-        self.denoiser = DenoiserMLP(features, time_embed_dim=time_embed_dim, dtype=dtype)
+        self.denoiser = DenoiserMLP(features, time_embed_dim=time_embed_dim, dtype=dtype,
+                                    param_dtype=param_dtype)
 
     @property
     def constants(self) -> DiffusionSchedule:

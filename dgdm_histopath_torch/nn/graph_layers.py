@@ -68,12 +68,13 @@ class GraphConvolution(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32,
-                 band_window: Optional[int] = None):
+                 band_window: Optional[int] = None, param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.band_window = band_window
-        self.lin = Dense(in_features, features, bias=False, dtype=dtype)
-        self.edge_lin = Dense(edge_dim, features, bias=False, dtype=dtype) if edge_dim else None
-        self.bias = nn.Parameter(torch.zeros(features))
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        self.lin = Dense(in_features, features, bias=False, **dt)
+        self.edge_lin = Dense(edge_dim, features, bias=False, **dt) if edge_dim else None
+        self.bias = nn.Parameter(torch.zeros(features, dtype=param_dtype))
 
     def forward(self, x, nbr_idx, nbr_mask, edge_attr=None, edge_weight=None, nbr_t=None,
                 nbrs: Optional[Neighbors] = None):
@@ -106,7 +107,8 @@ class DynamicGraphLayer(nn.Module):
 
     def __init__(self, in_features: int, features: int, num_heads: int = 8,
                  edge_dim: Optional[int] = None, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None):
+                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.band_window = band_window
         if features % num_heads:
@@ -114,15 +116,15 @@ class DynamicGraphLayer(nn.Module):
         self.features, self.num_heads = features, num_heads
         self.dropout = dropout
         self.compute_dtype = dtype
-        self.in_proj = (Dense(in_features, features, dtype=dtype)
-                        if in_features != features else None)
-        self.q_proj = DenseGeneral(features, features, dtype=dtype)
-        self.k_proj = DenseGeneral(features, features, dtype=dtype)
-        self.edge_k_proj = DenseGeneral(edge_dim, features, dtype=dtype) if edge_dim else None
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        self.in_proj = Dense(in_features, features, **dt) if in_features != features else None
+        self.q_proj = DenseGeneral(features, features, **dt)
+        self.k_proj = DenseGeneral(features, features, **dt)
+        self.edge_k_proj = DenseGeneral(edge_dim, features, **dt) if edge_dim else None
         # the layer prunes the mask once and hands it to both convolutions
-        self.conv1 = GraphConvolution(features, features, edge_dim, dtype=dtype)
-        self.conv2 = GraphConvolution(features, features, edge_dim, dtype=dtype)
-        self.norm = LayerNorm(features, dtype=dtype)
+        self.conv1 = GraphConvolution(features, features, edge_dim, **dt)
+        self.conv2 = GraphConvolution(features, features, edge_dim, **dt)
+        self.norm = LayerNorm(features, **dt)
 
     def forward(self, x, nbr_idx, nbr_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,
@@ -174,10 +176,11 @@ class AdaptiveGraphPooling(nn.Module):
     Returns the dict of :func:`compact_top_k_nodes` plus ``"score"``."""
 
     def __init__(self, features: int, ratio: float = 0.5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ratio = ratio
-        self.score = Dense(features, 1, dtype=dtype)
+        self.score = Dense(features, 1, dtype=dtype, param_dtype=param_dtype)
 
     def keep(self, n: int) -> int:
         """The pooled size of a level of ``n`` nodes."""
@@ -208,23 +211,25 @@ class GraphUNet(nn.Module):
     def __init__(self, in_features: int, features: int, depth: int = 2,
                  pool_ratio: float = 0.5, num_heads: int = 8,
                  edge_dim: Optional[int] = None, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None):
+                 dtype: torch.dtype = torch.float32, band_window: Optional[int] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = depth
-        self.in_proj = (Dense(in_features, features, dtype=dtype)
-                        if in_features != features else None)
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        self.in_proj = Dense(in_features, features, **dt) if in_features != features else None
 
         def layer(banded: bool = False):
             return DynamicGraphLayer(features, features, num_heads, edge_dim, dropout,
-                                     dtype, band_window if banded else None)
+                                     dtype, band_window if banded else None,
+                                     param_dtype=param_dtype)
 
         for d in range(depth):
             self.add_module(f"down{d}", layer(banded=d == 0))
-            self.add_module(f"pool{d}", AdaptiveGraphPooling(features, pool_ratio, dtype))
+            self.add_module(f"pool{d}", AdaptiveGraphPooling(features, pool_ratio, **dt))
         self.bottleneck = layer()
         for d in range(depth):
             self.add_module(f"up{d}", layer(banded=d == 0))
-        self.out_norm = LayerNorm(features, dtype=dtype)
+        self.out_norm = LayerNorm(features, **dt)
 
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
                 deterministic: bool = True,

@@ -1,19 +1,22 @@
 """Dense, LayerNorm and activations with the JAX package's (flax) numerics.
 
 * ``Dense`` casts input, weight and bias to its compute dtype, as
-  ``flax.linen.Dense(dtype=...)`` does; parameters stay f32.
+  ``flax.linen.Dense(dtype=...)`` does; its parameters are stored in
+  ``param_dtype`` (flax's ``param_dtype``; f32 by default).
   ``DenseGeneral`` is the same layer where the JAX package has a flax
   ``nn.DenseGeneral`` (per-head projections): int8 inference reroutes only
   ``Dense`` calls, as the JAX interceptor reroutes only ``nn.Dense``.
-* ``LayerNorm`` uses eps 1e-6, takes its statistics in f32 and casts the
-  output to the compute dtype.
+* ``LayerNorm`` uses eps 1e-6, takes its statistics in f32 (for bf16 and
+  f16 inputs alike, as flax promotes both to f32) and casts the output to
+  the compute dtype; scale and bias are stored in ``param_dtype``.
 * ``gelu`` is the tanh approximation (``flax.linen.gelu``).
 
 * ``dropout`` draws its keep mask from an explicit ``torch.Generator``
   (``F.dropout`` takes none), so a step's draws follow from its seed.
 
 Parameters are created empty-valued (zeros/ones) and drawn by
-:func:`init_parameters` from an explicit ``torch.Generator``.
+:func:`init_parameters` from an explicit ``torch.Generator`` (in f32, then
+rounded once to each parameter's dtype).
 """
 
 from __future__ import annotations
@@ -42,11 +45,13 @@ DENSE_INTERCEPTOR: ContextVar[Optional[Callable]] = ContextVar("dense_intercepto
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` (weight [out, in]) computing in ``dtype``."""
+    """``nn.Linear`` (weight [out, in]) computing in ``dtype``, its
+    parameters stored in ``param_dtype``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features, bias=bias)
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias, dtype=param_dtype)
         self.compute_dtype = dtype
 
     def reset_parameters(self) -> None:
@@ -73,10 +78,12 @@ class DenseGeneral(Dense):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``LayerNorm``: eps 1e-6, f32 statistics, output in ``dtype``."""
+    """flax ``LayerNorm``: eps 1e-6, f32 statistics, output in ``dtype``,
+    scale and bias stored in ``param_dtype``."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
-        super().__init__(features, eps=1e-6)
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__(features, eps=1e-6, dtype=param_dtype)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +121,26 @@ NORMAL_002 = ("global_query", "mask_token")
 
 
 @torch.no_grad()
+def draw_into(p: torch.Tensor, draw: Callable[[torch.Tensor], object]) -> None:
+    """``draw`` fills an f32 tensor of p's shape, which is copied into p
+    (rounded once to p's dtype): the draws are the same whatever the
+    parameter dtype."""
+    if p.dtype == torch.float32:
+        draw(p)
+        return
+    tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    draw(tmp)
+    p.copy_(tmp)
+
+
+def lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's lecun-normal: a truncated normal of variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    draw_into(p, lambda t: nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                                 generator=generator))
+
+
+@torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization with flax's defaults: Dense weights lecun-normal
     (truncated normal, variance 1/fan_in), biases zero, LayerNorm ones/zeros,
@@ -121,17 +148,15 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
     ``draw_parameters(generator)`` method draws its own."""
     for m in module.modules():
         if isinstance(m, Dense):
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
+            lecun_normal_(m.weight, m.in_features, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif hasattr(m, "draw_parameters"):      # parameters of its own (MoE experts)
+        elif hasattr(m, "draw_parameters"):      # parameters of its own (MoE, LSTM)
             m.draw_parameters(generator)
     for name, p in module.named_parameters():
         if name.rsplit(".", 1)[-1] in NORMAL_002:
-            p.normal_(0.0, 0.02, generator=generator)
+            draw_into(p, lambda t: t.normal_(0.0, 0.02, generator=generator))
     return module

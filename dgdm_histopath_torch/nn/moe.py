@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, dropout, get_activation
+from .layers import Dense, dropout, get_activation, lecun_normal_
 
 
 def local_mean(num: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -49,7 +49,8 @@ class MoEFFN(nn.Module):
     def __init__(self, features: int, hidden_dim: int, num_experts: int = 8,
                  top_k: int = 1, capacity_factor: float = 1.5, group_size: int = 1024,
                  activation: str = "gelu", dropout: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         if top_k not in (1, 2):
             raise ValueError("top_k must be 1 or 2")
@@ -59,20 +60,20 @@ class MoEFFN(nn.Module):
         self.act = get_activation(activation)
         self.dropout = dropout
         self.compute_dtype = dtype
+        # the router stays f32 whatever param_dtype is, as in the JAX module
         self.router = Dense(features, num_experts, dtype=torch.float32)
-        e = num_experts
-        self.w_in = nn.Parameter(torch.zeros(e, features, hidden_dim))
-        self.b_in = nn.Parameter(torch.zeros(e, hidden_dim))
-        self.w_out = nn.Parameter(torch.zeros(e, hidden_dim, features))
-        self.b_out = nn.Parameter(torch.zeros(e, features))
+        e, pd = num_experts, param_dtype
+        self.w_in = nn.Parameter(torch.zeros(e, features, hidden_dim, dtype=pd))
+        self.b_in = nn.Parameter(torch.zeros(e, hidden_dim, dtype=pd))
+        self.w_out = nn.Parameter(torch.zeros(e, hidden_dim, features, dtype=pd))
+        self.b_out = nn.Parameter(torch.zeros(e, features, dtype=pd))
 
     @torch.no_grad()
     def draw_parameters(self, generator: torch.Generator) -> None:
         """flax's lecun-normal for the expert kernels: a kernel [E, in, out]
         has fan-in E·in (the leading axis counts as a receptive field)."""
         for w in (self.w_in, self.w_out):
-            std = math.sqrt(1.0 / (w.shape[0] * w.shape[1])) / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            lecun_normal_(w, w.shape[0] * w.shape[1], generator)
         self.b_in.zero_()
         self.b_out.zero_()
 

@@ -134,14 +134,17 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1
                    ) -> torch.Tensor:
     """Numerically-stable softmax that zeroes masked entries.
 
-    Fully-masked rows return all-zeros rather than NaN.
+    Fully-masked rows return all-zeros rather than NaN, but for f16 logits:
+    the floor 1e-20 is taken in the logits' dtype, as in the reference
+    (``jnp.asarray(1e-20, unnorm.dtype)``), and is 0 in f16, so such a row is
+    0 / 0 = NaN there. Every caller in the model passes f32 logits.
     """
     neg = torch.finfo(logits.dtype).min
     masked = torch.where(mask, logits, torch.full_like(logits, neg))
     maxes = masked.amax(dim=dim, keepdim=True)
     unnorm = torch.exp(masked - maxes) * mask.to(logits.dtype)
     denom = unnorm.sum(dim=dim, keepdim=True)
-    return unnorm / denom.clamp_min(1e-20)
+    return unnorm / torch.maximum(denom, denom.new_tensor(1e-20))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
@@ -32,6 +34,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+
+# the element type of a kernel's float operands, as every launch takes it
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    return DTYPE_CODES[dtype]
 
 
 def nvcc_path() -> str:

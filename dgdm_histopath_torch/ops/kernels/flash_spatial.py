@@ -5,7 +5,7 @@ Replaces ``dgdm_histopath_tpu/ops/pallas/flash_spatial.py``: the packed-heads
 kernel ``_flash_kernel_packed`` (H·D = 128: every DGDM preset) and the
 head-major kernel ``_flash_kernel`` (any other width). Both CUDA kernels are
 in ``csrc/flash_spatial.cu``; its source note has the design and the bound.
-The dtype picks the kernel: bf16 runs on the tensor cores, f32 on FMAs.
+The dtype picks the kernel: bf16 and f16 run on the tensor cores, f32 on FMAs.
 
 :func:`flash_spatial_attention` routes as the JAX wrapper does: N must be a
 multiple of the 128-row blocks and at least 128, else the dense reference
@@ -30,19 +30,19 @@ import math
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, dtype_code
 
 NEG_INF = -1e30
 BLOCK = 128
 MAX_HEAD_DIM = 256
-DTYPES = (torch.bfloat16, torch.float32)
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _dense_route_calls = 0
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,               # q, k, v
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,               # pos, mask, out
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # B, N, H, D
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]   # scale, 1/tau, bf16?, stream
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]   # scale, 1/tau, dtype, stream
 
 KERNEL_PACKED = CudaKernel("flash_spatial", "flash_spatial_packed_launch", _ARGTYPES)
 KERNEL_HEADMAJOR = CudaKernel("flash_spatial", "flash_spatial_headmajor_launch", _ARGTYPES)
@@ -138,7 +138,7 @@ def _check(q, k, v, pos, node_mask) -> None:
         raise ValueError(f"need pos [B, N, 2] and node_mask [B, N], got {tuple(pos.shape)} "
                          f"and {tuple(node_mask.shape)}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_spatial_attention takes bf16 or f32 q, k, v of one dtype, "
+        raise TypeError(f"flash_spatial_attention takes bf16, f16 or f32 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if node_mask.dtype != torch.bool:
         raise TypeError(f"node_mask must be bool, got {node_mask.dtype}")
@@ -164,7 +164,7 @@ def _launch(q, k, v, pos, node_mask, tau: float, packed: bool) -> torch.Tensor:
     with torch.cuda.device(q.device):     # the kernel launches on the current device
         kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
                       node_mask.data_ptr(), out.data_ptr(), b, n, h, d,
-                      1.0 / math.sqrt(d), 1.0 / tau, int(q.dtype == torch.bfloat16),
+                      1.0 / math.sqrt(d), 1.0 / tau, dtype_code(q.dtype),
                       torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -214,7 +214,7 @@ def flash_spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             tau: float = 0.1) -> torch.Tensor:
     """Distance-biased masked attention without the [N, N] matrices.
 
-    q, k, v [B, N, H, D] (bf16 or f32), pos [B, N, 2], node_mask [B, N] bool
+    q, k, v [B, N, H, D] (bf16, f16 or f32), pos [B, N, 2], node_mask [B, N] bool
     -> [B, N, H, D] in q's dtype. :func:`flash_route` says which shapes reach
     a kernel; the CUDA kernels pick their own tiles.
     """

@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, dtype_code
 from .gather_rows import gather_rows_plain, rows_aligned, transposed_sum
 from .neighbor_transpose import (
     NeighborTranspose,
@@ -49,15 +49,15 @@ from .neighbor_transpose import (
 KERNEL = CudaKernel("gather_agg", "gather_agg_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # h, idx, w, out
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,                      # B, N, K
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])      # N_src, F, bf16?, stream
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])      # N_src, F, dtype, stream
 
 KERNEL_BWD = CudaKernel("gather_agg_bwd", "gather_agg_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, h, idx, w
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, slots, dh, dw
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # bf16?, vec?, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # dtype, vec?, stream
 
-DTYPES = (torch.bfloat16, torch.float32)
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def weighted_gather_sum_plain(h: torch.Tensor, idx: torch.Tensor,
@@ -90,7 +90,7 @@ def _check(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
     if idx.shape[0] != h.shape[0]:
         raise ValueError(f"idx {tuple(idx.shape)} does not match h {tuple(h.shape)}")
     if h.dtype not in DTYPES:
-        raise TypeError(f"weighted_gather_sum takes bf16 or f32 h, got {h.dtype}")
+        raise TypeError(f"weighted_gather_sum takes bf16, f16 or f32 h, got {h.dtype}")
     if idx.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError(f"weighted_gather_sum takes int32 idx and f32 w, got "
                         f"{idx.dtype} and {w.dtype}")
@@ -111,7 +111,7 @@ def _launch_fwd(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
         return out
     with torch.cuda.device(h.device):     # the kernel launches on the current device
         KERNEL.launch(h.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                      b, n, k, n_src, f, int(h.dtype == torch.bfloat16),
+                      b, n, k, n_src, f, dtype_code(h.dtype),
                       torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -152,7 +152,7 @@ def weighted_gather_sum_bwd(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
         with torch.cuda.device(h.device):
             KERNEL_BWD.launch(g.data_ptr(), h.data_ptr(), idx.data_ptr(), w.data_ptr(),
                               ptr(offsets), ptr(slots), ptr(dh), ptr(dw), b, n, k, f,
-                              int(h.dtype == torch.bfloat16), int(vec),
+                              dtype_code(h.dtype), int(vec),
                               torch.cuda.current_stream().cuda_stream)
     return dh, dw
 
@@ -190,7 +190,7 @@ def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                         nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n] = Σ_k w[b, n, k] · h[b, idx[b, n, k]]``: the CUDA kernels
     (forward and backward) for CUDA tensors, the plain versions for CPU
-    tensors. h [B, N_src, F], idx and w [B, N, K] -> [B, N, F] f32 (forward
+    tensors. h [B, N_src, F] bf16|f16|f32, idx and w [B, N, K] -> [B, N, F] f32 (forward
     only where N_src != N). ``nbr_t``: idx's transposed list for the
     backward, where the caller has it."""
     _check(h, idx, w)

@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, dtype_code
 from .neighbor_transpose import (
     NeighborTranspose,
     check_transpose,
@@ -52,9 +52,9 @@ KERNEL = CudaKernel("gather_rows", "gather_rows_launch", [
 KERNEL_BWD = CudaKernel("gather_rows_bwd", "gather_rows_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, offsets, slots, out
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # bf16?, vec?, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # dtype, vec?, stream
 
-DTYPES = (torch.bfloat16, torch.float32)
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def index_in_range(idx: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,7 +114,7 @@ def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
     if idx.shape[0] != src.shape[0]:
         raise ValueError(f"idx {tuple(idx.shape)} does not match src {tuple(src.shape)}")
     if src.dtype not in DTYPES:
-        raise TypeError(f"gather_rows takes bf16 or f32 src, got {src.dtype}")
+        raise TypeError(f"gather_rows takes bf16, f16 or f32 src, got {src.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"gather_rows takes int32 idx, got {idx.dtype}")
     if idx.device != src.device:
@@ -144,12 +144,13 @@ def rows_aligned(f: int, *tensors: torch.Tensor) -> bool:
 def gather_rows_bwd(idx: torch.Tensor, g: torch.Tensor,
                     nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``dsrc[b, m] = Σ_{(n,k): idx[b,n,k]=m} g[b, n, k]`` by the CUDA kernel,
-    one launch. idx [B, N, K] int32, g [B, N, K, F] bf16|f32, both contiguous
-    CUDA tensors -> [B, N, F] in g's dtype. ``nbr_t`` is idx's transposed list
+    one launch. idx [B, N, K] int32, g [B, N, K, F] bf16|f16|f32, both contiguous
+    CUDA tensors -> [B, N, F] in g's dtype (a sum past f16's range is inf, as
+    the TPU kernel's f32 sum cast to f16 is). ``nbr_t`` is idx's transposed list
     (``neighbor_transpose``), built here when None. The sums run in a fixed
     order: the result is bit-identical from run to run."""
     if g.dim() != 4 or g.shape[:3] != idx.shape or g.dtype not in DTYPES:
-        raise ValueError(f"need g [B, N, K, F] bf16|f32 for idx {tuple(idx.shape)}, got "
+        raise ValueError(f"need g [B, N, K, F] bf16|f16|f32 for idx {tuple(idx.shape)}, got "
                          f"{tuple(g.shape)} {g.dtype}")
     if g.device.type != "cuda" or idx.device != g.device or idx.dtype != torch.int32:
         raise ValueError("gather_rows_bwd needs g and int32 idx on one CUDA device")
@@ -164,7 +165,7 @@ def gather_rows_bwd(idx: torch.Tensor, g: torch.Tensor,
         return out
     with torch.cuda.device(g.device):
         KERNEL_BWD.launch(g.data_ptr(), nbr_t.offsets.data_ptr(), nbr_t.slots.data_ptr(),
-                          out.data_ptr(), b, n, k, f, int(g.dtype == torch.bfloat16),
+                          out.data_ptr(), b, n, k, f, dtype_code(g.dtype),
                           int(rows_aligned(f, g, out)), torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -197,7 +198,7 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor,
                 nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n, k] = src[b, idx[b, n, k]]``: the CUDA kernels (forward and
     backward) for a CUDA tensor, the plain versions for a CPU tensor.
-    src [B, N_src, F] bf16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's
+    src [B, N_src, F] bf16|f16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's
     dtype (forward only where N_src != N).
     ``nbr_t``: idx's transposed list for the backward, where the caller has it."""
     _check(src, idx)

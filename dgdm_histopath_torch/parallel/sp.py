@@ -217,6 +217,9 @@ def _readout(model, h: torch.Tensor, top: _Level, gather, axis: Axis) -> torch.T
         m = node_mask.to(h.dtype)[..., None]
         total = axis.all_reduce_((h * m).sum(-2).contiguous())
         return total / axis.all_reduce_(m.sum(-2).contiguous()).clamp_min(1.0)
+    if model.pooling == "set2set":
+        # its LSTM's attention rounds read every node: the level, gathered whole
+        return model.pool(gather(h), top.nodem)
     pool = model.pool
     logits, v = pool.logits_values(h)
     weights = top.rows(masked_softmax(gather(logits), top.nodem[..., None], dim=-2))

@@ -19,6 +19,17 @@ folds its gradient into a running mean, ``acc += (g - acc) / (mini + 1)``,
 and every k-th call clips and applies ``acc``; the parameters do not move
 in between, and the rate is indexed by applied updates, not by calls.
 
+Parameters below f32 (``param_dtype`` bfloat16 or float16) take optax's
+own order instead (:class:`OptaxAdamW`): ``scale_by_adam`` with the moments
+in the parameter's dtype, then ``add_decayed_weights``, then the schedule's
+``-lr`` cast to that dtype, then ``apply_updates``, each operation rounding
+in that dtype; the clip's global norm is optax's, each leaf's sum of
+squares rounded to its dtype and the leaves added in flax's path order. The
+f32 path above is unchanged. In f16, optax's ``eps`` of 1e-8 is 0: an
+element whose second moment is 0 (a zero gradient, or one whose square
+underflows) divides by 0, so after the first update every leaf holds NaN,
+in the reference as here.
+
 Data parallelism (``mesh`` with a ``data`` axis over a process group): each
 rank holds the whole model and takes its block of rows of every global
 batch (filled up to a multiple of the ranks with filler graphs). A node (a
@@ -183,27 +194,118 @@ def make_lr_schedule(cfg: TrainerConfig) -> Callable[[int], float]:
 
 
 def make_optimizer(cfg: TrainerConfig, params: Iterable[torch.nn.Parameter]
-                   ) -> torch.optim.AdamW:
-    """AdamW (b1 0.9, b2 0.999, eps 1e-8) with decay on every parameter. The
-    trainer clips before it (``clip_and_step``) and sets the rate from
-    ``make_lr_schedule`` before every ``step()``."""
+                   ) -> torch.optim.Optimizer:
+    """AdamW (b1 0.9, b2 0.999, eps 1e-8) with decay on every parameter:
+    ``torch.optim.AdamW`` over f32 parameters, :class:`OptaxAdamW` where
+    any is stored below f32. The trainer clips before it
+    (``clip_and_step``) and sets the rate from ``make_lr_schedule`` before
+    every ``step()``."""
     if cfg.accumulate_grad_batches < 1:
         raise ValueError(f"accumulate_grad_batches must be >= 1, got "
                          f"{cfg.accumulate_grad_batches}")
-    return torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=cfg.weight_decay)
+    params = list(params)
+    opt = (torch.optim.AdamW if all(p.dtype == torch.float32 for p in params)
+           else OptaxAdamW)
+    return opt(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+               weight_decay=cfg.weight_decay)
+
+
+def in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as a Python float (exact in f32): a
+    multi-tensor op then computes with the constant JAX takes, a Python
+    scalar cast to the array's dtype."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
+class OptaxAdamW(torch.optim.Optimizer):
+    """optax's ``adamw`` (after its clip) for parameters below f32, step by
+    step as optax runs it: ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 +
+    b2 nu`` in the parameter's dtype, the bias corrections ``1 - b^count``
+    in f32 cast to that dtype, ``u = mu_hat / (sqrt(nu_hat) + eps) + wd p``,
+    ``p + (-lr) u``; every constant is taken in the parameter's dtype first,
+    as JAX takes a Python scalar (so ``eps`` is 0 in f16), and every
+    operation rounds in that dtype (multi-tensor ops, one set per dtype).
+    The state keeps AdamW's key names (``step``, ``exp_avg``,
+    ``exp_avg_sq``)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            by_dtype: Dict[torch.dtype, list] = {}
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                by_dtype.setdefault(p.dtype, []).append(p)
+            for dt, params in by_dtype.items():
+                count = np.float32(self.state[params[0]]["step"].item())
+                # the bias corrections and -lr in f32, then cast, as optax takes them
+                bc1, bc2, neg_lr = (in_dtype(float(x), dt) for x in (
+                    1 - np.float32(b1) ** count, 1 - np.float32(b2) ** count,
+                    -np.float32(group["lr"])))
+                grads = [p.grad for p in params]
+                mus = [self.state[p]["exp_avg"] for p in params]
+                nus = [self.state[p]["exp_avg_sq"] for p in params]
+                torch._foreach_add_(torch._foreach_mul_(mus, in_dtype(b1, dt)),
+                                    torch._foreach_mul(grads, in_dtype(1 - b1, dt)))
+                sq = torch._foreach_mul(grads, grads)
+                torch._foreach_add_(torch._foreach_mul_(nus, in_dtype(b2, dt)),
+                                    torch._foreach_mul_(sq, in_dtype(1 - b2, dt)))
+                denom = torch._foreach_div(nus, bc2)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, in_dtype(group["eps"], dt))
+                u = torch._foreach_div(torch._foreach_div(mus, bc1), denom)
+                torch._foreach_add_(u, torch._foreach_mul(params, in_dtype(
+                    group["weight_decay"], dt)))
+                torch._foreach_add_(params, torch._foreach_mul_(u, neg_lr))
+
+
+def optax_global_norm(grads: list) -> torch.Tensor:
+    """optax's ``global_norm`` of ``grads`` (in flax's path order): each
+    leaf's sum of squares (the squares rounded to its dtype) accumulated in
+    f32 and rounded to its dtype, the leaves added one by one in the
+    promoted dtype of the running total and the leaf, the square root in
+    the total's dtype. A 0-d tensor on the gradients' device; nothing waits
+    for the device."""
+    sums = torch._foreach_norm(torch._foreach_mul(grads, grads), 1)
+    total = sums[0]
+    for s in sums[1:]:
+        total = total + s
+    return torch.sqrt(total)
 
 
 def clip_and_step(params: list, optimizer: torch.optim.Optimizer, lr: float,
                   max_norm: float, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Clip the parameters' gradients by their global norm (``norm`` where
     the caller has it) and take one AdamW step at rate ``lr``; returns the
-    norm before clipping."""
+    norm before clipping. Under :class:`OptaxAdamW` the clip is optax's
+    ``(g / norm) * max_norm`` in each gradient's dtype."""
     grads = [p.grad for p in params]
     if norm is None:
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    if isinstance(optimizer, OptaxAdamW):
+        # select(norm < max_norm, g, (g / norm) * max_norm) on the device:
+        # below the limit both factors are 1, and g / 1 * 1 is g exactly
+        keep = norm < max_norm
+        by_dtype: Dict[torch.dtype, list] = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for dt, gs in by_dtype.items():
+            torch._foreach_div_(gs, torch.where(keep, 1.0, norm).to(dt))
+            torch._foreach_mul_(gs, torch.where(keep, 1.0, in_dtype(max_norm, dt)).to(dt))
+    else:
+        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+        torch._foreach_mul_(grads, scale)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
@@ -242,7 +344,7 @@ class DGDMTrainer:
         self._tp = self.mesh.axis(MODEL_AXIS) if tp_size(self.mesh) > 1 else None
         self._sharded: list[bool] = []      # per parameter: a tensor-parallel shard
         self.lr_schedule = make_lr_schedule(self.config)
-        self.optimizer: Optional[torch.optim.AdamW] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
         self.params: list[torch.nn.Parameter] = []
         self.generator = torch.Generator(device=self.device)
         # dropout's stream under data parallelism: one of each rank's own
@@ -286,6 +388,10 @@ class DGDMTrainer:
         self._sharded = [name in layout for name, p in self.model.named_parameters()
                          if p.requires_grad]
         self.optimizer = make_optimizer(self.config, self.params)
+        # the reference's leaf order (flax sorts each level's names), for
+        # the global norm of parameters below f32
+        names = [n for n, p in self.model.named_parameters() if p.requires_grad]
+        self._flax_order = sorted(range(len(names)), key=lambda i: names[i].split("."))
         self.seed, self.step, self.mini_step = int(seed), 0, 0
         self.accumulated = ([torch.zeros_like(p) for p in self.params]
                             if self.config.accumulate_grad_batches > 1 else [])
@@ -539,6 +645,8 @@ class DGDMTrainer:
         from this rank's shards and the replicated leaves)."""
         if self._tp is not None:
             return grad_norm(grads, self._sharded, self._tp)
+        if isinstance(self.optimizer, OptaxAdamW):
+            return optax_global_norm([grads[i] for i in self._flax_order])
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
     def _update(self, grads: list, norm: Optional[torch.Tensor] = None) -> None:
@@ -624,7 +732,7 @@ class DGDMTrainer:
         self.step += 1
 
         metrics = dict(zip(names, values.unbind()))
-        metrics["grad_norm"] = norm
+        metrics["grad_norm"] = norm.float()
         metrics = {k: metrics[k] for k in sorted(metrics)}
         if materialize:
             return dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
@@ -867,8 +975,7 @@ class DGDMTrainer:
         on), its parameters drawn from ``cfg.experiment.seed``. Without
         ``mesh``, ``hardware.mesh_shape`` / ``mesh_axes`` give one (with a
         ``model`` axis the tensor-parallel layout); ``hardware.devices`` is
-        not read, as in the reference. A
-        ``param_dtype`` other than float32 raises naming item 8."""
+        not read, as in the reference."""
         hw = cfg.hardware
         if mesh is None and hw.mesh_shape:
             mesh = make_mesh(shape=list(hw.mesh_shape), axes=tuple(hw.mesh_axes))

@@ -13,8 +13,10 @@ another row count than its indices (the halo tier); a training step with
 gradient tensor's largest entry against the plain step); the transposed neighbor
 list is fixed by idx (bit-equal); the two backward kernels sum each row in
 f32 in a fixed order of their own, other than the plain version's (1e-5 in
-f32; in bf16 one ulp of the plain result, which rounds the same f32 sums
-once), and give bit-identical results from call to call; the f32 model on the
+f32; in bf16 and f16 one ulp of the plain result, which rounds the same f32
+sums once), and give bit-identical results from call to call; every kernel
+test runs in f32, bf16 and f16 (the flash kernels' f16 split of p is
+within one f16 ulp of each element beside the 1e-4 limit); the f32 model on the
 card against the same model on the CPU differs by f32 rounding (1e-4), and
 its training step's gradients by 1e-3 of each tensor's largest entry. The
 slide path on the card against the CPU: kNN neighbour lists equal slot for
@@ -91,7 +93,7 @@ def _data(device, b, n, k, f, dtype, seed=0, hub=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_gather_rows_kernel_bit_equal_on_card(cuda_device, dtype, shape):
     src, idx, _ = _data(cuda_device, *shape, dtype)
@@ -103,7 +105,7 @@ def test_gather_rows_kernel_bit_equal_on_card(cuda_device, dtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", AGG_SHAPES)
 def test_gather_agg_kernel_matches_plain_on_card(cuda_device, dtype, shape):
     """Indices -2 .. N+1 and N + 3 at some slots: out of range adds nothing."""
@@ -127,7 +129,7 @@ RECT_SHAPES = [(32, 512, 8, 128, 620), (32, 2, 57, 128, 512), (3, 100, 5, 24, 37
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", RECT_SHAPES)
 def test_rectangular_gathers_match_plain_on_card(cuda_device, dtype, shape):
     """A table of N_src rows read by N rows of K slots (indices -2 ..
@@ -154,7 +156,7 @@ def test_rectangular_gathers_match_plain_on_card(cuda_device, dtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("k", [5, 8])
 def test_gather_agg_kernel_takes_inputs_that_are_not_16_byte_aligned_on_card(cuda_device,
                                                                             dtype, k):
@@ -186,14 +188,21 @@ def test_kernels_refuse_non_contiguous_input_on_card(cuda_device):
         weighted_gather_sum(src, idx, w.transpose(1, 2).contiguous().transpose(1, 2))
 
 
+# significant bits of each half type: its ulp of x is 2^(exponent(x) - bits)
+HALF_BITS = {torch.bfloat16: 8, torch.float16: 11}
+
+
+def _ulp(x, dtype):
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - HALF_BITS[dtype])
+
+
 def _assert_scatter_close(out, ref32):
-    """f32: 1e-5. bf16: one bf16 ulp of the rounded plain sums (+1e-5 near 0)."""
+    """f32: 1e-5. bf16 / f16: one ulp of the rounded plain sums (+1e-5 near 0)."""
     if out.dtype == torch.float32:
         torch.testing.assert_close(out, ref32, atol=1e-5, rtol=1e-5)
         return
     ref = ref32.to(out.dtype).float()
-    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
-    assert ((out.float() - ref).abs() <= ulp + 1e-5).all()
+    assert ((out.float() - ref).abs() <= _ulp(ref, out.dtype) + 1e-5).all()
 
 
 @pytest.mark.cuda
@@ -212,7 +221,7 @@ def test_neighbor_transpose_kernel_bit_equal_on_card(cuda_device, shape, hub):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("hub", [False, True])
 def test_gather_rows_bwd_kernel_matches_plain_on_card(cuda_device, dtype, shape, hub):
@@ -234,7 +243,7 @@ def test_gather_rows_bwd_kernel_matches_plain_on_card(cuda_device, dtype, shape,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("hub", [False, True])
 def test_gather_agg_bwd_kernel_matches_plain_on_card(cuda_device, dtype, shape, hub):
@@ -450,7 +459,7 @@ def _flash_inputs(device, shape, dtype, masked_from, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape,route", FLASH_SHAPES)
 def test_flash_kernels_match_their_plain_versions_on_card(cuda_device, shape, route, dtype):
     fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, dtype, shape[1] - 28)
@@ -467,19 +476,21 @@ def test_flash_kernels_match_their_plain_versions_on_card(cuda_device, shape, ro
     assert out.dtype == dtype and out.shape == q.shape
     for want in (ref.float(), dense.float()):
         tol = torch.full_like(want, 1e-4)
-        if dtype == torch.bfloat16:
-            tol = tol + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+        if dtype != torch.float32:
+            tol = tol + _ulp(want, dtype)
         assert ((out.float() - want).abs() * valid <= tol).all()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape,route", [((2, 256, 8, 16), "packed"), ((2, 256, 16, 8), "packed"),
                                          ((2, 256, 4, 64), "headmajor")])
-def test_flash_bf16_kernels_at_a_sharp_tau_on_card(cuda_device, shape, route):
-    """tau = 1e-3: the bf16 kernels start the q.k accumulator from the bias in
-    units of the unscaled product, largest at a small tau. Held to the
-    reference's limit at this tau (5e-3) plus one bf16 ulp of each element."""
-    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, torch.bfloat16, shape[1] - 28)
+def test_flash_bf16_kernels_at_a_sharp_tau_on_card(cuda_device, shape, route, dtype):
+    """tau = 1e-3: the tensor-core kernels (bf16 and f16) start the q.k
+    accumulator from the bias in units of the unscaled product, largest at a
+    small tau. Held to the reference's limit at this tau (5e-3) plus one ulp
+    of each element in the dtype."""
+    fs, q, k, v, pos, mask = _flash_inputs(cuda_device, shape, dtype, shape[1] - 28)
     assert fs.flash_route(*shape[1:]) == route
     kernel = fs.KERNEL_PACKED if route == "packed" else fs.KERNEL_HEADMAJOR
     plain = fs.flash_spatial_packed_plain if route == "packed" else fs.flash_spatial_plain
@@ -488,12 +499,12 @@ def test_flash_bf16_kernels_at_a_sharp_tau_on_card(cuda_device, shape, route):
     torch.cuda.synchronize()
     assert kernel.launches == count + 1
     want = plain(q, k, v, pos, mask, 1e-3).float()
-    tol = 5e-3 + torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    tol = 5e-3 + _ulp(want, dtype)
     assert ((out.float() - want).abs() * mask[:, :, None, None] <= tol).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", [(2, 128, 8, 16), (2, 128, 16, 8), (2, 128, 4, 16),
                                    (2, 256, 4, 64)])
 def test_flash_all_masked_graph_gives_zeros_on_card(cuda_device, shape, dtype):
@@ -505,7 +516,7 @@ def test_flash_all_masked_graph_gives_zeros_on_card(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape", [(2, 256, 16, 8), (2, 256, 4, 16), (2, 256, 1, 200)])
 def test_flash_masked_value_rows_change_no_valid_row_on_card(cuda_device, shape, dtype):
     """Key tiles past the last valid node are skipped whole; a masked key in
@@ -586,7 +597,7 @@ def _tissue_patches(n, size=256, seed=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_gather_kernels_at_the_slide_shape_on_card(cuda_device, dtype):
     """One slide's graph: B 1, N 1024, K 24 (8 spatial + 16 morphological
     neighbours), F 128: gather_agg takes its any-K path."""

@@ -151,6 +151,39 @@ def test_optimizer_compresses_as_the_jax_optimizer(pair, quant):
         assert sorted(packed["data"]["scales"]) == sorted(jpacked["data"]["scales"])
 
 
+@pytest.mark.parametrize("quant", ["int8", "bf16"])
+def test_bf16_parameter_bundle_quantizes_its_leaves(pair, tmp_path, quant):
+    """A ``param_dtype: bfloat16`` model's bundle stores what the bundle of
+    an f32 model holding the same values stores: int8 leaves with the same
+    scales (compression 2.0 against the bf16 bytes) or the same bf16 bits.
+    The JAX package stores such leaves raw (their numpy kind is not "f").
+    Its engine's probabilities against the bf16 model's own: int8 within
+    1e-2 (reading 2.5e-3, the int8 rounding), bf16 within 1e-6 (6e-8)."""
+    cfg16 = {**CFG, "param_dtype": "bfloat16"}
+    state = {k: v.to(torch.bfloat16) for k, v in pair["tm"].state_dict().items()}
+    tm16, twin = DGDMModel(**cfg16).eval(), DGDMModel(**CFG).eval()
+    tm16.load_state_dict(state)
+    twin.load_state_dict({k: v.float() for k, v in state.items()})
+    config = tdep.EdgeConfig(quantization=quant)
+    path = tdep.EdgeDeploymentManager(tmp_path / "bf16").package(tm16, None, cfg16, config)
+    twin_path = tdep.EdgeDeploymentManager(tmp_path / "f32").package(twin, None, CFG, config)
+    (meta, arrays), (twin_meta, twin_arrays) = _bundle(path), _bundle(twin_path)
+    assert meta["leaves"] == twin_meta["leaves"]
+    kinds = {info["kind"] for info in meta["leaves"].values()}
+    assert kinds == ({"int8", "raw"} if quant == "int8" else {"bf16"})
+    for name, info in meta["leaves"].items():
+        if info["kind"] != "raw":
+            key = "p:" + name
+            assert np.array_equal(arrays[key], twin_arrays[key]), name
+    assert meta["stats"]["compression"] > (1.99 if quant == "int8" else 0.99)
+    res = tdep.EdgeDeploymentManager.load(path, device="cpu").predict(pair["tg"])
+    with torch.no_grad():
+        own = torch.softmax(tm16(pair["tg"], mode="inference")["classification_logits"].float(),
+                            -1).numpy()
+    np.testing.assert_allclose(res["probabilities"], own, rtol=0,
+                               atol=1e-2 if quant == "int8" else 1e-6)
+
+
 def test_pickle_bundles_are_refused(tmp_path):
     for load in (tdep.EdgeDeploymentManager.load, jdep.EdgeDeploymentManager.load):
         with pytest.raises(ValueError, match="pickle"):

@@ -171,8 +171,8 @@ def test_gradients_match_jax_grad_through_the_jax_wrapper(heads):
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     q, k, v, pos, mask = _t(*_inputs(128, 8, 16, masked_from=128))
-    with pytest.raises(TypeError, match="bf16 or f32"):
-        fs.flash_spatial_attention(q.half(), k.half(), v.half(), pos, mask)
+    with pytest.raises(TypeError, match="bf16, f16 or f32"):
+        fs.flash_spatial_attention(q.double(), k.double(), v.double(), pos, mask)
     with pytest.raises(TypeError, match="bool"):
         fs.flash_spatial_attention(q, k, v, pos, mask.float())
     with pytest.raises(ValueError, match="one shape"):

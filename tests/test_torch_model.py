@@ -144,9 +144,16 @@ def test_flax_layout_rules():
     {"param_dtype": "bfloat16"}, {"compute_dtype": "float16"},
 ])
 def test_unported_options_raise_naming_the_roadmap(override):
-    """The window, band, traffic-dtype and MoE options build and reach their
-    modules. The options not ported yet raise, naming their ROADMAP item."""
+    """Every option builds and reaches its modules (item 8's three since its
+    slice: Set2Set pooling, parameters stored in ``param_dtype``, layers
+    computing in ``compute_dtype``); a value outside each option's range
+    raises. No option raises ``NotImplementedError`` any more."""
     ported = {"spatial_window": lambda m: m.spatial_attention.window_size,
+              "pooling": lambda m: (type(m.pool).__name__, m.pool.lstm.features),
+              "param_dtype": lambda m: ({p.dtype for p in m.parameters()},
+                                        m.graph_encoder.layer0.conv1.bias.dtype),
+              "compute_dtype": lambda m: (m.dtype, m.graph_unet.down0.q_proj.compute_dtype,
+                                          m.pool.out_proj.compute_dtype),
               "moe_experts": lambda m: (m.moe_ffn.num_experts, m.moe_ffn.top_k,
                                         m.moe_ffn.hidden_dim, m.moe_norm.normalized_shape),
               "graph_window": lambda m: (m.graph_encoder.layer0.band_window,
@@ -155,18 +162,18 @@ def test_unported_options_raise_naming_the_roadmap(override):
                                          m.graph_unet.down1.band_window),
               "attention_traffic_dtype": lambda m: m.spatial_attention.traffic_dtype}
     (name, value), = override.items()
-    if name in ported:
-        want = {"spatial_window": 64, "graph_window": (64, 64, 64, None),
-                "attention_traffic_dtype": torch.bfloat16,
-                "moe_experts": (4, 1, 2 * KW["hidden_dims"][-1], (KW["hidden_dims"][-1],))
-                }[name]
-        assert ported[name](DGDMModel(**{**KW, **override})) == want
-        with pytest.raises(ConfigurationError):
-            DGDMModel(**{**KW, name: -1 if name in ("spatial_window", "graph_window",
-                                                    "moe_experts") else "int8"})
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DGDMModel(**{**KW, **override})
+    want = {"spatial_window": 64, "graph_window": (64, 64, 64, None),
+            "attention_traffic_dtype": torch.bfloat16,
+            "moe_experts": (4, 1, 2 * KW["hidden_dims"][-1], (KW["hidden_dims"][-1],)),
+            "pooling": ("GlobalSet2SetPool", KW["hidden_dims"][-1]),
+            "param_dtype": ({torch.bfloat16}, torch.bfloat16),
+            "compute_dtype": (torch.float16,) * 3,
+            }[name]
+    assert ported[name](DGDMModel(**{**KW, **override})) == want
+    # make_pool raises ValueError for an unknown pooling, as the reference's does
+    with pytest.raises(ValueError if name == "pooling" else ConfigurationError):
+        DGDMModel(**{**KW, name: -1 if name in ("spatial_window", "graph_window",
+                                                "moe_experts") else "int8"})
 
 
 def test_pretrain_and_dropout_forward_raise(small_pair):

@@ -13,7 +13,7 @@ shift-invariant key biases to the steps' summed learning rate) and against
 the JAX trainer on one device as the JAX test does (loss rel 2e-4,
 parameters atol 2e-4); ``halo_gather`` equal to the bit to JAX's;
 ``sp_graph_conv`` 1e-5; ``sp_forward`` (the model over node-sharded
-inputs) 1e-4 of JAX ``DGDMModel.apply`` (the JAX test's bound,
+inputs, with the attention and the Set2Set readout) 1e-4 of JAX ``DGDMModel.apply`` (the JAX test's bound,
 tests/test_spmd.py::TestNodeSharding) and 1e-5 of the port's one-process
 forward, every pooled level's selection equal; the pipeline's outputs and
 gradients 1e-4; the expert-parallel block 2e-5 with routing equal. The
@@ -79,6 +79,8 @@ PP_HID, PP_HEADS, PP_LAYERS = 32, 4, 4
 SP_MODEL = {**MODEL, "graph_layers": 4, "regression_targets": 1, "survival_mode": "discrete",
             "survival_intervals": 4}
 SP_BUCKETS, SP_SHAPES, SP_GRAPHS = (32, 64), ((1, 4), (2, 2)), 4
+# the same with the Set2Set readout, on the 32 bucket
+SP_SET2SET = {**SP_MODEL, "pooling": "set2set"}
 
 
 def spmd_batch():
@@ -158,26 +160,26 @@ def sp_batch(n):
                     for i in range(SP_GRAPHS)])
 
 
-def jax_sp_reference(ref):
+def jax_sp_reference(ref, prefix="sp", model=SP_MODEL, buckets=SP_BUCKETS):
     """JAX ``DGDMModel.apply`` (inference) of the tiny Base on each bucket,
     one parameter tree."""
-    jm = JaxDGDM(**SP_MODEL, gather_impl="xla")
-    batches = {n: sp_batch(n) for n in SP_BUCKETS}
+    jm = JaxDGDM(**model, gather_impl="xla")
+    batches = {n: sp_batch(n) for n in buckets}
     rngs = {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1),
             "masking": jax.random.PRNGKey(2)}
     params = jm.init(rngs, batches[32], mode="pretrain", deterministic=True)
     fwd = jax.jit(lambda p, g: jm.apply(p, g, mode="inference", deterministic=True))
-    ref["sp_state"] = params_from_flax(_flat(params))
-    ref["sp_forward"] = {n: {k: np.asarray(v) for k, v in fwd(params, b).items()
-                             if k in ("classification_logits", "graph_embedding")}
-                         for n, b in batches.items()}
-    ref["sp_batches"] = {n: to_torch_graph(b) for n, b in batches.items()}
+    ref[f"{prefix}_state"] = params_from_flax(_flat(params))
+    ref[f"{prefix}_forward"] = {n: {k: np.asarray(v) for k, v in fwd(params, b).items()
+                                    if k in ("classification_logits", "graph_embedding")}
+                                for n, b in batches.items()}
+    ref[f"{prefix}_batches"] = {n: to_torch_graph(b) for n, b in batches.items()}
 
 
-def sp_one_process(state, batches):
+def sp_one_process(state, batches, model=SP_MODEL):
     """The port's one-process forward of each batch, with every pooled
     level's selection."""
-    model = DGDMModel(**SP_MODEL)
+    model = DGDMModel(**model)
     model.load_state_dict(state)
     sel = {}
     for d in range(2):
@@ -244,6 +246,7 @@ def par(tmp_path_factory):
         jax_layouts(ref)
         jax_halo_reference(ref)
         jax_sp_reference(ref)
+        jax_sp_reference(ref, "s2s", SP_SET2SET, (32,))
         jax_pp_reference(ref)
 
     # the port's full model for the pretrain scenarios: seeded parameters
@@ -295,6 +298,9 @@ def par(tmp_path_factory):
         "sp_model": {"module": WORKER, "job": "sp_model", "model": SP_MODEL,
                      "state": ref["sp_state"], "batches": ref["sp_batches"], "plans": sp_plans,
                      "shapes": SP_SHAPES},
+        "sp_set2set": {"module": WORKER, "job": "sp_model", "model": SP_SET2SET,
+                       "state": ref["s2s_state"], "batches": ref["s2s_batches"],
+                       "plans": sp_plans, "shapes": SP_SHAPES},
         "pp": {"module": WORKER, "job": "pp", "variants": pp_variants, "num_micro": 2},
         "collectives": {"module": WORKER, "job": "collectives"},
         "dryrun": {"module": WORKER, "job": "dryrun"},
@@ -312,7 +318,8 @@ def par(tmp_path_factory):
               "one_rank": single_run(state0, [(t4, 0, None)]),
               "spmd": single_run(ref["spmd_state0"], spmd_steps, model=SPMD_MODEL,
                                  config=SPMD_CFG),
-              "sp": sp_one_process(ref["sp_state"], ref["sp_batches"])}
+              "sp": sp_one_process(ref["sp_state"], ref["sp_batches"]),
+              "s2s": sp_one_process(ref["s2s_state"], ref["s2s_batches"], SP_SET2SET)}
     return {"ref": ref, "got": got, "single": single, "plan": plan, "one_plan": one_plan,
             "moe": (moe_x, moe_mask, moe_states), "state0": state0}
 
@@ -502,6 +509,28 @@ def test_sp_forward_matches_jax_and_one_process(par, shape, n):
         assert len(out["pool_sel_idx"]) == 2
         for got, want in zip(out["pool_sel_idx"], one["pool_sel_idx"]):
             assert torch.equal(got, want[b])
+        assert torch.equal(out["classification_logits"],
+                           ranks[d * tp]["classification_logits"])
+
+
+@pytest.mark.parametrize("shape", SP_SHAPES)
+def test_sp_forward_set2set_matches_jax_and_one_process(par, shape):
+    """The Set2Set readout (over the level gathered whole on every rank) of
+    the tiny Base on bucket 32: logits and graph embedding within 1e-4 of
+    JAX and 1e-5 of the port's one-process forward, equal on every rank of
+    a model line."""
+    dp, tp = shape
+    rows = SP_GRAPHS // dp
+    one, jax_ref = par["single"]["s2s"][32], par["ref"]["s2s_forward"][32]
+    ranks = [r[shape, 32] for r in par["got"]["sp_set2set"]]
+    for rank, out in enumerate(ranks):
+        d = rank // tp
+        b = slice(d * rows, (d + 1) * rows)
+        for key in ("classification_logits", "graph_embedding"):
+            np.testing.assert_allclose(out[key].numpy(), jax_ref[key][b], atol=1e-4, rtol=0,
+                                       err_msg=key)
+            np.testing.assert_allclose(out[key].numpy(), one[key][b].numpy(), atol=1e-5,
+                                       rtol=0, err_msg=key)
         assert torch.equal(out["classification_logits"],
                            ranks[d * tp]["classification_logits"])
 
