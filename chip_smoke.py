@@ -164,6 +164,19 @@ Phases, each of which raises on a failed check:
      graph files, and its bundle answering one /predict through
      ``dgdm-serve``.
 
+ 18. offline preprocessing (ROADMAP item 10), last: two synthetic 20x slides
+     of 16384² (5 levels) rendered on the card band by band
+     (``write_synthetic_slide_tiff(device="cuda")``, deflate tiles encoded in
+     threads), each >= 1000 tissue patches of 256 px at threshold 0.8; one
+     band's card ms against the host numpy path's, and the card's band
+     against the renderer's core on the CPU fed the card's draws (one uint8
+     step, tissue field 1e-5); ``SlideDataset.preprocess_all`` with the
+     dinov2 featurizer, one worker then two (equal graphs), each graph's
+     structure against ``DGDMPredictor.predict_slide``'s (9 / 18 launches),
+     and ``dgdm-predict`` on the written graphs (9 / 18 a graph); where h5py
+     imports, ``dgdm-preprocess`` end to end and an ``.h5`` slide through the
+     native reader, else one line saying so.
+
 It prints a ``{"kernels": [...]}`` JSON line (the f16 instantiations as
 ``<name>_f16`` entries), then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -175,6 +188,8 @@ on a machine of four cards its tiers run over NCCL, one rank a card (TP
 model axis of 4, ``dryrun_multichip(4)``),
 followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
 SIGTERM, exit 75 and ``resume``, bit-equal.
+
+``python3 chip_smoke.py --preprocess-only`` runs the build and phase 18 alone.
 
 ``python3 chip_smoke.py --dtype-only`` runs the build and phase 17 alone
 (its bf16 kernel rows timed there too), and prints the f16 entries of the
@@ -4376,6 +4391,366 @@ def dtype_phase(torch, graphs, card: str, bf16_rows=None) -> dict:
     return out
 
 
+# The offline-preprocessing cell (ROADMAP item 10, the README's first two
+# commands): two synthetic 20x slides of 16384² (5 levels), rendered on the
+# card in bands of 2048 rows and written as deflate-tiled BigTIFFs (lossless:
+# the pixels read back are the ones rendered), each >= 1000 tissue patches
+# of 256 px at the CLI's tissue threshold 0.8; SlideDataset.preprocess_all
+# with the dinov2 featurizer and 8 + 16 neighbours, one worker then two; the
+# structure of each graph against DGDMPredictor.predict_slide's; dgdm-predict
+# on the written graphs with a seeded DGDM-Base bundle; the HDF5 paths where
+# h5py imports.
+PREPROCESS = dict(px=16384, levels=5, band=2048, seeds=(0, 1), num_blobs=24,
+                  nuclei_density=5e-4, min_patches=1000, patch=256, max_patches=1000,
+                  k_spatial=8, k_morph=16, reps=5, h5_px=8192, feature_rel=1e-3)
+
+
+def preprocess_band(torch, card: str) -> dict:
+    """One band (seed 0, band 0, 2048 x 16384) of the band renderer on the
+    card: ms by CUDA events (median of ``reps`` after a warm-up; the draws
+    included) against the host ``"numpy"`` path's ms for the same band; the
+    card's band against the renderer's core on the CPU fed the card's own
+    draws (one uint8 step at most, the tissue field within 1e-5)."""
+    import numpy as np
+    from dgdm_histopath_torch.preprocessing import synthetic as syn
+
+    px, band, levels = PREPROCESS["px"], PREPROCESS["band"], PREPROCESS["levels"]
+    dens, seed = PREPROCESS["nuclei_density"], 0
+    rs = np.random.RandomState(seed)
+    blobs = syn._make_blobs(rs, px, px, PREPROCESS["num_blobs"])
+    coarse = rs.rand(px // 32 + 2, px // 32 + 2).astype(np.float32)
+    b_card = torch.tensor(np.asarray(blobs, np.float32), device="cuda")
+    c_card = torch.from_numpy(coarse).cuda()
+    render = syn._device_band_renderer(px, band, levels, dens, torch.device("cuda"), seed)
+    render(b_card, c_card, 0, 0)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(PREPROCESS["reps"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        render(b_card, c_card, 0, 0)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    syn._render_band_numpy(0, band, px, levels, blobs, coarse, dens, seed)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+
+    uniform, normal = syn.draw_band_fields(band, px, seed, 0, "cuda")
+    card_outs = [o.cpu() for o in syn.render_band(b_card, c_card, 0, uniform, normal, dens,
+                                                  levels)]
+    t0 = time.perf_counter()
+    cpu_outs = syn.render_band(b_card.cpu(), c_card.cpu(), 0, uniform.cpu(), normal.cpu(), dens,
+                               levels)
+    cpu_s = time.perf_counter() - t0
+    d_tissue = float((syn.band_tissue(b_card, 0, band, px).cpu()
+                      - syn.band_tissue(b_card.cpu(), 0, band, px)).abs().max())
+    per_level = []
+    for a, b in zip(card_outs, cpu_outs):
+        diff = (a.int() - b.int()).abs()
+        per_level.append({"max": int(diff.max()), "share": float((diff > 0).float().mean())})
+    out = {"ms": statistics.median(times), "ms_all": times, "numpy_ms": numpy_ms,
+           "cpu_core_s": cpu_s, "levels": per_level, "tissue_max_abs": d_tissue,
+           "band": [band, px]}
+    log(f"preprocess: band renderer, one band of {band} x {px} and its {levels} levels: card "
+        f"{out['ms']:.2f} ms (CUDA events, median of {len(times)}, draws included), host "
+        f"numpy path {numpy_ms:.0f} ms ({numpy_ms / out['ms']:.0f}x); card vs the core on the "
+        f"CPU fed the card's draws: per level max step / share of bytes that differ "
+        + ", ".join(f"{r['max']} / {r['share']:.2e}" for r in per_level)
+        + f" (<= 1 step), tissue field {d_tissue:.2e} (<= 1e-5); the CPU core took "
+        f"{cpu_s:.1f} s [{card}]")
+    if any(r["max"] > 1 for r in per_level) or d_tissue > 1e-5:
+        raise AssertionError("the band renderer on the card differs from its core on the CPU")
+    return out
+
+
+def preprocess_render(torch, root: str, card: str) -> dict:
+    """The two slides, written on the card, and their tissue patches."""
+    import os
+
+    from dgdm_histopath_torch.preprocessing import synthetic as syn
+    from dgdm_histopath_torch.preprocessing.slide_io import open_slide
+    from dgdm_histopath_torch.preprocessing.slide_processor import SlideProcessor
+
+    px = PREPROCESS["px"]
+    proc = SlideProcessor(patch_size=PREPROCESS["patch"], magnifications=[20.0],
+                          max_patches=PREPROCESS["max_patches"])
+    out = {"px": px, "levels": PREPROCESS["levels"], "band": PREPROCESS["band"],
+           "cut": None, "slides": []}
+    for seed in PREPROCESS["seeds"]:
+        clock = {}
+        t0 = time.perf_counter()
+        path = syn.write_synthetic_slide_tiff(
+            f"{root}/slides/slide{seed}.tif", width=px, height=px,
+            num_levels=PREPROCESS["levels"], band=PREPROCESS["band"], seed=seed,
+            compression="deflate", num_blobs=PREPROCESS["num_blobs"],
+            nuclei_density=PREPROCESS["nuclei_density"], device="cuda", timings=clock)
+        wall = time.perf_counter() - t0
+        slide = open_slide(path)
+        mask, mask_ds = proc.detect_tissue_regions(slide)
+        tissue = len(proc.generate_patch_coordinates(slide, mask, mask_ds))
+        slide.close()
+        rec = {"path": str(path), "seed": seed, "wall_s": wall, "render_s": clock["render_s"],
+               "encode_s": clock["encode_s"], "bands": clock["bands"],
+               "mib": os.path.getsize(path) / 2 ** 20, "tissue_patches": tissue}
+        out["slides"].append(rec)
+        log(f"preprocess: slide{seed}.tif {px}² (not cut) at 20x, {PREPROCESS['levels']} "
+            f"levels, deflate 256-px tiles, {rec['mib']:.0f} MiB: written in {wall:.1f} s "
+            f"(render on the card, dispatch + fetch, {rec['render_s']:.1f} s; encode + write "
+            f"in threads "
+            f"{rec['encode_s']:.1f} s; {rec['bands']} bands); {tissue} tissue patches of "
+            f"{PREPROCESS['patch']} px at threshold 0.8 (>= {PREPROCESS['min_patches']}) [{card}]")
+        if tissue < PREPROCESS["min_patches"]:
+            raise AssertionError(f"slide{seed}: {tissue} tissue patches, fewer than "
+                                 f"{PREPROCESS['min_patches']}")
+    return out
+
+
+def graph_arrays(g) -> dict:
+    return {k: getattr(g, k).cpu().numpy()
+            for k in ("x", "pos", "nbr_idx", "nbr_mask", "edge_attr", "node_mask")}
+
+
+def same_structure(a: dict, b: dict, what: str, feature_tol=None) -> dict:
+    """Indices and masks of two graphs bit for bit (and positions); with
+    ``feature_tol`` the features within it of the largest |feature|."""
+    for k in ("pos", "nbr_idx", "nbr_mask", "node_mask"):
+        if a[k].shape != b[k].shape or not (a[k] == b[k]).all():
+            raise AssertionError(f"{what}: {k} differs")
+    import numpy as np
+    d_x = float(np.abs(a["x"] - b["x"]).max())
+    d_attr = float(np.abs(a["edge_attr"] - b["edge_attr"]).max())
+    scale = float(np.abs(b["x"]).max())
+    if feature_tol is not None and d_x > feature_tol * scale:
+        raise AssertionError(f"{what}: features differ by {d_x} (bound {feature_tol} x {scale})")
+    return {"x_max_abs": d_x, "x_scale": scale, "edge_attr_max_abs": d_attr}
+
+
+def preprocess_graphs(torch, root: str, paths: list, card: str) -> dict:
+    """``SlideDataset.preprocess_all`` with one worker, then two: wall s per
+    slide and per pass; the two passes' graphs equal (indices and masks bit
+    for bit, features within ``feature_rel`` of the largest |feature|, with
+    the featurizer's own spread on the card: the same 256 patches twice)."""
+    import numpy as np
+    from dgdm_histopath_torch.data import SlideDataset, load_graph
+    from dgdm_histopath_torch.preprocessing.slide_processor import SlideProcessor
+    from dgdm_histopath_torch.preprocessing.tissue_graph_builder import TissueGraphBuilder
+
+    proc = SlideProcessor(patch_size=PREPROCESS["patch"], magnifications=[20.0],
+                          max_patches=PREPROCESS["max_patches"])
+    builder = TissueGraphBuilder(feature_extractor="dinov2", k_spatial=PREPROCESS["k_spatial"],
+                                 k_morphological=PREPROCESS["k_morph"])
+    rng = np.random.RandomState(0)
+    probe = rng.randint(0, 255, (256, 256, 256, 3)).astype(np.uint8)
+    first = builder.extractor.extract(probe)          # weights drawn, kernels warmed
+    spread = float(np.abs(builder.extractor.extract(probe) - first).max())
+    out = {"feature_spread": spread}
+    for workers, sub in ((1, "one"), (2, "two")):
+        ds = SlideDataset(paths, proc, builder)
+        per_slide = {}
+        build = ds._build
+
+        def timed(path, build=build, per_slide=per_slide):
+            t = time.perf_counter()
+            g = build(path)
+            torch.cuda.synchronize()
+            per_slide[path.stem] = time.perf_counter() - t
+            return g
+        ds._build = timed
+        t0 = time.perf_counter()
+        written = ds.preprocess_all(f"{root}/{sub}", num_workers=workers)
+        wall = time.perf_counter() - t0
+        if [p.name for p in written] != [f"{p.stem}_graph.npz" for p in paths]:
+            raise AssertionError(f"preprocess_all({workers}) wrote {written}")
+        out[sub] = {"workers": workers, "wall_s": wall, "per_slide_s": per_slide,
+                    "files": [str(p) for p in written]}
+        log(f"preprocess: SlideDataset.preprocess_all(num_workers={workers}) on "
+            f"{len(paths)} slides in {wall:.2f} s; per slide (its own build, save excluded) "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in per_slide.items()) + f" [{card}]")
+    diffs = []
+    graphs = []
+    for a, b in zip(out["one"]["files"], out["two"]["files"]):
+        ga, gb = graph_arrays(load_graph(a)), graph_arrays(load_graph(b))
+        diffs.append(same_structure(ga, gb, "preprocess_all 1 vs 2 workers",
+                                    PREPROCESS["feature_rel"]))
+        graphs.append(ga)
+        if int(ga["node_mask"].sum()) != PREPROCESS["max_patches"]:
+            raise AssertionError(f"{a}: {int(ga['node_mask'].sum())} real nodes")
+    out["one_vs_two"] = diffs
+    log("preprocess: one worker vs two: neighbour lists, masks and positions equal; features "
+        + ", ".join(f"{d['x_max_abs']:.2e}" for d in diffs)
+        + f" (<= {PREPROCESS['feature_rel']} x the largest |feature|; the featurizer's spread "
+        f"on the card over the same 256 patches twice {spread:.2e}); graphs of "
+        f"{graphs[0]['x'].shape[0]} nodes, {graphs[0]['x'].shape[1]}-d, "
+        f"{graphs[0]['nbr_idx'].shape[1]} neighbours [{card}]")
+    return out, graphs
+
+
+def preprocess_predict(torch, root: str, paths: list, graphs: list, card: str) -> dict:
+    """``DGDMPredictor.predict_slide`` on each slide (counted: 9 + 18) and
+    its graph's structure against ``preprocess_all``'s; then ``dgdm-predict``
+    on the written graphs with a seeded DGDM-Base bundle (counted)."""
+    import numpy as np
+    from dgdm_histopath_torch import DGDMPredictor, create_model
+    from dgdm_histopath_torch.cli import predict as predict_cli
+    from dgdm_histopath_torch.data import load_graph
+    from dgdm_histopath_torch.models.presets import PRESETS
+    from dgdm_histopath_torch.training.checkpoint import save_model_bundle
+
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16", device="cuda",
+                         seed=0)
+    bundle = str(save_model_bundle(f"{root}/base.npz", model, dict(
+        PRESETS["dgdm-base"], num_classes=2, compute_dtype="bfloat16")))
+    predictor = DGDMPredictor(model=model, feature_extractor="dinov2")
+    captured = []
+    build = predictor.graph_builder.build_graph
+
+    def capture(*a, **k):
+        captured.append(build(*a, **k))
+        return captured[-1]
+    predictor.graph_builder.build_graph = capture
+    fwd = expected_launches(BASE, training=False)
+    out = {"predict_slide": {"s": [], "morph_slots_equal": []}}
+    try:
+        for path, ours in zip(paths, graphs):
+            t0 = time.perf_counter()
+            res, launches = counted(torch, lambda: predictor.predict_slide(path), fwd,
+                                    "predict_slide")
+            out["predict_slide"]["s"].append(time.perf_counter() - t0)
+            out["predict_slide"]["launches"] = launches
+            theirs = graph_arrays(captured[-1])
+            k = PREPROCESS["k_spatial"]
+            for key in ("pos", "node_mask"):
+                if not (theirs[key] == ours[key]).all():
+                    raise AssertionError(f"{path}: predict_slide's graph differs in {key}")
+            if not ((theirs["nbr_idx"][:, :k] == ours["nbr_idx"][:, :k]).all()
+                    and (theirs["nbr_mask"][:, :k] == ours["nbr_mask"][:, :k]).all()):
+                raise AssertionError(f"{path}: predict_slide's spatial neighbours differ")
+            out["predict_slide"]["morph_slots_equal"].append(
+                float((theirs["nbr_idx"][:, k:] == ours["nbr_idx"][:, k:]).mean()))
+            if not np.isfinite(res["probabilities"]).all():
+                raise AssertionError("predict_slide: non-finite probabilities")
+    finally:
+        predictor.close()
+    log(f"preprocess: predict_slide on each slide in "
+        + ", ".join(f"{s:.2f}" for s in out["predict_slide"]["s"])
+        + f" s, launches {out['predict_slide']['launches']}; its graphs' positions, node masks and "
+        f"8 spatial neighbour slots equal preprocess_all's; morphological slots equal "
+        + ", ".join(f"{100 * s:.1f}%" for s in out["predict_slide"]["morph_slots_equal"])
+        + " (the predictor normalizes stains inside the featurizer, preprocess_all in the "
+        f"processor) [{card}]")
+    del predictor, model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc, launches = counted(torch, lambda: predict_cli.main(
+        ["--model", bundle, "--input", f"{root}/one", "--output-dir", f"{root}/preds",
+         "--format", "both", "--log-level", "WARNING"]),
+        {k: len(paths) * v for k, v in fwd.items()}, "dgdm-predict")
+    wall = time.perf_counter() - t0
+    ref = DGDMPredictor(model_path=bundle)
+    worst = 0.0
+    for path in paths:
+        with open(f"{root}/preds/{path.stem}_graph.json") as f:
+            got = np.asarray(json.load(f)["probabilities"])
+        want = ref.predict_graph(load_graph(f"{root}/one/{path.stem}_graph.npz"))["probabilities"]
+        worst = max(worst, float(np.abs(got - want).max()))
+    if rc != 0 or worst != 0.0:
+        raise AssertionError(f"dgdm-predict rc {rc}, probabilities off by {worst}")
+    out["predict"] = {"rc": rc, "graphs": len(paths), "launches": launches, "wall_s": wall}
+    log(f"preprocess: dgdm-predict rc {rc} on the {len(paths)} written graphs in {wall:.1f} s, "
+        f"launches {launches} ({len(paths)} x 9 + 18), probabilities equal to "
+        f"DGDMPredictor.predict_graph of the bundle [{card}]")
+    out["bundle"] = bundle
+    return out
+
+
+def preprocess_hdf5(torch, root: str, paths: list, graphs: list, bundle: str,
+                    card: str) -> dict:
+    """Where h5py imports: ``dgdm-preprocess`` process-slides ->
+    build-graphs -> validate-preprocessing on the same slides (graphs equal
+    to ``preprocess_all``'s), and a ``write_synthetic_slide_hdf5`` slide on
+    the card through ``predict_slide`` and the native reader."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("preprocess: h5py is not importable on this machine: dgdm-preprocess "
+            "(process-slides, build-graphs, validate-preprocessing), write_synthetic_slide_hdf5 "
+            "and predict_slide of an .h5 slide through the native reader did not run here; "
+            "tests/test_torch_{hdf5,synthetic,preprocess_cli}.py hold them against the JAX "
+            "package on the CPU")
+        return {"h5py": False}
+    import contextlib
+    import io
+
+    from dgdm_histopath_torch import DGDMPredictor, native
+    from dgdm_histopath_torch.cli import preprocess as pre_cli
+    from dgdm_histopath_torch.data import load_graph
+    from dgdm_histopath_torch.preprocessing import synthetic as syn
+
+    out = {"h5py": True}
+    slides = str(paths[0].parent)
+    t0 = time.perf_counter()
+    rc1 = pre_cli.main(["process-slides", "--input-dir", slides, "--output-dir", f"{root}/h5",
+                        "--stain-normalize", "--log-level", "WARNING"])
+    rc2 = pre_cli.main(["build-graphs", "--input-dir", f"{root}/h5", "--output-dir",
+                        f"{root}/cli_graphs", "--log-level", "WARNING"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc3 = pre_cli.main(["validate-preprocessing", "--dir", f"{root}/cli_graphs"])
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["cli"] = {"rcs": [rc1, rc2, rc3], "validate": report, "s": time.perf_counter() - t0}
+    if [rc1, rc2, rc3] != [0, 0, 0] or report["graphs"] != len(paths):
+        raise AssertionError(f"dgdm-preprocess: {out['cli']}")
+    out["cli"]["vs_preprocess_all"] = [
+        same_structure(graph_arrays(load_graph(f"{root}/cli_graphs/{p.stem}_graph.npz")), g,
+                       "dgdm-preprocess vs preprocess_all", PREPROCESS["feature_rel"])
+        for p, g in zip(paths, graphs)]
+    px = PREPROCESS["h5_px"]
+    t0 = time.perf_counter()
+    h5 = syn.write_synthetic_slide_hdf5(f"{root}/slide.h5", width=px, height=px, num_levels=4,
+                                        tile=PREPROCESS["band"], seed=7, device="cuda")
+    out["h5_write_s"] = time.perf_counter() - t0
+    predictor = DGDMPredictor(model_path=bundle)
+    native.reset_reader_counts()
+    try:
+        res, launches = counted(torch, lambda: predictor.predict_slide(h5),
+                                expected_launches(BASE, training=False), "predict_slide .h5")
+    finally:
+        predictor.close()
+    out["h5_predict"] = {"launches": launches, "readers": native.reader_counts(),
+                         "num_patches": res["num_patches"]}
+    if out["h5_predict"]["readers"]["native"] < 1:
+        raise AssertionError(f"the .h5 slide was not read natively: {out['h5_predict']}")
+    log(f"preprocess: h5py found: dgdm-preprocess rcs {out['cli']['rcs']}, validate {report}, "
+        f"graphs equal to preprocess_all's; a {px}² .h5 slide written on the card in "
+        f"{out['h5_write_s']:.1f} s, predict_slide {out['h5_predict']} [{card}]")
+    return out
+
+
+def preprocess_phase(torch, card: str) -> dict:
+    """Phase 18: the offline-preprocessing cell."""
+    import tempfile
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "band": preprocess_band(torch, card)}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        out["render"] = preprocess_render(torch, root, card)
+        paths = [Path(s["path"]) for s in out["render"]["slides"]]
+        torch.cuda.empty_cache()
+        out["graphs"], graphs = preprocess_graphs(torch, root, paths, card)
+        torch.cuda.empty_cache()
+        pred = preprocess_predict(torch, root, paths, graphs, card)
+        out["predict_slide"], out["predict"] = pred["predict_slide"], pred["predict"]
+        torch.cuda.empty_cache()
+        out["hdf5"] = preprocess_hdf5(torch, root, paths, graphs, pred["bundle"], card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"preprocess: phase 18 took {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4436,6 +4811,17 @@ def main() -> int:
         log("details: " + json.dumps({"dtype": dtype}, default=str))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": f16_kernel_entries(dtype)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+
+    if sys.argv[1:] == ["--preprocess-only"]:
+        # phase 18 alone: the offline-preprocessing cell
+        pre = preprocess_phase(torch, card)
+        log("details: " + json.dumps({"preprocess": pre}, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -4514,6 +4900,11 @@ def main() -> int:
     serve = serve_phase(torch, card)
     torch.cuda.empty_cache()
 
+    # last: offline preprocessing (slides rendered on the card -> graphs ->
+    # dgdm-predict)
+    pre = preprocess_phase(torch, card)
+    torch.cuda.empty_cache()
+
     replaces = KERNEL_SOURCES
     line = {"kernels": []}
     for name, (source, where) in replaces.items():
@@ -4527,6 +4918,8 @@ def main() -> int:
                    "dgdm_train_slide": cli["slide"]["launches"][name],
                    "dgdm_predict": cli["predict"]["launches"][name],
                    "dgdm_serve": serve["launches"][name],
+                   "preprocess_predict_slide": pre["predict_slide"]["launches"][name],
+                   "preprocess_dgdm_predict": pre["predict"]["launches"][name],
                    "moe_predict_batch": moe["launches"][name],
                    "moe_training_step": moe["train_launches"][name],
                    "int8_predict_batch": int8["launches"][name],
@@ -4588,7 +4981,7 @@ def main() -> int:
                                   "training_parity": train_parity, "remat": remat,
                                   "flash_module": flash_module, "cli": cli,
                                   "serve": serve, "moe": moe, "dp": dp, "int8": int8,
-                                  "dtype": dtype,
+                                  "dtype": dtype, "preprocess": pre,
                                   "parallel": {k: v for k, v in par.items() if k != "rect"},
                                   "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},

@@ -174,25 +174,30 @@ class SlideDataset:
 
     def preprocess_all(self, output_dir: str | Path, num_workers: int = 1) -> List[Path]:
         """Offline slide -> graph pass; later items load the written files.
-        A slide that fails is logged and left out."""
-        if num_workers > 1:
-            raise NotImplementedError(
-                "preprocess_all(num_workers > 1) needs utils/distributed_processing.py, "
-                "which is not ported yet (ROADMAP queue 1, item 14)")
+        A slide whose graph file exists is skipped; a slide that fails is
+        logged and left out. ``num_workers > 1`` runs slides in that many
+        threads (``utils.distributed_processing.process_batch``): decode and
+        tiling overlap, the device work of each slide queues on the card."""
         out_dir = Path(output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         self.preprocessed_dir = out_dir
-        results = []
-        for path in self.slide_paths:
+
+        def work(path: Path) -> Optional[Path]:
             target = out_dir / f"{path.stem}{GRAPH_SUFFIX}"
             if target.exists():
-                results.append(target)
-                continue
+                return target
             try:
-                results.append(save_graph(self._build(path), target))
+                return save_graph(self._build(path), target)
             except Exception as exc:  # noqa: BLE001 - one bad slide does not stop the pass
                 logger.error("preprocess failed for %s: %s", path, exc)
-        return results
+                return None
+
+        if num_workers <= 1:
+            results = [work(p) for p in self.slide_paths]
+        else:
+            from ..utils.distributed_processing import process_batch
+            results = process_batch(work, self.slide_paths, num_workers=num_workers)
+        return [r for r in results if r is not None]
 
     def _build(self, slide_path: Path) -> PaddedGraph:
         data = self.processor.process_slide(slide_path)

@@ -7,19 +7,22 @@ Counterpart of the JAX package's ``preprocessing/slide_io.py``:
     installed;
   * ``TiledTiffBackend``: tiled (Big)TIFF through ``tiff.py`` (numpy);
   * ``PILTiffBackend``: multi-page TIFF through Pillow, where installed;
+  * ``HDF5SlideBackend``: dgdm_wsi chunked-HDF5 slides (``.h5``, ``.hdf5``,
+    ``.wsi``), through the native chunk reader (``native/``) or h5py;
   * ``ArrayBackend``: an in-memory numpy pyramid.
 
-HDF5 slides (``.h5``, ``.hdf5``, ``.wsi``) and the native chunk reader are
-not ported yet: ``open_slide`` raises ``NotImplementedError`` for them.
+h5py is imported only where an HDF5 slide is opened or written.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..utils.exceptions import SlideProcessingError
 
 try:
@@ -230,6 +233,171 @@ class TiledTiffBackend(SlideBackend):
         self._reader.close()
 
 
+class HDF5SlideBackend(SlideBackend):
+    """A dgdm_wsi chunked-HDF5 pyramidal slide: datasets ``level_0`` ..
+    ``level_{L-1}`` of [H, W, 3] uint8 in tile-sized chunks,
+    ``attrs["dgdm_wsi"] = "1"``, and the OpenSlide-style properties as JSON
+    in ``attrs["properties"]`` (written by :func:`write_hdf5_slide` and
+    ``synthetic.write_synthetic_slide_hdf5``; the JAX package's format).
+
+    Where ``native.enabled()`` at opening (``DGDM_NATIVE_IO`` not ``"0"``),
+    every level the native reader can take (``native.ChunkIndex.from_dataset``)
+    reads through it, and the library is built here if it is missing; any
+    other level, and every level under ``DGDM_NATIVE_IO=0``, reads through
+    h5py. A failed build or native read raises. As in the JAX package, the
+    h5py ``read_region`` fills the whole patch with 255 when the origin is
+    negative, where the native reader and both ``read_regions`` keep the
+    part inside the level.
+    """
+
+    MAGIC = "dgdm_wsi"
+
+    def __init__(self, path: str | Path):
+        import h5py
+        self._path = str(path)
+        self._native = native.enabled()
+        if self._native:
+            native.get_lib()
+        else:
+            # the h5py reader alone: stream the whole file behind the random
+            # reads (the native reader advises exactly each batch's chunks)
+            _advise_readahead(path)
+        self._chunk_index: Dict[int, Optional[native.ChunkIndex]] = {}
+        # raster-order patch reads revisit chunks: a cache that holds a row
+        # of decompressed chunks (h5py's default 1 MB thrashes)
+        self._f = h5py.File(self._path, "r", rdcc_nbytes=128 * 2 ** 20, rdcc_nslots=100003)
+        if self.MAGIC not in self._f.attrs:
+            self._f.close()
+            raise SlideProcessingError("not a dgdm_wsi HDF5 slide", {"path": self._path})
+        self._levels = []
+        while f"level_{len(self._levels)}" in self._f:
+            self._levels.append(self._f[f"level_{len(self._levels)}"])
+        if not self._levels:
+            self._f.close()
+            raise SlideProcessingError("HDF5 slide has no levels", {"path": self._path})
+        self.level_count = len(self._levels)
+        self.level_dimensions = [(d.shape[1], d.shape[0]) for d in self._levels]
+        w0 = self.level_dimensions[0][0]
+        self.level_downsamples = [w0 / w for (w, h) in self.level_dimensions]
+        self.properties = json.loads(self._f.attrs.get("properties", "{}"))
+
+    def _native_index(self, level: int) -> Optional["native.ChunkIndex"]:
+        """The level's chunk index, built once; None under the h5py reader
+        or for a dataset the native reader does not take."""
+        if not self._native:
+            return None
+        if level not in self._chunk_index:
+            self._chunk_index[level] = native.ChunkIndex.from_dataset(self._levels[level])
+        return self._chunk_index[level]
+
+    def read_region(self, location, level, size):
+        ds = self.level_downsamples[level]
+        x0 = int(location[0] / ds)
+        y0 = int(location[1] / ds)
+        w, h = size
+        idx = self._native_index(level)
+        if idx is not None:
+            native.count_read("native")
+            return idx.read_patches(self._path, [y0], [x0], h, w)[0]
+        native.count_read("h5py")
+        arr = self._levels[level]
+        out = np.full((h, w, 3), 255, np.uint8)
+        y1 = min(y0 + h, arr.shape[0])
+        x1 = min(x0 + w, arr.shape[1])
+        if y1 > y0 and x1 > x0 and y0 >= 0 and x0 >= 0:
+            out[: y1 - y0, : x1 - x0] = arr[y0:y1, x0:x1]     # chunked read
+        return out
+
+    def clone(self):
+        # h5py serializes every HDF5 call behind one lock, so handles do not
+        # decode in parallel through it; the banded reads are what helps
+        return HDF5SlideBackend(self._path)
+
+    def read_regions(self, locations, level, size):
+        """Batch read. Native: the whole batch in one C call (chunk-major
+        pread + inflate + assembly). h5py: patches sharing a row are cut
+        from one strip read, split where the gap exceeds 2 patch widths, so
+        that each chunk decompresses once instead of once per patch."""
+        ds = self.level_downsamples[level]
+        w, h = size
+        idx = self._native_index(level)
+        if idx is not None:
+            native.count_read("native")
+            ys = [int(loc[1] / ds) for loc in locations]
+            xs = [int(loc[0] / ds) for loc in locations]
+            return idx.read_patches(self._path, ys, xs, h, w)
+        native.count_read("h5py")
+        arr = self._levels[level]
+        n = len(locations)
+        out = np.full((n, h, w, 3), 255, np.uint8)
+        order = sorted(range(n), key=lambda i: (int(locations[i][1] / ds),
+                                                int(locations[i][0] / ds)))
+        i = 0
+        while i < n:
+            y0 = int(locations[order[i]][1] / ds)
+            row = [order[i]]
+            i += 1
+            while i < n and int(locations[order[i]][1] / ds) == y0:
+                row.append(order[i])
+                i += 1
+            y_lo, y_hi = max(y0, 0), min(y0 + h, arr.shape[0])
+            if y_hi <= y_lo:
+                continue
+            pairs = sorted(zip((int(locations[j][0] / ds) for j in row), row))
+            segments: list = [[pairs[0]]]
+            for x0, j in pairs[1:]:
+                if x0 - segments[-1][-1][0] > 2 * w:
+                    segments.append([])
+                segments[-1].append((x0, j))
+            for seg in segments:
+                x_lo, x_hi = max(seg[0][0], 0), min(seg[-1][0] + w, arr.shape[1])
+                if x_hi <= x_lo:
+                    continue
+                strip = arr[y_lo:y_hi, x_lo:x_hi]           # one chunked read
+                for x0, j in seg:
+                    sx0, sx1 = max(x0, 0) - x_lo, min(x0 + w, x_hi) - x_lo
+                    if sx1 <= sx0:
+                        continue
+                    oy, ox = y_lo - y0, max(x0, 0) - x0
+                    out[j, oy:oy + (y_hi - y_lo), ox:ox + (sx1 - sx0)] = strip[:, sx0:sx1]
+        return out
+
+    def advise_regions(self, locations, level, size):
+        """WILLNEED on the chunk byte ranges a later ``read_regions`` of
+        these locations touches (native reader only)."""
+        idx = self._native_index(level)
+        if idx is None or not locations:
+            return
+        ds = self.level_downsamples[level]
+        w, h = size
+        idx.advise_patches(self._path, [int(loc[1] / ds) for loc in locations],
+                           [int(loc[0] / ds) for loc in locations], h, w)
+
+    def close(self):
+        self._f.close()
+
+
+def write_hdf5_slide(path: str | Path, levels: Sequence[np.ndarray],
+                     properties: Optional[Dict[str, str]] = None, tile: int = 1024,
+                     compression: Optional[str] = "gzip", compression_opts: int = 2) -> Path:
+    """Write an in-memory pyramid as a dgdm_wsi HDF5 slide (chunks of
+    ``tile``², clipped to each level). For gigapixel sizes use the streaming
+    writer, ``synthetic.write_synthetic_slide_hdf5``."""
+    import h5py
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.attrs[HDF5SlideBackend.MAGIC] = "1"
+        f.attrs["properties"] = json.dumps(dict(properties or {}))
+        for i, lvl in enumerate(levels):
+            lvl = np.asarray(lvl, np.uint8)
+            f.create_dataset(f"level_{i}", data=lvl,
+                             chunks=(min(tile, lvl.shape[0]), min(tile, lvl.shape[1]), 3),
+                             compression=compression,
+                             compression_opts=compression_opts if compression == "gzip" else None)
+    return path
+
+
 class ArrayBackend(SlideBackend):
     """In-memory numpy pyramid: levels[0] is full resolution [H, W, 3]."""
 
@@ -268,9 +436,7 @@ def open_slide(source) -> SlideBackend:
         raise SlideProcessingError("slide file not found", {"path": str(path)})
     suffix = path.suffix.lower()
     if suffix in (".h5", ".hdf5", ".wsi"):
-        raise NotImplementedError(
-            "HDF5 slides and the native chunk reader are not ported yet "
-            "(ROADMAP queue 1, item 10)")
+        return HDF5SlideBackend(path)
     if suffix in (".svs", ".tif", ".tiff", ".ndpi"):
         if OPENSLIDE_AVAILABLE:
             try:

@@ -11,12 +11,13 @@ and ``process_slide`` with uniform subsampling to ``max_patches``.
 
 The tissue mask and stain normalization run on ``device`` (``None`` means
 ``"cuda"``); decode runs on the host. Decode workers never touch the card.
-The HDF5 round trip of ``SlideData`` (``save_slide_data`` /
-``load_slide_data``) is not ported yet.
+``save_slide_data`` / ``load_slide_data`` write and read the JAX package's
+``.h5`` slide-data files (h5py, imported there).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 from dataclasses import dataclass
 from pathlib import Path
@@ -41,6 +42,11 @@ class PatchInfo:
     magnification: float
     size: int
     tissue_fraction: float
+
+
+# the ``patch_info`` records of a slide-data file
+PATCH_INFO_DTYPE = [("x", "i8"), ("y", "i8"), ("level", "i4"), ("magnification", "f4"),
+                    ("size", "i4"), ("tissue_fraction", "f4")]
 
 
 @dataclass
@@ -329,6 +335,43 @@ class SlideProcessor:
                              tissue_mask=mask)
         finally:
             slide.close()
+
+    # ------------------------------------------------------------------
+    # HDF5 persistence
+    # ------------------------------------------------------------------
+    @staticmethod
+    def save_slide_data(data: SlideData, path: str | Path) -> Path:
+        """``patches`` (gzip 4), ``tissue_mask`` (uint8, where there is one),
+        ``patch_info`` (a structured array) and the attributes ``slide_id``,
+        ``slide_path`` and ``metadata`` (JSON): the JAX package's layout."""
+        import h5py
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with h5py.File(path, "w") as f:
+            f.create_dataset("patches", data=data.patches, compression="gzip",
+                             compression_opts=4)
+            if data.tissue_mask is not None:
+                f.create_dataset("tissue_mask", data=data.tissue_mask.astype(np.uint8))
+            f.create_dataset("patch_info", data=np.array(
+                [(p.x, p.y, p.level, p.magnification, p.size, p.tissue_fraction)
+                 for p in data.patch_info], dtype=PATCH_INFO_DTYPE))
+            f.attrs["slide_id"] = data.slide_id
+            f.attrs["slide_path"] = data.slide_path
+            f.attrs["metadata"] = json.dumps(data.metadata)
+        return path
+
+    @staticmethod
+    def load_slide_data(path: str | Path) -> SlideData:
+        import h5py
+        with h5py.File(path, "r") as f:
+            mask = f["tissue_mask"][:].astype(bool) if "tissue_mask" in f else None
+            infos = [PatchInfo(int(r["x"]), int(r["y"]), int(r["level"]),
+                               float(r["magnification"]), int(r["size"]),
+                               float(r["tissue_fraction"])) for r in f["patch_info"][:]]
+            return SlideData(slide_id=str(f.attrs["slide_id"]),
+                             slide_path=str(f.attrs["slide_path"]),
+                             patches=f["patches"][:], patch_info=infos,
+                             metadata=json.loads(str(f.attrs["metadata"])), tissue_mask=mask)
 
 
 def _resize_uint8(img: np.ndarray, size: int) -> np.ndarray:

@@ -556,7 +556,16 @@ class StreamingTiledTiffWriter:
         return buf.getvalue()
 
     def write_tile(self, level: int, block: np.ndarray) -> None:
-        payload = self.encode(block)
+        self._write_payload(level, self.encode(block))
+
+    def write_tiles(self, level: int, blocks: Sequence[np.ndarray], pool=None) -> None:
+        """Encode ``blocks`` (in ``pool``'s threads where one is given: zlib
+        and Pillow release the GIL) and write them in their order."""
+        for payload in (pool.map(self.encode, blocks) if pool is not None
+                        else map(self.encode, blocks)):
+            self._write_payload(level, payload)
+
+    def _write_payload(self, level: int, payload: bytes) -> None:
         self._offsets[level].append(self._f.tell())
         self._counts[level].append(len(payload))
         self._f.write(payload)

@@ -116,7 +116,7 @@ def test_synthetic_slide_tiff_is_the_jax_file(tmp_path):
     the JAX package's numpy path."""
     kw = dict(width=1024, height=1024, num_levels=3, band=512, seed=3,
               compression="deflate", num_blobs=6)
-    port = synthetic.write_synthetic_slide_tiff(tmp_path / "p.tif", **kw)
+    port = synthetic.write_synthetic_slide_tiff(tmp_path / "p.tif", device="numpy", **kw)
     ref = jsyn.write_synthetic_slide_tiff(tmp_path / "j.tif", device="numpy", **kw)
     assert port.read_bytes() == ref.read_bytes()
     with pytest.raises(ValueError, match="divide"):
@@ -149,9 +149,14 @@ def test_open_slide(tmp_path):
     assert slide_io.open_slide(backend) is backend
     with pytest.raises(SlideProcessingError, match="not found"):
         slide_io.open_slide(tmp_path / "absent.tif")
-    (tmp_path / "s.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        slide_io.open_slide(tmp_path / "s.h5")
+    # dgdm_wsi HDF5 slides open under each of their suffixes
+    levels = _pyramid(size=256)
+    for suffix in (".h5", ".hdf5", ".wsi"):
+        h5 = slide_io.write_hdf5_slide(tmp_path / f"s{suffix}", levels, tile=128)
+        slide = slide_io.open_slide(h5)
+        assert isinstance(slide, slide_io.HDF5SlideBackend)
+        np.testing.assert_array_equal(slide.read_region((0, 0), 0, (64, 48)), levels[0][:48, :64])
+        slide.close()
 
 
 @pytest.mark.parametrize("mag,overlap,threshold", [(20.0, 0, 0.8), (10.0, 16, 0.5),
