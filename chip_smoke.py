@@ -177,6 +177,20 @@ Phases, each of which raises on a failed check:
      imports, ``dgdm-preprocess`` end to end and an ``.h5`` slide through the
      native reader, else one line saying so.
 
+ 19. the research path (item 14a), after phase 17 on the Base cell's
+     graphs: DGDM-Base (bf16) ``ClinicalSaliencyAnalyzer.node_saliency``,
+     ``integrated_gradients`` (16 steps), ``MedicalAdversarialAttack.fgsm``
+     and ``pgd`` (10 steps, random start) and ``RobustnessAnalyzer.analyze``
+     with a defense, each counted (one gradient with respect to the node
+     features launches 9 / 18 / 9 / 18 + 3, as one training step); the
+     perturbations within eps on real nodes and zero on padding; the f32
+     gradient on the card against the CPU on 2 graphs (1e-3 of its largest
+     entry); ms per saliency, IG and PGD call (CUDA events, median of 5
+     after a warm-up), the device-busy share of a profiled IG call and its
+     peak memory; ``HierarchicalEncoder`` (768 -> 512, 8 heads, 2 levels),
+     ``PhaseModulatedGraphDiffusion`` (768) and ``AdaptiveGraphTopology``
+     in f32, counted, against the CPU on 2 graphs (1e-4).
+
 It prints a ``{"kernels": [...]}`` JSON line (the f16 instantiations as
 ``<name>_f16`` entries), then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -190,6 +204,8 @@ followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
 SIGTERM, exit 75 and ``resume``, bit-equal.
 
 ``python3 chip_smoke.py --preprocess-only`` runs the build and phase 18 alone.
+
+``python3 chip_smoke.py --research-only`` runs the build and phase 19 alone.
 
 ``python3 chip_smoke.py --dtype-only`` runs the build and phase 17 alone
 (its bf16 kernel rows timed there too), and prints the f16 entries of the
@@ -1030,14 +1046,17 @@ def model_phase(torch, graphs, card: str, cell: dict) -> tuple:
     return predictor, launches, timing, parity
 
 
-def profile_call(torch, fn, what: str) -> dict:
+def profile_call(torch, fn, what: str, host: bool = True) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler): only the
-    device-side kernel events are summed, not the CPU ops that launched them."""
+    device-side kernel events are summed, not the CPU ops that launched them.
+    ``host=False`` records the device activity alone, which keeps a call of
+    tens of thousands of kernels cheap to trace and read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4751,6 +4770,229 @@ def preprocess_phase(torch, card: str) -> dict:
     return out
 
 
+# Phase 19, the research path: gradients of the DGDM-Base inference forward
+# with respect to the node features (saliency, integrated gradients with 16
+# steps, FGSM, PGD with 10 steps) on the Base cell's 32 graphs, and the
+# research graph modules at Base widths. One gradient call launches what one
+# Base training step launches: 9 / 18 / 9 / 18 + 3.
+RESEARCH = dict(ig_steps=16, pgd_steps=10, epsilon=0.05, hier_hidden=512, hier_heads=8,
+                hier_levels=2, grad_rtol=1e-3, module_rtol=1e-4, reps=5)
+
+
+def research_expected(grads: int, forwards: int = 0, gathers: int = 0) -> dict:
+    """Launches of ``grads`` feature-gradient calls and ``forwards``
+    gradient-free forwards of DGDM-Base, plus ``gathers`` lone row gathers."""
+    per_step = expected_launches(BASE, training=True)
+    per_fwd = expected_launches(BASE, training=False)
+    return {k: grads * per_step[k] + forwards * per_fwd[k] + (gathers if k == "gather_rows"
+                                                              else 0)
+            for k in per_step}
+
+
+def event_ms(torch, fn, reps: int) -> tuple:
+    """(median ms, all ms) of ``reps`` calls of ``fn`` between CUDA events,
+    after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
+def research_grad_card_vs_cpu(torch, graphs) -> dict:
+    """The f32 ∂class-score/∂x of one DGDM-Base parameter set on the card
+    (the gather kernels and their backwards) and on the CPU (the plain
+    versions), 2 graphs: within 1e-3 of the CPU tensor's largest entry."""
+    from dgdm_histopath_torch import batch_graphs, create_model
+    from dgdm_histopath_torch.research import ClinicalSaliencyAnalyzer
+
+    cpu_model = create_model("dgdm-base", num_classes=2, compute_dtype="float32",
+                             device="cpu", seed=1)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = batch_graphs(graphs[:2])
+    g_cpu = ClinicalSaliencyAnalyzer(cpu_model).class_score_grad(batch.x, batch, 1)
+    g_card = ClinicalSaliencyAnalyzer(gpu_model).class_score_grad(
+        batch.x.to("cuda"), batch.to("cuda"), 1).cpu()
+    scale = g_cpu.abs().max().item()
+    err = (g_card - g_cpu).abs().max().item()
+    log(f"research: f32 d class-score / dx card vs CPU on 2 graphs: max abs {err:.3e} of "
+        f"largest {scale:.3e} ({err / scale:.3e} <= {RESEARCH['grad_rtol']:g})")
+    if not (scale > 0 and err <= RESEARCH["grad_rtol"] * scale
+            and bool(torch.isfinite(g_card).all())):
+        raise AssertionError("the card's feature gradient disagrees with the CPU's")
+    return {"max_abs": err, "largest": scale, "rel": err / scale}
+
+
+def research_attack_checks(torch, adv, batch, eps: float, what: str) -> float:
+    """The perturbation of an attack: within eps on real nodes (and moved;
+    plus the rounding of x + eps in f32, 2 ulps of the largest |x|), zero on
+    padding; returns its largest entry."""
+    delta = (adv.x - batch.x).abs()
+    bound = eps + 2.0 ** -22 * batch.x.abs().max().item()
+    real = batch.node_mask[..., None].expand_as(delta)
+    big = delta[real].max().item()
+    pad = delta[~real].max().item() if bool((~real).any()) else 0.0
+    log(f"research: {what}: |x_adv - x| <= {big:.6f} on real nodes (eps {eps}), "
+        f"{pad} on padding")
+    if not (0 < big <= bound and pad == 0.0):
+        raise AssertionError(f"{what}: perturbation {big} / padding {pad} outside the ball")
+    return big
+
+
+def research_modules(torch, graphs, card: str) -> dict:
+    """HierarchicalEncoder (768 -> 512, 8 heads, 2 levels of 2 layers),
+    PhaseModulatedGraphDiffusion (768, 3 rounds) and AdaptiveGraphTopology
+    (768 -> 512) at f32 on the 32 Base graphs, counted, and on 2 graphs
+    against the CPU within 1e-4 of each output's largest entry."""
+    from dgdm_histopath_torch import batch_graphs
+    from dgdm_histopath_torch.models import HierarchicalEncoder
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    from dgdm_histopath_torch.research import (
+        AdaptiveGraphTopology,
+        PhaseModulatedGraphDiffusion,
+    )
+
+    hidden, heads, levels = (RESEARCH["hier_hidden"], RESEARCH["hier_heads"],
+                             RESEARCH["hier_levels"])
+    mods = {
+        "hierarchical_encoder": (HierarchicalEncoder(768, hidden, num_levels=levels,
+                                                     num_heads=heads), 2 * levels, 4 * levels),
+        "phase_diffusion": (PhaseModulatedGraphDiffusion(768, num_rounds=3), 3, 0),
+        "adaptive_topology": (AdaptiveGraphTopology(768, hidden), 1, 0),
+    }
+    batch = batch_graphs(graphs)
+    card_batch = batch.to("cuda")
+    small = batch_graphs(graphs[:2])
+    out = {}
+    for name, (mod, rows, aggs) in mods.items():
+        init_parameters(mod, torch.Generator().manual_seed(3)).eval()
+        on_card = copy.deepcopy(mod).to("cuda")
+
+        def call(m, g):
+            if name == "adaptive_topology":
+                return m(g.x, g.nbr_idx, g.nbr_mask)["edge_weights"]
+            return m(g.x, g.nbr_idx, g.nbr_mask, g.node_mask)
+
+        expected = {k: 0 for k in expected_launches(BASE, training=False)}
+        expected.update(gather_rows=rows, gather_agg=aggs)
+        with torch.no_grad():
+            res, launches = counted(torch, lambda: call(on_card, card_batch), expected,
+                                    f"research {name}")
+            ms, _ = event_ms(torch, lambda: call(on_card, card_batch), RESEARCH["reps"])
+            ref = call(mod, small)
+            got = call(on_card, small.to("cuda")).cpu()
+        scale = max(ref.abs().max().item(), 1e-30)
+        err = (got - ref).abs().max().item()
+        log(f"research: {name} f32 batch 32: {ms:.3f} ms, launches {launches}; card vs CPU "
+            f"on 2 graphs {err:.3e} of largest {scale:.3e} [{card}]")
+        if not (bool(torch.isfinite(res).all()) and err <= RESEARCH["module_rtol"] * scale):
+            raise AssertionError(f"research {name}: the card disagrees with the CPU")
+        out[name] = {"ms": ms, "launches": launches, "max_abs": err, "largest": scale,
+                     "shape": list(res.shape)}
+    return out
+
+
+def research_phase(torch, graphs, card: str) -> dict:
+    """Phase 19: saliency, integrated gradients, FGSM, PGD and the robustness
+    report on DGDM-Base (bf16, seeded) over the Base cell's 32 graphs, each
+    counted; the f32 gradient card vs CPU; times; the research modules."""
+    from dgdm_histopath_torch import batch_graphs, create_model
+    from dgdm_histopath_torch.research import (
+        ClinicalAdversarialDefense,
+        ClinicalSaliencyAnalyzer,
+        MedicalAdversarialAttack,
+        RobustnessAnalyzer,
+    )
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    segments = {}
+
+    def lap(name):
+        segments[name] = time.perf_counter() - t_phase - sum(segments.values())
+
+    model = create_model("dgdm-base", num_classes=2, device="cuda", seed=0)
+    batch = batch_graphs(graphs).to("cuda")
+    labels = torch.tensor([i % 2 for i in range(len(graphs))], device="cuda")
+    sal = ClinicalSaliencyAnalyzer(model)
+    eps, steps = RESEARCH["epsilon"], RESEARCH["pgd_steps"]
+    attack = MedicalAdversarialAttack(model, epsilon=eps, pgd_steps=steps)
+    out = {"card": card}
+
+    # the main path of this phase, counted: one gradient call each
+    saliency, out["launches"] = counted(torch, lambda: sal.node_saliency(batch, class_idx=1),
+                                        research_expected(1), "research node_saliency")
+    log(f"research: node_saliency launches {out['launches']} (one training step's)")
+    if not (np.isfinite(saliency).all() and saliency.shape == tuple(batch.node_mask.shape)
+            and saliency[~batch.node_mask.cpu().numpy()].max() == 0.0
+            and saliency.max() > 0):
+        raise AssertionError("research: bad saliency map")
+    ig, out["ig_launches"] = counted(
+        torch, lambda: sal.integrated_gradients(batch, 1, steps=RESEARCH["ig_steps"]),
+        research_expected(RESEARCH["ig_steps"]), "research integrated_gradients")
+    if not (np.isfinite(ig).all() and ig[~batch.node_mask.cpu().numpy()].max() == 0.0):
+        raise AssertionError("research: bad integrated gradients")
+    adv, out["fgsm_launches"] = counted(torch, lambda: attack.fgsm(batch, labels),
+                                        research_expected(1), "research fgsm")
+    out["fgsm_max_delta"] = research_attack_checks(torch, adv, batch, eps, "fgsm")
+    gen = torch.Generator("cuda").manual_seed(0)
+    adv, out["pgd_launches"] = counted(torch, lambda: attack.pgd(batch, labels, gen),
+                                       research_expected(steps), "research pgd")
+    out["pgd_max_delta"] = research_attack_checks(torch, adv, batch, eps, "pgd (random start)")
+    # clean, attacked and defended forwards; the defense's smoothing gathers once a method
+    report, out["analyze_launches"] = counted(
+        torch, lambda: RobustnessAnalyzer(model).analyze(
+            batch, labels.cpu().numpy(), attack, ClinicalAdversarialDefense(noise_sigma=0.01),
+            generator=torch.Generator("cuda").manual_seed(1)),
+        research_expected(1 + steps, forwards=5, gathers=2), "research analyze")
+    log(f"research: RobustnessAnalyzer.analyze (fgsm, pgd, defended): {json.dumps(report)}")
+    out["report"] = report
+    lap("counted calls")
+
+    # times: CUDA events around whole calls (the host waits inside each)
+    timing = {}
+    timing["saliency_ms"], timing["saliency_ms_all"] = event_ms(
+        torch, lambda: sal.node_saliency(batch, class_idx=1), RESEARCH["reps"])
+    timing["ig_ms"], timing["ig_ms_all"] = event_ms(
+        torch, lambda: sal.integrated_gradients(batch, 1, steps=RESEARCH["ig_steps"]),
+        RESEARCH["reps"])
+    timing["pgd_ms"], timing["pgd_ms_all"] = event_ms(
+        torch, lambda: attack.pgd(batch, labels), RESEARCH["reps"])
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_call(torch, lambda: sal.integrated_gradients(
+        batch, 1, steps=RESEARCH["ig_steps"]), "DGDM-Base integrated_gradients (16 steps)",
+        host=False)
+    prof.pop("top")
+    timing["ig_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    timing["ig_profile"] = prof
+    timing["ig_busy_share"] = (None if prof["device_busy_ms"] is None
+                               else prof["device_busy_ms"] / prof["wall_ms"])
+    lap("timing")
+    log(f"research: DGDM-Base bf16 batch 32: node_saliency {timing['saliency_ms']:.3f} ms, "
+        f"integrated_gradients ({RESEARCH['ig_steps']} steps) {timing['ig_ms']:.3f} ms, "
+        f"pgd ({steps} steps) {timing['pgd_ms']:.3f} ms (CUDA events, median of "
+        f"{RESEARCH['reps']}); one IG call's device busy share {timing['ig_busy_share']}, "
+        f"peak {timing['ig_peak_gib']:.2f} GiB [{card}]")
+    out["timing"] = timing
+    del model, sal, attack, batch
+    torch.cuda.empty_cache()
+
+    out["grad_parity"] = research_grad_card_vs_cpu(torch, graphs)
+    lap("gradient card vs CPU")
+    torch.cuda.empty_cache()
+    out["modules"] = research_modules(torch, graphs, card)
+    lap("modules")
+    out["phase_s"], out["segments_s"] = time.perf_counter() - t_phase, segments
+    log(f"research: phase 19 took {out['phase_s']:.1f} s ({segments}) [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4811,6 +5053,17 @@ def main() -> int:
         log("details: " + json.dumps({"dtype": dtype}, default=str))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": f16_kernel_entries(dtype)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+
+    if sys.argv[1:] == ["--research-only"]:
+        # phase 19 alone: gradients with respect to the node features, the research modules
+        research = research_phase(torch, make_graphs(BASE), card)
+        log("details: " + json.dumps({"research": research}, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -4889,6 +5142,11 @@ def main() -> int:
     # half precision (item 8): the kernels in f16 beside the bf16 rows above,
     # DGDM-Base in f16 / with bf16 parameters / with set2set, the f16 CLI run
     dtype = dtype_phase(torch, graphs, card, kern)
+    torch.cuda.empty_cache()
+
+    # phase 19: feature gradients through the gather backward kernels, the
+    # research modules
+    research = research_phase(torch, graphs, card)
     del graphs
     torch.cuda.empty_cache()
 
@@ -4920,6 +5178,9 @@ def main() -> int:
                    "dgdm_serve": serve["launches"][name],
                    "preprocess_predict_slide": pre["predict_slide"]["launches"][name],
                    "preprocess_dgdm_predict": pre["predict"]["launches"][name],
+                   "research_node_saliency": research["launches"][name],
+                   "research_integrated_gradients": research["ig_launches"][name],
+                   "research_pgd": research["pgd_launches"][name],
                    "moe_predict_batch": moe["launches"][name],
                    "moe_training_step": moe["train_launches"][name],
                    "int8_predict_batch": int8["launches"][name],
@@ -4981,7 +5242,7 @@ def main() -> int:
                                   "training_parity": train_parity, "remat": remat,
                                   "flash_module": flash_module, "cli": cli,
                                   "serve": serve, "moe": moe, "dp": dp, "int8": int8,
-                                  "dtype": dtype, "preprocess": pre,
+                                  "dtype": dtype, "preprocess": pre, "research": research,
                                   "parallel": {k: v for k, v in par.items() if k != "rect"},
                                   "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},

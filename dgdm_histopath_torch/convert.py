@@ -19,6 +19,12 @@ are the same paths joined by ``.``, with these layout rules:
   ``w_in [E, F, H]``, ``b_in [E, H]``, ``w_out [E, H, F]``, ``b_out [E, F]``
   are copied as they are (they are not ``kernel``/``bias`` leaves); the
   MoE's ``router`` is a ``Dense`` and ``moe_norm`` a LayerNorm.
+* the research and model-extra modules: ``MultiHeadAttention``'s
+  ``q_proj`` / ``k_proj`` / ``v_proj`` are per-head ``DenseGeneral``s and its
+  ``out_proj`` takes per-head inputs, as ``SpatialAttention``'s;
+  ``PhaseModulatedGraphDiffusion``'s ``phase{r}`` [F/2],
+  ``AdaptiveModalityEncoder``'s ``{name}_null`` [E] and ``MultiTaskHead``'s
+  ``log_vars`` [tasks] are copied as they are.
 
 Leaves keep their precision: f16 stays f16, bf16 stays bf16 (a JAX array
 of ``ml_dtypes`` bfloat16, or the raw 2-byte void ``|V2`` that ``np.load``
@@ -45,7 +51,7 @@ from torch import nn
 
 from .models.dgdm import DGDMModel
 from .models.pooling import GlobalAttentionPool
-from .nn.attention import SpatialAttention
+from .nn.attention import MultiHeadAttention, SpatialAttention
 from .nn.graph_layers import DynamicGraphLayer
 from .utils.exceptions import CheckpointError
 
@@ -114,6 +120,7 @@ def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 # per-head inputs ([H, D, out] kernels)
 _PER_HEAD = {DynamicGraphLayer: (("q_proj", "k_proj", "edge_k_proj"), ()),
              SpatialAttention: (("q_proj", "k_proj", "v_proj"), ("out_proj",)),
+             MultiHeadAttention: (("q_proj", "k_proj", "v_proj"), ("out_proj",)),
              GlobalAttentionPool: (("k_proj", "v_proj"), ())}
 
 

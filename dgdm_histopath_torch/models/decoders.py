@@ -1,6 +1,7 @@
-"""Prediction heads (classification, regression, survival) and their
-losses: cross entropy, Cox partial likelihood, discrete-time survival NLL
-(counterpart of the JAX package's ``models/decoders.py``). Losses are f32."""
+"""Prediction heads (classification, regression, survival, multi-task) and
+their losses: cross entropy, Cox partial likelihood, discrete-time survival
+NLL, the multi-task uncertainty weighting (counterpart of the JAX package's
+``models/decoders.py``). Losses are f32."""
 
 from __future__ import annotations
 
@@ -155,3 +156,54 @@ class SurvivalHead(_MLPHead):
         hazards = self.hazards(h)
         surv = torch.cumprod(torch.sigmoid(-hazards.float()), dim=-1)
         return {"hazard_logits": hazards, "survival": surv}
+
+
+class MultiTaskHead(nn.Module):
+    """A shared trunk (``trunk{i}`` Denses, each followed by tanh-GELU), one
+    head per task (``head_{name}``: a ``ClassificationHead`` or a
+    ``RegressionHead``) and the learned per-task log-variances ``log_vars``
+    (f32, zeros at init) of Kendall et al.'s weighting.
+
+    ``task_configs``: name -> ``{"type": "classification", "num_classes"}``
+    or ``{"type": "regression", "num_targets", "loss_type"}``; the
+    ``loss_type`` is the regression loss's, which no forward reads."""
+
+    def __init__(self, in_features: int, task_configs: Dict[str, dict],
+                 trunk_dims: Sequence[int] = (256,), dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.task_configs = dict(task_configs)
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        self.n_trunk = len(trunk_dims)
+        prev = in_features
+        for i, dim in enumerate(trunk_dims):
+            self.add_module(f"trunk{i}", Dense(prev, dim, **dt))
+            prev = dim
+        for name, cfg in self.task_configs.items():
+            kind = cfg.get("type", "classification")
+            if kind == "classification":
+                head = ClassificationHead(prev, cfg.get("num_classes", 2), dropout=dropout,
+                                          **dt)
+            elif kind == "regression":
+                head = RegressionHead(prev, cfg.get("num_targets", 1), dropout=dropout, **dt)
+            else:
+                raise ValueError(f"unknown task type {kind!r}")
+            self.add_module(f"head_{name}", head)
+        self.log_vars = nn.Parameter(torch.zeros(len(self.task_configs), dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+        h = x
+        for i in range(self.n_trunk):
+            h = gelu(getattr(self, f"trunk{i}")(h))
+        return {name: getattr(self, f"head_{name}")(h, deterministic, generator)
+                for name in self.task_configs}
+
+    def combined_loss(self, losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Σ_i exp(-log_var_i) · loss_i + log_var_i / 2, in task order, f32."""
+        total = torch.zeros((), dtype=torch.float32, device=self.log_vars.device)
+        for i, name in enumerate(self.task_configs):
+            lv = self.log_vars[i]
+            total = total + torch.exp(-lv) * losses[name] + 0.5 * lv
+        return total

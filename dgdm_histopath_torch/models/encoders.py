@@ -1,19 +1,22 @@
-"""Feature and graph encoders (counterpart of the JAX package's
-``models/encoders.py`` ``FeatureEncoder`` and ``GraphEncoder``)."""
+"""Feature, graph, positional and hierarchical encoders (counterpart of the
+JAX package's ``models/encoders.py``)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..nn.attention import MultiHeadAttention, sinusoidal_position_encoding_2d
 from ..nn.graph_layers import DynamicGraphLayer
-from ..nn.layers import Dense, LayerNorm, dropout, get_activation
+from ..nn.layers import Dense, LayerNorm, dropout, gelu, get_activation
+from ..ops.graph import compact_top_k_nodes, masked_global_mean
 from ..ops.kernels.neighbor_transpose import transpose_for_backward
 
-__all__ = ["FeatureEncoder", "GraphEncoder", "get_activation"]
+__all__ = ["FeatureEncoder", "GraphEncoder", "HierarchicalEncoder", "PositionalEncoder",
+           "get_activation"]
 
 
 class FeatureEncoder(nn.Module):
@@ -164,3 +167,108 @@ class GraphEncoder(nn.Module):
                                                  use_reentrant=False,
                                                  preserve_rng_state=(not deterministic
                                                                      and generator is None))
+
+
+class PositionalEncoder(nn.Module):
+    """The 2-D sinusoidal encoding of normalized coordinates, projected:
+    pos [..., N, 2] -> [..., N, embed_dim]."""
+
+    def __init__(self, embed_dim: int, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.compute_dtype = dtype
+        self.proj = Dense(embed_dim, embed_dim, dtype=dtype, param_dtype=param_dtype)
+
+    def forward(self, pos: torch.Tensor) -> torch.Tensor:
+        enc = sinusoidal_position_encoding_2d(pos, self.embed_dim)
+        return self.proj(enc.to(self.compute_dtype))
+
+
+class HierarchicalEncoder(nn.Module):
+    """Multi-resolution encoder over distinct coarsened graphs: a
+    ``GraphEncoder`` per level, each coarser level attending to the previous
+    finer one (``cross_level_attention``), each level mean-pooled over its
+    own real nodes, the level vectors concatenated and fused by two Denses
+    with a tanh-GELU between. Returns the graph-level vector [B, hidden_dim].
+
+    Two input forms, as in the JAX package:
+
+    * per-level graphs: sequences of ``x / nbr_idx / nbr_mask / node_mask``
+      (and ``edge_attr``), exactly ``num_levels`` of them, else
+      ``ValueError``; ``in_features`` is then a sequence of each level's
+      feature width (one int serves every level);
+    * one graph: the coarser levels are derived here, each keeping the
+      ``round(N * pooling_ratio)`` nodes of highest degree
+      (``compact_top_k_nodes``, a stable sort) with remapped neighbor rows.
+
+    Every level's message passing runs the gather kernels on the card.
+    ``edge_dim`` is the width of ``edge_attr``; ``None`` for graphs without
+    edge features (the JAX encoder then has no ``edge_proj``)."""
+
+    def __init__(self, in_features: Union[int, Sequence[int]], hidden_dim: int,
+                 num_levels: int = 2, num_layers_per_level: int = 2, num_heads: int = 8,
+                 edge_dim: Optional[int] = 3, dropout: float = 0.1,
+                 pooling_ratio: float = 0.5, cross_level_attention: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_levels, self.pooling_ratio = num_levels, pooling_ratio
+        self.cross_level_attention, self.dropout = cross_level_attention, dropout
+        widths = ([in_features] * num_levels if isinstance(in_features, int)
+                  else list(in_features))
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        for lvl in range(num_levels):
+            self.add_module(f"level{lvl}", GraphEncoder(
+                widths[lvl], hidden_dim, num_layers_per_level,
+                num_heads, edge_dim, dropout=dropout, **dt))
+        if cross_level_attention:
+            for lvl in range(1, num_levels):
+                self.add_module(f"cross{lvl}", MultiHeadAttention(hidden_dim, num_heads,
+                                                                  dropout, **dt))
+        self.fusion0 = Dense(num_levels * hidden_dim, hidden_dim, **dt)
+        self.fusion1 = Dense(hidden_dim, hidden_dim, **dt)
+
+    def levels(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None) -> list:
+        """The per-level graphs, as dicts of ``x, nbr_idx, nbr_mask,
+        node_mask, edge_attr``."""
+        if isinstance(x, (list, tuple)):
+            levels = [dict(x=x[i], nbr_idx=nbr_idx[i], nbr_mask=nbr_mask[i],
+                           node_mask=node_mask[i],
+                           edge_attr=None if edge_attr is None else edge_attr[i])
+                      for i in range(len(x))]
+            if len(levels) != self.num_levels:
+                raise ValueError(f"got {len(levels)} per-level graphs, expected "
+                                 f"num_levels={self.num_levels}")
+            return levels
+        levels = [dict(x=x, nbr_idx=nbr_idx, nbr_mask=nbr_mask, node_mask=node_mask,
+                       edge_attr=edge_attr)]
+        for _ in range(1, self.num_levels):
+            prev = levels[-1]
+            keep = max(1, int(round(prev["x"].shape[-2] * self.pooling_ratio)))
+            deg = prev["nbr_mask"].sum(-1).float()
+            c = compact_top_k_nodes(prev["x"], prev["nbr_idx"], prev["nbr_mask"],
+                                    prev["node_mask"], deg, keep, edge_attr=prev["edge_attr"])
+            levels.append({k: c[k] for k in ("x", "nbr_idx", "nbr_mask", "node_mask",
+                                             "edge_attr")})
+        return levels
+
+    def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rand = dict(deterministic=deterministic, generator=generator)
+        levels = self.levels(x, nbr_idx, nbr_mask, node_mask, edge_attr)
+        embs = [getattr(self, f"level{lvl}")(g["x"], g["nbr_idx"], g["nbr_mask"],
+                                            g["node_mask"], g["edge_attr"], **rand)["embeddings"]
+                for lvl, g in enumerate(levels)]
+        if self.cross_level_attention:
+            embs = [embs[0]] + [
+                embs[lvl] + getattr(self, f"cross{lvl}")(
+                    embs[lvl], embs[lvl - 1], embs[lvl - 1],
+                    key_mask=levels[lvl - 1]["node_mask"], **rand)
+                for lvl in range(1, self.num_levels)]
+        pooled = [masked_global_mean(e, g["node_mask"]) for e, g in zip(embs, levels)]
+        h = gelu(self.fusion0(torch.cat(pooled, dim=-1)))
+        if not deterministic:
+            h = dropout(h, self.dropout, generator)
+        return self.fusion1(h)

@@ -64,3 +64,7 @@ def create_model(preset: str = "dgdm-base", num_classes: Optional[int] = None,
     model = DGDMModel(num_classes=num_classes, regression_targets=regression_targets, **cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def list_presets():
+    return sorted(PRESETS)

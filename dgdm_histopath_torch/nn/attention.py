@@ -1,4 +1,5 @@
-"""Masked dense attention, 2-D positional encoding and ``SpatialAttention``.
+"""Masked dense attention, ``MultiHeadAttention``, ``CrossModalAttention``,
+2-D positional encoding and ``SpatialAttention``.
 
 Counterpart of the JAX package's ``nn/attention.py``. ``SpatialAttention``
 has the reference's three routes: flash (``use_flash=True``: the CUDA kernels
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.flash_spatial import distance_bias, flash_spatial_attention
-from .layers import Dense, DenseGeneral, LayerNorm, dropout
+from .layers import Dense, DenseGeneral, LayerNorm, dropout, gelu
 
 
 def scaled_dot_product_attention(
@@ -59,6 +60,98 @@ def scaled_dot_product_attention(
         weights = weights.to(traffic_dtype)
     out = torch.einsum("...hqk,...khd->...qhd", weights.to(v.dtype), v)
     return out, weights
+
+
+class MultiHeadAttention(nn.Module):
+    """Dense multi-head attention with key masking, an optional additive
+    bias and the weights on request (the JAX package's
+    ``MultiHeadAttention``): per-head q / k / v projections (flax
+    ``DenseGeneral`` to ``(heads, head_dim)``), :func:`scaled_dot_product_attention`,
+    and ``out_proj`` over ``(heads, head_dim)``.
+
+    flax infers the input widths; here the query's is ``q_features`` and the
+    key's and value's ``kv_features`` (both ``embed_dim`` unless given)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
+                 q_features: Optional[int] = None, kv_features: Optional[int] = None):
+        super().__init__()
+        if embed_dim % num_heads != 0:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        q_in = q_features or embed_dim
+        kv_in = kv_features or embed_dim
+        self.q_proj = DenseGeneral(q_in, embed_dim, **dt)
+        self.k_proj = DenseGeneral(kv_in, embed_dim, **dt)
+        self.v_proj = DenseGeneral(kv_in, embed_dim, **dt)
+        self.out_proj = DenseGeneral(embed_dim, embed_dim, **dt)
+
+    def forward(self, query: torch.Tensor, key: Optional[torch.Tensor] = None,
+                value: Optional[torch.Tensor] = None,
+                key_mask: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None, deterministic: bool = True,
+                return_weights: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """query [B, Lq, Dq], key / value [B, Lk, Dkv] (the query where not
+        given), key_mask [B, Lk] bool, bias [B, H or 1, Lq, Lk]. Returns
+        [B, Lq, embed_dim], and the weights [B, H, Lq, Lk] with
+        ``return_weights``. When not deterministic, dropout falls on the
+        weights, drawn from ``generator``."""
+        key = query if key is None else key
+        value = key if value is None else value
+        heads = (self.num_heads, self.embed_dim // self.num_heads)
+        q = self.q_proj(query).unflatten(-1, heads)
+        k = self.k_proj(key).unflatten(-1, heads)
+        v = self.v_proj(value).unflatten(-1, heads)
+        out, weights = scaled_dot_product_attention(
+            q, k, v, bias=bias, key_mask=key_mask,
+            dropout_rate=0.0 if deterministic else self.dropout, generator=generator)
+        out = self.out_proj(out.flatten(-2))
+        if return_weights:
+            return out, weights
+        return out
+
+
+class CrossModalAttention(nn.Module):
+    """Cross-attention to a context, self-attention, then a tanh-GELU FFN,
+    each followed by a residual LayerNorm (the JAX package's
+    ``CrossModalAttention``). x [B, Lx, embed_dim]; the context's width is
+    ``context_features`` (``embed_dim`` unless given)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
+                 context_features: Optional[int] = None):
+        super().__init__()
+        self.dropout = dropout
+        dt = dict(dtype=dtype, param_dtype=param_dtype)
+        self.cross_attn = MultiHeadAttention(embed_dim, num_heads, dropout,
+                                             kv_features=context_features, **dt)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout, **dt)
+        self.norm_cross = LayerNorm(embed_dim, **dt)
+        self.norm_self = LayerNorm(embed_dim, **dt)
+        hidden = int(embed_dim * mlp_ratio)
+        self.ff1 = Dense(embed_dim, hidden, **dt)
+        self.ff2 = Dense(hidden, embed_dim, **dt)
+        self.norm_ff = LayerNorm(embed_dim, **dt)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                context_mask: Optional[torch.Tensor] = None,
+                x_mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rand = dict(deterministic=deterministic, generator=generator)
+        h = self.norm_cross(x + self.cross_attn(x, context, context, key_mask=context_mask,
+                                                **rand))
+        h = self.norm_self(h + self.self_attn(h, key_mask=x_mask, **rand))
+        ff = gelu(self.ff1(h))
+        if not deterministic:
+            ff = dropout(ff, self.dropout, generator)
+        out = self.norm_ff(h + self.ff2(ff))
+        if x_mask is not None:
+            out = out * x_mask[..., None].to(out.dtype)
+        return out
 
 
 def sinusoidal_position_encoding_2d(pos: torch.Tensor, dim: int,

@@ -109,6 +109,18 @@ def gather_scalar(values: torch.Tensor, nbr_idx: torch.Tensor) -> torch.Tensor:
     return flat.reshape(*batch, n, k)
 
 
+def masked_neighbor_sum(messages: torch.Tensor, nbr_mask: torch.Tensor) -> torch.Tensor:
+    """Sum messages [..., N, K, F] over the valid neighbor slots -> [..., N, F]."""
+    return (messages * nbr_mask[..., None].to(messages.dtype)).sum(-2)
+
+
+def masked_neighbor_mean(messages: torch.Tensor, nbr_mask: torch.Tensor) -> torch.Tensor:
+    """Mean of messages [..., N, K, F] over the valid slots; a row without
+    one gives zeros."""
+    count = nbr_mask.to(messages.dtype).sum(-1, keepdim=True)
+    return masked_neighbor_sum(messages, nbr_mask) / count.clamp_min(1.0)
+
+
 def degrees(nbr_mask: torch.Tensor, add_self_loops: bool = True) -> torch.Tensor:
     """In-degree per node from the neighbor mask; [..., N] f32."""
     deg = nbr_mask.float().sum(-1)
