@@ -191,6 +191,28 @@ Phases, each of which raises on a failed check:
      ``PhaseModulatedGraphDiffusion`` (768) and ``AdaptiveGraphTopology``
      in f32, counted, against the CPU on 2 graphs (1e-4).
 
+ 20. item 14's kernel paths, after phase 19 on the Base cell's graphs:
+     ``python -m dgdm_histopath_torch.cli.quality_gates --level production``
+     as a process (13 gates passed), twice with ``--parallel 4 --cache-dir``
+     (the second run serves all 13 from the cache), the seven model gates
+     through ``ScalableQualityGateRunner(mode="process", max_workers=2)``,
+     and each model gate in this process, counted (the ``training_step``
+     gate launches all four gather kernels and the list build), each gate's
+     wall s; ``ResilientTrainer`` over DGDM-Base (bf16, batch 32): 6 steps,
+     a checkpoint every 2, a cleanup every 3, a CUDA out-of-memory error
+     injected into step 3's forward once (1 recovered, 0 skipped, 3
+     checkpoints, each step 9 / 18 / 9 / 18 + 3, metrics equal to the bit to
+     an uninterrupted run), then a lost step, ``recover_from_checkpoint`` and
+     step 7 equal to the bit; ``FederatedDGDMManager`` over two DGDM-Base
+     clients of 16 graphs (2 local steps): 2 FedAvg rounds, one each of
+     FedProx, SCAFFOLD, the sqrt weighting and FedAvg with DP (clip 1.0,
+     noise 0.01), each round 2 x 2 x (9 / 18 / 9 / 18 + 3) launches and its
+     new global parameters within one f32 ulp of the f64 weighted mean of
+     the updates; the clipped norm and the noise's sigma (2%); a round's
+     CUDA-event ms against two Base steps, peak memory; one f32 FedAvg round
+     (2 clients x 1 step on 2 graphs) on the card against the CPU (losses
+     1e-4, parameters 2 lr + 1e-5 max(1, |p|)).
+
 It prints a ``{"kernels": [...]}`` JSON line (the f16 instantiations as
 ``<name>_f16`` entries), then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -204,6 +226,8 @@ followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
 SIGTERM, exit 75 and ``resume``, bit-equal.
 
 ``python3 chip_smoke.py --preprocess-only`` runs the build and phase 18 alone.
+
+``python3 chip_smoke.py --quality-only`` runs the build and phase 20 alone.
 
 ``python3 chip_smoke.py --research-only`` runs the build and phase 19 alone.
 
@@ -4993,6 +5017,377 @@ def research_phase(torch, graphs, card: str) -> dict:
     return out
 
 
+# Phase 20 (item 14's kernel paths): dgdm-quality and its gates on the card,
+# ResilientTrainer and federated DGDM-Base training. The gates run their JAX
+# sizes (16-d features, 32 nodes, 2 graphs); the trainers DGDM-Base at full
+# width on the Base cell's 32 graphs, bf16 compute, f32 parameters.
+QUALITY = dict(parallel=4, process_workers=2, resilient_steps=6, checkpoint_every=2,
+               cleanup_every=3, fail_step=3, fed_local_steps=2, fed_rounds=2,
+               dp_clip=1.0, dp_noise=0.01, cpu_graphs=2, loss_atol=1e-4, cli_timeout=900)
+
+
+def quality_cli(args: list, what: str) -> tuple:
+    """``python -m dgdm_histopath_torch.cli.quality_gates --level production
+    <args>`` as a process on the card: (its JSON summary, wall s). Fails
+    unless it exits 0 with every gate passed."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dgdm_histopath_torch.cli.quality_gates",
+                          "--level", "production", "--log-level", "WARNING", *args],
+                         capture_output=True, text=True, timeout=QUALITY["cli_timeout"])
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"quality: {what} exited {res.returncode}:\n{res.stdout[-3000:]}"
+                             f"\n{res.stderr[-3000:]}")
+    summary = json.loads(res.stdout)
+    bad = {k: v for k, v in summary["gates"].items() if v != "passed"}
+    if bad or len(summary["gates"]) != 13 or not summary["passed"]:
+        raise AssertionError(f"quality: {what}: {summary}")
+    log(f"quality: {what}: 13 gates passed in {secs:.1f} s "
+        f"(cache hits {summary.get('cache_hits')}, speedup {summary.get('parallel_speedup')})")
+    return summary, secs
+
+
+def quality_gates_phase(torch, card: str) -> dict:
+    """dgdm-quality --level production as a process (serial; then --parallel
+    4 with a cache, twice: the second run serves all 13 from it), the seven
+    model gates in two worker processes, and each model gate in this
+    process, counted."""
+    import tempfile
+
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.testing import quality_gates as qg
+    from dgdm_histopath_torch.testing.scalable_gates import ScalableQualityGateRunner
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        report_path = f"{root}/report.json"
+        out["cli"], out["cli_s"] = quality_cli(["--output", report_path], "dgdm-quality")
+        with open(report_path) as f:
+            out["cli_gate_s"] = {g["name"]: g["duration_s"] for g in json.load(f)["gates"]}
+        cache = ["--parallel", str(QUALITY["parallel"]), "--cache-dir", f"{root}/cache"]
+        # the first use of each kernel library from 4 threads at once, in a fresh process
+        out["threads"], out["threads_s"] = quality_cli(cache, "dgdm-quality --parallel 4")
+        out["cached"], out["cached_s"] = quality_cli(cache, "dgdm-quality --parallel 4 again")
+        if out["cached"]["cache_hits"] != 13:
+            raise AssertionError(f"quality: the cached run served {out['cached']['cache_hits']}")
+
+    t0 = time.perf_counter()
+    report = ScalableQualityGateRunner("production", max_workers=QUALITY["process_workers"],
+                                       mode="process", device="cuda").run(list(qg.MODEL_GATES))
+    out["process_s"] = time.perf_counter() - t0
+    out["process_gate_s"] = {g["name"]: g["duration_s"] for g in report["gates"]}
+    bad = {g["name"]: g["error"] for g in report["gates"] if g["status"] != "passed"}
+    if bad or not report["passed"]:
+        raise AssertionError(f"quality: process mode: {bad}")
+    log(f"quality: the 7 model gates in {QUALITY['process_workers']} processes: passed in "
+        f"{out['process_s']:.1f} s")
+
+    out["launches"], out["gate_s"] = {}, {}
+    for name in qg.MODEL_GATES:
+        kernels.reset_launch_counts()
+        res = qg.run_gate(name, torch.device("cuda"))
+        torch.cuda.synchronize()
+        out["launches"][name] = kernels.launch_counts()
+        out["gate_s"][name] = res["duration_s"]
+        if res["status"] != "passed":
+            raise AssertionError(f"quality: gate {name} on the card: {res['error']}")
+        log(f"quality: gate {name} passed in {res['duration_s']:.3f} s, launches "
+            f"{out['launches'][name]} [{card}]")
+    step = out["launches"]["training_step"]
+    missing = [k for k in ("gather_rows", "gather_agg", "gather_rows_bwd", "gather_agg_bwd",
+                           "neighbor_transpose") if step[k] < 1]
+    if missing:
+        raise AssertionError(f"quality: the training_step gate launched no {missing}")
+    return out
+
+
+def base_trainer(torch, batch, seed: int = 0, **model):
+    """DGDM-Base as the training cell trains it, initialized."""
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, create_model
+
+    cfg = model.pop("config", dict(warmup_steps=WARMUP_STEPS, steps_per_epoch=8,
+                                   pretrain_epochs=1, max_epochs=2))
+    m = create_model("dgdm-base", num_classes=2, device=model.pop("device", "cuda"),
+                     seed=seed, **{"compute_dtype": "bfloat16", **model})
+    trainer = DGDMTrainer(m, TrainerConfig(**cfg), device=m.mask_token.device)
+    trainer.init_state(seed=0, example_batch=batch)
+    return trainer
+
+
+def resilient_phase(torch, graphs, card: str) -> dict:
+    """ResilientTrainer over DGDM-Base, batch 32: 6 steps, a checkpoint every 2
+    and an allocator cleanup every 3; a CUDA out-of-memory error raised from
+    a forward hook in step 3, the first time only. Its metrics against an
+    uninterrupted run of the same seed, bit for bit; then one step lost,
+    recover_from_checkpoint() and the step again, against step 7."""
+    import tempfile
+
+    from dgdm_histopath_torch import batch_graphs
+    from dgdm_histopath_torch.training import CheckpointManager
+    from dgdm_histopath_torch.utils.resilient_training import ResilientTrainer
+
+    steps = QUALITY["resilient_steps"]
+    batch = batch_graphs(graphs).to("cuda")
+    ref_trainer = base_trainer(torch, batch)
+    ref = [ref_trainer.training_step(batch, 0) for _ in range(steps + 1)]
+    del ref_trainer
+    torch.cuda.empty_cache()
+
+    trainer = base_trainer(torch, batch)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as root:
+        rt = ResilientTrainer(trainer, CheckpointManager(root),
+                              checkpoint_every_steps=QUALITY["checkpoint_every"],
+                              cleanup_every_steps=QUALITY["cleanup_every"])
+        injected = {"left": 1}
+
+        def oom(module, args, output):
+            if trainer.step == QUALITY["fail_step"] - 1 and injected["left"]:
+                injected["left"] -= 1
+                raise torch.cuda.OutOfMemoryError("injected into step 3's forward")
+        hook = trainer.model.feature_encoder.register_forward_hook(oom)
+        expected = expected_launches(BASE, training=True)
+        metrics, out["step_s"] = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            m, launches = counted(torch, lambda: rt.training_step(batch, epoch=0), expected,
+                                  "ResilientTrainer step")
+            out["step_s"].append(time.perf_counter() - t0)
+            metrics.append(m)
+        hook.remove()
+        out["launches"], out["stats"] = launches, dict(rt.stats)
+        if injected["left"] or rt.stats != {"steps": steps, "errors_recovered": 1,
+                                            "batches_skipped": 0, "checkpoints_saved": 3}:
+            raise AssertionError(f"ResilientTrainer stats {rt.stats}")
+        if metrics != ref[:steps]:
+            raise AssertionError(f"ResilientTrainer metrics {metrics} against {ref[:steps]}")
+        trainer.training_step(batch, 0)                     # a step the checkpoint lacks
+        t0 = time.perf_counter()
+        if not rt.recover_from_checkpoint():
+            raise AssertionError("ResilientTrainer: no checkpoint to recover")
+        out["recover_s"] = time.perf_counter() - t0
+        again = rt.training_step(batch, epoch=0)
+        if again != ref[steps] or trainer.step != steps + 1:
+            raise AssertionError(f"step after recovery {again} against {ref[steps]}")
+        out["checkpoints"] = rt.checkpoint_manager.all_steps()
+    log(f"quality: ResilientTrainer DGDM-Base batch 32: {steps} steps with one injected "
+        f"OutOfMemoryError: {out['stats']}, metrics equal to the uninterrupted run to the bit, "
+        f"launches a step {out['launches']}; step s {[round(s, 3) for s in out['step_s']]} "
+        f"(step 3 holds the 0.5 s backoff), recovery {out['recover_s']:.2f} s, then step 7 "
+        f"equal [{card}]")
+    del trainer, rt
+    torch.cuda.empty_cache()
+    return out
+
+
+def max_ulps(torch, got, want) -> float:
+    """The largest |got - want| over the f32 spacing at |want|."""
+    spacing = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    return float(((got - want).abs() / spacing).max())
+
+
+def federated_round_check(torch, man, round_idx: int, factor: float = 1.0) -> dict:
+    """One round of ``man``, its updates captured: the new global parameters
+    against the f64 weighted mean of the updates applied to the old ones
+    (in f32 ulps), and the update's global norm."""
+    from dgdm_histopath_torch.quantum.federated_learning import FederatedStrategy
+
+    server = man.server
+    captured = {}
+    for client in server.clients:
+        def capture(g, r, gen, client=client, fn=type(client).compute_update):
+            captured[client.client_id] = fn(client, g, r, gen)
+            return captured[client.client_id]
+        client.compute_update = capture
+    old = {k: v.clone() for k, v in server.global_params.items()}
+    weights = [float(c.num_samples) for c in server.clients]
+    if server.strategy == FederatedStrategy.QUANTUM_FED:
+        weights = [w ** 0.5 for w in weights]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    stats = server.run_round(round_idx)
+    end.record()
+    end.synchronize()
+    total = sum(weights)
+    ulps = 0.0
+    for k, p in old.items():
+        agg = sum((w / total) * captured[c.client_id][k].double()
+                  for c, w in zip(server.clients, weights))
+        want = (p.double() + server.server_lr * factor * agg).float()
+        ulps = max(ulps, max_ulps(torch, server.global_params[k], want))
+    for client in server.clients:
+        del client.compute_update
+    return {"stats": stats, "max_ulps": ulps, "updates": captured, "old": old,
+            "event_ms": start.elapsed_time(end)}
+
+
+def federated_card_vs_cpu(torch, graphs) -> dict:
+    """One FedAvg round, 2 clients x 1 local step on 2 graphs each, f32,
+    finetune phase, dropout 0, on the card and on the CPU: each client's
+    loss within 1e-4, the global parameters within 2 lr + 1e-5 max(1, |p|max)."""
+    from dgdm_histopath_torch import batch_graphs
+    from dgdm_histopath_torch.quantum import FederatedDGDMManager
+
+    n = QUALITY["cpu_graphs"]
+    labelled = [g.replace(y=torch.tensor(i % 2)) for i, g in enumerate(graphs[:2 * n])]
+    cfg = dict(warmup_steps=0, pretrain_epochs=0, max_epochs=2, steps_per_epoch=8)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        loaders = {f"site{i}": [batch_graphs(labelled[i * n:(i + 1) * n]).to(dev)]
+                   for i in range(2)}
+        losses = {}
+
+        def factory(dev=dev, loaders=loaders):
+            t = base_trainer(torch, next(iter(loaders.values()))[0], seed=1, device=dev,
+                             compute_dtype="float32", dropout=0.0, config=cfg)
+            step = t.training_step
+
+            def recorded(batch, epoch=None, t=t, step=step):
+                m = step(batch, epoch)
+                losses.setdefault(id(t), []).append(m["loss"])
+                return m
+            t.training_step = recorded
+            return t
+        man = FederatedDGDMManager(factory, loaders, local_steps=1)
+        man.run(1)
+        res[dev] = ({k: v.detach().cpu() for k, v in man.global_params.items()},
+                    [losses[id(t)][0] for t in man.trainers.values()],
+                    next(iter(man.trainers.values())).lr_schedule(0))
+        del man
+    (g_card, l_card, lr), (g_cpu, l_cpu, _) = res["cuda"], res["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(l_card, l_cpu))
+    worst = 0.0
+    for k, p in g_cpu.items():
+        tol = 2 * lr + 1e-5 * max(1.0, float(p.abs().max()))
+        err = float((g_card[k] - p).abs().max())
+        worst = max(worst, err / tol)
+    log(f"quality: federated FedAvg round card vs CPU (f32, 2 clients x 1 step on 2 graphs): "
+        f"losses {l_card} vs {l_cpu} (max diff {loss_err:.3e} <= {QUALITY['loss_atol']}); "
+        f"global parameters at {worst:.3f} of the 2 lr + 1e-5 max(1, |p|) bound (lr {lr:g})")
+    if loss_err > QUALITY["loss_atol"] or worst > 1.0:
+        raise AssertionError("federated: the card's round disagrees with the CPU's")
+    return {"loss_card": l_card, "loss_cpu": l_cpu, "loss_max_diff": loss_err,
+            "param_bound_share": worst, "lr": lr}
+
+
+def federated_phase(torch, graphs, card: str) -> dict:
+    """FederatedDGDMManager over two DGDM-Base clients of 16 graphs each
+    (one batch a client, 2 local steps): 2 FedAvg rounds, then one round of
+    FedProx, SCAFFOLD, the sqrt weighting and FedAvg with DP (clip 1.0,
+    noise 0.01), each counted and each aggregate checked in f32 ulps; the
+    clip and the noise's sigma; CUDA-event ms of a round against two Base
+    steps; peak memory; the card against the CPU."""
+    from dgdm_histopath_torch import batch_graphs
+    from dgdm_histopath_torch.quantum import DPConfig, FederatedDGDMManager
+
+    half = len(graphs) // 2
+    loaders = {"site0": [batch_graphs(graphs[:half]).to("cuda")],
+               "site1": [batch_graphs(graphs[half:]).to("cuda")]}
+    trainers = [base_trainer(torch, loaders["site0"][0]) for _ in loaders]
+    per_step = expected_launches(BASE, training=True)
+    per_round = {k: 2 * QUALITY["fed_local_steps"] * v for k, v in per_step.items()}
+    dp = DPConfig(QUALITY["dp_clip"], QUALITY["dp_noise"])
+    plan = [("fedavg", None), ("fedavg", None), ("fedprox", None), ("scaffold", None),
+            ("quantum_fed", None), ("fedavg", dp)]
+    out = {"card": card, "rounds": []}
+    man = None
+    for i, (strategy, privacy) in enumerate(plan):
+        if i != 1:                          # the second FedAvg round goes on with the first's
+            if man is not None:             # a new server starts from the last global model
+                with torch.no_grad():
+                    for k, p in trainers[0].model.named_parameters():
+                        p.copy_(man.global_params[k])
+            pool = iter(trainers)
+            man = FederatedDGDMManager(lambda: next(pool), loaders,
+                                       local_steps=QUALITY["fed_local_steps"],
+                                       strategy=strategy, dp=privacy, seed=0)
+        factor = 1.0 / (1.0 + man.server.fedprox_mu) if strategy == "fedprox" else 1.0
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+        res, launches = counted(torch, lambda: federated_round_check(torch, man, i, factor),
+                                per_round, f"federated {strategy} round")
+        row = {"strategy": strategy + ("+dp" if privacy else ""), "launches": launches,
+               "event_ms": res["event_ms"], "max_ulps": res["max_ulps"],
+               "update_norm": res["stats"]["update_norm"]}
+        if i == 0:
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if res["max_ulps"] > 1.0 or not res["stats"]["update_norm"] > 0:
+            raise AssertionError(f"federated {row}")
+        if privacy:
+            row.update(federated_dp_check(torch, man, res))
+        out["rounds"].append(row)
+        log(f"quality: federated {row['strategy']} round: launches {launches}, "
+            f"{row['event_ms']:.1f} ms (CUDA events), aggregate within {row['max_ulps']} f32 "
+            f"ulps of the f64 mean, update norm {row['update_norm']:.4e} [{card}]")
+    out["launches"] = out["rounds"][0]["launches"]
+
+    # two Base steps at batch 32, on the same card, against a round
+    batch = batch_graphs(graphs).to("cuda")
+    trainer = trainers[0]
+    trainer.training_step(batch, 0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(2):
+        trainer.training_step(batch, 0)
+    end.record()
+    end.synchronize()
+    out["two_base_steps_ms"] = start.elapsed_time(end)
+    log(f"quality: a FedAvg round {out['rounds'][1]['event_ms']:.1f} ms against two Base "
+        f"steps at batch 32 {out['two_base_steps_ms']:.1f} ms (CUDA events); peak with two "
+        f"Base trainers resident {out['peak_gib']:.2f} GiB [{card}]")
+    del trainers, trainer, man, batch, loaders
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = federated_card_vs_cpu(torch, graphs)
+    return out
+
+
+def federated_dp_check(torch, man, res) -> dict:
+    """The DP round: each client's raw update (its live parameters minus the
+    old global) clipped with noise 0 has a global norm within clip (1 +
+    1e-6), and so has it under a clip of a quarter of its norm (one that
+    binds: there it reaches the clip within 1e-5); the noise the round added
+    has a standard deviation within 2% of sigma over every entry."""
+    from dgdm_histopath_torch.quantum import DPConfig
+    from dgdm_histopath_torch.quantum.federated_learning import tree_global_norm
+
+    sigma = QUALITY["dp_noise"] * QUALITY["dp_clip"]
+    norms, bound_share, stds = [], [], []
+    for cid, trainer in man.trainers.items():
+        raw = {k: p.detach() - res["old"][k] for k, p in trainer.model.named_parameters()}
+        clipped = DPConfig(QUALITY["dp_clip"], 0.0).privatize(raw, None)
+        norms.append((float(tree_global_norm(raw)), float(tree_global_norm(clipped))))
+        tight = norms[-1][0] / 4
+        bound_share.append(float(tree_global_norm(DPConfig(tight, 0.0).privatize(raw, None)))
+                           / tight)
+        resid = torch.cat([(res["updates"][cid][k] - clipped[k]).flatten() for k in clipped])
+        stds.append(float(resid.double().std()))
+    entries = sum(p.numel() for p in res["old"].values())
+    log(f"quality: DP: (raw, clipped) norms {norms} (clip {QUALITY['dp_clip']}), under a "
+        f"quarter-norm clip {bound_share} of it; noise std {stds} over {entries} entries a "
+        f"client (sigma {sigma})")
+    if (max(c for _, c in norms) > QUALITY["dp_clip"] * (1 + 1e-6)
+            or not all(1 - 1e-5 <= b <= 1 + 1e-6 for b in bound_share)
+            or max(abs(s / sigma - 1) for s in stds) > 0.02):
+        raise AssertionError("federated DP: the clip or the noise is off")
+    return {"norms_raw_clipped": norms, "tight_clip_share": bound_share, "noise_std": stds,
+            "entries": entries}
+
+
+def quality_phase(torch, graphs, card: str) -> dict:
+    """Phase 20: the quality gates, ResilientTrainer and federated training."""
+    t_phase = time.perf_counter()
+    out = {"gates": quality_gates_phase(torch, card)}
+    out["gates_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    out["resilient"] = resilient_phase(torch, graphs, card)
+    out["resilient_s"] = time.perf_counter() - t_phase - out["gates_s"]
+    out["federated"] = federated_phase(torch, graphs, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"quality: phase 20 took {out['phase_s']:.1f} s (gates {out['gates_s']:.1f}, "
+        f"resilient {out['resilient_s']:.1f}) [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5063,6 +5458,17 @@ def main() -> int:
         # phase 19 alone: gradients with respect to the node features, the research modules
         research = research_phase(torch, make_graphs(BASE), card)
         log("details: " + json.dumps({"research": research}, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+
+    if sys.argv[1:] == ["--quality-only"]:
+        # phase 20 alone: dgdm-quality, ResilientTrainer and federated training
+        quality = quality_phase(torch, make_graphs(BASE), card)
+        log("details: " + json.dumps({"quality": quality}, default=str))
         log(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5147,6 +5553,11 @@ def main() -> int:
     # phase 19: feature gradients through the gather backward kernels, the
     # research modules
     research = research_phase(torch, graphs, card)
+    torch.cuda.empty_cache()
+
+    # phase 20: dgdm-quality and its gates, ResilientTrainer and federated
+    # DGDM-Base training on the card
+    quality = quality_phase(torch, graphs, card)
     del graphs
     torch.cuda.empty_cache()
 
@@ -5181,6 +5592,10 @@ def main() -> int:
                    "research_node_saliency": research["launches"][name],
                    "research_integrated_gradients": research["ig_launches"][name],
                    "research_pgd": research["pgd_launches"][name],
+                   "quality_gate_training_step": (
+                       quality["gates"]["launches"]["training_step"][name]),
+                   "resilient_trainer_step": quality["resilient"]["launches"][name],
+                   "federated_round": quality["federated"]["launches"][name],
                    "moe_predict_batch": moe["launches"][name],
                    "moe_training_step": moe["train_launches"][name],
                    "int8_predict_batch": int8["launches"][name],
@@ -5243,6 +5658,7 @@ def main() -> int:
                                   "flash_module": flash_module, "cli": cli,
                                   "serve": serve, "moe": moe, "dp": dp, "int8": int8,
                                   "dtype": dtype, "preprocess": pre, "research": research,
+                                  "quality": quality,
                                   "parallel": {k: v for k, v in par.items() if k != "rect"},
                                   "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},

@@ -34,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+# guards the launch counters: threads (the quality gates' thread mode) launch at once
+_count_lock = threading.Lock()
 
 # the element type of a kernel's float operands, as every launch takes it
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -173,4 +175,5 @@ class CudaKernel:
         if rc != 0:
             msg = self._lib.kernel_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {rc} ({msg})")
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1

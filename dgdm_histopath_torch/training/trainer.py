@@ -69,10 +69,10 @@ AdamW state, ``step``, ``seed``, ``current_epoch``); ``fit`` checkpoints
 through a ``CheckpointManager`` and stops at a step boundary when its
 ``PreemptionGuard`` trips.
 
-``fit`` feeds the steps through a ``PrefetchIterator``: a background thread
-takes the loader's next batch, copies it to pinned host memory and starts
-its upload on a side stream while the current step runs; the step's stream
-waits for that upload's event.
+``fit`` feeds the steps through ``utils.optimization.device_put_prefetch``:
+a background thread takes the loader's next batch, copies it to pinned host
+memory and starts its upload on a side stream while the current step runs;
+the step's stream waits for that upload's event.
 
 The trainer runs on the card unless ``device="cpu"`` is passed.
 """
@@ -102,7 +102,7 @@ from ..parallel.tp import (describe_sharding, gather_state, grad_norm, nest, pla
 from ..utils.config import DGDMConfig
 from ..utils.device import resolve_device
 from ..utils.monitoring import monitor_operation
-from ..utils.optimization import PrefetchIterator
+from ..utils.optimization import device_put_prefetch
 from .losses import CONTRASTIVE_NODES, contrastive_loss
 from .preemption import skip_batches
 
@@ -357,8 +357,6 @@ class DGDMTrainer:
         self.history: list[Dict[str, Any]] = []
         self.current_epoch = 0
         self._moe_group: Optional[int] = None
-        self._upload_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
-                               else None)
 
     @property
     def is_writer(self) -> bool:
@@ -782,20 +780,6 @@ class DGDMTrainer:
         per = ((pred - h["y"].float().reshape(pred.shape)) ** 2).mean(-1)
         return {"loss": (per * valid).sum() / denom, "valid": valid}
 
-    def _prepare_batch(self, batch: PaddedGraph):
-        """(this rank's rows of its node's batch on the device, its upload's
-        event or None). On the card a host batch is copied to pinned memory
-        and uploaded on the side stream; called on the prefetch thread."""
-        batch = self._shard(batch, node=True)
-        if self._upload_stream is None or batch.x.is_cuda:
-            return batch.to(self.device), None
-        pinned = batch.pin_memory()
-        with torch.cuda.stream(self._upload_stream):
-            on_card = pinned.to(self.device, non_blocking=True)
-            uploaded = torch.cuda.Event()
-            uploaded.record()
-        return on_card, uploaded
-
     def _epoch_steps(self, prepared: Iterable, loader: Iterable) -> Iterator[PaddedGraph]:
         """This rank's rows of each step of an epoch, on the device. Over
         several nodes they take the shape all ranks agree on, and once this
@@ -803,8 +787,7 @@ class DGDMTrainer:
         shaped like its last batch (or its loader's first, when a resumed
         epoch skipped every batch it had)."""
         like = None
-        for item in prepared:
-            batch = self._await_upload(item)
+        for batch in prepared:
             if self._nodes > 1:
                 batch = like = align_node_batches(batch, None, self._dp)
             yield batch
@@ -820,17 +803,6 @@ class DGDMTrainer:
     def _agree(self, flag: bool) -> bool:
         """``flag`` on any rank (a host-side collective over several ranks)."""
         return self.mesh.any(flag) if self.mesh.world is not None else flag
-
-    def _await_upload(self, prepared) -> PaddedGraph:
-        """Make the current stream wait for the batch's upload, and keep its
-        memory from reuse until the work queued on this stream is done."""
-        batch, uploaded = prepared
-        if uploaded is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(uploaded)
-            for t in batch.tensors():
-                t.record_stream(stream)
-        return batch
 
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             max_epochs: Optional[int] = None, checkpoint_manager=None,
@@ -887,8 +859,9 @@ class DGDMTrainer:
                 train_loader.set_epoch(epoch)
             epoch_loader = skip_batches(train_loader, skip) if skip else train_loader
             with monitor_operation(f"train_epoch_{phase}"):
-                prepared = PrefetchIterator((self._prepare_batch(b) for b in epoch_loader),
-                                            depth=2)
+                # this rank's rows, sharded and uploaded on the prefetch thread
+                prepared = device_put_prefetch(
+                    (self._shard(b, node=True) for b in epoch_loader), self.device, depth=2)
                 for batch in self._epoch_steps(prepared, train_loader):
                     # accumulated on the device: one host sync per epoch
                     m = self._step(batch, epoch, materialize=False)

@@ -2,18 +2,21 @@
 
 ``setup_logging`` configures the package's root logger: a console handler,
 an optional rotating JSON file, and a filter that redacts secret-looking
-substrings; ``get_logger`` returns loggers under that root.
+substrings; ``get_logger`` returns loggers under that root;
+``log_execution_time`` logs the wall time of each call of a function.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import logging.handlers
 import re
 import sys
+import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 _ROOT_NAME = "dgdm_histopath_torch"
 
@@ -88,3 +91,18 @@ def get_logger(name: str = "") -> logging.Logger:
     if not name or name == _ROOT_NAME:
         return logging.getLogger(_ROOT_NAME)
     return logging.getLogger(f"{_ROOT_NAME}.{name}")
+
+
+def log_execution_time(fn: Callable) -> Callable:
+    """Decorator: log the wall-clock time of each call at DEBUG level."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        logger = get_logger(fn.__module__)
+        start = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            logger.debug("%s took %.4fs", fn.__qualname__, time.perf_counter() - start)
+
+    return wrapper
