@@ -213,6 +213,30 @@ Phases, each of which raises on a failed check:
      (2 clients x 1 step on 2 graphs) on the card against the CPU (losses
      1e-4, parameters 2 lr + 1e-5 max(1, |p|)).
 
+ 21. the last of item 14, after phase 20 on the Base cell's graphs and the
+     slide of phase 10, DGDM-Base (bf16): ``PACSEHRIntegrationManager(
+     DGDMPredictor(dinov2, stain_normalize=True)).process_study`` with PHI in
+     the DICOM attributes, twice, counted (9 / 18 each), its class and
+     confidence equal to the bit to a direct ``predict_slide``, the
+     observations posted to a local HTTP endpoint with no PHI; a cohort of
+     ``predict_batch`` over the 32 graphs through
+     ``ClinicalPerformanceAnalyzer`` and a ``FDASubmissionManager`` dossier
+     free of PHI; ``EdgeModelOptimizer.export_stablehlo`` of the Base
+     inference forward (batch 32, bucket 1024): 9 ``dgdm.gather_rows`` and 18
+     ``dgdm.weighted_gather_sum`` nodes, the loaded program counted (9 / 18),
+     its outputs against the eager forward's, export s, file MB, both
+     forwards' CUDA-event ms; ``ProductionOrchestrator`` (load a bundle,
+     health, a ``predict_batch`` equal to the forward, a failing stage; the
+     rollbacks in reverse) and the manifests' ``nvidia.com/gpu``; the planner
+     over 6 dependent tasks of Base work (counted), ``read_resources``
+     against the allocator, the resource gate, ``SafeScheduler``, placement
+     by the ``"cuda"`` capability, ``QuantumOptimizer`` over
+     ``dgdm_search_space`` (3 trials of 2 counted training steps of a 768-d
+     DGDM built from each configuration), the 12-qubit statevector on the
+     card against the CPU, ``HybridQuantumClassicalLayer(768, 128, 2)``
+     card against CPU with ms; two tenants' jobs (counted) and the quota
+     refusals.
+
 It prints a ``{"kernels": [...]}`` JSON line (the f16 instantiations as
 ``<name>_f16`` entries), then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -226,6 +250,9 @@ followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
 SIGTERM, exit 75 and ``resume``, bit-equal.
 
 ``python3 chip_smoke.py --preprocess-only`` runs the build and phase 18 alone.
+
+``python3 chip_smoke.py --orchestration-only`` runs the build and phase 21
+alone (on a slide of its own).
 
 ``python3 chip_smoke.py --quality-only`` runs the build and phase 20 alone.
 
@@ -5388,6 +5415,513 @@ def quality_phase(torch, graphs, card: str) -> dict:
     return out
 
 
+# Phase 21: the last of item 14 (clinical/, the exported program, production,
+# quantum/, enterprise/) on the Base cell's graphs and the slide cell's slide.
+# The DICOM attributes carry PHI (a name, an MRN, a phone number, an e-mail
+# address); the orchestration tasks and tenant jobs run batches of 8 graphs.
+ORCH = dict(study_attrs={"SOPInstanceUID": "1.2.826.0.1.3680043.10.1", "Modality": "SM",
+                         "StudyInstanceUID": "1.2.826.0.1.3680043.10.2",
+                         "SeriesInstanceUID": "1.2.826.0.1.3680043.10.3",
+                         "PatientName": "DOE^JANE", "PatientID": "MRN 1234567",
+                         "PatientBirthDate": "19700101", "InstitutionName": "General Hospital",
+                         "StudyDescription": "call 555-123-4567 or jane@example.com"},
+            task_graphs=8, planner_tasks=6, trials=3, trial_steps=2, qubits=12,
+            qubit_layers=2, hybrid=(768, 128, 2), hybrid_batch=32, export_reps=20,
+            tenant_slides=12)
+
+
+def orch_expected(forwards: int = 0, steps: int = 0) -> dict:
+    """Launches of ``forwards`` DGDM-Base forwards and ``steps`` training steps."""
+    fwd, step = expected_launches(BASE, training=False), expected_launches(BASE, training=True)
+    return {k: forwards * fwd[k] + steps * step[k] for k in fwd}
+
+
+def ehr_endpoint():
+    """A local FHIR endpoint: an HTTP server on 127.0.0.1 that keeps each
+    posted resource; returns (server, received list, transport callable)."""
+    import http.server
+    import threading
+
+    received = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            resource = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            received.append(resource)
+            body = json.dumps({"status": "created", "id": resource["id"]}).encode()
+            self.send_response(201)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+
+    def transport(resource):
+        status, text = http_status(server.server_address[1], "POST", "/Observation", resource)
+        if status != 201:
+            raise AssertionError(f"the EHR endpoint answered {status}: {text[:500]}")
+        return json.loads(text)
+    return server, received, transport
+
+
+def orch_clinical(torch, graphs, backend, predictor, card: str) -> dict:
+    """``PACSEHRIntegrationManager.process_study`` on the slide, counted (one
+    Base forward), its record equal to the bit to a direct ``predict_slide``;
+    then a cohort of ``predict_batch`` over the 32 graphs with seeded labels
+    through the analyzer and a dossier that must hold no PHI."""
+    import tempfile
+
+    import numpy as np
+    from dgdm_histopath_torch.clinical import (
+        ClinicalCohort, ClinicalDataManager, ClinicalPerformanceAnalyzer, EHRConnector,
+        FDASubmissionManager, PACSEHRIntegrationManager,
+    )
+    from dgdm_histopath_torch.utils.security import PHIDetector
+
+    attrs = ORCH["study_attrs"]
+    server, received, transport = ehr_endpoint()
+    try:
+        manager = PACSEHRIntegrationManager(predictor, ehr=EHRConnector(transport),
+                                            class_names=["benign", "tumor"])
+        t0 = time.perf_counter()
+        record, launches = counted(torch, lambda: manager.process_study(backend, attrs),
+                                   orch_expected(forwards=1), "process_study")
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again, _ = counted(torch, lambda: manager.process_study(backend, attrs),
+                           orch_expected(forwards=1), "process_study (again)")
+        again_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+    direct = predictor.predict_slide(backend, slide_id=attrs["SOPInstanceUID"])
+    for r in (record, again):
+        if (r["prediction"], r["confidence"]) != (direct["predicted_class"],
+                                                  direct["confidence"]):
+            raise AssertionError(f"process_study {r} differs from predict_slide "
+                                 f"({direct['predicted_class']}, {direct['confidence']})")
+    if {record["ehr_status"], again["ehr_status"]} != {"created"} or len(received) != 2:
+        raise AssertionError(f"the EHR endpoint received {len(received)} observations")
+    sent = json.dumps(received)
+    for tag in ("PatientName", "PatientID", "PatientBirthDate", "InstitutionName"):
+        if attrs[tag] in sent:
+            raise AssertionError(f"{tag} reached the EHR")
+    if PHIDetector.contains_phi(sent) or not manager.dicom.verify_anonymized(
+            manager.dicom.anonymize(manager.dicom.extract_metadata(attrs))):
+        raise AssertionError("PHI survived the anonymization")
+    out = {"launches": launches, "record": record, "first_s": first_s, "again_s": again_s,
+           "observation": received[0]["valueCodeableConcept"]["text"]}
+    log(f"orchestration: process_study launches {launches}; class {record['prediction']} "
+        f"confidence {record['confidence']:.6f} (equal to predict_slide), {first_s:.2f} s "
+        f"first (a new predictor's first predict_slide), {again_s:.2f} s again; 2 "
+        f"observations over HTTP, no PHI [{card}]")
+
+    # the cohort: predict_batch on the 32 graphs, labels seeded
+    results = predictor.predict_batch(graphs)
+    labels = np.random.RandomState(0).randint(0, 2, len(graphs))
+    probs = np.stack([r["probabilities"] for r in results])
+    data = ClinicalDataManager()
+    data.register_cohort(ClinicalCohort("base-32", site="chip",
+                                        metadata={"note": "contact 555-123-4567"}))
+    data.add_results("base-32", labels, probs.argmax(1), probs)
+    report = ClinicalPerformanceAnalyzer().analyze_all(data)
+    with tempfile.TemporaryDirectory() as root:
+        path = FDASubmissionManager().export(
+            FDASubmissionManager().build_dossier(report), f"{root}/dossier.json")
+        text = path.read_text()
+    if PHIDetector.contains_phi(text) or "555-123-4567" in text:
+        raise AssertionError("the dossier holds PHI")
+    cohort = report["cohorts"]["base-32"]
+    if not (0.0 <= cohort["auc"] <= 1.0 and "auc_ci" in cohort):
+        raise AssertionError(f"the cohort report is malformed: {cohort}")
+    out["cohort"] = {k: cohort[k] for k in ("n", "sensitivity", "specificity", "auc",
+                                            "meets_criteria")}
+    out["dossier_bytes"] = len(text)
+    log(f"orchestration: cohort of {len(graphs)} predict_batch results: AUC "
+        f"{cohort['auc']:.3f} (random weights), dossier {len(text)} bytes, no PHI")
+    return out
+
+
+def orch_export(torch, graphs, model, card: str) -> dict:
+    """``export_stablehlo`` of the DGDM-Base inference forward at batch 32,
+    bucket 1024 (bf16): the saved program's size, its gather nodes, the
+    loaded program on the card counted (9 / 18), its logits against the
+    eager forward's, and both forwards' CUDA-event ms."""
+    import tempfile
+    from collections import Counter
+
+    from dgdm_histopath_torch import batch_graphs
+    from dgdm_histopath_torch.deployment import EdgeModelOptimizer
+
+    batch = batch_graphs(graphs).to("cuda")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        path = EdgeModelOptimizer.export_stablehlo(model, (batch,), f"{root}/dgdm_base.pt2")
+        export_s = time.perf_counter() - t0
+        size_mb = path.stat().st_size / 1e6
+        t0 = time.perf_counter()
+        program = torch.export.load(path)
+        loaded = program.module()
+        load_s = time.perf_counter() - t0
+    nodes = Counter(str(n.target) for n in program.graph.nodes if n.op == "call_function")
+    ops = {"gather_rows": nodes["dgdm.gather_rows.default"],
+           "weighted_gather_sum": nodes["dgdm.weighted_gather_sum.default"]}
+    if ops != {"gather_rows": BASE["layers"], "weighted_gather_sum": 2 * BASE["layers"]}:
+        raise AssertionError(f"the exported program holds {ops}")
+    with torch.no_grad():
+        got, launches = counted(torch, lambda: loaded(batch), orch_expected(forwards=1),
+                                "the loaded program")
+        want = model(batch)
+        eager_ms, _ = event_ms(torch, lambda: model(batch), ORCH["export_reps"])
+        loaded_ms, _ = event_ms(torch, lambda: loaded(batch), ORCH["export_reps"])
+    a, b = got["classification_logits"].float(), want["classification_logits"].float()
+    gap = (a - b).abs().max().item()
+    equal = all(torch.equal(got[k], want[k]) for k in want)
+    largest = b.abs().max().item()
+    log(f"orchestration: export_stablehlo of DGDM-Base (batch 32, bucket 1024, bf16) in "
+        f"{export_s:.1f} s, {size_mb:.1f} MB, loaded in {load_s:.1f} s; nodes {ops}; launches "
+        f"{launches}; outputs {'equal to the bit' if equal else 'differ'} (logits gap "
+        f"{gap:.3e} of largest {largest:.3e}); forward {loaded_ms:.3f} ms loaded against "
+        f"{eager_ms:.3f} ms eager [{card}]")
+    if not equal and gap > 1e-3 * largest:
+        raise AssertionError(f"the loaded program's logits differ by {gap}")
+    return {"export_s": export_s, "size_mb": size_mb, "load_s": load_s, "nodes": ops,
+            "launches": launches, "bit_equal": equal, "logits_gap": gap,
+            "loaded_ms": loaded_ms, "eager_ms": eager_ms, "card": card}
+
+
+def orch_production(torch, graphs, card: str) -> dict:
+    """``ProductionOrchestrator``: load a Base bundle, check health, a
+    ``predict_batch`` equal to the model's forward, then a failing stage;
+    the rollbacks run in reverse; the manifests ask for the GPU."""
+    import tempfile
+
+    import numpy as np
+    import yaml
+    from dgdm_histopath_torch import DGDMPredictor, batch_graphs, create_model
+    from dgdm_histopath_torch.deployment import (
+        KubernetesOrchestrator, ProductionHealthChecker, ProductionOrchestrator,
+    )
+    from dgdm_histopath_torch.evaluation.predictor import load_model_checkpoint
+    from dgdm_histopath_torch.models.presets import PRESETS
+    from dgdm_histopath_torch.training.checkpoint import save_model_bundle
+
+    state, order = {}, []
+    with tempfile.TemporaryDirectory() as root:
+        model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16",
+                             device="cuda", seed=3)
+        bundle = save_model_bundle(f"{root}/final_model.npz", model,
+                                   dict(PRESETS["dgdm-base"], num_classes=2,
+                                        compute_dtype="bfloat16"))
+        del model
+
+        def load():
+            state["model"], _ = load_model_checkpoint(bundle, device="cuda")
+            state["predictor"] = DGDMPredictor(model=state["model"], device="cuda")
+            order.append("load")
+            return True
+
+        def health():
+            report = ProductionHealthChecker(state["predictor"]).check()
+            order.append("health")
+            state["health"] = report["checks"]
+            return report["healthy"]
+
+        def predict():
+            g8 = graphs[:ORCH["task_graphs"]]
+            res, state["launches"] = counted(torch, lambda: state["predictor"].predict_batch(g8),
+                                             orch_expected(forwards=1), "stage predict")
+            with torch.no_grad():
+                logits = state["model"](batch_graphs(g8).to("cuda"))["classification_logits"]
+            probs = torch.softmax(logits.float(), -1).cpu().numpy()
+            order.append("predict")
+            return np.allclose(np.stack([r["probabilities"] for r in res]), probs, rtol=0,
+                               atol=1e-6)
+
+        def fail():
+            order.append("promote")
+            raise RuntimeError("the promotion is refused on purpose")
+
+        orch = ProductionOrchestrator()
+        orch.add_stage("load", load, rollback=lambda: order.append("undo load"))
+        orch.add_stage("health", health, rollback=lambda: order.append("undo health"))
+        orch.add_stage("predict", predict, rollback=lambda: order.append("undo predict"))
+        orch.add_stage("promote", fail)
+        result = orch.deploy_to_production()
+        manifests = KubernetesOrchestrator().write_manifests(f"{root}/k8s")
+        deployment = yaml.safe_load(manifests[0].read_text())
+    want = ["load", "health", "predict", "promote", "undo predict", "undo health", "undo load"]
+    if result["success"] or result["failed_stage"] != "promote" or order != want:
+        raise AssertionError(f"the staged deploy ran {order}: {result}")
+    if [e["ok"] for e in result["log"]] != [True, True, True, False]:
+        raise AssertionError(f"a stage failed: {result['log']}")
+    resources = deployment["spec"]["template"]["spec"]["containers"][0]["resources"]
+    if resources["requests"].get("nvidia.com/gpu") != 1 or resources["limits"].get(
+            "nvidia.com/gpu") != 1:
+        raise AssertionError(f"the deployment asks for {resources}")
+    log(f"orchestration: staged deploy {order}; health {state['health']}; the deployment "
+        f"manifest asks for nvidia.com/gpu: 1")
+    return {"order": order, "log": result["log"], "launches": state["launches"],
+            "health": state["health"]}
+
+
+def orch_trial_objective(torch, graphs, trial_launches: list):
+    """The objective of ``QuantumOptimizer`` over ``dgdm_search_space``: a
+    768-d DGDM built from the trial's configuration, trained
+    ``trial_steps`` steps on 8 graphs (each step counted); its last loss."""
+    from dgdm_histopath_torch import DGDMTrainer, DGDMModel, TrainerConfig, batch_graphs
+    from dgdm_histopath_torch.nn.layers import init_parameters
+
+    batch = batch_graphs(graphs[:ORCH["task_graphs"]])
+
+    def objective(cfg):
+        model = init_parameters(
+            DGDMModel(node_features=BASE["features"], hidden_dims=cfg["hidden_dims"],
+                      num_diffusion_steps=cfg["num_diffusion_steps"], dropout=cfg["dropout"],
+                      pooling=cfg["pooling"], num_classes=2, compute_dtype="bfloat16"),
+            torch.Generator().manual_seed(0)).to("cuda")
+        trainer = DGDMTrainer(model, TrainerConfig(
+            learning_rate=cfg["learning_rate"], weight_decay=cfg["weight_decay"],
+            masking_ratio=cfg["masking_ratio"],
+            contrastive_temperature=cfg["contrastive_temperature"], warmup_steps=1,
+            steps_per_epoch=ORCH["trial_steps"], pretrain_epochs=1, max_epochs=1),
+            device="cuda")
+        trainer.init_state(seed=0, example_batch=batch)
+        for _ in range(ORCH["trial_steps"]):
+            metrics, launches = counted(torch, lambda: trainer.training_step(batch, epoch=0),
+                                        orch_expected(steps=1), "an optimizer trial's step")
+            trial_launches.append(launches)
+        return float(metrics["loss"])
+    return objective
+
+
+def orch_quantum(torch, graphs, predictor, card: str) -> dict:
+    """The planner (6 dependent tasks of DGDM-Base work, counted), the
+    scheduler's device memory and gating, the guarded scheduler, task
+    placement by capability, the hyperparameter search over DGDM training,
+    the statevector on the card against the CPU and the hybrid layer."""
+    import numpy as np
+    from dgdm_histopath_torch import batch_graphs
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    from dgdm_histopath_torch.quantum import (
+        Circuit, HybridQuantumClassicalLayer, LocalStatevectorBackend, QuantumConfig,
+        QuantumDistributedManager, QuantumOptimizer, QuantumSafetyManager, QuantumScheduler,
+        QuantumTaskPlanner, SafeScheduler, TaskStatus, dgdm_search_space, read_resources,
+    )
+    from dgdm_histopath_torch.utils.exceptions import SecurityError
+
+    out = {}
+    g8 = graphs[:ORCH["task_graphs"]]
+    batch8 = batch_graphs(g8).to("cuda")
+    trainer = base_trainer(torch, batch8)
+
+    # the planner: a chain of predict_batch and training-step tasks
+    planner = QuantumTaskPlanner(max_workers=2, seed=0)
+    prev, kinds = [], []
+    for i in range(ORCH["planner_tasks"]):
+        train = i % 3 == 1
+        fn = ((lambda: trainer.training_step(batch8, epoch=0)) if train
+              else (lambda: predictor.predict_batch(g8)))
+        prev = [planner.add_task(f"task{i}", fn=fn, dependencies=prev, task_id=f"task{i}",
+                                 priority="HIGH" if train else "MEDIUM")]
+        kinds.append("step" if train else "predict")
+    steps = kinds.count("step")
+    t0 = time.perf_counter()
+    tasks, launches = counted(torch, lambda: planner.execute(timeout=600),
+                              orch_expected(forwards=len(kinds) - steps, steps=steps),
+                              "the planner's tasks")
+    if any(t.status != TaskStatus.COMPLETED for t in tasks.values()):
+        raise AssertionError(f"planner tasks: {[(t.name, t.status, t.error) for t in tasks.values()]}")
+    out["planner"] = {"kinds": kinds, "launches": launches, "s": time.perf_counter() - t0}
+    log(f"orchestration: planner ran {kinds} in dependency order, launches {launches}, "
+        f"{out['planner']['s']:.2f} s")
+
+    # the scheduler: device memory as the allocator counts it, and the gate
+    block = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    snap = read_resources()
+    allocated = torch.cuda.memory_allocated() / 1e6
+    del block
+    if abs(snap.device_mem_used_mb - allocated) > 1.0 or snap.device_mem_total_mb < 1e4:
+        raise AssertionError(f"read_resources reports {snap.device_mem_used_mb} MB in use, "
+                             f"the allocator {allocated} MB")
+    sched = QuantumScheduler(max_workers=1, strategy="resource_aware")
+    ran = []
+    fits = sched.submit("fits", lambda: ran.append("fits") or len(predictor.predict_batch(g8)))
+    huge = sched.submit("huge", lambda: ran.append("huge"),
+                        min_free_mem_mb=2 * snap.device_mem_total_mb)
+    jobs = sched.run_pending()
+    if jobs[huge].status != "deferred" or jobs[fits].result != len(g8) or ran != ["fits"]:
+        raise AssertionError(f"scheduler: {[(j.name, j.status) for j in jobs.values()]}")
+    out["scheduler"] = {"device_mem_used_mb": snap.device_mem_used_mb,
+                        "allocated_mb": allocated, "device_mem_total_mb":
+                            snap.device_mem_total_mb}
+    log(f"orchestration: read_resources {snap.device_mem_used_mb:.1f} MB in use of "
+        f"{snap.device_mem_total_mb:.0f} (allocator {allocated:.1f} MB); a job asking for "
+        f"twice the card's memory deferred")
+
+    # the guarded scheduler
+    safety = QuantumSafetyManager()
+    safety.register_user("pathologist", "a-long-password")
+    token = safety.authenticate("pathologist", "a-long-password")
+    safe = SafeScheduler(QuantumScheduler(max_workers=1), safety)
+    jid = safe.submit(token, "predict", lambda: len(predictor.predict_batch(g8)))
+    if safe.run_pending(token)[jid].result != len(g8):
+        raise AssertionError("the authorized job did not run")
+    try:
+        safe.submit(token + "forged", "predict", lambda: None)
+    except SecurityError:
+        pass
+    else:
+        raise AssertionError("an unauthorized token was accepted")
+
+    # placement by capability
+    with QuantumDistributedManager(num_workers=2, heartbeat_interval_s=60) as man:
+        caps = man.local_node.capabilities
+        tid = man.submit_task(lambda: len(predictor.predict_batch(g8)),
+                              required_capabilities=["cuda"])
+        placed = man.get_result(tid, timeout=300)
+        try:
+            man.submit_task(lambda: None, required_capabilities=["tpu"])
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("a tpu task was placed")
+    if caps != ["cpu", "cuda"] or placed != len(g8):
+        raise AssertionError(f"capabilities {caps}, placed result {placed}")
+    log(f"orchestration: SafeScheduler ran the authorized job and refused a forged token; "
+        f"the local node reports {caps}, placed a cuda task, refused a tpu task")
+
+    # the hyperparameter search over DGDM training
+    trial_launches = []
+    t0 = time.perf_counter()
+    opt = QuantumOptimizer(dgdm_search_space(), orch_trial_objective(torch, graphs,
+                                                                    trial_launches),
+                           population=ORCH["trials"], seed=0)
+    best_cfg, best = opt.optimize(n_trials=ORCH["trials"])
+    if not (np.isfinite(best) and len(trial_launches) == ORCH["trials"] * ORCH["trial_steps"]
+            and all(np.isfinite(t.value) for t in opt.history)):
+        raise AssertionError(f"optimizer trials: {[(t.config, t.value) for t in opt.history]}")
+    out["optimizer"] = {"trials": [{"hidden_dims": t.config["hidden_dims"],
+                                    "pooling": t.config["pooling"], "loss": t.value,
+                                    "s": t.duration_s} for t in opt.history],
+                        "step_launches": trial_launches[0], "s": time.perf_counter() - t0}
+    log(f"orchestration: QuantumOptimizer {ORCH['trials']} trials of "
+        f"{ORCH['trial_steps']} DGDM training steps: " + ", ".join(
+            f"{t.config['hidden_dims']} {t.config['pooling']} loss {t.value:.4f} "
+            f"({t.duration_s:.1f} s)" for t in opt.history)
+        + f"; each step {trial_launches[0]}")
+
+    # the statevector on the card against the CPU
+    rs = np.random.RandomState(0)
+    circ = Circuit(rs.uniform(0, 2 * np.pi, (ORCH["qubit_layers"], ORCH["qubits"]))
+                   .astype(np.float32))
+    on_card = LocalStatevectorBackend()
+    on_card.initialize(QuantumConfig(seed=0))
+    p_card = on_card.probabilities(circ)
+    p_cpu = LocalStatevectorBackend(device="cpu").probabilities(circ)
+    sv_err = float(np.abs(p_card - p_cpu).max())
+    counts = on_card.execute_circuit(circ, shots=4096)["counts"]
+    if sv_err > 1e-6 or sum(counts.values()) != 4096:
+        raise AssertionError(f"statevector card vs CPU {sv_err}")
+
+    # the hybrid layer, f32, card against CPU
+    layer_cpu = init_parameters(HybridQuantumClassicalLayer(*ORCH["hybrid"]),
+                                torch.Generator().manual_seed(0))
+    layer = copy.deepcopy(layer_cpu).to("cuda")
+    x_cpu = torch.from_numpy(rs.randn(ORCH["hybrid_batch"], ORCH["hybrid"][0])
+                             .astype(np.float32)).requires_grad_(True)
+    x = x_cpu.detach().to("cuda").requires_grad_(True)
+    for m, inp in ((layer_cpu, x_cpu), (layer, x)):
+        (m(inp) ** 2).sum().backward()
+    y_err = (layer(x).detach().cpu() - layer_cpu(x_cpu).detach()).abs().max().item()
+    g_err = (x.grad.cpu() - x_cpu.grad).abs().max().item()
+    if y_err > 1e-5 or g_err > 1e-4:
+        raise AssertionError(f"hybrid layer card vs CPU: out {y_err}, grad {g_err}")
+    fwd_ms, _ = event_ms(torch, lambda: layer(x), 20)
+    bwd_ms, _ = event_ms(torch, lambda: (layer(x) ** 2).sum().backward(), 20)
+    out["quantum"] = {"statevector_err": sv_err, "hybrid_out_err": y_err,
+                      "hybrid_grad_err": g_err, "hybrid_forward_ms": fwd_ms,
+                      "hybrid_forward_backward_ms": bwd_ms, "card": card}
+    log(f"orchestration: statevector {ORCH['qubits']} qubits x {ORCH['qubit_layers']} "
+        f"layers card vs CPU {sv_err:.2e}; HybridQuantumClassicalLayer{ORCH['hybrid']} f32 "
+        f"batch {ORCH['hybrid_batch']}: out {y_err:.2e}, input grad {g_err:.2e} against the "
+        f"CPU, forward {fwd_ms:.3f} ms, forward + backward {bwd_ms:.3f} ms [{card}]")
+    return out
+
+
+def orch_enterprise(torch, graphs, predictor) -> dict:
+    """Two tenants' ``run_job``s, each a ``predict_batch`` of 8 graphs
+    (counted) charged to the daily slide quota; a job past the concurrent
+    slot or the daily quota raises ``ResourceError``."""
+    import tempfile
+
+    from dgdm_histopath_torch.enterprise import MultiTenantManager, TenantQuota
+    from dgdm_histopath_torch.utils.exceptions import ResourceError
+
+    g8 = graphs[:ORCH["task_graphs"]]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        man = MultiTenantManager(root)
+        quota = TenantQuota(max_slides_per_day=ORCH["tenant_slides"], max_concurrent_jobs=1)
+        tenants = [man.create_tenant(name, quota) for name in ("hospital", "lab")]
+        keys = [man.auth.issue_key(t.tenant_id) for t in tenants]
+
+        def job(tenant):
+            man.resources.charge_slide(tenant, len(g8))
+            return predictor.predict_batch(g8)
+        for t, key in zip(tenants, keys):
+            res, out[t.name] = counted(torch, lambda: man.run_job(key, job, t),
+                                       orch_expected(forwards=1), f"{t.name}'s job")
+            if len(res) != len(g8):
+                raise AssertionError(f"{t.name}'s job answered {len(res)} graphs")
+        refused = []
+        for what, call in (
+                ("daily quota", lambda: man.run_job(keys[0], job, tenants[0])),
+                ("concurrent slot", lambda: man.run_job(
+                    keys[1], lambda: man.run_job(keys[1], lambda: None)))):
+            try:
+                call()
+            except ResourceError:
+                refused.append(what)
+        if refused != ["daily quota", "concurrent slot"]:
+            raise AssertionError(f"quota refusals: {refused}")
+    log(f"orchestration: two tenants' jobs launches {out['hospital']} / {out['lab']}; the "
+        f"daily quota and the concurrent slot refused a job each")
+    return {"launches": out, "refused": refused}
+
+
+def orchestration_phase(torch, graphs, card: str, backend=None) -> dict:
+    """Phase 21: clinical/, the exported program, production, quantum/ and
+    enterprise/ on DGDM-Base (bf16) and the slide cell's slide."""
+    from dgdm_histopath_torch import DGDMPredictor, create_model
+
+    t_phase = time.perf_counter()
+    if backend is None:
+        backend, _ = slide_fixture()
+    model = create_model("dgdm-base", num_classes=2, compute_dtype="bfloat16",
+                         device="cuda", seed=0)
+    predictor = DGDMPredictor(model=model, feature_extractor="dinov2", stain_normalize=True)
+    try:
+        out = {"clinical": orch_clinical(torch, graphs, backend, predictor, card)}
+        out["export"] = orch_export(torch, graphs, model, card)
+        torch.cuda.empty_cache()
+        out["production"] = orch_production(torch, graphs, card)
+        torch.cuda.empty_cache()
+        out.update(orch_quantum(torch, graphs, predictor, card))
+        torch.cuda.empty_cache()
+        out["enterprise"] = orch_enterprise(torch, graphs, predictor)
+    finally:
+        predictor.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"orchestration: phase 21 took {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5476,6 +6010,17 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
+    if sys.argv[1:] == ["--orchestration-only"]:
+        # phase 21 alone: clinical/, the exported program, production, quantum/, enterprise/
+        orch = orchestration_phase(torch, make_graphs(BASE), card)
+        log("details: " + json.dumps({"orchestration": orch}, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+
     if sys.argv[1:] == ["--preprocess-only"]:
         # phase 18 alone: the offline-preprocessing cell
         pre = preprocess_phase(torch, card)
@@ -5542,6 +6087,7 @@ def main() -> int:
 
     # last: int8 inference, on the Base cell's graphs and the slide's patches
     int8 = int8_phase(torch, graphs, card, slide_keep)
+    slide_backend = slide_keep["backend"]           # for phase 21
     del slide_keep
     torch.cuda.empty_cache()
 
@@ -5558,7 +6104,12 @@ def main() -> int:
     # phase 20: dgdm-quality and its gates, ResilientTrainer and federated
     # DGDM-Base training on the card
     quality = quality_phase(torch, graphs, card)
-    del graphs
+    torch.cuda.empty_cache()
+
+    # phase 21: clinical/ (DICOM -> predict_slide -> EHR), the exported
+    # program, production, quantum/ and enterprise/ on the card
+    orch = orchestration_phase(torch, graphs, card, slide_backend)
+    del graphs, slide_backend
     torch.cuda.empty_cache()
 
     # last: training through the CLI, resumed after a SIGTERM, and dgdm-predict
@@ -5596,6 +6147,11 @@ def main() -> int:
                        quality["gates"]["launches"]["training_step"][name]),
                    "resilient_trainer_step": quality["resilient"]["launches"][name],
                    "federated_round": quality["federated"]["launches"][name],
+                   "process_study": orch["clinical"]["launches"][name],
+                   "exported_program": orch["export"]["launches"][name],
+                   "planner_tasks": orch["planner"]["launches"][name],
+                   "optimizer_trial_step": orch["optimizer"]["step_launches"][name],
+                   "tenant_job": orch["enterprise"]["launches"]["hospital"][name],
                    "moe_predict_batch": moe["launches"][name],
                    "moe_training_step": moe["train_launches"][name],
                    "int8_predict_batch": int8["launches"][name],
@@ -5658,7 +6214,7 @@ def main() -> int:
                                   "flash_module": flash_module, "cli": cli,
                                   "serve": serve, "moe": moe, "dp": dp, "int8": int8,
                                   "dtype": dtype, "preprocess": pre, "research": research,
-                                  "quality": quality,
+                                  "quality": quality, "orchestration": orch,
                                   "parallel": {k: v for k, v in par.items() if k != "rect"},
                                   "slide": {
                                       k: v for k, v in slide.items() if k != "kernels_k24"},

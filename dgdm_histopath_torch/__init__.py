@@ -26,10 +26,47 @@ from .preprocessing.slide_processor import SlideProcessor
 from .preprocessing.stain_normalization import StainNormalizer
 from .preprocessing.tissue_detection import TissueDetector
 from .preprocessing.tissue_graph_builder import TissueGraphBuilder
+from .quantum import QuantumPlanner, QuantumScheduler
 from .training.trainer import DGDMTrainer, TrainerConfig
 from .utils.logging import get_logger, setup_logging
 
 __version__ = "0.1.0"
+
+# The reference gates its components on their imports; every component of the
+# port imports with the package (a missing dependency fails the import above).
+CORE_AVAILABLE = True
+FULL_AVAILABLE = True
+QUANTUM_AVAILABLE = True
+
+
+def check_installation() -> dict:
+    """Components, dependencies, the torch build and the CUDA devices."""
+    import importlib.util
+
+    import torch
+
+    deps = {mod: importlib.util.find_spec(mod) is not None
+            for mod in ("torch", "numpy", "scipy", "h5py", "yaml", "PIL", "matplotlib")}
+    return {
+        "version": __version__,
+        "core_available": CORE_AVAILABLE,
+        "full_available": FULL_AVAILABLE,
+        "quantum_available": QUANTUM_AVAILABLE,
+        "dependencies": deps,
+        "torch_version": torch.__version__,
+        "cuda_build": torch.version.cuda,
+        "devices": [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())],
+        "default_backend": "cuda" if torch.cuda.is_available() else "cpu",
+    }
+
+
+def get_build_info() -> dict:
+    import torch
+
+    return {"version": __version__, "torch_version": torch.__version__,
+            "cuda_build": torch.version.cuda,
+            "backend": "cuda" if torch.cuda.is_available() else "cpu"}
+
 
 __all__ = [
     "AttentionVisualizer", "DGDMModel", "DGDMPredictor", "DGDMTrainer",
@@ -37,4 +74,6 @@ __all__ = [
     "SlideProcessor", "StainNormalizer", "TissueDetector", "TissueGraphBuilder",
     "TrainerConfig", "batch_graphs", "build_padded_graph", "create_model",
     "from_edge_index", "get_logger", "load_model_checkpoint", "setup_logging",
+    "QuantumPlanner", "QuantumScheduler", "check_installation", "get_build_info",
+    "CORE_AVAILABLE", "FULL_AVAILABLE", "QUANTUM_AVAILABLE",
 ]

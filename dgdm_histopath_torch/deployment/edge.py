@@ -13,8 +13,14 @@ loads in the other.
 Kept from the reference as it is: a quantization named ``"bfloat16"`` (not
 ``"bf16"``) stores the leaves raw; an int8 bundle is dequantized at load and
 then computes through :func:`~..models.quantized.int8_apply` (storage
-quantization, then w8a8 on the dequantized weights). The StableHLO export has
-no PyTorch form here (ROADMAP item 14).
+quantization, then w8a8 on the dequantized weights).
+
+``EdgeModelOptimizer.export_stablehlo`` keeps the JAX name. Where JAX writes
+a jitted function's StableHLO text, the port writes a ``torch.export``
+program: the gather kernels travel in it as the custom ops
+``dgdm::gather_rows`` and ``dgdm::weighted_gather_sum``, so a process that
+loads it imports ``dgdm_histopath_torch.ops.kernels`` first (as StableHLO
+needs the runtime that provides its custom calls).
 """
 
 from __future__ import annotations
@@ -31,28 +37,23 @@ import torch
 from ..convert import (KEY_PREFIX, is_bf16_bits, leaf_tensor, load_state, params_from_flax,
                        params_to_flax)
 from ..models.quantized import float_apply, int8_apply
+from ..quantum.scheduler import read_resources
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 
 logger = get_logger("deployment")
-
-_STABLEHLO = ("the StableHLO export has no PyTorch form on the port "
-              "(ROADMAP queue 1, item 14)")
 
 
 @dataclass
 class EdgeConfig:
     """Export configuration: ``quantization`` ``"none"``, ``"bf16"`` or
     ``"int8"`` (any other name stores the leaves raw, as in the reference);
-    ``target`` and ``max_batch_size`` are recorded, not read."""
+    ``target``, ``max_batch_size`` and ``export_stablehlo`` are recorded,
+    not read, as in the reference."""
     quantization: str = "bf16"
     max_batch_size: int = 1
     target: str = "cuda"
     export_stablehlo: bool = False
-
-    def __post_init__(self):
-        if self.export_stablehlo:
-            raise NotImplementedError(_STABLEHLO)
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +153,33 @@ class EdgeModelOptimizer:
 
     @staticmethod
     def export_stablehlo(fn, example_args, path) -> Path:
-        raise NotImplementedError(_STABLEHLO)
+        """Export ``fn`` (a module, or a callable, which is wrapped in one)
+        at ``example_args`` with ``torch.export`` under ``torch.no_grad()``,
+        save the ``ExportedProgram`` to ``path`` and return ``path``.
+
+        A ``PaddedGraph`` argument is a pytree, so a ``DGDMModel`` exports
+        as it is called. The program holds one ``dgdm::gather_rows`` and two
+        ``dgdm::weighted_gather_sum`` nodes a graph layer: on CUDA tensors
+        they launch the kernels, on CPU tensors they run the plain versions.
+        To run it elsewhere: ``import dgdm_histopath_torch.ops.kernels``,
+        then ``torch.export.load(path).module()(*example_args)``."""
+        module = fn if isinstance(fn, torch.nn.Module) else _Callable(fn)
+        path = Path(path)
+        with torch.no_grad():
+            program = torch.export.export(module, tuple(example_args))
+        torch.export.save(program, path)
+        return path
+
+
+class _Callable(torch.nn.Module):
+    """A plain callable as a module, for ``torch.export``."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
 
 
 class EdgeInferenceEngine:
@@ -198,48 +225,6 @@ class EdgeInferenceEngine:
     def mean_latency_s(self) -> float:
         n = self.stats["requests"]
         return self.stats["total_latency_s"] / n if n else 0.0
-
-
-@dataclass
-class ResourceSnapshot:
-    timestamp: float
-    cpu_load_1m: float
-    mem_available_mb: float
-    mem_total_mb: float
-    device_mem_used_mb: float = 0.0
-    device_mem_total_mb: float = 0.0
-
-    @property
-    def mem_used_fraction(self) -> float:
-        if self.mem_total_mb <= 0:
-            return 0.0
-        return 1.0 - self.mem_available_mb / self.mem_total_mb
-
-
-def read_resources() -> ResourceSnapshot:
-    """Load average and memory from /proc, device memory from
-    ``utils.monitoring.device_memory_stats`` (the JAX package's
-    ``quantum/scheduler.read_resources``)."""
-    cpu = 0.0
-    try:
-        with open("/proc/loadavg") as f:
-            cpu = float(f.read().split()[0])
-    except OSError:  # pragma: no cover
-        pass
-    avail = total = 0.0
-    try:
-        with open("/proc/meminfo") as f:
-            info = {line.split(":")[0]: float(line.split()[1]) for line in f if ":" in line}
-        avail = info.get("MemAvailable", 0.0) / 1024.0
-        total = info.get("MemTotal", 0.0) / 1024.0
-    except OSError:  # pragma: no cover
-        pass
-    dev_used = dev_total = 0.0
-    from ..utils.monitoring import device_memory_stats
-    for stats in device_memory_stats().values():
-        dev_used += stats["bytes_in_use"] / 1e6
-        dev_total += stats["bytes_limit"] / 1e6
-    return ResourceSnapshot(time.time(), cpu, avail, total, dev_used, dev_total)
 
 
 class EdgeResourceMonitor:

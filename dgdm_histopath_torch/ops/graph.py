@@ -76,6 +76,14 @@ class PaddedGraph:
                                if getattr(self, f) is not None})
 
 
+# a pytree, so that torch.export takes a PaddedGraph argument as it is
+# (``deployment/edge.py::EdgeModelOptimizer.export_stablehlo``), and a type
+# that a weights-only load of a saved program's example inputs accepts
+torch.export.register_dataclass(PaddedGraph,
+                                serialized_type_name="dgdm_histopath_torch.PaddedGraph")
+torch.serialization.add_safe_globals([PaddedGraph])
+
+
 def gather_neighbors(x: torch.Tensor, nbr_idx: torch.Tensor,
                      nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """Gather neighbor rows: x [B, N, F], nbr_idx [B, N, K] -> [B, N, K, F].

@@ -28,6 +28,12 @@ h may hold another row count than the indices: h [B, N_src, F], idx and w
 [B, N, K] (``parallel/halo.py::sp_graph_conv`` sums over a rank's
 [local || halo] table). Such a sum is forward only, as the JAX package's
 halo tier is: its backward raises.
+
+The forward is also the custom op ``dgdm::weighted_gather_sum`` (the kernel
+on CUDA tensors, the plain version on CPU tensors, the f32 output's shape on
+fake ones). The wrapper takes it only while ``torch.export`` traces, so that
+an exported program carries the kernel as one node; eager calls launch
+directly.
 """
 
 from __future__ import annotations
@@ -116,6 +122,24 @@ def _launch_fwd(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
     return out
 
 
+@torch.library.custom_op("dgdm::weighted_gather_sum", mutates_args=(),
+                         schema="(Tensor h, Tensor idx, Tensor w) -> Tensor")
+def weighted_gather_sum_op(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return weighted_gather_sum_plain(h, idx, w)
+
+
+@weighted_gather_sum_op.register_kernel("cuda")
+def _weighted_gather_sum_op_cuda(h: torch.Tensor, idx: torch.Tensor,
+                                 w: torch.Tensor) -> torch.Tensor:
+    return _launch_fwd(h, idx, w)
+
+
+@weighted_gather_sum_op.register_fake
+def _weighted_gather_sum_op_fake(h: torch.Tensor, idx: torch.Tensor,
+                                 w: torch.Tensor) -> torch.Tensor:
+    return h.new_empty((*idx.shape[:2], h.shape[-1]), dtype=torch.float32)
+
+
 def weighted_gather_sum_bwd(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
                             w: torch.Tensor, need_dh: bool = True, need_dw: bool = True,
                             nbr_t: Optional[NeighborTranspose] = None
@@ -192,10 +216,13 @@ def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     (forward and backward) for CUDA tensors, the plain versions for CPU
     tensors. h [B, N_src, F] bf16|f16|f32, idx and w [B, N, K] -> [B, N, F] f32 (forward
     only where N_src != N). ``nbr_t``: idx's transposed list for the
-    backward, where the caller has it."""
+    backward, where the caller has it. Under ``torch.export`` it is the op
+    ``dgdm::weighted_gather_sum``, forward only."""
     _check(h, idx, w)
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"weighted_gather_sum runs on cuda or cpu, not {h.device}")
+    if torch.compiler.is_exporting():
+        return weighted_gather_sum_op(h, idx, w)
     offsets, slots = (None, None) if nbr_t is None else nbr_t
     if nbr_t is not None:
         check_transpose(nbr_t, idx)

@@ -27,6 +27,11 @@ The source may hold another row count than the indices: src [B, N_src, F]
 and idx [B, N, K] (the halo tier's gathers, ``parallel/halo.py``). Such a
 rectangular gather is forward only, as the JAX package's halo tier is: its
 backward raises.
+
+The forward is also the custom op ``dgdm::gather_rows`` (the kernel on a
+CUDA tensor, the plain version on a CPU tensor, the output's shape on a fake
+one). The wrapper takes it only while ``torch.export`` traces, so that an
+exported program carries the kernel as one node; eager calls launch directly.
 """
 
 from __future__ import annotations
@@ -135,6 +140,22 @@ def _launch_fwd(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("dgdm::gather_rows", mutates_args=(),
+                         schema="(Tensor src, Tensor idx) -> Tensor")
+def gather_rows_op(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return gather_rows_plain(src, idx)
+
+
+@gather_rows_op.register_kernel("cuda")
+def _gather_rows_op_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return _launch_fwd(src, idx)
+
+
+@gather_rows_op.register_fake
+def _gather_rows_op_fake(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return src.new_empty((*idx.shape, src.shape[-1]))
+
+
 def rows_aligned(f: int, *tensors: torch.Tensor) -> bool:
     """Whether rows of F elements of each tensor start on 16 bytes, so the
     backward kernels take 16-byte loads."""
@@ -200,10 +221,13 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor,
     backward) for a CUDA tensor, the plain versions for a CPU tensor.
     src [B, N_src, F] bf16|f16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's
     dtype (forward only where N_src != N).
-    ``nbr_t``: idx's transposed list for the backward, where the caller has it."""
+    ``nbr_t``: idx's transposed list for the backward, where the caller has it.
+    Under ``torch.export`` it is the op ``dgdm::gather_rows``, forward only."""
     _check(src, idx)
     if src.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_rows runs on cuda or cpu, not {src.device}")
+    if torch.compiler.is_exporting():
+        return gather_rows_op(src, idx)
     offsets, slots = (None, None) if nbr_t is None else nbr_t
     if nbr_t is not None:
         check_transpose(nbr_t, idx)

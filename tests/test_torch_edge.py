@@ -191,10 +191,38 @@ def test_pickle_bundles_are_refused(tmp_path):
 
 
 def test_stablehlo_export_raises_naming_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdep.EdgeConfig(export_stablehlo=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdep.EdgeModelOptimizer.export_stablehlo(lambda x: x, (), tmp_path / "m.txt")
+    """Once a raise check (the export had no PyTorch form); now the export
+    works: a narrow DGDM of 2 graph layers, exported on the CPU, saved,
+    loaded and run, gives the eager forward's outputs to the bit, and its
+    graph holds one ``dgdm.gather_rows`` and two ``dgdm.weighted_gather_sum``
+    a graph layer. (The U-Net's 5 layers take the export past 10 s here;
+    ``chip_smoke.py`` phase 21 exports DGDM-Base with them.) The flag is
+    stored, not read, as in the JAX package."""
+    from collections import Counter
+
+    from dgdm_histopath_torch.nn.layers import init_parameters
+    from dgdm_histopath_torch.ops import kernels
+
+    assert tdep.EdgeConfig(export_stablehlo=True).export_stablehlo is True
+    model = init_parameters(DGDMModel(node_features=16, hidden_dims=(16, 16), graph_layers=2,
+                                      attention_heads=4, num_classes=2, use_hierarchical=False,
+                                      compute_dtype="float32"),
+                            torch.Generator().manual_seed(0)).eval()
+    g = j_batch([make_synthetic_graph(seed=i, n_nodes=32, n_real=25, feat_dim=16)
+                 for i in range(2)])
+    graph = PaddedGraph(**{f: torch.from_numpy(np.array(getattr(g, f))) for f in FIELDS})
+    path = tdep.EdgeModelOptimizer.export_stablehlo(model, (graph,), tmp_path / "dgdm.pt2")
+    assert path == tmp_path / "dgdm.pt2"
+    program = torch.export.load(path)
+    ops = Counter(str(n.target) for n in program.graph.nodes if n.op == "call_function")
+    assert ops["dgdm.gather_rows.default"] == 2 and ops["dgdm.weighted_gather_sum.default"] == 4
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got, want = program.module()(graph), model(graph)
+    assert kernels.launch_counts()["gather_rows"] == 0          # the CPU runs the plain versions
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_resource_monitor_reports_as_the_jax_monitor():
