@@ -138,10 +138,21 @@ Phases, each of which raises on a failed check:
      within 1e-4 of one process, bf16 logits against one process and f32,
      the pooled selections slot for slot, each rank's launches against its
      prediction, peak memory a rank against one process, and the same on
-     one graph of 8000 nodes in the 8192 bucket); then 4 and 8 of them run
-     ``dryrun_multichip``. Last, both gather kernels with a rectangular
-     table at the halo shapes against their plain versions (bit-equal,
-     1e-5), timed.
+     one graph of 8000 nodes in the 8192 bucket) and DGDM-Base trained over
+     node-sharded inputs (``training_step(block, epoch, prepared=True,
+     plan=plan)`` over (1, 2), dropout 0.1: 3 pretrain + 1 finetune steps
+     on the 8 sorted graphs in f32 against one process on the card, metrics
+     1e-5 of max(1, |x|) and parameters 1e-5 of max(1, |p|), the same steps
+     in bf16, one bf16 pretrain step on the 8192-node graph; each step's
+     launches a rank against its prediction, 27 / 18 / 27 / 18 + 4, step
+     times and a rank's peak memory against one process's); then 4 and 8 of
+     them run ``dryrun_multichip``. Last, the kernels with a rectangular
+     table at the halo shapes against their plain versions: both forwards
+     (bit-equal, 1e-5), and the widened ones, the lists over M rows (bit-
+     equal) and both backwards (1e-5 in f32, one ulp in bf16 and f16,
+     bit-identical from call to call) at the [32, 622, 128] table over
+     [32, 512, 8] slots and the outgoing rows' [32, 512, 128] over [32, 2,
+     H] slots, timed.
 
  17. half precision (ROADMAP item 8), after phase 15 on its graphs: the four
      gather kernels in f16 at the Base shapes (B=32, N in {1024, 512, 256},
@@ -168,7 +179,8 @@ Phases, each of which raises on a failed check:
      of 16384² (5 levels) rendered on the card band by band
      (``write_synthetic_slide_tiff(device="cuda")``, deflate tiles encoded in
      threads), each >= 1000 tissue patches of 256 px at threshold 0.8; one
-     band's card ms against the host numpy path's, and the card's band
+     band's card ms against the host numpy path's on its first 2048-px tile
+     (the host renders tile by tile; compared per pixel), and the card's band
      against the renderer's core on the CPU fed the card's draws (one uint8
      step, tissue field 1e-5); ``SlideDataset.preprocess_all`` with the
      dinov2 featurizer, one worker then two (equal graphs), each graph's
@@ -272,6 +284,8 @@ from __future__ import annotations
 
 import copy
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -400,6 +414,41 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
     return statistics.median(times)
 
 
+EMPTY_KERNEL = r"""
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_kernel():
+    """A launcher of an empty kernel of one warp, built with the kernels'
+    nvcc flags into the package's build directory: the launch floor that the
+    smallest kernels' times stand beside. Raises if it does not build or
+    launch."""
+    import ctypes
+
+    from dgdm_histopath_torch.ops.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc_path
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib = (BUILD_DIR / f"launch_floor-{os.getpid()}{ext}" for ext in (".cu", ".so"))
+    src.write_text(EMPTY_KERNEL)
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"the empty kernel did not build: {proc.stderr[-2000:]}")
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch(stream):
+        err = fn(stream)
+        if err:
+            raise RuntimeError(f"the empty kernel did not launch: CUDA error {err}")
+    return launch
+
+
 def half_ulp(torch, x, dtype):
     """One ulp of each element of the f32 tensor ``x`` in the half type
     ``dtype`` (bf16: 8 significant bits, f16: 11)."""
@@ -441,14 +490,15 @@ def csr_adjacency(torch, idx, w, dtype, transpose: bool = False, n_src=None):
     return coo.coalesce().to_sparse_csr()
 
 
-def sparse_mm_ms(torch, idx, w, dense, transpose: bool = False) -> tuple:
+def sparse_mm_ms(torch, idx, w, dense, transpose: bool = False, n_src=None) -> tuple:
     """(device ms, dtype) of ``torch.sparse.mm`` of the CSR adjacency with
     ``dense`` [B, N, F]: in dense's dtype where cuSPARSE takes it, else in
-    f32 (the dtype is recorded beside the time)."""
-    b, n_src, f = dense.shape
+    f32 (the dtype is recorded beside the time). With ``transpose`` dense is
+    the cotangent [B, N, F] and ``n_src`` the table's rows (default N)."""
+    b, rows, f = dense.shape
     for dtype in dict.fromkeys((dense.dtype, torch.float32)):
-        x = dense.reshape(b * n_src, f).to(dtype)
-        a = csr_adjacency(torch, idx, w, dtype, transpose, None if transpose else n_src)
+        x = dense.reshape(b * rows, f).to(dtype)
+        a = csr_adjacency(torch, idx, w, dtype, transpose, n_src if transpose else rows)
         try:
             torch.sparse.mm(a, x)
             torch.cuda.synchronize()
@@ -1387,9 +1437,9 @@ def training_phase(torch, graphs, card: str, cell: dict, captured=None) -> tuple
     if captured is not None:
         build = nt.neighbor_transpose
 
-        def capture(idx):
+        def capture(idx, m=None):
             captured.append(idx.clone())
-            return build(idx)
+            return build(idx, m)
 
         nt.neighbor_transpose = capture
         try:
@@ -3003,11 +3053,28 @@ def dp_cli(torch, card: str, cards: int, mesh: str = None) -> dict:
 # process in the same call (host-staged collectives: correctness, not speed);
 # with --parallel-only on four cards over NCCL, one rank a card.
 PAR = dict(tp_epochs=(0, 0, 1), pp_micro=4, dryruns=(4, 8))
+# biases whose true gradient is 0 (a shift that the softmax over the slots
+# cancels): AdamW turns their rounding noise into lr-sized steps
+SHIFT_INVARIANT = ("k_proj.bias", "risk.bias")
 # The model over node-sharded inputs: DGDM-Base at full width on the first 8
 # of the Base cell's graphs, Morton-sorted (f32 and bf16), and one graph of
 # 8000 real nodes in the 8192 bucket, the JAX tier's own case (bf16).
 SP = dict(batch=8, f32_atol=1e-4)
 SP_BIG = dict(BASE, batch=1, bucket=8192, n_real=8000, seed=300)
+# Training over node-sharded inputs (DGDMTrainer.training_step(block, epoch,
+# prepared=True, plan=plan)): DGDM-Base on the 8 sorted graphs with labels, 3
+# pretrain and 1 finetune steps in f32 without dropout and at the preset's
+# dropout 0.1, both held to one process with the DP phase's bounds (metrics
+# 1e-5 of max(1, |x|), parameters 1e-5 of max(1, the tensor's largest entry),
+# the key biases to the summed learning rate), the first step's gradients to
+# 1e-4 of each tensor's largest entry, and each parameter entry's bound plus
+# what AdamW's first update makes of the two runs' first-step gradients there
+# (``sp_f32_check``); the dropout masks follow the nodes, so two pooled nodes
+# whose scores tie to rounding may swap slots and keep their masks. Then bf16
+# at dropout 0.1 (launches, step times), and one bf16 pretrain step on the
+# 8192-node graph (a rank's peak against one process's).
+SP_TRAIN = dict(epochs=(0, 0, 0, 1), config=dict(learning_rate=1e-4, warmup_steps=0,
+                                                 pretrain_epochs=1))
 
 
 def par_meshes(world: int) -> dict:
@@ -3015,6 +3082,17 @@ def par_meshes(world: int) -> dict:
     if world == 2:
         return {"tp": (1, 2), "pp": (1, 2), "ep": (1, 2), "halo": (1, 2), "sp": (1, 2)}
     return {"tp": (2, 2), "pp": (1, 4), "ep": (2, 2), "halo": (1, 4), "sp": (1, 4)}
+
+
+def sp_train_expected_launches(cell: dict) -> dict:
+    """A rank's launches in one training step over node-sharded inputs: the
+    forward's of ``sp_forward`` (the outgoing-rows gathers included), one
+    backward launch for each of its gathers and aggregations, and four
+    transposed lists: the [local || halo] table's and the outgoing rows' at
+    the full-N levels, one for each pooled level."""
+    fwd = sp_expected_launches(cell)
+    return {**fwd, "gather_rows_bwd": fwd["gather_rows"], "gather_agg_bwd": fwd["gather_agg"],
+            "neighbor_transpose": 4}
 
 
 def sp_expected_launches(cell: dict) -> dict:
@@ -3243,6 +3321,132 @@ def par_sp(torch, spec, device) -> dict:
     return out
 
 
+def sp_trainer(torch, dtype: str, dropout: float, device, mesh=None):
+    from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, create_model
+
+    model = create_model("dgdm-base", num_classes=2, compute_dtype=dtype, dropout=dropout,
+                         device=device, seed=1)
+    trainer = DGDMTrainer(model, TrainerConfig(**SP_TRAIN["config"]), device=device,
+                          mesh=mesh)
+    trainer.init_state(seed=0)
+    return trainer
+
+
+def whole_grads(torch, trainer) -> dict:
+    """The parameters' gradients as whole tensors on the host (gathered over
+    the model line where the trainer keeps tensor-parallel shards)."""
+    from dgdm_histopath_torch.parallel.tp import gather_state
+
+    grads = {k: p.grad.detach() for k, p in trainer.model.named_parameters()}
+    if trainer._tp is not None:
+        grads = gather_state(grads, trainer.model.tp_layout, trainer._tp)
+    return {k: v.cpu() for k, v in grads.items()}
+
+
+def with_selections(fn):
+    """(fn(), each pooled level's selection [b, keep] that the U-Net's
+    compaction made in it, whole-level node ids, on the host): the one
+    process's ``AdaptiveGraphPooling`` and ``sp_forward``'s compaction both
+    call ``compact_top_k_nodes``."""
+    from dgdm_histopath_torch.nn import graph_layers
+    from dgdm_histopath_torch.parallel import sp
+
+    real, seen = graph_layers.compact_top_k_nodes, []
+
+    def record(*args, **kwargs):
+        c = real(*args, **kwargs)
+        seen.append(c["sel_idx"].cpu())
+        return c
+
+    graph_layers.compact_top_k_nodes = sp.compact_top_k_nodes = record
+    try:
+        return fn(), seen
+    finally:
+        graph_layers.compact_top_k_nodes = sp.compact_top_k_nodes = real
+
+
+def sp_train_run(torch, trainer, epochs, step, grads: bool = False) -> dict:
+    """``step(epoch)`` for each epoch: metrics, launches and wall ms of each
+    step, and the peak memory of the run (of the process, and above what was
+    allocated before it); with ``grads`` the first step's (clipped)
+    gradients and pooled selections."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    metrics, launches, ms, out = [], [], [], {}
+    for epoch in epochs:
+        first = grads and not metrics
+        t0 = time.perf_counter()
+        m, counts = counted_call(torch, (lambda: with_selections(lambda: step(epoch))) if first
+                                 else (lambda: step(epoch)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if first:
+            m, out["sel0"] = m
+            out["grads0"] = whole_grads(torch, trainer)
+        metrics.append(m)
+        launches.append(counts)
+    peak = torch.cuda.max_memory_allocated()
+    return {**out, "metrics": metrics, "launches": launches, "step_ms": ms,
+            "peak_gib": peak / 2 ** 30, "above_gib": (peak - before) / 2 ** 30}
+
+
+# (name, compute dtype, dropout, batch, plans, epochs)
+SP_TRAIN_RUNS = (
+    ("float32", "float32", 0.0, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
+    ("float32_dropout", "float32", 0.1, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
+    ("bfloat16", "bfloat16", 0.1, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
+    ("big", "bfloat16", 0.1, "sp_big", "sp_big_plans", (0,)))
+F32_RUNS = ("float32", "float32_dropout")
+SP_TRAIN_NAMES = tuple(r[0] for r in SP_TRAIN_RUNS)
+
+
+def par_sp_train(torch, spec, device) -> dict:
+    """DGDM-Base training over node-sharded inputs through ``training_step(
+    block, epoch, prepared=True, plan=plan)`` on this rank's block (the
+    ``sp`` mesh): each run of ``SP_TRAIN_RUNS`` with its metrics, launches,
+    step wall times and peak memory, and the whole parameters after the f32
+    run."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes
+
+    shape = par_meshes(dist.get_world_size())["sp"]
+    mesh = make_mesh(axes=("data", "model"), shape=shape)
+    out = {"tp": shape[1], "index": mesh.axis("model").index}
+    for name, dtype, dropout, batch, plans, epochs in SP_TRAIN_RUNS:
+        trainer = sp_trainer(torch, dtype, dropout, device, mesh)
+        block = shard_graph_nodes(spec[batch], mesh).to(device)
+        plan = spec[plans][shape[1]]
+        out[name] = sp_train_run(torch, trainer, epochs, lambda e: trainer.training_step(
+            block, e, prepared=True, plan=plan), grads=name in F32_RUNS)
+        if name in F32_RUNS:
+            out[name]["params"] = {k: v.cpu() for k, v in trainer.model_state_dict().items()}
+        del trainer, block
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_train_spec(torch, spec: dict, ref: dict, device="cuda") -> None:
+    """The labelled batch of the node-sharded steps into ``spec``, and one
+    process's runs of ``SP_TRAIN_RUNS`` on the whole batches into
+    ``ref["sp_train"]``."""
+    gen = torch.Generator().manual_seed(15)
+    b = spec["sp_batch"].x.shape[0]
+    spec["sp_train_batch"] = spec["sp_batch"].replace(y=torch.randint(0, 2, (b,),
+                                                                      generator=gen))
+    ref["sp_train"] = {}
+    for name, dtype, dropout, batch, _, epochs in SP_TRAIN_RUNS:
+        trainer = sp_trainer(torch, dtype, dropout, device)
+        on = spec[batch].to(device)
+        r = sp_train_run(torch, trainer, epochs, lambda e: trainer.training_step(on, e),
+                         grads=name in F32_RUNS)
+        if name in F32_RUNS:
+            r["params"] = {k: v.detach().cpu() for k, v in trainer.model.named_parameters()}
+        ref["sp_train"][name] = r
+        del trainer, on
+        torch.cuda.empty_cache()
+
+
 def par_dryrun(n: int):
     def job(torch, spec, device) -> dict:
         from dgdm_histopath_torch.parallel import dryrun_multichip
@@ -3255,6 +3459,7 @@ def par_dryrun(n: int):
 
 
 PAR_JOBS = {"tp": par_tp, "pp": par_pp, "ep": par_ep, "halo": par_halo, "sp": par_sp,
+            "sp_train": par_sp_train,
             **{f"dryrun{n}": par_dryrun(n) for n in PAR["dryruns"]}}
 
 
@@ -3343,6 +3548,7 @@ def par_spec(torch, graphs) -> tuple:
     del fresh, moe, conv, model
     torch.cuda.empty_cache()
     sp_spec(torch, graphs, spec, ref)
+    sp_train_spec(torch, spec, ref)
     return spec, ref
 
 
@@ -3376,12 +3582,94 @@ def sp_spec(torch, graphs, spec: dict, ref: dict, device="cuda") -> None:
         torch.cuda.empty_cache()
 
 
+def rect_backward_rows(torch, gen, table, idx, w, tag: dict, out: dict,
+                       agg: bool = True) -> None:
+    """The widened kernels at one rectangular shape (a table [B, M, F] read
+    by idx [B, N, K]): the list over M rows bit-equal to its plain version
+    (timed once a shape, in bf16), gather_rows_bwd (dsrc [B, M, F]) and,
+    with ``agg``, gather_agg_bwd (dh [B, M, F], dw [B, N, K]) bit-identical
+    from call to call and held to their plain f32 sums (1e-5 in f32, one
+    ulp in bf16 and f16), each timed with its plain version, its library
+    call and its bound; rows appended to ``out``."""
+    from dgdm_histopath_torch.ops.kernels.gather_agg import (
+        weighted_gather_sum_bwd, weighted_gather_sum_bwd_plain)
+    from dgdm_histopath_torch.ops.kernels.gather_rows import (
+        gather_rows_bwd, gather_rows_bwd_plain)
+    from dgdm_histopath_torch.ops.kernels.neighbor_transpose import (
+        neighbor_transpose, neighbor_transpose_plain)
+
+    b, m, f = table.shape
+    n, k = idx.shape[1:]
+    e = table.element_size()
+    nbr_t, plain_t = neighbor_transpose(idx, m), neighbor_transpose_plain(idx, m)
+    torch.cuda.synchronize()
+    if not (torch.equal(nbr_t.offsets, plain_t.offsets)
+            and torch.equal(nbr_t.slots, plain_t.slots)):
+        raise AssertionError(f"neighbor_transpose over {m} rows differs from its plain "
+                             f"version at {tag}")
+    if table.dtype == torch.bfloat16:
+        tbytes = 2 * b * n * k * 4 + b * (m + 1) * 4
+        out["neighbor_transpose"].append(dict(
+            tag, max_abs_err=0.0, ms=device_ms(torch, lambda: neighbor_transpose(idx, m)),
+            plain_ms=device_ms(torch, lambda: neighbor_transpose_plain(idx, m)),
+            library_ms=None, bound_ms=tbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=tbytes))
+    g4 = torch.randn(b, n, k, f, device="cuda", generator=gen).to(table.dtype)
+    dsrc = gather_rows_bwd(idx, g4, nbr_t, m)
+    again = gather_rows_bwd(idx, g4, nbr_t, m)
+    torch.cuda.synchronize()
+    r = scatter_error(torch, dsrc, gather_rows_bwd_plain(idx, g4.float(), plain_t, m))
+    if dsrc.shape != (b, m, f) or not torch.equal(dsrc, again) or not r["ok"]:
+        raise AssertionError(f"gather_rows_bwd over {m} rows: {r} at {tag}")
+    flat_idx = (idx.long() + m * torch.arange(b, device="cuda").view(b, 1, 1)).reshape(-1)
+    valid_idx = torch.where((idx >= 0).reshape(-1) & (idx < m).reshape(-1), flat_idx, 0)
+    g_flat = g4.reshape(-1, f)
+    rbytes = b * n * k * f * e + b * n * k * 4 + b * m * f * e
+    t_bytes, t_ops = rbytes / HBM_BYTES_PER_S * 1e3, b * n * k * f / F32_FLOPS_PER_S * 1e3
+    out["gather_rows_bwd"].append(dict(
+        tag, max_abs_err=r["max_abs_err"], max_ulp_err=r["max_ulp_err"],
+        ms=device_ms(torch, lambda: gather_rows_bwd(idx, g4, nbr_t, m)),
+        plain_ms=device_ms(torch, lambda: gather_rows_bwd_plain(idx, g4, plain_t, m)),
+        library_ms=device_ms(torch, lambda: torch.zeros(
+            b * m, f, dtype=g4.dtype, device="cuda").index_add_(0, valid_idx, g_flat)),
+        library="index_add_", bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=rbytes))
+    if not agg:
+        return
+    g3 = torch.randn(b, n, f, device="cuda", generator=gen)
+    dh, dw = weighted_gather_sum_bwd(g3, table, idx, w, nbr_t=nbr_t)
+    dh2, dw2 = weighted_gather_sum_bwd(g3, table, idx, w, nbr_t=nbr_t)
+    torch.cuda.synchronize()
+    ref_dh, dw_ref = weighted_gather_sum_bwd_plain(g3, table.float(), idx, w, plain_t)
+    a = scatter_error(torch, dh, ref_dh)
+    dw_err = (dw - dw_ref).abs().max().item()
+    if (dh.shape != (b, m, f) or not (torch.equal(dh, dh2) and torch.equal(dw, dw2))
+            or not a["ok"] or not torch.allclose(dw, dw_ref, atol=1e-5, rtol=1e-5)):
+        raise AssertionError(f"gather_agg_bwd over {m} rows: {a}, dw {dw_err} at {tag}")
+    abytes = b * n * f * 4 + 2 * b * m * f * e + 3 * b * n * k * 4
+    flops = 4 * b * n * k * f
+    t_bytes, t_ops = abytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    lib_ms, lib_dtype = sparse_mm_ms(torch, idx, w, g3, transpose=True, n_src=m)
+    out["gather_agg_bwd"].append(dict(
+        tag, max_abs_err=max(a["max_abs_err"], dw_err), max_ulp_err=a["max_ulp_err"],
+        ms=device_ms(torch, lambda: weighted_gather_sum_bwd(g3, table, idx, w, nbr_t=nbr_t)),
+        plain_ms=device_ms(torch, lambda: weighted_gather_sum_bwd_plain(g3, table, idx, w,
+                                                                        plain_t)),
+        library_ms=lib_ms, library=f"torch.sparse.mm(A^T CSR, g) {lib_dtype}, dh half only",
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=abytes, flops=flops))
+
+
 def par_rect_kernels(torch, spec) -> dict:
-    """Both kernels with a rectangular table at the halo tier's shapes
-    (model axis 2, rank 0): the outgoing rows (gather_rows from the
-    [B, n_loc, 128] block, [B, 2, H] slots), the local step (gather_rows
-    and gather_agg over the [B, n_loc + 2H, 128] table, [B, n_loc, 8]
-    slots), bf16 and f32, held to their plain versions and timed."""
+    """The kernels with a rectangular table at the halo tier's shapes (model
+    axis 2, rank 0): the outgoing rows (gather_rows from the [B, n_loc,
+    128] block, [B, 2, H] slots), the local step (gather_rows and
+    gather_agg over the [B, n_loc + 2H, 128] table, [B, n_loc, 8] slots,
+    masked slots -1 as the model points them), the forwards in bf16 and f32
+    held to their plain versions and timed; then the backwards at both
+    shapes and the transposed lists over their M rows in f32, bf16 and f16
+    (``rect_backward_rows``)."""
+    from dgdm_histopath_torch.ops.graph import real_edge_index
     from dgdm_histopath_torch.parallel.halo import local_plan
     from dgdm_histopath_torch.parallel.mesh import Axis, Mesh
 
@@ -3389,27 +3677,51 @@ def par_rect_kernels(torch, spec) -> dict:
     mesh = Mesh(("data", "model"), (1, 2), lines={"model": Axis("model", 2, 0)})
     send, idx = (t.cuda() for t in local_plan(plan, mesh, device="cpu"))
     n_loc = plan.n_local
-    block = spec["sorted"].x[:, :n_loc].cuda()
+    srt = spec["sorted"]
+    masked = (srt.nbr_mask & srt.node_mask[..., None])[:, :n_loc].cuda()
+    idx = real_edge_index(idx, masked).contiguous()
+    block = srt.x[:, :n_loc].cuda()
     gen = torch.Generator(device="cuda").manual_seed(14)
-    rows = {"gather_rows": [], "gather_agg": []}
-    for dtype in (torch.bfloat16, torch.float32):
+    rows = {name: [] for name in ("gather_rows", "gather_agg", "gather_rows_bwd",
+                                  "gather_agg_bwd", "neighbor_transpose")}
+    m = n_loc + 2 * plan.halo_size
+    w = torch.rand(idx.shape, generator=gen, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         x = block.to(dtype).contiguous()
-        table = torch.randn(x.shape[0], n_loc + 2 * plan.halo_size, x.shape[-1],
-                            generator=gen, device="cuda").to(dtype)
-        w = torch.rand(idx.shape, generator=gen, device="cuda")
+        table = torch.randn(x.shape[0], m, x.shape[-1], generator=gen,
+                            device="cuda").to(dtype)
         dt = str(dtype).replace("torch.", "")
-        rows["gather_rows"].append(gather_rows_row(torch, x, send, dict(
-            case="outgoing rows", shape=tuple(send.shape), src=tuple(x.shape), dtype=dt)))
-        rows["gather_rows"].append(gather_rows_row(torch, table, idx, dict(
-            case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
-        rows["gather_agg"].append(gather_agg_row(torch, table, idx, w, dict(
-            case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
+        if dtype != torch.float16:
+            rows["gather_rows"].append(gather_rows_row(torch, x, send, dict(
+                case="outgoing rows", shape=tuple(send.shape), src=tuple(x.shape), dtype=dt)))
+            rows["gather_rows"].append(gather_rows_row(torch, table, idx, dict(
+                case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
+            rows["gather_agg"].append(gather_agg_row(torch, table, idx, w, dict(
+                case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
+        rect_backward_rows(torch, gen, table, idx, w, dict(
+            case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt), rows)
+        rect_backward_rows(torch, gen, x, send, None, dict(
+            case="outgoing rows", shape=tuple(send.shape), src=tuple(x.shape), dtype=dt),
+            rows, agg=False)
+    # the launch floor: an empty kernel of one warp, timed as the kernels are
+    empty = empty_kernel()
+    rows["empty_kernel_ms"] = device_ms(torch, lambda: empty(
+        torch.cuda.current_stream().cuda_stream))
+    log(f"kernel empty launch (1 block of 32 threads) ms {rows['empty_kernel_ms']:.4f}, "
+        f"the floor under neighbor_transpose's bound")
     for name, rs in rows.items():
+        if name == "empty_kernel_ms":
+            continue
         for r in rs:
-            log(f"kernel {name:12s} rectangular {r['case']:13s} src {r['src']} idx "
-                f"{r['shape']} {r['dtype']:8s} err {r['max_abs_err']:.2e}  ms {r['ms']:.4f}"
-                f"  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            ulp = (f" ulp {r['max_ulp_err']:.2f}" if r.get("max_ulp_err") is not None else "")
+            log(f"kernel {name:18s} rectangular {r['case']:13s} src {r['src']} idx "
+                f"{r['shape']} {r['dtype']:8s} err {r['max_abs_err']:.2e}{ulp}  ms "
+                f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library {lib}  bound "
                 f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    log("kernel checks: the lists over M != N rows equal their plain versions to the bit; "
+        "the rectangular backwards are bit-identical from call to call and within 1e-5 "
+        "(f32) / one ulp (bf16, f16) of their plain sums")
     return rows
 
 
@@ -3427,7 +3739,7 @@ def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
     worst, worst_key = 0.0, ""
     for key, r in ref["tp_params"].items():
         err = (ranks[0]["params"][key] - r).abs().max().item()
-        bound = lr_sum if key.endswith(("k_proj.bias", "risk.bias")) else \
+        bound = lr_sum if key.endswith(SHIFT_INVARIANT) else \
             1e-5 * max(r.abs().max().item(), 1.0)
         if err / bound > worst:
             worst, worst_key = err / bound, key
@@ -3519,6 +3831,8 @@ def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
         raise AssertionError("the halo tier differs from the dense path")
 
     out["sp"] = sp_compare(torch, [r["sp"] for r in got], ref["sp"], card)
+    out["sp_train"] = sp_train_compare(torch, [r["sp_train"] for r in got], ref["sp_train"],
+                                       card)
 
     for n in PAR["dryruns"]:
         if f"dryrun{n}" in got[0]:
@@ -3609,10 +3923,145 @@ def sp_compare(torch, ranks: list, ref: dict, card: str) -> dict:
     return out
 
 
+def adamw_first_update(g):
+    """AdamW's first bias-corrected step direction for gradient g (the
+    trainer's eps 1e-8): g / (|g| + eps), lr-sized wherever |g| >> eps."""
+    return g / (g.abs() + 1e-8)
+
+
+def sp_f32_check(ranks: list, one: dict, name: str) -> dict:
+    """A rank's f32 run against one process's: each step's metrics over
+    max(1, |x|), the first step's gradients over each tensor's largest entry
+    (floored at 1e-3 of the largest entry of all, for the tensors whose true
+    gradient is 0), the parameters after the run over their bound, worst
+    entries first. The strict bound is 1e-5 of max(1, the tensor's largest
+    entry) (the shift-invariant biases: the summed learning rate); each
+    entry's bound adds what AdamW's first update makes of the two runs'
+    first-step gradients there, lr x |u(g_rank) - u(g_one)| with u(g) = g /
+    (|g| + eps): below eps (1e-8) the update is lr x g / eps, so a rounding
+    difference of a gradient at 1e-7 of its tensor's largest entry (held by
+    the gradient bound) moves the entry by a tenth of lr, the strict bound.
+    Where |g| >> eps that term is ~0. Both ratios are returned."""
+    got = ranks[0][name]
+    lr_sum = SP_TRAIN["config"]["learning_rate"] * len(SP_TRAIN["epochs"])
+    lr0 = SP_TRAIN["config"]["learning_rate"]       # the first step's (no warmup)
+    metric = {f"{i} {k}": abs(a[k] - s[k]) / max(1.0, abs(s[k]))
+              for i, (a, s) in enumerate(zip(got["metrics"], one["metrics"])) for k in s}
+    floor = 1e-3 * max(g.abs().max().item() for g in one["grads0"].values())
+    grad = {k: (got["grads0"][k] - g).abs().max().item() / max(g.abs().max().item(), floor)
+            for k, g in one["grads0"].items()}
+    param, strict = {}, {}
+    for key, want in one["params"].items():
+        bound = lr_sum if key.endswith(SHIFT_INVARIANT) else \
+            1e-5 * max(want.abs().max().item(), 1.0)
+        diff = (got["params"][key] - want).abs().double()
+        first = lr0 * (adamw_first_update(got["grads0"][key].double())
+                       - adamw_first_update(one["grads0"][key].double())).abs()
+        param[key] = (diff / (bound + first)).max().item()
+        strict[key] = diff.max().item() / bound
+
+    def worst(d):
+        return sorted(d.items(), key=lambda kv: -kv[1])[:6]
+
+    slots, sets = sel_agreement(got["sel0"], one["sel0"])
+    return {"same_on_every_rank": all(r[name]["metrics"] == got["metrics"] for r in ranks),
+            "sel0_slots_equal": slots, "sel0_sets_equal": sets,
+            "max_metric_rel": max(metric.values()),
+            "max_first_step_metric_rel": max(v for k, v in metric.items()
+                                             if k.startswith("0 ")),
+            "max_grad0_rel": max(grad.values()), "max_param_over_bound": max(param.values()),
+            "max_param_over_strict_bound": max(strict.values()),
+            "worst_metrics": worst(metric), "worst_grads0": worst(grad),
+            "worst_params": worst(param), "worst_params_strict": worst(strict)}
+
+
+def sp_train_compare(torch, ranks: list, ref: dict, card: str) -> dict:
+    """Each rank's node-sharded training runs against one process's on the
+    card. f32 without dropout and at dropout 0.1 alike, as the DP phase:
+    metrics equal on every rank and within 1e-5 of max(1, |x|) of one
+    process's at every step, the first step's gradients within 1e-4 of each
+    tensor's largest entry, the parameters within 1e-5 of max(1, each
+    tensor's largest entry) (the shift-invariant key biases to the summed
+    learning rate) plus what AdamW's first update makes of the two runs'
+    first-step gradients (``sp_f32_check``), the first step's pooled node
+    sets equal (their slots are
+    reported: a swap of two tied nodes keeps their dropout masks). Every step's
+    launches as predicted on every rank (one process: 9 / 18 / 9 / 18 + 3);
+    on the 8192-node graph each rank's peak above its resident memory below
+    one process's. Raises on a failed bound."""
+    tp = ranks[0]["tp"]
+    expected = sp_train_expected_launches(BASE)
+    one_expected = expected_launches(BASE, training=True)
+    out = {"tp": tp, "expected_launches": expected}
+    for name in F32_RUNS:
+        out[f"{name}_check"] = c = sp_f32_check(ranks, ref[name], name)
+        log(f"parallel: sp training {name} (1, {tp}), DGDM-Base batch {SP['batch']} bucket "
+            f"1024, 3 pretrain + 1 finetune steps: metrics within {c['max_metric_rel']:.3e} of "
+            f"max(1, |x|) of one process (first step {c['max_first_step_metric_rel']:.3e}), "
+            f"first-step gradients within {c['max_grad0_rel']:.3e} of each tensor's largest "
+            f"entry, its pooled selections: slots equal {c['sel0_slots_equal']:.4f}, sets "
+            f"equal {c['sel0_sets_equal']:.3f}; parameters at "
+            f"{c['max_param_over_bound']:.3f} of their bound "
+            f"({c['max_param_over_strict_bound']:.3f} of the strict bound, "
+            f"{[(k, round(v, 3)) for k, v in c['worst_params_strict'][:3]]}); worst "
+            f"metrics {[(k, f'{v:.2e}') for k, v in c['worst_metrics']]}, gradients "
+            f"{[(k, f'{v:.2e}') for k, v in c['worst_grads0']]}, parameters "
+            f"{[(k, round(v, 3)) for k, v in c['worst_params']]} [{card}]")
+    for name in ("float32", "float32_dropout", "bfloat16", "big"):
+        one = ref[name]
+        out[name] = {
+            "launches": [r[name]["launches"] for r in ranks], "one_launches": one["launches"],
+            "step_ms": [r[name]["step_ms"] for r in ranks], "one_step_ms": one["step_ms"],
+            "peak_gib": [r[name]["peak_gib"] for r in ranks], "one_peak_gib": one["peak_gib"],
+            "above_gib": [r[name]["above_gib"] for r in ranks],
+            "one_above_gib": one["above_gib"],
+            "loss": [m["loss"] for m in ranks[0][name]["metrics"]],
+            "one_loss": [m["loss"] for m in one["metrics"]],
+            "finite": all(math.isfinite(v) for r in ranks for m in r[name]["metrics"]
+                          for v in m.values())}
+
+    def gathers(c):
+        return {k: c[k] for k in ("gather_rows", "gather_agg", "gather_rows_bwd",
+                                  "gather_agg_bwd", "neighbor_transpose")}
+
+    for name, what in (("float32", "f32, dropout 0"), ("float32_dropout", "f32, dropout 0.1"),
+                       ("bfloat16", "bf16, dropout 0.1"),
+                       ("big", "bf16, one graph of 8000 nodes in bucket 8192, 1 pretrain step")):
+        r = out[name]
+        log(f"parallel: sp training {what}: a rank's launches a step "
+            f"{gathers(r['launches'][0][0])} (predicted {gathers(expected)}; one process "
+            f"{gathers(r['one_launches'][0])}); step wall ms a rank "
+            f"{[[round(x, 1) for x in ms] for ms in r['step_ms']]} against "
+            f"{[round(x, 1) for x in r['one_step_ms']]}; peak GiB a rank "
+            f"{[round(x, 3) for x in r['peak_gib']]} ({[round(x, 3) for x in r['above_gib']]} "
+            f"above resident) against {r['one_peak_gib']:.3f} ({r['one_above_gib']:.3f}) for "
+            f"one process; loss {[round(x, 5) for x in r['loss']]} against "
+            f"{[round(x, 5) for x in r['one_loss']]} [{card}]")
+    failed = {}
+    for name in F32_RUNS:
+        c = out[f"{name}_check"]
+        failed.update({f"{name} ranks": not c["same_on_every_rank"],
+                       f"{name} metrics": c["max_metric_rel"] > 1e-5,
+                       f"{name} first-step gradients": c["max_grad0_rel"] > 1e-4,
+                       f"{name} parameters": c["max_param_over_bound"] > 1.0,
+                       f"{name} selections": c["sel0_sets_equal"] < 1.0})
+    failed.update({
+        "launches": any(c != expected for n in SP_TRAIN_NAMES
+                        for r in out[n]["launches"] for c in r),
+        "one-process launches": any(c != one_expected for n in SP_TRAIN_NAMES
+                                    for c in out[n]["one_launches"]),
+        "finite": not all(out[n]["finite"] for n in SP_TRAIN_NAMES),
+        "8192-node peak": max(out["big"]["above_gib"]) >= out["big"]["one_above_gib"]})
+    if any(failed.values()):
+        raise AssertionError(f"sp training: {[k for k, v in failed.items() if v]} failed")
+    return out
+
+
 def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
     """The tiers through their entry points. One card: 8 gloo ranks share it;
     2 of them run TP (1, 2) on DGDM-Base at full width, PP, EP, the halo
-    tier and ``sp_forward``, then 4 and 8 run ``dryrun_multichip``. Four
+    tier, ``sp_forward`` and training over node-sharded inputs, then 4 and 8
+    run ``dryrun_multichip``. Four
     cards (``cards >= 4``): 4 NCCL ranks, one a card, run TP (2, 2), PP (1,
     4), EP (2, 2), the halo and ``sp_forward`` over 4 and
     ``dryrun_multichip(4)``. Each tier against one process of
@@ -3622,7 +4071,7 @@ def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
 
     backend, world = ("nccl", 4) if cards >= 4 else ("gloo", 2)
     dry = [n for n in PAR["dryruns"] if backend == "gloo" or n <= cards]
-    jobs = ([(j, world) for j in ("tp", "pp", "ep", "halo", "sp")]
+    jobs = ([(j, world) for j in ("tp", "pp", "ep", "halo", "sp", "sp_train")]
             + [(f"dryrun{n}", n) for n in dry])
     size = max(w for _, w in jobs)
     t0 = time.perf_counter()
@@ -3651,14 +4100,49 @@ def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
         if any(p.exitcode != 0 for p in procs):
             raise AssertionError(f"parallel ranks exited {[p.exitcode for p in procs]}")
         got = [torch.load(f"{root}/result{r}.pt", weights_only=False) for r in range(world)]
+    # the kernels alone first: a wrong kernel shows there before the steps
+    rect = par_rect_kernels(torch, spec) if backend == "gloo" else None
     out = par_compare(torch, got, ref, world, card)
     out.update(backend=backend, world=world, ranks_wall_s=wall, reference_s=ref_s)
     how = ("one a card" if backend == "nccl" else
            "sharing the card, host-staged collectives: not a parallel speed")
     log(f"parallel: {size} {backend} ranks ({how}) in {wall:.1f} s, the one-process "
         f"references {ref_s:.1f} s [{card}]")
-    if backend == "gloo":
-        out["rect"] = par_rect_kernels(torch, spec)
+    if rect is not None:
+        out["rect"] = rect
+        out["dropout_draw"] = dropout_draw_memory(torch, card)
+    return out
+
+
+def dropout_draw_memory(torch, card: str) -> dict:
+    """A node block's largest dropout draw at the 8192-node bucket, the
+    spatial attention weights [1, 8 heads, N/tp, N] f32 of DGDM-Base: the
+    peak above resident memory (the output included) of the port's draw at
+    the whole graph's shape keeping the block (``NodeRows``), against a draw
+    at the block's own shape, for tp = 1, 2, 4 and 8 on one card."""
+    from dgdm_histopath_torch.nn.layers import NodeRows, dropout
+
+    n = SP_BIG["bucket"]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for tp in (1, 2, 4, 8):
+        x = torch.ones(1, 8, n // tp, n, device="cuda")
+        res = {}
+        for how, rows in (("whole", NodeRows(n, lo=(tp - 1) * (n // tp))), ("block", None)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            y = dropout(x, BASE["dropout"], gen, rows)
+            torch.cuda.synchronize()
+            res[how] = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+            del y
+        out[tp] = res
+        del x
+    torch.cuda.empty_cache()
+    log(f"parallel: a block's spatial-attention dropout at bucket {n}, peak GiB above "
+        f"resident, whole-graph draw kept to the block against a block-shape draw: "
+        f"{ {tp: (round(r['whole'], 3), round(r['block'], 3)) for tp, r in out.items()} } "
+        f"[{card}]")
     return out
 
 
@@ -4478,7 +4962,9 @@ PREPROCESS = dict(px=16384, levels=5, band=2048, seeds=(0, 1), num_blobs=24,
 def preprocess_band(torch, card: str) -> dict:
     """One band (seed 0, band 0, 2048 x 16384) of the band renderer on the
     card: ms by CUDA events (median of ``reps`` after a warm-up; the draws
-    included) against the host ``"numpy"`` path's ms for the same band; the
+    included) against the host ``"numpy"`` path's ms for the band's first
+    2048-px tile (it renders a band tile by tile, each tile on its own
+    draws; the ratio is per pixel); the
     card's band against the renderer's core on the CPU fed the card's own
     draws (one uint8 step at most, the tissue field within 1e-5)."""
     import numpy as np
@@ -4502,8 +4988,9 @@ def preprocess_band(torch, card: str) -> dict:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    tile = 2048
     t0 = time.perf_counter()
-    syn._render_band_numpy(0, band, px, levels, blobs, coarse, dens, seed)
+    syn._render_band_numpy(0, band, tile, levels, blobs, coarse, dens, seed)
     numpy_ms = (time.perf_counter() - t0) * 1e3
 
     uniform, normal = syn.draw_band_fields(band, px, seed, 0, "cuda")
@@ -4519,12 +5006,14 @@ def preprocess_band(torch, card: str) -> dict:
     for a, b in zip(card_outs, cpu_outs):
         diff = (a.int() - b.int()).abs()
         per_level.append({"max": int(diff.max()), "share": float((diff > 0).float().mean())})
-    out = {"ms": statistics.median(times), "ms_all": times, "numpy_ms": numpy_ms,
+    out = {"ms": statistics.median(times), "ms_all": times, "numpy_tile_ms": numpy_ms,
+           "numpy_tile": [band, tile],
            "cpu_core_s": cpu_s, "levels": per_level, "tissue_max_abs": d_tissue,
            "band": [band, px]}
     log(f"preprocess: band renderer, one band of {band} x {px} and its {levels} levels: card "
         f"{out['ms']:.2f} ms (CUDA events, median of {len(times)}, draws included), host "
-        f"numpy path {numpy_ms:.0f} ms ({numpy_ms / out['ms']:.0f}x); card vs the core on the "
+        f"numpy path {numpy_ms:.0f} ms on its first {band} x {tile} tile "
+        f"({numpy_ms * px / tile / out['ms']:.0f}x per pixel); card vs the core on the "
         f"CPU fed the card's draws: per level max step / share of bytes that differ "
         + ", ".join(f"{r['max']} / {r['share']:.2e}" for r in per_level)
         + f" (<= 1 step), tissue field {d_tissue:.2e} (<= 1e-5); the CPU core took "
@@ -6164,6 +6653,7 @@ def main() -> int:
                    "halo_gather": par["halo"]["launches"][name],
                    "sp_graph_conv": par["halo"]["sp_launches"][name],
                    "sp_forward_rank": par["sp"]["float32"]["launches"][0][name],
+                   "sp_training_step_rank": par["sp_train"]["bfloat16"]["launches"][0][0][name],
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}

@@ -5,6 +5,8 @@
 //   dh[b, m, :]  = sum over s in T(b, m) of w[b, s] * g[b, s / K, :]
 // where T(b, m) is the transposed neighbor list (csrc/neighbor_transpose.cu):
 // the flat slots s = n*K + k with idx[b, n, k] == m, in increasing order.
+// h and dh have the table's M rows: M = N within one graph, M != N for the
+// halo tier's sum over a rank's [local || halo] table (parallel/halo.py).
 //
 // The TPU package has no kernel for this: its backward is XLA
 // (dgdm_histopath_tpu/ops/pallas/gather_agg.py::_vjp_bwd, a scatter-add for
@@ -34,9 +36,9 @@
 // f32 dot into an f64 sum over the lanes and the passes over F.
 //
 // Every sum runs in an order fixed by idx alone, so dh and dw are
-// bit-identical from run to run. An index outside [0, N) gives dw = 0 and is
+// bit-identical from run to run. An index outside [0, M) gives dw = 0 and is
 // not in the list, so it adds nothing to dh. Either half can be skipped. Any
-// N, K and F are taken.
+// N, M, K and F are taken.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -212,16 +214,19 @@ gather_agg_bwd_kernel(const float* __restrict__ g, const T* __restrict__ h,
                       const int32_t* __restrict__ idx, const float* __restrict__ w,
                       const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
                       T* __restrict__ dh, float* __restrict__ dw,
-                      int n, int k, int f, int tiles, int dw_blocks) {
+                      int n, int rows, int k, int f, int tiles, int row_tiles,
+                      int dw_blocks) {
   constexpr int kSpan = kGroup * E;            // features a half-warp covers per pass
   using H = HRow<T, E>;
   __shared__ double part[kGroups][kSpan];
   __shared__ int row_start[kGroups], row_count[kGroups];
-  // blocks [0, dw_blocks) compute dw, the rest dh, each over one row tile
+  // blocks [0, dw_blocks) compute dw, each over a tile of the N rows, the
+  // rest dh, each over a tile of the M table rows
   const bool dw_half = static_cast<int>(blockIdx.x) < dw_blocks;
   const int tile = dw_half ? blockIdx.x : blockIdx.x - dw_blocks;
-  const int64_t b = tile / tiles;
-  const int r0 = (tile % tiles) * kGroups;
+  const int per_graph = dw_half ? tiles : row_tiles;
+  const int64_t b = tile / per_graph;
+  const int r0 = (tile % per_graph) * kGroups;
   const int grp = threadIdx.x / kGroup, lane = threadIdx.x % kGroup;
   const int64_t nk = static_cast<int64_t>(n) * k;
   const float* gb = g + b * n * f;
@@ -230,7 +235,7 @@ gather_agg_bwd_kernel(const float* __restrict__ g, const T* __restrict__ h,
   if (dw_half) {
     if (row >= n) return;
     const unsigned half = 0xffffu << (threadIdx.x & 16);
-    const T* hb = h + b * n * f;
+    const T* hb = h + b * rows * f;
     const int32_t* ir = idx + (b * n + row) * k;
     const float* gr = gb + static_cast<int64_t>(row) * f;
     for (int k0 = 0; k0 < k; k0 += kInFlight) {
@@ -239,7 +244,7 @@ gather_agg_bwd_kernel(const float* __restrict__ g, const T* __restrict__ h,
 #pragma unroll
       for (int u = 0; u < kInFlight; ++u) {
         j[u] = k0 + u < k ? __ldg(ir + k0 + u) : -1;
-        if (j[u] >= n) j[u] = -1;
+        if (j[u] >= rows) j[u] = -1;
         dot[u] = 0.0;
       }
       for (int f0 = 0; f0 < f; f0 += kSpan) {
@@ -270,17 +275,17 @@ gather_agg_bwd_kernel(const float* __restrict__ g, const T* __restrict__ h,
     return;
   }
 
-  const int32_t* off = offsets + b * (n + 1);
+  const int32_t* off = offsets + b * (rows + 1);
   const int32_t* sl = slots + b * nk;
   const float* wb = w + b * nk;
-  T* ob = dh + b * n * f;
-  const int start = row < n ? __ldg(off + row) : 0;
-  const int count = row < n ? __ldg(off + row + 1) - start : 0;
+  T* ob = dh + b * rows * f;
+  const int start = row < rows ? __ldg(off + row) : 0;
+  const int count = row < rows ? __ldg(off + row + 1) - start : 0;
   if (lane == 0) {
     row_start[grp] = start;
     row_count[grp] = count;
   }
-  if (row < n && count <= kShort) {
+  if (row < rows && count <= kShort) {
     for (int f0 = 0; f0 < f; f0 += kSpan) {
       const int fl = f0 + lane * E;
       double acc[E];
@@ -319,33 +324,37 @@ gather_agg_bwd_kernel(const float* __restrict__ g, const T* __restrict__ h,
 template <typename T, int E>
 cudaError_t launch(const float* g, const void* h, const int32_t* idx, const float* w,
                    const int32_t* off, const int32_t* sl, void* dh, float* dw,
-                   int64_t batch, int64_t n, int64_t k, int64_t f, cudaStream_t s) {
+                   int64_t batch, int64_t n, int64_t k, int64_t f, int64_t rows,
+                   cudaStream_t s) {
   const int64_t tiles = (n + kGroups - 1) / kGroups;
+  const int64_t row_tiles = (rows + kGroups - 1) / kGroups;
   const int64_t dw_blocks = dw == nullptr ? 0 : batch * tiles;
-  const int64_t blocks = dw_blocks + (dh == nullptr ? 0 : batch * tiles);
+  const int64_t blocks = dw_blocks + (dh == nullptr ? 0 : batch * row_tiles);
+  if (blocks == 0) return cudaSuccess;
   gather_agg_bwd_kernel<T, E><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
       g, static_cast<const T*>(h), idx, w, off, sl, static_cast<T*>(dh), dw,
-      static_cast<int>(n), static_cast<int>(k), static_cast<int>(f),
-      static_cast<int>(tiles), static_cast<int>(dw_blocks));
+      static_cast<int>(n), static_cast<int>(rows), static_cast<int>(k),
+      static_cast<int>(f), static_cast<int>(tiles), static_cast<int>(row_tiles),
+      static_cast<int>(dw_blocks));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream`, on the caller's current device. g [B, N, F] f32, h
-// [B, N, F] in `dtype` (0 f32, 1 bf16, 2 f16), idx [B, N, K] int32, w
-// [B, N, K] f32; offsets [B, N + 1] and slots [B, N*K] from
-// neighbor_transpose (read only for dh). dh [B, N, F] in h's dtype (null:
-// not wanted; a sum beyond the dtype's range is written as +-inf, as the
-// reference's f32 sum cast to h's dtype is), dw [B, N, K] f32 (null: not
-// wanted). `vec`: rows are 16-byte aligned (F times h's element size a
+// [B, M, F] (M = `rows`) in `dtype` (0 f32, 1 bf16, 2 f16), idx [B, N, K]
+// int32, w [B, N, K] f32; offsets [B, M + 1] and slots [B, N*K] from
+// neighbor_transpose over M rows (read only for dh). dh [B, M, F] in h's
+// dtype (null: not wanted; a sum beyond the dtype's range is written as
+// +-inf, as the reference's f32 sum cast to h's dtype is), dw [B, N, K] f32
+// (null: not wanted). `vec`: rows are 16-byte aligned (F times h's element size a
 // multiple of 16, base pointers aligned).
 extern "C" int gather_agg_bwd_launch(const void* g, const void* h, const void* idx,
                                      const void* w, const void* offsets, const void* slots,
                                      void* dh, void* dw, int64_t batch, int64_t n,
-                                     int64_t k, int64_t f, int dtype, int vec,
+                                     int64_t k, int64_t f, int64_t rows, int dtype, int vec,
                                      void* stream) {
-  if (batch * n == 0 || (dh == nullptr && dw == nullptr)) return 0;
+  if (dh == nullptr && dw == nullptr) return 0;
   if (dh == nullptr && (k == 0 || f == 0)) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* gp = static_cast<const float*>(g);
@@ -356,14 +365,16 @@ extern "C" int gather_agg_bwd_launch(const void* g, const void* h, const void* i
   auto* dwp = static_cast<float*>(dw);
   cudaError_t err;
   if (dtype == 1)
-    err = vec ? launch<__nv_bfloat16, 8>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
-              : launch<__nv_bfloat16, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
+    err = vec ? launch<__nv_bfloat16, 8>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f,
+                                         rows, s)
+              : launch<__nv_bfloat16, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f,
+                                         rows, s);
   else if (dtype == 2)
-    err = vec ? launch<__half, 8>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
-              : launch<__half, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
+    err = vec ? launch<__half, 8>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, rows, s)
+              : launch<__half, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, rows, s);
   else if (dtype == 0)
-    err = vec ? launch<float, 4>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s)
-              : launch<float, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, s);
+    err = vec ? launch<float, 4>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, rows, s)
+              : launch<float, 1>(gp, h, ix, wp, off, sl, dh, dwp, batch, n, k, f, rows, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -2,7 +2,10 @@
 // neighbor list (csrc/neighbor_transpose.cu):
 //   dsrc[b, m, :] = sum over s in T(b, m) of g[b, s, :]
 // where g is [B, N*K, F] (the forward's [B, N, K, F]) and T(b, m) the slots
-// s = n*K + k with idx[b, n, k] == m, in increasing order.
+// s = n*K + k with idx[b, n, k] == m, in increasing order. dsrc has the M
+// rows of the forward's table: M = N within one graph, M != N for the halo
+// tier's rectangular gathers (a rank's [local || halo] table, the local rows
+// it sends; the TPU kernel is square only, JAX takes XLA's autodiff there).
 //
 // Replaces dgdm_histopath_tpu/ops/pallas/gather_rows.py::_bwd_kernel. The TPU
 // kernel walked node tiles in grid order, built one-hot [128*K, 128] tiles
@@ -31,7 +34,7 @@
 //
 // Every sum runs in an order fixed by idx alone, so the result is
 // bit-identical from run to run. Out-of-range indices are not in the list
-// and add nothing (the forward gave a zero row there). Any N, K and F.
+// and add nothing (the forward gave a zero row there). Any N, M, K and F.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -165,26 +168,26 @@ template <typename T, int E>
 __global__ void __launch_bounds__(kThreads, 2)
 gather_rows_bwd_kernel(const T* __restrict__ g, const int32_t* __restrict__ offsets,
                        const int32_t* __restrict__ slots, T* __restrict__ out,
-                       int n, int nk, int f, int tiles) {
+                       int rows, int nk, int f, int tiles) {
   constexpr int kSpan = kGroup * E;            // features a half-warp covers per pass
   __shared__ double part[kGroups][kSpan];
   __shared__ int row_start[kGroups], row_count[kGroups];
   const int64_t b = blockIdx.x / tiles;
   const int r0 = static_cast<int>(blockIdx.x % tiles) * kGroups;
   const int grp = threadIdx.x / kGroup, lane = threadIdx.x % kGroup;
-  const int32_t* off = offsets + b * (n + 1);
+  const int32_t* off = offsets + b * (rows + 1);
   const int32_t* sl = slots + b * nk;
   const T* gb = g + b * nk * f;
-  T* ob = out + b * n * f;
+  T* ob = out + b * rows * f;
 
   const int row = r0 + grp;
-  const int start = row < n ? __ldg(off + row) : 0;
-  const int count = row < n ? __ldg(off + row + 1) - start : 0;
+  const int start = row < rows ? __ldg(off + row) : 0;
+  const int count = row < rows ? __ldg(off + row + 1) - start : 0;
   if (lane == 0) {
     row_start[grp] = start;
     row_count[grp] = count;
   }
-  if (row < n && count <= kShort) {
+  if (row < rows && count <= kShort) {
     for (int f0 = 0; f0 < f; f0 += kSpan) {
       const int fl = f0 + lane * E;
       double acc[E];
@@ -222,10 +225,11 @@ gather_rows_bwd_kernel(const T* __restrict__ g, const int32_t* __restrict__ offs
 
 template <typename T, int E>
 cudaError_t launch(const void* g, const int32_t* off, const int32_t* sl, void* out,
-                   int64_t batch, int64_t n, int64_t k, int64_t f, cudaStream_t s) {
-  const int64_t tiles = (n + kGroups - 1) / kGroups;
+                   int64_t batch, int64_t n, int64_t k, int64_t f, int64_t rows,
+                   cudaStream_t s) {
+  const int64_t tiles = (rows + kGroups - 1) / kGroups;
   gather_rows_bwd_kernel<T, E><<<static_cast<unsigned>(batch * tiles), kThreads, 0, s>>>(
-      static_cast<const T*>(g), off, sl, static_cast<T*>(out), static_cast<int>(n),
+      static_cast<const T*>(g), off, sl, static_cast<T*>(out), static_cast<int>(rows),
       static_cast<int>(n * k), static_cast<int>(f), static_cast<int>(tiles));
   return cudaGetLastError();
 }
@@ -233,29 +237,31 @@ cudaError_t launch(const void* g, const int32_t* off, const int32_t* sl, void* o
 }  // namespace
 
 // Launches on `stream`, on the caller's current device. g [B, N*K, F] and
-// out [B, N, F] in one dtype (`dtype`: 0 f32, 1 bf16, 2 f16), offsets
-// [B, N + 1] and slots [B, N*K] from neighbor_transpose. `vec`: rows are
+// out [B, M, F] (M = `rows`) in one dtype (`dtype`: 0 f32, 1 bf16, 2 f16),
+// offsets [B, M + 1] and slots [B, N*K] from neighbor_transpose over M
+// rows. `vec`: rows are
 // 16-byte aligned (F times the element size a multiple of 16, base pointers
 // aligned). A sum beyond the largest finite value of the dtype is written as
 // +-inf (f16 saturates at 65504), as the f32 sums of the TPU kernel, cast to
 // g's dtype, are.
 extern "C" int gather_rows_bwd_launch(const void* g, const void* offsets, const void* slots,
                                       void* out, int64_t batch, int64_t n, int64_t k,
-                                      int64_t f, int dtype, int vec, void* stream) {
-  if (batch * n * f == 0) return 0;
+                                      int64_t f, int64_t rows, int dtype, int vec,
+                                      void* stream) {
+  if (batch * rows * f == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* off = static_cast<const int32_t*>(offsets);
   const auto* sl = static_cast<const int32_t*>(slots);
   cudaError_t err;
   if (dtype == 1)
-    err = vec ? launch<__nv_bfloat16, 8>(g, off, sl, out, batch, n, k, f, s)
-              : launch<__nv_bfloat16, 1>(g, off, sl, out, batch, n, k, f, s);
+    err = vec ? launch<__nv_bfloat16, 8>(g, off, sl, out, batch, n, k, f, rows, s)
+              : launch<__nv_bfloat16, 1>(g, off, sl, out, batch, n, k, f, rows, s);
   else if (dtype == 2)
-    err = vec ? launch<__half, 8>(g, off, sl, out, batch, n, k, f, s)
-              : launch<__half, 1>(g, off, sl, out, batch, n, k, f, s);
+    err = vec ? launch<__half, 8>(g, off, sl, out, batch, n, k, f, rows, s)
+              : launch<__half, 1>(g, off, sl, out, batch, n, k, f, rows, s);
   else if (dtype == 0)
-    err = vec ? launch<float, 4>(g, off, sl, out, batch, n, k, f, s)
-              : launch<float, 1>(g, off, sl, out, batch, n, k, f, s);
+    err = vec ? launch<float, 4>(g, off, sl, out, batch, n, k, f, rows, s)
+              : launch<float, 1>(g, off, sl, out, batch, n, k, f, rows, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -1,10 +1,12 @@
-// Transposed neighbor list: for idx [B, N, K], the slots that point at each
-// destination node, grouped by destination and in increasing order:
-//   offsets [B, N + 1] int32: group (b, m) is slots[b, offsets[b, m] : offsets[b, m + 1]]
+// Transposed neighbor list: for idx [B, N, K] over a table of M rows, the
+// slots that point at each table row, grouped by row and in increasing order:
+//   offsets [B, M + 1] int32: group (b, m) is slots[b, offsets[b, m] : offsets[b, m + 1]]
 //   slots   [B, N * K] int32: the flat slot s = n * K + k of every idx[b, n, k]
-//                             in [0, N); the tail past offsets[b, N] is -1
-// An index outside [0, N) is dropped, so the backward gather-sums over this
-// list add nothing for it (the forward gave a zero row there).
+//                             in [0, M); the tail past offsets[b, M] is -1
+// An index outside [0, M) is dropped, so the backward gather-sums over this
+// list add nothing for it (the forward gave a zero row there). M is N for a
+// gather within one graph, and the table's row count for the halo tier's
+// rectangular gathers (a rank's [local || halo] rows, the rows it sends).
 //
 // No TPU kernel stands behind it: the TPU backward (gather_rows.py::
 // _bwd_kernel) contracts one-hot tiles on the MXU and needs no list. Here it
@@ -13,7 +15,7 @@
 // builds it once per neighbor-index tensor (one per U-Net level) in a forward
 // that a gradient will be taken through.
 //
-// Bound on the H100: bytes. At B=32, N=1024, K=8 it reads idx (1.0 MB) and
+// Bound on the H100: bytes. At B=32, N=M=1024, K=8 it reads idx (1.0 MB) and
 // writes offsets and slots (1.2 MB): ~0.7 us at 3.35 TB/s. It runs far from
 // that: one block per graph (32 blocks at the main shape, 132 SMs) does a
 // stable counting sort. Design: the block's 16 warps each own a contiguous
@@ -24,11 +26,11 @@
 // pass 2 walks the segments again and writes each slot at its warp's cursor
 // plus its rank among the lanes of its 32-slot tile with the same
 // destination below it (found with one ballot per bit of the destination, 11
-// at N = 1024). Segments are in slot order and ranks in lane order, so each
+// at M = 1024). Segments are in slot order and ranks in lane order, so each
 // group comes out in increasing slot order: the result is bit-equal to a
 // stable sort, from run to run. One SM serves a whole graph, so at a small
 // batch the walks' instructions, not memory, set the time. cnt lives in
-// shared memory (~66 * N bytes) up to the wrapper's limit, above it in a
+// shared memory (~66 * M bytes) up to the wrapper's limit, above it in a
 // global scratch buffer of the same layout.
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -86,12 +88,12 @@ __device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
 // false: count into cnt[at(m * kWarps + warp)]; true: write each slot at the
 // cursor there plus its rank among the equal lanes below it, and move the
 // cursor (the lowest of the equal lanes moves it, so no two lanes write one
-// cursor). Out-of-range slots are neither counted nor placed.
+// cursor). Slots outside [0, rows) are neither counted nor placed.
 template <bool kPlace>
 __device__ void walk(const int32_t* __restrict__ ib, int* cnt, int32_t* __restrict__ sb,
-                     int lo, int hi, int n) {
+                     int lo, int hi, int rows) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bits = 32 - __clz(n);                      // keys lie in [0, n]
+  const int bits = 32 - __clz(rows);                   // keys lie in [0, rows]
   for (int s0 = lo; s0 < hi; s0 += 32 * kBatch) {     // warp-uniform
     int m[kBatch];
 #pragma unroll
@@ -102,13 +104,13 @@ __device__ void walk(const int32_t* __restrict__ ib, int* cnt, int32_t* __restri
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       if (s0 + u * 32 >= hi) break;                    // warp-uniform
-      const bool ok = m[u] >= 0 && m[u] < n;
+      const bool ok = m[u] >= 0 && m[u] < rows;
       int* c = cnt + at(static_cast<int64_t>(ok ? m[u] : 0) * kWarps + warp);
       if (!kPlace) {                                   // an integer count: any order
         if (ok) atomicAdd(c, 1);
         continue;
       }
-      const unsigned same = peers(ok ? m[u] : n, bits);
+      const unsigned same = peers(ok ? m[u] : rows, bits);
       const int base = ok ? *c : 0;
       if (ok) sb[base + __popc(same & ((1u << lane) - 1u))] = s0 + u * 32 + lane;
       __syncwarp();                                    // every lane read *c
@@ -121,17 +123,17 @@ __device__ void walk(const int32_t* __restrict__ ib, int* cnt, int32_t* __restri
 __global__ void __launch_bounds__(kThreads)
 neighbor_transpose_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ offsets,
                           int32_t* __restrict__ slots, int* __restrict__ scratch,
-                          int n, int k) {
+                          int n, int k, int rows) {
   extern __shared__ int smem[];
   __shared__ int warp_sums[kWarps];
   __shared__ int total;
   const int64_t b = blockIdx.x;
   const int nk = n * k;
-  const int cells = n * kWarps;
+  const int cells = rows * kWarps;
   const int64_t stride = at(cells) + 1;                // padded cells of one graph
-  int* cnt = scratch == nullptr ? smem : scratch + b * stride;      // [n][kWarps], padded
+  int* cnt = scratch == nullptr ? smem : scratch + b * stride;      // [rows][kWarps], padded
   const int32_t* ib = idx + b * nk;
-  int32_t* ob = offsets + b * (n + 1);
+  int32_t* ob = offsets + b * (rows + 1);
   int32_t* sb = slots + b * nk;
   const int warp = threadIdx.x >> 5;
 
@@ -139,7 +141,7 @@ neighbor_transpose_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__
   __syncthreads();
   const int seg = ((nk + kWarps - 1) / kWarps + 31) / 32 * 32;
   const int lo = min(nk, warp * seg), hi = min(nk, lo + seg);
-  walk<false>(ib, cnt, sb, lo, hi, n);
+  walk<false>(ib, cnt, sb, lo, hi, rows);
   __syncthreads();
 
   // exclusive scan of cnt in (m, warp) order: each thread a contiguous run
@@ -154,29 +156,30 @@ neighbor_transpose_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__
     run += v;
   }
   __syncthreads();
-  for (int m = threadIdx.x; m < n; m += kThreads)
+  for (int m = threadIdx.x; m < rows; m += kThreads)
     ob[m] = cnt[at(static_cast<int64_t>(m) * kWarps)];
-  if (threadIdx.x == 0) ob[n] = total;
+  if (threadIdx.x == 0) ob[rows] = total;
   __syncthreads();                                     // offsets read before cursors move
 
-  walk<true>(ib, cnt, sb, lo, hi, n);
+  walk<true>(ib, cnt, sb, lo, hi, rows);
   for (int i = total + threadIdx.x; i < nk; i += kThreads) sb[i] = -1;
 }
 
 }  // namespace
 
-// Int32 counters one graph needs (the kernel's padded [N][16] layout).
-extern "C" int64_t neighbor_transpose_counters(int64_t n) { return at(n * kWarps) + 1; }
+// Int32 counters one graph needs (the kernel's padded [M][16] layout).
+extern "C" int64_t neighbor_transpose_counters(int64_t rows) { return at(rows * kWarps) + 1; }
 
-// Launches on `stream`, on the caller's current device. `scratch` is null
-// (counters in shared memory) or an int32 buffer of B times
-// neighbor_transpose_counters(N) entries, which the kernel zeroes itself.
+// Launches on `stream`, on the caller's current device. idx [B, N, K] over a
+// table of `rows` (M) rows; offsets [B, M + 1], slots [B, N * K]. `scratch` is
+// null (counters in shared memory) or an int32 buffer of B times
+// neighbor_transpose_counters(M) entries, which the kernel zeroes itself.
 extern "C" int neighbor_transpose_launch(const void* idx, void* offsets, void* slots,
                                          void* scratch, int64_t batch, int64_t n,
-                                         int64_t k, void* stream) {
+                                         int64_t k, int64_t rows, void* stream) {
   if (batch == 0) return 0;
   const size_t smem = scratch == nullptr
-      ? static_cast<size_t>(neighbor_transpose_counters(n)) * sizeof(int) : 0;
+      ? static_cast<size_t>(neighbor_transpose_counters(rows)) * sizeof(int) : 0;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         neighbor_transpose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -187,7 +190,7 @@ extern "C" int neighbor_transpose_launch(const void* idx, void* offsets, void* s
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<int32_t*>(offsets),
       static_cast<int32_t*>(slots), static_cast<int*>(scratch), static_cast<int>(n),
-      static_cast<int>(k));
+      static_cast<int>(k), static_cast<int>(rows));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,7 @@ from torch import nn
 
 from ..nn.attention import MultiHeadAttention, sinusoidal_position_encoding_2d
 from ..nn.graph_layers import DynamicGraphLayer
-from ..nn.layers import Dense, LayerNorm, dropout, gelu, get_activation
+from ..nn.layers import Dense, LayerNorm, NodeRows, dropout, gelu, get_activation
 from ..ops.graph import compact_top_k_nodes, masked_global_mean
 from ..ops.kernels.neighbor_transpose import transpose_for_backward
 
@@ -44,7 +44,10 @@ class FeatureEncoder(nn.Module):
             prev = dim
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[NodeRows] = None) -> torch.Tensor:
+        """``rows``: the graph's nodes that x's rows are, for the dropout
+        masks (``nn.layers.NodeRows``; None: all of them)."""
         h = x
         for i in range(len(self.dims)):
             residual = h
@@ -54,7 +57,7 @@ class FeatureEncoder(nn.Module):
                 h = norm(h)
             h = self.act(h)
             if not deterministic:
-                h = dropout(h, self.dropout, generator)
+                h = dropout(h, self.dropout, generator, rows)
             proj = getattr(self, f"res_proj{i}", None)
             h = h + (residual if proj is None else proj(residual))
         return h
@@ -73,7 +76,9 @@ class GraphEncoder(nn.Module):
     backward instead of kept (:meth:`_checkpointed`). The activation and
     dropout after each layer stay outside, as in the reference.
     With ``nbrs`` (``nn.graph_layers.Neighbors``: a node block's neighbours,
-    ``parallel/sp.py``) every layer reads its neighbours through it.
+    ``parallel/sp.py``) every layer reads its neighbours through it, and
+    ``rows`` (``nn.layers.NodeRows``) says which nodes the block's rows are,
+    for the dropout masks.
     Returns ``{"embeddings", "layer_outputs"[, "attentions"]}``."""
 
     def __init__(self, in_features: int, hidden_dim: int, num_layers: int = 4,
@@ -99,9 +104,9 @@ class GraphEncoder(nn.Module):
     def forward(self, x, nbr_idx, nbr_mask, node_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None, nbr_t=None,
-                nbrs=None) -> Dict[str, object]:
+                nbrs=None, rows: Optional[NodeRows] = None) -> Dict[str, object]:
         h = self.input_proj(x)
-        if nbr_t is None:
+        if nbr_t is None and nbrs is None:      # with nbrs the layers read nbrs.nbr_t
             nbr_t = transpose_for_backward(nbr_idx)
         e = None
         if edge_attr is not None and self.edge_proj is not None:
@@ -114,11 +119,11 @@ class GraphEncoder(nn.Module):
             layer = getattr(self, f"layer{i}")
             if remat:
                 res = self._checkpointed(layer, h, nbr_idx, masked_nbr, e, deterministic,
-                                         generator, nbr_t, nbrs)
+                                         generator, nbr_t, nbrs, rows)
             else:
                 res = layer(h, nbr_idx, masked_nbr, e, return_attention=return_attention,
                             deterministic=deterministic, generator=generator, nbr_t=nbr_t,
-                            nbrs=nbrs)
+                            nbrs=nbrs, rows=rows)
             if return_attention:
                 h, attn = res
                 attentions.append(attn)
@@ -126,7 +131,7 @@ class GraphEncoder(nn.Module):
                 h = res
             h = self.act(h)
             if not deterministic:
-                h = dropout(h, self.dropout, generator)
+                h = dropout(h, self.dropout, generator, rows)
             layer_outputs.append(h)
         out = self.output_proj(h) * node_mask[..., None].to(h.dtype)
         result = {"embeddings": out, "layer_outputs": layer_outputs}
@@ -136,7 +141,7 @@ class GraphEncoder(nn.Module):
 
     @staticmethod
     def _checkpointed(layer, h, nbr_idx, nbr_mask, e, deterministic, generator, nbr_t,
-                      nbrs=None):
+                      nbrs=None, rows=None):
         """``layer`` under a non-reentrant checkpoint. Its dropout draws come
         from ``generator``, whose state ``checkpoint`` does not save (its
         ``preserve_rng_state`` covers only the global generators): the
@@ -158,7 +163,7 @@ class GraphEncoder(nn.Module):
             first = False
             try:
                 return layer(h, nbr_idx, nbr_mask, e, deterministic=deterministic,
-                             generator=generator, nbr_t=nbr_t, nbrs=nbrs)
+                             generator=generator, nbr_t=nbr_t, nbrs=nbrs, rows=rows)
             finally:                              # also when the recompute stops early
                 if found is not None:
                     generator.set_state(found)

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.flash_spatial import distance_bias, flash_spatial_attention
-from .layers import Dense, DenseGeneral, LayerNorm, dropout, gelu
+from .layers import Dense, DenseGeneral, LayerNorm, NodeRows, dropout, gelu
 
 
 def scaled_dot_product_attention(
@@ -32,12 +32,14 @@ def scaled_dot_product_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     traffic_dtype: Optional[torch.dtype] = None,
+    dropout_rows: Optional[NodeRows] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked SDPA. q [..., Lq, H, D], k/v [..., Lk, H, D].
 
     Returns (out [..., Lq, H, D], weights [..., H, Lq, Lk]). Query rows
     with no valid key come out as zeros. ``dropout_rate > 0`` drops
-    attention weights with draws from ``generator``. ``traffic_dtype``
+    attention weights with draws from ``generator``, keyed to the graph's
+    nodes that the queries are where ``dropout_rows`` names them. ``traffic_dtype``
     (default f32) is the type the QK^T logits and the weights are stored in:
     one rounding of each, the softmax between them stays f32.
     """
@@ -55,7 +57,7 @@ def scaled_dot_product_attention(
     if key_mask is not None:
         any_key = key_mask.any(-1)[..., None, None, None]
         weights = torch.where(any_key, weights, torch.zeros((), device=weights.device))
-    weights = dropout(weights, dropout_rate, generator)
+    weights = dropout(weights, dropout_rate, generator, dropout_rows)   # the query axis
     if traffic_dtype is not None:
         weights = weights.to(traffic_dtype)
     out = torch.einsum("...hqk,...khd->...qhd", weights.to(v.dtype), v)
@@ -252,7 +254,8 @@ class SpatialAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, node_mask: torch.Tensor,
                 return_weights: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None, keys=None):
+                generator: Optional[torch.Generator] = None, keys=None,
+                rows: Optional[NodeRows] = None):
         """x [B, N, D], pos [B, N, 2], node_mask [B, N] bool. When not
         deterministic, dropout falls on the attention weights.
 
@@ -260,7 +263,8 @@ class SpatialAttention(nn.Module):
         (``parallel/sp.py``), a function taking a per-node tensor of this
         block [B, N, ...] to that of every key [B, N_k, ...]; the keys'
         projections, positions and mask go through it, and the route must be
-        dense."""
+        dense; ``rows`` (``nn.layers.NodeRows``) then names the block's nodes
+        for the dropout masks."""
         pos_enc = sinusoidal_position_encoding_2d(pos, self.embed_dim).to(x.dtype)
         h = x + self.pos_proj(pos_enc)
         heads = (self.num_heads, self.embed_dim // self.num_heads)
@@ -285,7 +289,7 @@ class SpatialAttention(nn.Module):
             ctx, weights = scaled_dot_product_attention(
                 q, k, v, bias=distance_bias(posf, kpos, self.distance_tau)[..., None, :, :],
                 key_mask=key_mask, dropout_rate=rate, generator=generator,
-                traffic_dtype=self.traffic_dtype)
+                traffic_dtype=self.traffic_dtype, dropout_rows=rows)
         out = self.out_proj(ctx.to(self.compute_dtype).flatten(-2))
         out = self.norm(x + out)
         out = out * node_mask[..., None].to(out.dtype)

@@ -42,20 +42,23 @@ from ..ops.graph import (
     symmetric_norm,
 )
 from ..ops.kernels.gather_agg import weighted_gather_sum
-from ..ops.kernels.neighbor_transpose import transpose_for_backward
-from .layers import Dense, DenseGeneral, LayerNorm, dropout, gelu
+from ..ops.kernels.neighbor_transpose import NeighborTranspose, transpose_for_backward
+from .layers import Dense, DenseGeneral, LayerNorm, NodeRows, dropout, gelu
 
 
 class Neighbors(NamedTuple):
     """Where a layer reads its neighbours' rows from. ``idx`` [B, N, K]
-    indexes the rows of ``table(t)`` [B, N_src, F] for each per-node tensor
-    t [B, N, F] the layer gathers from (masked slots outside [0, N_src));
+    indexes the rows of ``table(t)`` [B, M, F] for each per-node tensor
+    t [B, N, F] the layer gathers from (masked slots outside [0, M));
     ``norm`` is (edge_norm [B, N, K], self_norm [B, N]) of
-    :func:`symmetric_norm` over the whole graph, at these N rows."""
+    :func:`symmetric_norm` over the whole graph, at these N rows; ``nbr_t``
+    idx's transposed list over the M rows for the gathers' backwards (None:
+    they build it)."""
 
     idx: torch.Tensor
     table: Callable[[torch.Tensor], torch.Tensor]
     norm: Tuple[torch.Tensor, torch.Tensor]
+    nbr_t: Optional[NeighborTranspose] = None
 
 
 class GraphConvolution(nn.Module):
@@ -84,6 +87,7 @@ class GraphConvolution(nn.Module):
             (norm, self_norm), table = symmetric_norm(nbr_idx, nbr_mask), h
         else:
             (norm, self_norm), table, nbr_idx = nbrs.norm, nbrs.table(h), nbrs.idx
+            nbr_t = nbrs.nbr_t
         weight = norm.to(h.dtype)
         if edge_weight is not None:
             weight = weight * edge_weight.to(h.dtype)
@@ -101,9 +105,10 @@ class DynamicGraphLayer(nn.Module):
     over each node's K slots), two attention-weighted ``GraphConvolution``s,
     then residual + LayerNorm. Returns (out, attn [B, N, K, H]) when asked.
     When not deterministic, dropout falls on the attention weights and
-    between the two convolutions. With ``nbrs`` the key gather and both
-    convolutions read their neighbours through it (``nbr_idx`` is then
-    unused)."""
+    between the two convolutions, its masks keyed to the graph's nodes that
+    ``rows`` names (None: the rows themselves). With ``nbrs`` the key gather
+    and both convolutions read their neighbours through it (``nbr_idx`` is
+    then unused)."""
 
     def __init__(self, in_features: int, features: int, num_heads: int = 8,
                  edge_dim: Optional[int] = None, dropout: float = 0.0,
@@ -129,7 +134,7 @@ class DynamicGraphLayer(nn.Module):
     def forward(self, x, nbr_idx, nbr_mask, edge_attr=None,
                 return_attention: bool = False, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None, nbr_t=None,
-                nbrs: Optional[Neighbors] = None):
+                nbrs: Optional[Neighbors] = None, rows: Optional[NodeRows] = None):
         heads = (self.num_heads, self.features // self.num_heads)
         if nbrs is not None and self.band_window is not None:
             raise ValueError("a banded layer reads absolute node ids; it takes no nbrs")
@@ -138,7 +143,7 @@ class DynamicGraphLayer(nn.Module):
         q = self.q_proj(x_in).unflatten(-1, heads)                 # [B, N, H, D]
         keys = self.k_proj(x_in)
         k_nbr = (gather_neighbors(keys, nbr_idx, nbr_t) if nbrs is None      # [B, N, K, H*D]
-                 else gather_neighbors(nbrs.table(keys), nbrs.idx))
+                 else gather_neighbors(nbrs.table(keys), nbrs.idx, nbrs.nbr_t))
         scores = torch.einsum("...nhd,...nkhd->...nkh", q,
                               k_nbr.unflatten(-1, heads)).float()
         if edge_attr is not None and self.edge_k_proj is not None:
@@ -157,11 +162,11 @@ class DynamicGraphLayer(nn.Module):
         scores = scores / math.sqrt(heads[1])
         attn = masked_softmax(scores, nbr_mask[..., None], dim=-2)     # over K
         if not deterministic:
-            attn = dropout(attn, self.dropout, generator)
+            attn = dropout(attn, self.dropout, generator, rows, node_dim=-3)
         edge_weight = attn.mean(-1)                                    # [B, N, K]
         h = gelu(self.conv1(x_in, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t, nbrs))
         if not deterministic:
-            h = dropout(h, self.dropout, generator)
+            h = dropout(h, self.dropout, generator, rows)
         h = self.conv2(h, nbr_idx, nbr_mask, edge_attr, edge_weight, nbr_t, nbrs)
         out = self.norm(x_in + h)
         if return_attention:
@@ -236,7 +241,13 @@ class GraphUNet(nn.Module):
                 generator: Optional[torch.Generator] = None, nbr_t=None):
         """``nbr_t``: nbr_idx's transposed list where the caller has built it;
         the pooled levels' lists are built here, for their indices with the
-        edges pooling dropped pointed outside [0, N) (``real_edge_index``)."""
+        edges pooling dropped pointed outside [0, N) (``real_edge_index``).
+
+        A pooled level's dropout masks are keyed to its rows' nodes of the
+        first level (the selections composed, ``nn.layers.NodeRows``): two
+        nodes whose scores tie to rounding may take each other's slots in
+        another run of the same step (``parallel/sp.py``), and keep their
+        own masks."""
         rand = dict(deterministic=deterministic, generator=generator)
         if self.in_proj is not None:
             x = self.in_proj(x)
@@ -244,21 +255,25 @@ class GraphUNet(nn.Module):
         idxs, kmask, nodem, ea = nbr_idx, nbr_mask, node_mask, edge_attr
         tr = transpose_for_backward(idxs) if nbr_t is None else nbr_t
         skips, levels = [], []
+        ids, rows = None, None                # the first level's node of each row
         for d in range(self.depth):
             h = getattr(self, f"down{d}")(h, idxs, kmask & nodem[..., None], ea, **rand,
-                                          nbr_t=tr)
+                                          nbr_t=tr, rows=rows)
             skips.append(h)
             c = getattr(self, f"pool{d}")(h, nodem, idxs, kmask, ea)
             levels.append((idxs, kmask, nodem, ea, h.shape[-2],
-                           c["sel_idx"], c["node_mask"], tr))
+                           c["sel_idx"], c["node_mask"], tr, rows))
+            ids = c["sel_idx"] if ids is None else torch.gather(ids, -1, c["sel_idx"])
+            rows = NodeRows(x.shape[-2], ids=ids)
             kmask, nodem, ea = c["nbr_mask"], c["node_mask"], c["edge_attr"]
             h, idxs = c["x"], real_edge_index(c["nbr_idx"], kmask & nodem[..., None])
             tr = transpose_for_backward(idxs)
-        h = self.bottleneck(h, idxs, kmask & nodem[..., None], ea, **rand, nbr_t=tr)
+        h = self.bottleneck(h, idxs, kmask & nodem[..., None], ea, **rand, nbr_t=tr,
+                            rows=rows)
         for d in reversed(range(self.depth)):
-            idxs, kmask, nodem, ea, n_d, sel, sel_valid, tr = levels[d]
+            idxs, kmask, nodem, ea, n_d, sel, sel_valid, tr, rows = levels[d]
             h = scatter_nodes(h, sel, n_d, valid=sel_valid) + skips[d]
             h = getattr(self, f"up{d}")(h, idxs, kmask & nodem[..., None], ea, **rand,
-                                        nbr_t=tr)
+                                        nbr_t=tr, rows=rows)
         out = self.out_norm(h + x)
         return out * node_mask[..., None].to(out.dtype)

@@ -12,7 +12,12 @@
 * ``gelu`` is the tanh approximation (``flax.linen.gelu``).
 
 * ``dropout`` draws its keep mask from an explicit ``torch.Generator``
-  (``F.dropout`` takes none), so a step's draws follow from its seed.
+  (``F.dropout`` takes none), so a step's draws follow from its seed. Where
+  a tensor's node axis holds some of a graph's nodes (:class:`NodeRows`: a
+  pooled level, or a rank's node block in ``parallel/sp.py``) it draws the
+  whole graph's mask and each row takes its node's, so a mask follows its
+  node wherever the pooling puts it, and a rank drops what one process
+  drops.
 
 Parameters are created empty-valued (zeros/ones) and drawn by
 :func:`init_parameters` from an explicit ``torch.Generator`` (in f32, then
@@ -23,7 +28,7 @@ from __future__ import annotations
 
 import math
 from contextvars import ContextVar
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -96,15 +101,50 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+class NodeRows(NamedTuple):
+    """Which nodes of a graph of ``n`` nodes a tensor's node axis holds:
+    the contiguous nodes ``[lo, lo + its length)`` (``ids`` None: a rank's
+    node block) or, row by row, the nodes ``ids`` [B, its length] (a pooled
+    level's selection, as ids of the whole graph)."""
+
+    n: int
+    lo: int = 0
+    ids: Optional[torch.Tensor] = None
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+            rows: Optional[NodeRows] = None, node_dim: int = -2) -> torch.Tensor:
     """Inverted dropout: a Bernoulli(1 - rate) keep mask drawn from
     ``generator`` on x's device, survivors scaled by ``1 / (1 - rate)``.
-    Callers apply it only when training (not deterministic) and rate > 0."""
+    Callers apply it only when training (not deterministic) and rate > 0.
+
+    ``rows``: the nodes that x's ``node_dim`` axis holds (None: x's own
+    rows). The mask is then drawn at the whole graph's shape (``rows.n`` on
+    that axis), the one draw one process makes at its first level, and each
+    row takes its node's; ``ids`` index the leading axes of x up to
+    ``node_dim``."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return x * keep.to(x.dtype) / (1.0 - rate)
+    return x * _keep_mask(x, rate, generator, rows, node_dim).to(x.dtype) / (1.0 - rate)
+
+
+def _keep_mask(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+               rows: Optional[NodeRows], node_dim: int) -> torch.Tensor:
+    """:func:`dropout`'s bool keep mask at x's shape (the whole graph's draw
+    is freed on return)."""
+    if rows is None:
+        return torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    dim = node_dim % x.dim()
+    shape = list(x.shape)
+    shape[dim] = rows.n
+    whole = torch.rand(shape, generator=generator, device=x.device)
+    if rows.ids is None:
+        return whole.narrow(dim, rows.lo, x.shape[dim]) >= rate
+    if tuple(rows.ids.shape) != tuple(x.shape[:dim + 1]):
+        raise ValueError(f"node ids {tuple(rows.ids.shape)} do not index the axes "
+                         f"{tuple(x.shape[:dim + 1])} of x {tuple(x.shape)}")
+    ids = rows.ids.reshape(*rows.ids.shape, *(1,) * (x.dim() - dim - 1))
+    return torch.gather(whole, dim, ids.expand(x.shape)) >= rate
 
 
 ACTIVATIONS = {"gelu": gelu, "relu": F.relu, "silu": F.silu, "tanh": torch.tanh}

@@ -21,13 +21,14 @@ so both are bit-reproducible. ``weighted_gather_sum`` is a
 tensors over their plain versions. It takes idx's transposed list as
 ``nbr_t`` where the caller has it and builds it in its backward where not.
 
-An index outside ``[0, N)`` contributes nothing in both versions (the TPU
+An index outside ``[0, M)`` contributes nothing in both versions (the TPU
 one-hot kernel's zero row): ``dw`` is 0 there and ``dh`` gets nothing.
 
-h may hold another row count than the indices: h [B, N_src, F], idx and w
-[B, N, K] (``parallel/halo.py::sp_graph_conv`` sums over a rank's
-[local || halo] table). Such a sum is forward only, as the JAX package's
-halo tier is: its backward raises.
+h may hold another row count than the indices: h [B, M, F], idx and w
+[B, N, K] (``parallel/halo.py::sp_graph_conv`` and the layers over a node
+block sum over a rank's ``[local || halo]`` table). The backward then gives
+``dh [B, M, F]`` over the transposed list with M rows beside ``dw [B, N,
+K]``, what JAX's ``_vjp_bwd`` computes for a table of M rows.
 
 The forward is also the custom op ``dgdm::weighted_gather_sum`` (the kernel
 on CUDA tensors, the plain version on CPU tensors, the f32 output's shape on
@@ -61,14 +62,14 @@ KERNEL_BWD = CudaKernel("gather_agg_bwd", "gather_agg_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, h, idx, w
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # offsets, slots, dh, dw
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # dtype, vec?, stream
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])        # M, dtype, vec?, stream
 
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def weighted_gather_sum_plain(h: torch.Tensor, idx: torch.Tensor,
                               w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: h [B, N_src, F], idx/w [B, N, K] -> [B, N, F] f32."""
+    """Plain PyTorch version: h [B, M, F], idx/w [B, N, K] -> [B, N, F] f32."""
     return (gather_rows_plain(h, idx).float() * w[..., None]).sum(-2)
 
 
@@ -76,22 +77,23 @@ def weighted_gather_sum_bwd_plain(g: torch.Tensor, h: torch.Tensor, idx: torch.T
                                   w: torch.Tensor, nbr_t: Optional[NeighborTranspose] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward, in the kernel's form: g [B, N, F]
-    -> (dh [B, N, F] in h's dtype, each row a gather-sum of the f32 products
-    w·g over its slots of the transposed list, built here when ``nbr_t`` is
-    None, summed in f64; dw [B, N, K] f32, a dot per slot in f64), each
-    rounded once."""
+    -> (dh [B, M, F] in h's dtype, each row a gather-sum of the f32 products
+    w·g over its slots of the transposed list over h's M rows, built here
+    when ``nbr_t`` is None, summed in f64; dw [B, N, K] f32, a dot per slot
+    in f64), each rounded once."""
     b, n, k = idx.shape
+    m = h.shape[1]
     g = g.float()
-    nbr_t = neighbor_transpose_plain(idx) if nbr_t is None else nbr_t
+    nbr_t = neighbor_transpose_plain(idx, m) if nbr_t is None else nbr_t
     contrib = (w[..., None] * g[:, :, None, :]).reshape(b, n * k, -1)
-    dh = transposed_sum(nbr_t, contrib, n).to(h.dtype)
+    dh = transposed_sum(nbr_t, contrib, m).to(h.dtype)
     dw = torch.einsum("bnkf,bnf->bnk", gather_rows_plain(h, idx).double(), g.double())
     return dh, dw.float()
 
 
 def _check(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> None:
     if h.dim() != 3 or idx.dim() != 3 or w.shape != idx.shape:
-        raise ValueError(f"need h [B, N_src, F], idx and w [B, N, K], got "
+        raise ValueError(f"need h [B, M, F], idx and w [B, N, K], got "
                          f"{tuple(h.shape)}, {tuple(idx.shape)}, {tuple(w.shape)}")
     if idx.shape[0] != h.shape[0]:
         raise ValueError(f"idx {tuple(idx.shape)} does not match h {tuple(h.shape)}")
@@ -144,38 +146,39 @@ def weighted_gather_sum_bwd(g: torch.Tensor, h: torch.Tensor, idx: torch.Tensor,
                             w: torch.Tensor, need_dh: bool = True, need_dw: bool = True,
                             nbr_t: Optional[NeighborTranspose] = None
                             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """(dh, dw) of ``weighted_gather_sum`` for the cotangent g [B, N, F] f32,
-    by the CUDA kernel in one launch; a half that is not needed is skipped
-    and comes back as None. All tensors contiguous, on one CUDA device.
-    ``nbr_t`` is idx's transposed list, built here when None and dh is
-    needed. Both halves are summed in a fixed order: bit-identical from run
-    to run."""
+    """(dh [B, M, F], dw [B, N, K]) of ``weighted_gather_sum`` over the table
+    h [B, M, F] for the cotangent g [B, N, F] f32, by the CUDA kernel in one
+    launch; a half that is not needed is skipped and comes back as None. All
+    tensors contiguous, on one CUDA device. ``nbr_t`` is idx's transposed
+    list over M rows, built here when None and dh is needed. Both halves
+    are summed in a fixed order: bit-identical from run to run."""
     _check(h, idx, w)
-    if h.shape[1] != idx.shape[1]:
-        raise ValueError("weighted_gather_sum_bwd takes a square table (N_src = N)")
-    if g.shape != h.shape or g.dtype != torch.float32 or g.device != h.device:
-        raise ValueError(f"need f32 g {tuple(h.shape)} on {h.device}, got "
+    b, m, f = h.shape
+    n, k = idx.shape[1:]
+    if g.shape != (b, n, f) or g.dtype != torch.float32 or g.device != h.device:
+        raise ValueError(f"need f32 g {(b, n, f)} on {h.device}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     if h.device.type != "cuda":
         raise ValueError("weighted_gather_sum_bwd runs on CUDA tensors")
     if not all(t.is_contiguous() for t in (g, h, idx, w)):
         raise ValueError("weighted_gather_sum_bwd needs contiguous g, h, idx and w")
-    b, n, f = h.shape
-    k = idx.shape[-1]
+    if max(b * n, b * m) >= 2 ** 31:
+        raise ValueError(f"weighted_gather_sum_bwd takes B * N and B * M below 2^31, got "
+                         f"{b * n} and {b * m}")
     dh = torch.empty_like(h) if need_dh else None
     dw = torch.empty((b, n, k), dtype=torch.float32, device=h.device) if need_dw else None
     if need_dh:
         if nbr_t is None:
-            nbr_t = neighbor_transpose(idx)
-        check_transpose(nbr_t, idx)
-    if (need_dh or need_dw) and b * n > 0:
+            nbr_t = neighbor_transpose(idx, m)
+        check_transpose(nbr_t, idx, m)
+    if (need_dh and b * m > 0) or (need_dw and b * n > 0):
         def ptr(t):
             return None if t is None else t.data_ptr()
         offsets, slots = (None, None) if nbr_t is None else nbr_t
         vec = rows_aligned(f, h, *([] if dh is None else [dh])) and g.data_ptr() % 16 == 0
         with torch.cuda.device(h.device):
             KERNEL_BWD.launch(g.data_ptr(), h.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                              ptr(offsets), ptr(slots), ptr(dh), ptr(dw), b, n, k, f,
+                              ptr(offsets), ptr(slots), ptr(dh), ptr(dw), b, n, k, f, m,
                               dtype_code(h.dtype), int(vec),
                               torch.cuda.current_stream().cuda_stream)
     return dh, dw
@@ -196,9 +199,6 @@ class _WeightedGatherSum(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         h, idx, w, offsets, slots = ctx.saved_tensors
-        if h.shape[1] != idx.shape[1]:
-            raise RuntimeError("a sum over a table of another row count (the halo tier) is "
-                               "forward only")
         nbr_t = None if offsets is None else NeighborTranspose(offsets, slots)
         need_dh, need_dw = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
         if g.device.type == "cpu":
@@ -214,9 +214,9 @@ def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                         nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n] = Σ_k w[b, n, k] · h[b, idx[b, n, k]]``: the CUDA kernels
     (forward and backward) for CUDA tensors, the plain versions for CPU
-    tensors. h [B, N_src, F] bf16|f16|f32, idx and w [B, N, K] -> [B, N, F] f32 (forward
-    only where N_src != N). ``nbr_t``: idx's transposed list for the
-    backward, where the caller has it. Under ``torch.export`` it is the op
+    tensors. h [B, M, F] bf16|f16|f32, idx and w [B, N, K] -> [B, N, F] f32.
+    ``nbr_t``: idx's transposed list over M rows for the backward, where the
+    caller has it. Under ``torch.export`` it is the op
     ``dgdm::weighted_gather_sum``, forward only."""
     _check(h, idx, w)
     if h.device.type not in ("cpu", "cuda"):
@@ -225,5 +225,5 @@ def weighted_gather_sum(h: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         return weighted_gather_sum_op(h, idx, w)
     offsets, slots = (None, None) if nbr_t is None else nbr_t
     if nbr_t is not None:
-        check_transpose(nbr_t, idx)
+        check_transpose(nbr_t, idx, h.shape[1])
     return _WeightedGatherSum.apply(h, idx, w, offsets, slots)

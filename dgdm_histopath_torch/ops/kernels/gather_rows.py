@@ -23,10 +23,12 @@ An index outside ``[0, N)`` gives a zero row in both versions (the TPU
 one-hot kernel's result), where ``take_along_axis`` would clamp; in the
 backward it adds nothing.
 
-The source may hold another row count than the indices: src [B, N_src, F]
-and idx [B, N, K] (the halo tier's gathers, ``parallel/halo.py``). Such a
-rectangular gather is forward only, as the JAX package's halo tier is: its
-backward raises.
+The source may hold another row count than the indices: src [B, M, F] and
+idx [B, N, K] (the halo tier's gathers, ``parallel/halo.py``: a rank's
+``[local || halo]`` table, and the local rows it sends). The backward of
+such a rectangular gather gives ``dsrc [B, M, F]`` over the transposed list
+with M rows; the TPU kernel is square only, and JAX differentiates the halo
+tier's ``take_along_axis`` with XLA's autodiff.
 
 The forward is also the custom op ``dgdm::gather_rows`` (the kernel on a
 CUDA tensor, the plain version on a CPU tensor, the output's shape on a fake
@@ -57,7 +59,7 @@ KERNEL = CudaKernel("gather_rows", "gather_rows_launch", [
 KERNEL_BWD = CudaKernel("gather_rows_bwd", "gather_rows_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # g, offsets, slots, out
     ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, F
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])                        # dtype, vec?, stream
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])        # M, dtype, vec?, stream
 
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -102,14 +104,16 @@ def transposed_sum(nbr_t: NeighborTranspose, rows: torch.Tensor, n: int) -> torc
 
 
 def gather_rows_bwd_plain(idx: torch.Tensor, g: torch.Tensor,
-                          nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
+                          nbr_t: Optional[NeighborTranspose] = None,
+                          m: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the backward, in the kernel's gather form:
-    idx [B, N, K], g [B, N, K, F] -> dsrc [B, N, F] in g's dtype, each row
-    summed in f64 over its slots of the transposed list (built here when
-    ``nbr_t`` is None) and rounded once through f32."""
+    idx [B, N, K], g [B, N, K, F] -> dsrc [B, M, F] (M = ``m``, default N) in
+    g's dtype, each row summed in f64 over its slots of the transposed list
+    (built here when ``nbr_t`` is None) and rounded once through f32."""
     b, n, k, f = g.shape
-    nbr_t = neighbor_transpose_plain(idx) if nbr_t is None else nbr_t
-    return transposed_sum(nbr_t, g.reshape(b, n * k, f), n).to(g.dtype)
+    m = n if m is None else m
+    nbr_t = neighbor_transpose_plain(idx, m) if nbr_t is None else nbr_t
+    return transposed_sum(nbr_t, g.reshape(b, n * k, f), m).to(g.dtype)
 
 
 def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
@@ -163,11 +167,13 @@ def rows_aligned(f: int, *tensors: torch.Tensor) -> bool:
 
 
 def gather_rows_bwd(idx: torch.Tensor, g: torch.Tensor,
-                    nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
+                    nbr_t: Optional[NeighborTranspose] = None,
+                    m: Optional[int] = None) -> torch.Tensor:
     """``dsrc[b, m] = Σ_{(n,k): idx[b,n,k]=m} g[b, n, k]`` by the CUDA kernel,
     one launch. idx [B, N, K] int32, g [B, N, K, F] bf16|f16|f32, both contiguous
-    CUDA tensors -> [B, N, F] in g's dtype (a sum past f16's range is inf, as
-    the TPU kernel's f32 sum cast to f16 is). ``nbr_t`` is idx's transposed list
+    CUDA tensors -> [B, M, F] (M = ``m``, the forward table's rows, default N)
+    in g's dtype (a sum past f16's range is inf, as the TPU kernel's f32 sum
+    cast to f16 is). ``nbr_t`` is idx's transposed list over M rows
     (``neighbor_transpose``), built here when None. The sums run in a fixed
     order: the result is bit-identical from run to run."""
     if g.dim() != 4 or g.shape[:3] != idx.shape or g.dtype not in DTYPES:
@@ -177,16 +183,17 @@ def gather_rows_bwd(idx: torch.Tensor, g: torch.Tensor,
         raise ValueError("gather_rows_bwd needs g and int32 idx on one CUDA device")
     if not (g.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_rows_bwd needs contiguous g and idx")
-    if nbr_t is None:
-        nbr_t = neighbor_transpose(idx)
-    check_transpose(nbr_t, idx)
     b, n, k, f = g.shape
-    out = torch.empty((b, n, f), dtype=g.dtype, device=g.device)
+    m = n if m is None else int(m)
+    if nbr_t is None:
+        nbr_t = neighbor_transpose(idx, m)
+    check_transpose(nbr_t, idx, m)
+    out = torch.empty((b, m, f), dtype=g.dtype, device=g.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(g.device):
         KERNEL_BWD.launch(g.data_ptr(), nbr_t.offsets.data_ptr(), nbr_t.slots.data_ptr(),
-                          out.data_ptr(), b, n, k, f, dtype_code(g.dtype),
+                          out.data_ptr(), b, n, k, f, m, dtype_code(g.dtype),
                           int(rows_aligned(f, g, out)), torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -198,7 +205,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, idx, offsets, slots):
         ctx.save_for_backward(idx, offsets, slots)
-        ctx.square = src.shape[1] == idx.shape[1]
+        ctx.rows = src.shape[1]
         if src.device.type == "cpu":
             return gather_rows_plain(src, idx)
         return _launch_fwd(src, idx)
@@ -206,22 +213,20 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        if not ctx.square:
-            raise RuntimeError("a gather from a table of another row count (the halo tier) "
-                               "is forward only")
         idx, offsets, slots = ctx.saved_tensors
         nbr_t = None if offsets is None else NeighborTranspose(offsets, slots)
         bwd = gather_rows_bwd_plain if g.device.type == "cpu" else gather_rows_bwd
-        return bwd(idx, g.contiguous(), nbr_t), None, None, None
+        return bwd(idx, g.contiguous(), nbr_t, ctx.rows), None, None, None
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor,
                 nbr_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``out[b, n, k] = src[b, idx[b, n, k]]``: the CUDA kernels (forward and
     backward) for a CUDA tensor, the plain versions for a CPU tensor.
-    src [B, N_src, F] bf16|f16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's
-    dtype (forward only where N_src != N).
-    ``nbr_t``: idx's transposed list for the backward, where the caller has it.
+    src [B, M, F] bf16|f16|f32, idx [B, N, K] int32 -> [B, N, K, F] in src's
+    dtype; its backward gives [B, M, F].
+    ``nbr_t``: idx's transposed list over M rows for the backward, where the
+    caller has it.
     Under ``torch.export`` it is the op ``dgdm::gather_rows``, forward only."""
     _check(src, idx)
     if src.device.type not in ("cpu", "cuda"):
@@ -230,5 +235,5 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor,
         return gather_rows_op(src, idx)
     offsets, slots = (None, None) if nbr_t is None else nbr_t
     if nbr_t is not None:
-        check_transpose(nbr_t, idx)
+        check_transpose(nbr_t, idx, src.shape[1])
     return _GatherRows.apply(src, idx, offsets, slots)

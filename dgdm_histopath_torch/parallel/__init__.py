@@ -1,9 +1,11 @@
 """The parallel tiers over ``torch.distributed`` (counterpart of the JAX
 package's ``parallel/``): the mesh and its collectives, data parallelism
 and the explicit-collective step, tensor parallelism over ``model``, expert
-parallelism over ``expert``, node sharding with the halo exchange and the
-model forward over node-sharded inputs, the GPipe encoder over ``pipe``, and
-the multichip dry run."""
+parallelism over ``expert``, node sharding with the (differentiable) halo
+exchange and the model over node-sharded inputs, forward and training
+(``sp_forward``, ``sp_pretrain_step``; the trainer's
+``training_step(block, epoch, prepared=True, plan=plan)``), the GPipe
+encoder over ``pipe``, and the multichip dry run."""
 
 from .dryrun import dryrun_multichip
 from .ep import EXPERT_AXIS, count_expert_sharded, ep_param_specs, ep_size, place_experts
@@ -39,7 +41,8 @@ from .pp import (
     stack_layer_params,
     unstack_layer_params,
 )
-from .sp import constrain_nodes, level_sizes, node_sharding, shard_graph_nodes, sp_forward
+from .sp import (constrain_nodes, level_sizes, node_sharding, shard_graph_nodes, sp_forward,
+                 sp_pretrain_step)
 from .spmd_step import hierarchical_pmean, make_spmd_train_step
 from .tp import describe_sharding, place_state_tp, shard_tree_like, tp_param_specs, tp_size
 
@@ -52,5 +55,6 @@ __all__ = ["DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "PIPE_AXIS", "Axis", "HaloP
            "pad_batch_to_devices", "permute_graph", "pipe_size", "place_experts",
            "place_state_tp", "pp_bubble_fraction", "pp_graph_encoder_apply",
            "replicate_tree", "shard_batch", "shard_graph_nodes", "shard_tree_like",
-           "sp_forward", "sp_graph_conv", "spatial_permutation", "spatial_sort",
+           "sp_forward", "sp_graph_conv", "sp_pretrain_step", "spatial_permutation",
+           "spatial_sort",
            "stack_layer_params", "tp_param_specs", "tp_size", "unstack_layer_params"]

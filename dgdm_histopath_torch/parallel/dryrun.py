@@ -206,7 +206,7 @@ def _sp_check(batch, block, plan, mesh, device) -> tuple:
     model = _model("float32").to(device).eval()
     with torch.no_grad():
         ref = model(batch.to(device))["classification_logits"]
-    got = sp_forward(model, block.to(device), plan, mesh)["classification_logits"]
+        got = sp_forward(model, block.to(device), plan, mesh)["classification_logits"]
     if not torch.isfinite(got).all():
         raise AssertionError("sp_forward logits are not finite")
     rows = got.shape[0]

@@ -16,7 +16,13 @@ JAX package's ``parallel/halo.py``).
    ``n_loc`` query rows. Both gathers are the ``gather_rows`` kernel with a
    rectangular source on CUDA tensors (its plain version on CPU ones);
    ``sp_graph_conv``'s message sum is ``weighted_gather_sum`` over the same
-   table. Like the JAX tier it is forward only.
+   table. Everything is differentiable, as JAX's tier is under ``jax.grad``:
+   the exchange is ``mesh.all_to_all``, whose backward sends each halo row's
+   cotangent back to its owner, and the outgoing gather's backward (a
+   rectangular table of ``n_loc`` rows, ``[b, tp, H]`` slots) adds it into
+   the local rows. The plan pads ``send_idx`` with row 0; those halo rows
+   are never read, so their cotangents are exact zeros and row 0's sum
+   stays exact.
 
 A rank passes its own block (``parallel.sp.shard_graph_nodes``); the plan
 is the whole batch's, and each rank reads its part of it.
@@ -33,7 +39,8 @@ import torch.nn.functional as F
 from ..ops.graph import PaddedGraph, morton_keys
 from ..ops.kernels.gather_agg import weighted_gather_sum
 from ..ops.kernels.gather_rows import gather_rows
-from .mesh import MODEL_AXIS, Axis, Mesh
+from ..ops.kernels.neighbor_transpose import NeighborTranspose
+from .mesh import MODEL_AXIS, Axis, Mesh, all_to_all
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +195,16 @@ def local_plan(plan: HaloPlan, mesh: Mesh, batch_sharded: bool = True,
             torch.from_numpy(np.ascontiguousarray(idx)).to(device))
 
 
-def halo_table(x: torch.Tensor, send: torch.Tensor, axis: Axis) -> torch.Tensor:
+def halo_table(x: torch.Tensor, send: torch.Tensor, axis: Axis,
+               send_t: Optional[NeighborTranspose] = None) -> torch.Tensor:
     """``[x_local || halo]``: the rows this rank ships (``send`` [b, tp, H],
     one rectangular gather from its ``n_loc`` rows), exchanged over ``axis``
-    by one all-to-all, appended to its own rows -> [b, n_loc + tp·H, F]."""
+    by one all-to-all, appended to its own rows -> [b, n_loc + tp·H, F].
+    Differentiable; ``send_t`` is send's transposed list over the ``n_loc``
+    rows for the gather's backward, where the caller has it."""
     b, _, f = x.shape
-    rows = gather_rows(x.contiguous(), send)               # [b, tp, H, F]
-    recv = axis.all_to_all(rows, dim=1)                   # [b, tp (senders), H, F]
+    rows = gather_rows(x.contiguous(), send, send_t)       # [b, tp, H, F]
+    recv = all_to_all(rows, axis, dim=1)                  # [b, tp (senders), H, F]
     return torch.cat([x, recv.reshape(b, -1, f)], dim=1).contiguous()
 
 

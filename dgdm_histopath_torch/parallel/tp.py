@@ -30,6 +30,15 @@ it a ``TPDense``):
 Every rank of a ``model`` line holds the same activations and the same loss
 (the rows of its data index), so those four collectives are the
 replicated-loss conjugate pairs of ``mesh.py``, not its summed adjoints.
+
+A step over node-sharded inputs (``parallel/sp.py``) breaks that premise:
+the ranks of a line hold different node blocks. Inside
+:func:`whole_weights` each ``TPDense`` computes as the plain ``Dense`` of
+its whole weight, all-gathered over the line with the summed-loss gradient
+(``mesh.all_gather``): the backward sums the whole weight's gradient over
+the line and keeps this rank's shard. The optimizer state, ``state_dict()``
+and checkpoints stay as they are; JAX gets both layouts at once from
+GSPMD.
 Each rank keeps only its shards of the parameters, and AdamW, built over
 them, only its shards of the moments. The gradients of replicated
 parameters are equal on every rank of the line; the trainer broadcasts
@@ -41,20 +50,37 @@ each replicated leaf once (``grad_norm``). Checkpoints hold whole tensors
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from contextlib import contextmanager
+from contextvars import ContextVar
+from typing import Any, Dict, Iterator, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import Dense
-from .mesh import (MODEL_AXIS, Axis, Mesh, copy_to_line, gather_from_line, reduce_from_line,
-                   scatter_to_line)
+from .mesh import (MODEL_AXIS, Axis, Mesh, all_gather, copy_to_line, gather_from_line,
+                   reduce_from_line, scatter_to_line)
 
 COLUMN = (None, MODEL_AXIS)     # a [in, out] kernel sharded on out
 ROW = (MODEL_AXIS, None)        # ... on in
 SHARDED_BIAS = (MODEL_AXIS,)
 REPLICATED = ()
+
+# set inside ``whole_weights``: every TPDense computes with its whole weight
+_WHOLE: ContextVar[bool] = ContextVar("tp_whole_weights", default=False)
+
+
+@contextmanager
+def whole_weights() -> Iterator[None]:
+    """Each ``TPDense`` called inside computes as the plain ``Dense`` of its
+    whole weight, gathered over its line for the call (a gradient summed
+    over the line, cut to this rank's shard)."""
+    token = _WHOLE.set(True)
+    try:
+        yield
+    finally:
+        _WHOLE.reset(token)
 
 
 def tp_size(mesh: Mesh) -> int:
@@ -214,6 +240,13 @@ class TPDense(Dense):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if _WHOLE.get():
+            column = self.kind == "column"
+            weight = all_gather(self.weight, self.axis, 0 if column else 1)
+            bias = self.bias
+            if bias is not None and column:
+                bias = all_gather(bias, self.axis, 0)
+            return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
         bias = None if self.bias is None else self.bias.to(dt)
         if self.kind == "column":
             y = F.linear(copy_to_line(x.to(dt), self.axis), self.weight.to(dt), bias)
@@ -312,5 +345,6 @@ def optimizer_bytes(optimizer: torch.optim.Optimizer) -> int:
 __all__ = ["COLUMN", "MODEL_AXIS", "REPLICATED", "ROW", "SHARDED_BIAS", "TPDense",
            "describe_sharding", "flatten_specs", "gather_state", "grad_norm", "model_layout",
            "nest", "optimizer_bytes", "param_bytes", "place_state_tp", "shard_state",
-           "shard_tree_like", "tp_param_specs", "tp_size", "unify_replicated"]
+           "shard_tree_like", "tp_param_specs", "tp_size", "unify_replicated",
+           "whole_weights"]
 

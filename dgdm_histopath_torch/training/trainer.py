@@ -61,6 +61,19 @@ and the clip's norm counts each sharded leaf's squares once over the line.
 neither ``data`` nor ``model`` (``expert``, ``pipe``) leaves the parameters
 replicated, as the JAX trainer does: its ranks compute replicas.
 
+Node sharding (``training_step(block, epoch, prepared=True, plan=plan)``
+over a ``(data, model)`` mesh, ``parallel/sp.py``): each rank trains on its
+node block of its data rows, with the whole batch's halo plan. Per-node
+losses are the rank's sums over the whole counts (``sp.line_mean``), a
+graph-level loss (InfoNCE over the line-gathered embeddings, the heads'
+losses on the readout) is shared by the ranks of the line, and the
+replicated parameters' gradients and the metrics are summed over the line
+by one all-reduce; under a tensor-parallel layout the sharded kernels
+compute whole (``tp.whole_weights``) and their gradients come back summed
+and cut to the shards before the clip. The draws are the whole graphs'
+(cut to the block by ``parallel/sp.py``), so a step equals one process's on
+the whole batch, the data-parallel one's under a data axis above 1.
+
 Randomness: the trainer owns one ``torch.Generator`` on its device and
 reseeds it from ``(seed, step)`` at the start of each step, so a run that
 resumes at step ``s`` replays the draws of step ``s``. Nothing reads the
@@ -95,8 +108,10 @@ from ..models.dgdm import DGDMModel
 from ..nn.layers import init_parameters
 from ..nn.moe import local_mean, routing_group
 from ..ops.graph import PaddedGraph, band_eligible, in_band_fraction
-from ..parallel.mesh import (MODEL_AXIS, Mesh, align_node_batches, make_mesh,
+from ..parallel.mesh import (MODEL_AXIS, Mesh, align_node_batches, all_gather, make_mesh,
                              pad_batch_to_devices, replicate_tree, shard_batch, shard_rows)
+from ..parallel.halo import HaloPlan
+from ..parallel.sp import line_mean, sp_forward, sp_pretrain_step, whole_node_mask
 from ..parallel.tp import (describe_sharding, gather_state, grad_norm, nest, place_state_tp,
                            shard_state, tp_size, unify_replicated)
 from ..utils.config import DGDMConfig
@@ -496,25 +511,47 @@ class DGDMTrainer:
     def _mean(self):
         return self._dp.mean if self._dp else local_mean
 
-    def _pretrain_losses(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]]
+    def _line_mean(self):
+        """The batch mean over a node block: counts over the model line, then
+        over the data ranks."""
+        return line_mean(self.mesh.axis(MODEL_AXIS), self._mean())
+
+    def _replicas(self, plan: Optional[HaloPlan]) -> int:
+        """The ranks that compute a graph-level loss alike: the data ranks
+        (the global batch's loss, gathered) times, over node blocks, the
+        model line."""
+        return ((self._dp.size if self._dp else 1)
+                * (self.mesh.axis(MODEL_AXIS).size if plan is not None else 1))
+
+    def _pretrain_losses(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]],
+                         plan: Optional[HaloPlan] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         draws = draws or {}
         cfg = self.config
-        out = self.model.pretrain_step(
-            batch, mask_ratio=cfg.masking_ratio, deterministic=False,
-            generator=self.dropout_generator, masked=draws.get("masked"), t=draws.get("t"),
-            noise=draws.get("noise"), batch_mean=self._mean(),
-            moe_group_size=self._moe_group)
+        given = dict(mask_ratio=cfg.masking_ratio, deterministic=False,
+                     generator=self.dropout_generator, masked=draws.get("masked"),
+                     t=draws.get("t"), noise=draws.get("noise"))
+        if plan is None:
+            out = self.model.pretrain_step(batch, **given, batch_mean=self._mean(),
+                                           moe_group_size=self._moe_group)
+            emb, node_mask = out["node_embeddings"], batch.node_mask
+        else:
+            # per-node sums over the counts of the whole line and data batch
+            out = sp_pretrain_step(self.model, batch, plan, self.mesh, **given,
+                                   batch_mean=self._line_mean())
+            # InfoNCE over the line's embeddings: every rank of the line alike
+            emb = all_gather(out["node_embeddings"], self.mesh.axis(MODEL_AXIS), 1)
+            node_mask = whole_node_mask(batch, self.mesh)
         metrics = {"diffusion_loss": out["diffusion_loss"],
                    "reconstruction_loss": out["reconstruction_loss"]}
         loss = out["diffusion_loss"] + cfg.reconstruction_weight * out["reconstruction_loss"]
         if cfg.use_contrastive_loss:
-            closs = contrastive_loss(out["node_embeddings"], batch.node_mask,
-                                     cfg.contrastive_temperature,
+            closs = contrastive_loss(emb, node_mask, cfg.contrastive_temperature,
                                      uniform=draws.get("uniform"), generator=self.generator,
                                      gather=self._dp.gather if self._dp else None)
-            if self._dp:              # every rank holds the whole loss: a share each
-                closs = closs / self._dp.size
+            # every rank of the data axis (and of a node block's line) holds
+            # the whole loss: a share each
+            closs = closs / self._replicas(plan)
             metrics["contrastive_loss"] = closs
             loss = loss + closs
         if "moe_aux_loss" in out:
@@ -523,10 +560,13 @@ class DGDMTrainer:
         metrics["loss"] = loss
         return loss, metrics
 
-    def _heads(self, out: Dict[str, Any], batch: PaddedGraph) -> Dict[str, torch.Tensor]:
+    def _heads(self, out: Dict[str, Any], batch: PaddedGraph,
+               node_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The head outputs, labels and graph validity that the finetune
-        losses read, gathered over the ranks under data parallelism."""
-        heads = {"valid": batch.node_mask.any(-1).float(), "y": batch.y}
+        losses read, gathered over the ranks under data parallelism.
+        ``node_mask``: the whole graphs' (default the batch's)."""
+        node_mask = batch.node_mask if node_mask is None else node_mask
+        heads = {"valid": node_mask.any(-1).float(), "y": batch.y}
         if self.task == "classification":
             heads["logits"] = out["classification_logits"].float()
         elif self.task == "regression":
@@ -537,15 +577,21 @@ class DGDMTrainer:
             heads = {k: self._dp.gather(v) for k, v in heads.items()}
         return heads
 
-    def _finetune_losses(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]]
+    def _finetune_losses(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]],
+                         plan: Optional[HaloPlan] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         if batch.y is None:
             # unlabeled fallback: keep optimizing the self-supervised objective
-            return self._pretrain_losses(batch, draws)
-        out = self.model(batch, mode="finetune", deterministic=False,
-                         generator=self.dropout_generator, batch_mean=self._mean(),
-                         moe_group_size=self._moe_group)
-        h = self._heads(out, batch)
+            return self._pretrain_losses(batch, draws, plan)
+        if plan is None:
+            out = self.model(batch, mode="finetune", deterministic=False,
+                             generator=self.dropout_generator, batch_mean=self._mean(),
+                             moe_group_size=self._moe_group)
+            h = self._heads(out, batch)
+        else:
+            out = sp_forward(self.model, batch, plan, self.mesh, mode="finetune",
+                             deterministic=False, generator=self.dropout_generator)
+            h = self._heads(out, batch, whole_node_mask(batch, self.mesh))
         valid, denom = h["valid"], h["valid"].sum().clamp_min(1.0)
         if self.task == "classification":
             labels = h["y"].long()
@@ -563,8 +609,8 @@ class DGDMTrainer:
             metrics = {"loss": loss, "survival_loss": loss}
         else:
             raise ValueError(f"finetune requires a task; got {self.task!r}")
-        if self._dp:                  # every rank holds the global loss: a share each
-            metrics = {k: v / self._dp.size for k, v in metrics.items()}
+        if self._replicas(plan) > 1:  # every rank holds the global loss: a share each
+            metrics = {k: v / self._replicas(plan) for k, v in metrics.items()}
             loss = metrics["loss"]
         if "moe_aux_loss" in out:
             metrics["moe_aux_loss"] = out["moe_aux_loss"]
@@ -597,12 +643,15 @@ class DGDMTrainer:
         return self._dp.nodes if self._dp else 1
 
     def _global_draws(self, batch: PaddedGraph, draws: Optional[Dict[str, torch.Tensor]],
-                      contrastive: bool) -> Dict[str, torch.Tensor]:
+                      contrastive: bool, nodes: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
         """This rank's rows of the pretrain draws, drawn at the global shape
         in the order the single-process path draws them (where the caller
-        does not give them; given draws may lack the filler rows)."""
+        does not give them; given draws may lack the filler rows). ``nodes``:
+        the whole graphs' node count where ``batch`` is a node block; the
+        draws then keep every node, for the block's functions to cut."""
         dp, gen = self._dp, self.generator
-        b, n = batch.node_mask.shape
+        b, n = batch.node_mask.shape[0], nodes or batch.node_mask.shape[1]
         bg, dev = b * dp.size, batch.x.device
         given = {}
         for key, v in (draws or {}).items():
@@ -622,7 +671,8 @@ class DGDMTrainer:
         if contrastive and "uniform" not in given and n > CONTRASTIVE_NODES:
             given["uniform"] = torch.rand((bg, n), generator=gen, device=dev)
         local = {k: shard_rows(v, dp) for k, v in given.items()}
-        local["masked"] = local["masked"] & batch.node_mask
+        if nodes is None:
+            local["masked"] = local["masked"] & batch.node_mask
         return local
 
     def _set_moe_group(self, batch: PaddedGraph) -> None:
@@ -676,7 +726,9 @@ class DGDMTrainer:
 
     def training_step(self, batch: PaddedGraph, epoch: Optional[int] = None,
                       materialize: bool = True,
-                      draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+                      draws: Optional[Dict[str, torch.Tensor]] = None,
+                      prepared: bool = False, plan: Optional[HaloPlan] = None
+                      ) -> Dict[str, Any]:
         """One optimization step (one mini-step with accumulation); returns
         the phase's scalar metrics and ``grad_norm`` (the global norm of the
         step's own gradient, before clipping).
@@ -688,30 +740,72 @@ class DGDMTrainer:
         batch, ``masked`` [B, N] bool, ``t`` [B], ``noise`` [B, N, hidden]
         and ``uniform`` [B, N] (the contrastive subsample scores), in place
         of the generator's.
+
+        ``prepared=True``: ``batch`` is this rank's part already. With
+        ``plan`` (``parallel.halo.build_halo_plan`` of the whole batch) it is
+        this rank's node block, ``parallel.shard_graph_nodes(batch, mesh)``
+        over a ``(data, model)`` mesh: the step over node-sharded inputs
+        (``parallel/sp.py``), the counterpart of JAX
+        ``training_step(shard_graph_nodes(batch, mesh), prepared=True)``. It
+        equals one process's step on the whole batch (under data parallelism,
+        the data-parallel step's): the draws are the whole graphs' cut to the
+        block (the dropout masks too, each row taking its node's, at the
+        pooled levels as well: ``nn.layers.NodeRows``), per-node losses are this rank's
+        sums over the whole counts, a graph-level loss is shared by the
+        ranks of the line, and the gradients are summed over the line
+        (under tensor parallelism the sharded kernels computed whole, their
+        gradients cut back to the shards before the clip).
         """
+        if plan is not None:
+            if not prepared:
+                raise ValueError("a halo plan goes with a node block: pass prepared=True and "
+                                 "parallel.shard_graph_nodes(batch, mesh)")
+            return self._step(batch.to(self.device), epoch, materialize, draws, plan)
+        if prepared:
+            return self._step(batch.to(self.device), epoch, materialize, draws)
         batch = self._shard(batch, node=True).to(self.device)
         if self._nodes > 1:
             batch = align_node_batches(batch, None, self._dp)
         return self._step(batch, epoch, materialize, draws)
 
+    def _sum_line(self, grads: list, values: torch.Tensor) -> torch.Tensor:
+        """Over node blocks: the replicated parameters' gradients (in place)
+        and the metrics' shares summed over the model line in one all-reduce
+        (the sharded kernels' gradients are summed by their gather's
+        backward); returns the summed ``values``."""
+        line = self.mesh.axis(MODEL_AXIS)
+        rep = [g for g, s in zip(grads, self._sharded) if not s]
+        flat = line.all_reduce_(torch.cat([g.reshape(-1) for g in rep] + [values]))
+        offset = 0
+        for g in rep:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[offset:]
+
     def _step(self, batch: PaddedGraph, epoch: Optional[int], materialize: bool,
-              draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
-        """``training_step`` on this rank's rows, on the device."""
+              draws: Optional[Dict[str, torch.Tensor]] = None,
+              plan: Optional[HaloPlan] = None) -> Dict[str, Any]:
+        """``training_step`` on this rank's rows (or node block, with
+        ``plan``), on the device."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
         epoch = self.current_epoch if epoch is None else epoch
         pretrain = self.phase_for_epoch(epoch) == "pretrain"
         loss_fn = self._pretrain_losses if pretrain else self._finetune_losses
         self.generator.manual_seed(_fold(self.seed, self.step))
+        nodes = None if plan is None else plan.n_local * plan.tp
         if self._dp:
             self.dropout_generator.manual_seed(
                 _fold(_fold(self.seed, self.step), 1 + self._dp.rank))
             self._set_moe_group(batch)
             if pretrain or batch.y is None:
-                draws = self._global_draws(batch, draws, self.config.use_contrastive_loss)
+                draws = self._global_draws(batch, draws, self.config.use_contrastive_loss,
+                                           nodes)
+        elif draws is not None:
+            draws = {k: v.to(self.device) for k, v in draws.items()}
 
         self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(batch, draws)
+        loss, metrics = loss_fn(batch, draws, plan)
         loss.float().backward()
         for p in self.params:               # unreached parameters still decay
             if p.grad is None:
@@ -719,7 +813,9 @@ class DGDMTrainer:
         grads = [p.grad for p in self.params]
         names = sorted(metrics)             # in key order, as the reference returns them
         values = torch.stack([metrics[k].detach().float() for k in names])
-        if self._tp is not None:
+        if plan is not None:
+            values = self._sum_line(grads, values)
+        elif self._tp is not None:
             # the replicas of a model line stay equal to the bit
             unify_replicated(grads, self._sharded, self._tp)
         if self._dp:

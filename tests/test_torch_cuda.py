@@ -134,8 +134,10 @@ RECT_SHAPES = [(32, 512, 8, 128, 620), (32, 2, 57, 128, 512), (3, 100, 5, 24, 37
 def test_rectangular_gathers_match_plain_on_card(cuda_device, dtype, shape):
     """A table of N_src rows read by N rows of K slots (indices -2 ..
     N_src + 1): gather_rows bit-equal to its plain version, gather_agg
-    within 1e-5, one launch each; the backward of either raises (the halo
-    tier is forward only)."""
+    within 1e-5, one launch each; the backward of each gives the table's
+    gradient [B, N_src, F] (the halo tier trains): the list over N_src rows
+    bit-equal to its plain version, dsrc and dh within 1e-5 (f32) or one ulp
+    (bf16, f16) of the plain f32 sums, dw within 1e-5."""
     b, n, k, f, n_src = shape
     g = torch.Generator(device=cuda_device).manual_seed(3)
     src = torch.randn(b, n_src, f, device=cuda_device, generator=g).to(dtype)
@@ -150,9 +152,21 @@ def test_rectangular_gathers_match_plain_on_card(cuda_device, dtype, shape):
     assert out.shape == (b, n, k, f) and torch.equal(out, gather_rows_plain(src, idx))
     torch.testing.assert_close(summed, weighted_gather_sum_plain(src, idx, w),
                                atol=1e-5, rtol=1e-5)
-    leaf = src.float().requires_grad_()
-    with pytest.raises(RuntimeError, match="forward only"):
-        gather_rows(leaf.to(dtype), idx).sum().backward()
+    nbr_t, plain_t = neighbor_transpose(idx, n_src), neighbor_transpose_plain(idx, n_src)
+    assert all(torch.equal(x, y) for x, y in zip(nbr_t, plain_t))
+    rtol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7, torch.float16: 2 ** -10}[dtype]
+    leaf, lw = src.clone().requires_grad_(), w.clone().requires_grad_()
+    cot4 = torch.randn(b, n, k, f, device=cuda_device, generator=g).to(dtype)
+    cot3 = torch.randn(b, n, f, device=cuda_device, generator=g)
+    gather_rows(leaf, idx).backward(cot4)
+    assert leaf.grad.shape == (b, n_src, f)
+    torch.testing.assert_close(leaf.grad.float(), gather_rows_bwd_plain(
+        idx, cot4.float(), plain_t, n_src), atol=1e-5, rtol=rtol)
+    leaf.grad = None
+    weighted_gather_sum(leaf, idx, lw).backward(cot3)
+    dh, dw = weighted_gather_sum_bwd_plain(cot3, src.float(), idx, w, plain_t)
+    torch.testing.assert_close(leaf.grad.float(), dh, atol=1e-5, rtol=rtol)
+    torch.testing.assert_close(lw.grad, dw, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

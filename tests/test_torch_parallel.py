@@ -19,7 +19,22 @@ forward, every pooled level's selection equal; the pipeline's outputs and
 gradients 1e-4; the expert-parallel block 2e-5 with routing equal. The
 layouts are held leaf for leaf against ``tp_param_specs`` /
 ``ep_param_specs`` on the JAX tree.
+
+Training over node-sharded inputs (``DGDMTrainer.training_step(block,
+epoch, prepared=True, plan=plan)``, 3 pretrain and 1 finetune steps of a
+2-layer tiny Base with the U-Net and the spatial attention): with dropout
+0.1 at (1, 2) against one port process and at (2, 2) against the
+data-parallel (2, 1) run (each data rank keeps a dropout stream of its own,
+as data parallelism does), the data-parallel bounds above; with the JAX
+draws and no dropout at (1, 2) and (2, 2) against one port process and
+against JAX ``training_step(shard_graph_nodes(batch, mesh), prepared=True)``
+on a (2, 2) mesh of virtual devices (loss rel 2e-4, parameters atol 2e-4).
+That JAX run compiles while the ranks work, in a thread beside the spawn.
+The gradients through ``halo_gather`` and ``sp_graph_conv``, summed over
+the ranks, 1e-5 of ``jax.grad`` of the JAX functions.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -58,7 +73,7 @@ from dgdm_histopath_torch.parallel.tp import (describe_sharding, flatten_specs, 
 from dgdm_histopath_torch.training import DGDMTrainer, TrainerConfig
 from test_torch_dp import CFG, MODEL, assert_params_close, jax_batch, single_run
 from test_torch_model import _flat
-from test_torch_training import to_torch_graph
+from test_torch_training import jax_draws, to_torch_graph
 from torch_dp_worker import spawn_ranks
 
 WORKER = "torch_parallel_worker"
@@ -81,6 +96,10 @@ SP_MODEL = {**MODEL, "graph_layers": 4, "regression_targets": 1, "survival_mode"
 SP_BUCKETS, SP_SHAPES, SP_GRAPHS = (32, 64), ((1, 4), (2, 2)), 4
 # the same with the Set2Set readout, on the 32 bucket
 SP_SET2SET = {**SP_MODEL, "pooling": "set2set"}
+# node-sharded training: the tiny Base with 2 graph layers on the 32 bucket
+SP_TRAIN = {**SP_MODEL, "graph_layers": 2}
+SP_TRAIN_EPOCHS = [0, 0, 0, 1]
+SP_TRAIN_Y = np.array([2, 0, 1, 1], np.int32)
 
 
 def spmd_batch():
@@ -151,6 +170,57 @@ def jax_halo_reference(ref):
                                                sharded.nbr_mask, plan, jmesh,
                                                edge_attr=sharded.edge_attr))
     ref["conv_state"] = params_from_flax(_flat(params))
+
+    # jax.grad through both, of sum(out * cotangent) (real nodes for the conv)
+    rs = np.random.RandomState(7)
+    gcot = rs.randn(*ref["halo_gather"].shape).astype(np.float32)
+    ccot = (rs.randn(*ref["sp"].shape) * np.asarray(batch.node_mask)[..., None]
+            ).astype(np.float32)
+    gx = jax.grad(lambda x: jnp.sum(jhalo.halo_gather(x, plan, jmesh) * gcot))(batch.x)
+
+    def conv_loss(p, x):
+        out = jhalo.sp_graph_conv(p, x, sharded.nbr_idx, sharded.nbr_mask, plan, jmesh,
+                                  edge_attr=sharded.edge_attr)
+        return jnp.sum(out * ccot)
+
+    gp, cx = jax.grad(conv_loss, argnums=(0, 1))(params["params"], sharded.x)
+    ref["halo_grads"] = {"gather_cot": torch.from_numpy(gcot), "conv_cot": torch.from_numpy(ccot),
+                         "gather_dx": np.asarray(gx), "conv_dx": np.asarray(cx),
+                         "conv_grads": params_from_flax(_flat({"params": jax.device_get(gp)}))}
+
+
+def sp_train_batch():
+    return sp_batch(32).replace(y=jnp.asarray(SP_TRAIN_Y))
+
+
+def jax_sp_train_init(ref):
+    """The JAX trainer of the node-sharded steps on a (2, 2) (data, model)
+    mesh: its initial parameters (the port's too) and the draws of its
+    pretrain steps, read back as tests/test_torch_dp.py reads them."""
+    batch = sp_train_batch()
+    jm = JaxDGDM(**SP_TRAIN, gather_impl="xla")
+    jmesh = jax_make_mesh(n_devices=4, axes=("data", "model"), shape=(2, 2))
+    jt = jtr.DGDMTrainer(jm, jtr.TrainerConfig(**CFG), mesh=jmesh)
+    state = jt.init_state(jax.random.PRNGKey(11), batch)
+    params0 = jax.device_get(state.params)
+    rng0 = jnp.asarray(np.array(state.rng))
+    draws = []
+    for step, epoch in enumerate(SP_TRAIN_EPOCHS):
+        rng = jax.random.fold_in(rng0, step)
+        rngs = {"diffusion": jax.random.fold_in(rng, 0), "masking": jax.random.fold_in(rng, 1),
+                "dropout": jax.random.fold_in(rng, 2)}
+        draws.append(jax_draws(jm, params0, batch, rngs) if epoch == 0 else None)
+    ref["sp_train"] = {"trainer": jt, "block": jax_shard_nodes(batch, jmesh),
+                       "state0": params_from_flax(_flat(params0)), "draws": draws,
+                       "batch": to_torch_graph(batch)}
+
+
+def jax_sp_train_steps(ref):
+    """JAX ``training_step(shard_graph_nodes(batch, mesh), prepared=True)``."""
+    r = ref["sp_train"]
+    jt, block = r.pop("trainer"), r.pop("block")
+    r["jax"] = [jt.training_step(block, e, prepared=True) for e in SP_TRAIN_EPOCHS]
+    r["jax_params"] = params_from_flax(_flat(jax.device_get(jt.state.params)))
 
 
 def sp_batch(n):
@@ -248,6 +318,7 @@ def par(tmp_path_factory):
         jax_sp_reference(ref)
         jax_sp_reference(ref, "s2s", SP_SET2SET, (32,))
         jax_pp_reference(ref)
+        jax_sp_train_init(ref)
 
     # the port's full model for the pretrain scenarios: seeded parameters
     model0 = init_parameters(DGDMModel(**MODEL), torch.Generator().manual_seed(3))
@@ -283,6 +354,16 @@ def par(tmp_path_factory):
         return {"module": WORKER, "job": "tp_steps", "shape": shape, "model": model,
                 "state": state, "steps": steps, "config": config, **kw}
 
+    st = ref["sp_train"]
+    sp_plan = halo.build_halo_plan(st["batch"].nbr_idx, st["batch"].nbr_mask, 2)
+    dropout_steps = [(e, None) for e in SP_TRAIN_EPOCHS]
+    jax_steps = list(zip(SP_TRAIN_EPOCHS, st["draws"]))
+
+    def sp_train(shape, steps, dropout, plan=sp_plan, **kw):
+        return {"module": WORKER, "job": "sp_train", "shape": shape, "batch": st["batch"],
+                "plan": plan, "steps": steps, "model": {**SP_TRAIN, "dropout": dropout},
+                "state": st["state0"], "config": CFG, **kw}
+
     specs = {
         "tp22_pretrain": tp((2, 2), MODEL, state0, pre_steps, CFG, validate=[(t4, 0), (t4, 1)]),
         "tp22_spmd": tp((2, 2), SPMD_MODEL, ref["spmd_state0"], spmd_steps, SPMD_CFG),
@@ -301,6 +382,12 @@ def par(tmp_path_factory):
         "sp_set2set": {"module": WORKER, "job": "sp_model", "model": SP_SET2SET,
                        "state": ref["s2s_state"], "batches": ref["s2s_batches"],
                        "plans": sp_plans, "shapes": SP_SHAPES},
+        "sp_train22_dropout": sp_train((2, 2), dropout_steps, 0.1),
+        "sp_train22_jax": sp_train((2, 2), jax_steps, 0.0),
+        "halo_grads": {"module": WORKER, "job": "halo_grads", "batch": port_halo_batch,
+                       "plan": plan, "conv": (16, 24, 3), "conv_state": ref["conv_state"],
+                       "gather_cot": ref["halo_grads"]["gather_cot"],
+                       "conv_cot": ref["halo_grads"]["conv_cot"]},
         "pp": {"module": WORKER, "job": "pp", "variants": pp_variants, "num_micro": 2},
         "collectives": {"module": WORKER, "job": "collectives"},
         "dryrun": {"module": WORKER, "job": "dryrun"},
@@ -308,10 +395,19 @@ def par(tmp_path_factory):
         "tp12_pretrain": tp((1, 2), MODEL, state0, pre_steps, CFG, world=2),
         "tp12_spmd": tp((1, 2), SPMD_MODEL, ref["spmd_state0"], spmd_steps, SPMD_CFG,
                         world=2),
+        "sp_train12_dropout": sp_train((1, 2), dropout_steps, 0.1, world=2),
+        "sp_train12_jax": sp_train((1, 2), jax_steps, 0.0, world=2),
+        # the data-parallel run that (2, 2) with dropout is held to
+        "sp_dp21_dropout": sp_train((2, 1), dropout_steps, 0.1, plan=None, world=2),
         "one_rank": {"module": WORKER, "job": "one_rank", "world": 1, "model": MODEL,
                      "state": state0, "config": CFG, "batch": t4},
     }
-    ranks = spawn_ranks(4, list(specs.values()), tmp, timeout=600)
+    # the JAX node-sharded steps compile while the ranks work
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(spawn_ranks, 4, list(specs.values()), tmp, timeout=600)
+        with jax.default_matmul_precision("float32"):
+            jax_sp_train_steps(ref)
+        ranks = spawned.result()
     got = {name: [r[i] for r in ranks] for i, name in enumerate(specs)}
 
     single = {"pretrain": single_run(state0, pre_steps, [(t4, 0, None), (t4, 1, None)]),
@@ -319,7 +415,12 @@ def par(tmp_path_factory):
               "spmd": single_run(ref["spmd_state0"], spmd_steps, model=SPMD_MODEL,
                                  config=SPMD_CFG),
               "sp": sp_one_process(ref["sp_state"], ref["sp_batches"]),
-              "s2s": sp_one_process(ref["s2s_state"], ref["s2s_batches"], SP_SET2SET)}
+              "s2s": sp_one_process(ref["s2s_state"], ref["s2s_batches"], SP_SET2SET),
+              "sp_train_dropout": single_run(st["state0"], [(st["batch"], e, d) for e, d in
+                                                            dropout_steps],
+                                             model={**SP_TRAIN, "dropout": 0.1}),
+              "sp_train_jax": single_run(st["state0"], [(st["batch"], e, d) for e, d in
+                                                        jax_steps], model=SP_TRAIN)}
     return {"ref": ref, "got": got, "single": single, "plan": plan, "one_plan": one_plan,
             "moe": (moe_x, moe_mask, moe_states), "state0": state0}
 
@@ -536,20 +637,34 @@ def test_sp_forward_set2set_matches_jax_and_one_process(par, shape):
 
 
 @pytest.mark.parametrize("option", ["mode", "dropout", "return_attention", "moe",
-                                    "spatial_window", "graph_window", "use_flash"])
+                                    "spatial_window", "graph_window", "use_flash", "remat"])
 def test_sp_forward_refuses_the_options_it_does_not_cover(option):
-    """Training (another mode, dropout), returned attention, the MoE,
-    DGDM-Large's windows and flash attention raise naming ROADMAP item 12."""
+    """Returned attention, the MoE, DGDM-Large's windows, flash attention and
+    remat under a gradient raise naming ROADMAP item 12. Training modes
+    work: over a model axis of 1, ``mode="pretrain"`` gives the model's
+    diffusion loss on the same draws, and ``deterministic=False`` the
+    model's dropout from the same generator state, within 1e-6."""
     kw = {"moe": {"moe_experts": 4}, "spatial_window": {"spatial_window": 8},
-          "graph_window": {"graph_window": 8}}.get(option, {})
-    model = DGDMModel(**{**SP_MODEL, **kw})
+          "graph_window": {"graph_window": 8}, "remat": {"use_remat": True},
+          "dropout": {"dropout": 0.1}}.get(option, {})
+    model = init_parameters(DGDMModel(**{**SP_MODEL, **kw}), torch.Generator().manual_seed(5))
     if option == "use_flash":
         model.spatial_attention.use_flash = True
-    call = {"mode": {"mode": "pretrain"}, "dropout": {"deterministic": False},
-            "return_attention": {"return_attention": True}}.get(option, {})
     g = to_torch_graph(sp_batch(32))
     mesh = Mesh(("data", "model"), (1, 1))
     plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp=1)
+    if option in ("mode", "dropout"):
+        call = ({"mode": "pretrain", "deterministic": False} if option == "mode"
+                else {"mode": "finetune", "deterministic": False})
+        got = sp_forward(model, g, plan, mesh, generator=torch.Generator().manual_seed(9),
+                         **call)
+        want = model(g, generator=torch.Generator().manual_seed(9), **call)
+        keys = ("diffusion_loss", "classification_logits") if option == "mode" else \
+            ("node_embeddings", "classification_logits")
+        for key in keys:
+            torch.testing.assert_close(got[key], want[key], atol=1e-6, rtol=1e-6)
+        return
+    call = {"return_attention": {"return_attention": True}}.get(option, {})
     with pytest.raises(NotImplementedError, match="item 12"):
         sp_forward(model, g, plan, mesh, **call)
 
@@ -679,10 +794,11 @@ def test_trainer_from_a_model_mesh_config():
 
 
 def test_rectangular_tables_on_the_cpu_and_forward_only():
-    """The plain versions take a table of N_src rows read by N rows of K
-    slots (as the halo tier's gathers do): each gathered row is its table
-    row, out-of-range slots zero, the sum its weighted rows; the backward of
-    such a call raises, since the halo tier is forward only (as in JAX)."""
+    """The plain versions take a table of M rows read by N rows of K slots
+    (as the halo tier's gathers do): each gathered row is its table row,
+    out-of-range slots zero, the sum its weighted rows; and the backward of
+    such a call, once forward only, gives the table's gradient [B, M, F]
+    (and the weights') within 1e-6 of the f64 autograd of a dense gather."""
     from dgdm_histopath_torch.ops.kernels.gather_agg import weighted_gather_sum
     from dgdm_histopath_torch.ops.kernels.gather_rows import gather_rows
 
@@ -696,10 +812,89 @@ def test_rectangular_tables_on_the_cpu_and_forward_only():
     assert torch.equal(rows, want * valid[..., None])
     torch.testing.assert_close(weighted_gather_sum(src, idx, w),
                                (want * (w * valid)[..., None]).sum(-2), atol=1e-6, rtol=1e-6)
-    leaf = src.clone().requires_grad_()
-    for out in (gather_rows(leaf, idx), weighted_gather_sum(leaf, idx, w)):
-        with pytest.raises(RuntimeError, match="forward only"):
-            out.sum().backward()
+    leaf, lw = src.clone().requires_grad_(), w.clone().requires_grad_()
+    ref, rw = src.double().requires_grad_(), w.double().requires_grad_()
+
+    def dense():
+        return torch.stack([ref[b][idx[b].clamp(0, 10).long()] for b in range(2)]) * \
+            valid[..., None]
+
+    for out, want in ((gather_rows(leaf, idx), dense()),
+                      (weighted_gather_sum(leaf, idx, lw), (dense() * rw[..., None]).sum(-2))):
+        cot = torch.randn(out.shape, generator=g)
+        (out * cot).sum().backward()
+        (want * cot.double()).sum().backward()
+    assert leaf.grad.shape == (2, 11, 6)
+    torch.testing.assert_close(leaf.grad.double(), ref.grad, atol=1e-6, rtol=0)
+    torch.testing.assert_close(lw.grad.double(), rw.grad, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("shape", ["(1, 2)", "(2, 2)"])
+def test_sp_training_with_dropout_equals_one_process(par, shape):
+    """``training_step(block, epoch, prepared=True, plan=plan)`` with dropout
+    0.1 and the generator's draws, 3 pretrain and 1 finetune steps: every
+    rank reports the same metrics, within 1e-5 of max(1, |x|) of the
+    reference's, and holds the same parameters, within 1e-5 (the key biases
+    to the steps' summed learning rate). At (1, 2) the reference is one
+    process on the whole batch; at (2, 2) the data-parallel (2, 1) run, whose
+    data ranks draw dropout from streams of their own."""
+    name = "12" if shape == "(1, 2)" else "22"
+    ranks = [r for r in par["got"][f"sp_train{name}_dropout"] if r is not None]
+    assert len(ranks) == (2 if name == "12" else 4)
+    ref = (par["single"]["sp_train_dropout"] if name == "12"
+           else par["got"]["sp_dp21_dropout"][0])
+    assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    _metrics_close(ranks[0]["metrics"], ref["metrics"], f"sp {shape} dropout")
+    for r in ranks[1:]:
+        assert all(torch.equal(r["params"][k], ranks[0]["params"][k]) for k in r["params"])
+    params = {k: v for k, v in ranks[0]["params"].items() if k in ref["params"]}
+    assert_params_close(params, ref["params"], len(SP_TRAIN_EPOCHS) * CFG["learning_rate"],
+                        f"sp {shape} dropout")
+
+
+@pytest.mark.parametrize("shape", ["(1, 2)", "(2, 2)"])
+def test_sp_training_matches_jax_and_one_process(par, shape):
+    """The same steps without dropout, on the JAX draws: metrics within 1e-5
+    of one port process on the whole batch and parameters within 1e-5 (the
+    key biases to the summed learning rate); against JAX
+    ``training_step(shard_graph_nodes(batch, mesh), prepared=True)`` on a
+    (2, 2) mesh every loss within rel 2e-4 and the parameters within atol
+    2e-4 (the JAX test's bounds)."""
+    name = "12" if shape == "(1, 2)" else "22"
+    got = next(r for r in par["got"][f"sp_train{name}_jax"] if r is not None)
+    one = par["single"]["sp_train_jax"]
+    _metrics_close(got["metrics"], one["metrics"], f"sp {shape}")
+    params = {k: v for k, v in got["params"].items() if k in one["params"]}
+    assert_params_close(params, one["params"], len(SP_TRAIN_EPOCHS) * CFG["learning_rate"],
+                        f"sp {shape}")
+    jref = par["ref"]["sp_train"]
+    for a, b in zip(got["metrics"], jref["jax"]):
+        assert set(a) == set(b)
+        assert a["loss"] == pytest.approx(float(b["loss"]), rel=2e-4)
+    assert set(params) == set(jref["jax_params"])
+    for key, value in jref["jax_params"].items():
+        np.testing.assert_allclose(params[key].numpy(), value.numpy(), atol=2e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("fn", ["halo_gather", "sp_graph_conv"])
+def test_halo_gradients_match_jax_grad(par, fn):
+    """The halo exchange's backward over a model axis of 4: each rank's
+    gradient of ``sum(out * cotangent)`` with respect to its block of x,
+    stacked in rank order, within 1e-5 of ``jax.grad`` of the JAX function
+    on the virtual devices; for ``sp_graph_conv`` also the parameters'
+    gradients summed over the ranks (the padded send slots add exact zeros
+    into row 0)."""
+    ref = par["ref"]["halo_grads"]
+    key = "gather_dx" if fn == "halo_gather" else "conv_dx"
+    ranks = par["got"]["halo_grads"]
+    dx = torch.cat([r[key] for r in ranks], 1)
+    np.testing.assert_allclose(dx.numpy(), ref[key], atol=1e-5, rtol=0)
+    assert np.abs(ref[key]).max() > 1e-2
+    if fn == "sp_graph_conv":
+        for name, want in ref["conv_grads"].items():
+            got = sum(r["conv_grads"][name] for r in ranks)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0,
+                                       err_msg=name)
 
 
 def test_shard_tree_like_cuts_the_jax_tree_as_the_ranks_hold_it(par):

@@ -169,9 +169,9 @@ def test_remat_recompute_replays_the_layers_and_builds_no_list(checkpoints, monk
     counts = {"lists": 0, "sums": 0}
     build, plain_sum = neighbor_transpose.neighbor_transpose, gather_agg.weighted_gather_sum_plain
 
-    def counted_build(idx):
+    def counted_build(idx, m=None):
         counts["lists"] += 1
-        return build(idx)
+        return build(idx, m)
 
     def counted_sum(*args):
         counts["sums"] += 1

@@ -128,8 +128,56 @@ def sp_model(spec, rank) -> dict:
         mesh = make_mesh(axes=("data", "model"), shape=shape)
         for n, batch in spec["batches"].items():
             block = shard_graph_nodes(batch, mesh)
-            out[shape, n] = sp_forward(model, block, spec["plans"][shape[1], n], mesh)
+            with torch.no_grad():        # inference, as a caller serving the model runs it
+                out[shape, n] = sp_forward(model, block, spec["plans"][shape[1], n], mesh)
     return out
+
+
+def sp_train(spec, rank) -> dict:
+    """Steps of ``DGDMTrainer`` over the (data, model) ``spec["shape"]``: with
+    ``spec["plan"]`` through ``training_step(block, epoch, prepared=True,
+    plan=plan)`` on this rank's node block of ``spec["batch"]``, else the
+    data-parallel steps of the whole batch. Each step's metrics and the whole
+    parameters after them."""
+    from dgdm_histopath_torch.parallel import shard_graph_nodes
+
+    trainer = _tp_trainer(spec)
+    batch, plan = spec["batch"], spec.get("plan")
+    if plan is None:
+        metrics = [trainer.training_step(batch, e, draws=d) for e, d in spec["steps"]]
+    else:
+        block = shard_graph_nodes(batch, trainer.mesh)
+        metrics = [trainer.training_step(block, e, draws=d, prepared=True, plan=plan)
+                   for e, d in spec["steps"]]
+    return {"metrics": metrics,
+            "params": {k: v.clone() for k, v in trainer.model_state_dict().items()}}
+
+
+def halo_grads(spec, rank) -> dict:
+    """This rank's gradients through ``halo_gather`` and ``sp_graph_conv`` over
+    a (1, tp) mesh, of ``sum(out * cotangent)`` with its block of the whole
+    cotangent: with respect to its block of x and, for the convolution, the
+    parameters (this rank's part of their gradient)."""
+    from dgdm_histopath_torch.nn.graph_layers import GraphConvolution
+    from dgdm_histopath_torch.parallel import (halo_gather, make_mesh, shard_graph_nodes,
+                                               sp_graph_conv)
+
+    tp = dist.get_world_size()
+    mesh = make_mesh(axes=("data", "model"), shape=(1, tp))
+    batch, plan = spec["batch"], spec["plan"]
+    block = shard_graph_nodes(batch, mesh)
+    n_loc = plan.n_local
+    mine = slice(mesh.axis("model").index * n_loc, (mesh.axis("model").index + 1) * n_loc)
+    x = block.x.clone().requires_grad_()
+    (halo_gather(x, plan, mesh) * spec["gather_cot"][:, mine]).sum().backward()
+    conv = GraphConvolution(*spec["conv"])
+    conv.load_state_dict(spec["conv_state"])
+    xc = block.x.clone().requires_grad_()
+    out = sp_graph_conv(conv, xc, block.nbr_idx, block.nbr_mask, plan, mesh,
+                        edge_attr=block.edge_attr)
+    (out * spec["conv_cot"][:, mine]).sum().backward()
+    return {"gather_dx": x.grad, "conv_dx": xc.grad,
+            "conv_grads": {k: p.grad.clone() for k, p in conv.named_parameters()}}
 
 
 def pp(spec, rank) -> dict:
@@ -196,5 +244,5 @@ def dryrun(spec, rank) -> dict:
 
 
 JOBS = {"tp_steps": tp_steps, "tp_checkpoint": tp_checkpoint, "ep_block": ep_block,
-        "halo": halo, "sp_model": sp_model, "pp": pp, "collectives": collectives,
-        "one_rank": one_rank, "dryrun": dryrun}
+        "halo": halo, "sp_model": sp_model, "sp_train": sp_train, "halo_grads": halo_grads,
+        "pp": pp, "collectives": collectives, "one_rank": one_rank, "dryrun": dryrun}
