@@ -10,7 +10,8 @@ Phases, each of which raises on a failed check:
      instantiation of the forward aggregation, backward, list and flash
      kernels;
   3. kernels: each of the four gather kernels (the two gathers and their
-     backwards) and the transposed neighbor list the backwards read, against
+     backwards) and the transposed neighbor list the backwards read (bit-equal
+     and the same over 10 calls at every shape), against
      its plain PyTorch version on the card at the shapes both model paths
      give it (DGDM-Base: B=32, N in {1024, 512, 256}; DGDM-Large: B=4, N in
      {2048, 1024, 512}; K=8, F=128, bf16 and f32), at hub shapes (half the
@@ -263,6 +264,15 @@ SIGTERM, exit 75 and ``resume``, bit-equal.
 
 ``python3 chip_smoke.py --preprocess-only`` runs the build and phase 18 alone.
 
+``python3 chip_smoke.py --transpose-only [--old-transpose PATH]`` runs the
+build and the transposed-list phase alone (``transpose_phase``, which the
+whole script runs after the kernel phase: the cluster kernel at
+TRANSPOSE_CASES, bit-equal and the same over 10 calls, timed beside the
+bytes bound and an empty launch of the plan's grid and cluster); with a
+``neighbor_transpose.cu`` of the single-CTA design (``git show
+<commit>:dgdm_histopath_torch/csrc/neighbor_transpose.cu``), both kernels
+timed in turns at TRANSPOSE_AB_SHAPES.
+
 ``python3 chip_smoke.py --orchestration-only`` runs the build and phase 21
 alone (on a slide of its own).
 
@@ -283,6 +293,7 @@ and a SIGTERM to the launcher, exit 75 and ``resume``, bit-equal.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import os
@@ -303,6 +314,29 @@ RAGGED_SHAPE = (32, 100, 5, 24)
 # the pooled Base levels and a Large level with half the slots at node 0
 HUB_SHAPES = [(32, 512, 8, 128), (32, 256, 8, 128), (4, 1024, 8, 128)]
 K = 8
+# The transposed list's own cases (transpose_phase): (label, B, N, K, M or
+# None for N, index kind, timed). The timed ones include the model's shapes,
+# the node-sharded tier's bucket 8192 graph and batch 1; the rest are edges
+# of the cluster plan. Each is held bit-equal to the plain version and
+# bit-identical over TRANSPOSE_CALLS calls.
+TRANSPOSE_CASES = [
+    ("Base level 0", 32, 1024, 8, None, "random", True),
+    ("Large level 0", 4, 2048, 8, None, "random", True),
+    ("Base level 2", 32, 256, 8, None, "random", True),
+    ("hub: half the slots at row 0", 32, 512, 8, None, "hub", True),
+    ("bucket 8192", 1, 8192, 8, None, "random", True),
+    ("batch 1", 1, 1024, 8, None, "random", True),
+    ("one row takes every slot", 1, 1024, 8, None, "one row", True),
+    ("every index out of range", 4, 512, 8, None, "out of range", False),
+    ("M = 1", 8, 256, 8, 1, "ragged", False),
+    ("M > N", 4, 1024, 8, 3000, "random", False),
+    ("N*K not a multiple of C*32", 4, 1000, 7, None, "ragged", False),
+    ("M = 16384: counters in global scratch", 1, 2048, 8, 16384, "ragged", False),
+]
+TRANSPOSE_CALLS = 10
+# ``--transpose-only --old-transpose PATH``: the shapes of the A/B against a
+# neighbor_transpose.cu of the single-CTA design
+TRANSPOSE_AB_SHAPES = [(32, 1024, 8), (4, 2048, 8), (32, 256, 8), (1, 8192, 8), (1, 1024, 8)]
 # The two model cells. ``layers`` counts the DynamicGraphLayers (Base: 4
 # encoder + 5 U-Net, Large: 6 + 5); each launches one key gather and two conv
 # aggregations per forward, and a training step adds one backward launch for
@@ -416,18 +450,38 @@ def device_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
 
 EMPTY_KERNEL = r"""
 __global__ void empty_kernel() {}
-extern "C" int empty_launch(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
+// grid x block threads in clusters of `cluster` CTAs with `smem` bytes of
+// dynamic shared memory each: the shape of a kernel's launch, without its work
+extern "C" int empty_launch(long long grid, long long block, long long cluster,
+                            long long smem, void* stream) {
+  cudaFuncSetAttribute(empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 224 * 1024);
+  cudaFuncSetAttribute(empty_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(static_cast<unsigned>(block));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_kernel);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 """
 
 
+@functools.lru_cache(maxsize=None)
 def empty_kernel():
-    """A launcher of an empty kernel of one warp, built with the kernels'
-    nvcc flags into the package's build directory: the launch floor that the
-    smallest kernels' times stand beside. Raises if it does not build or
-    launch."""
+    """A launcher of an empty kernel, built with the kernels' nvcc flags into
+    the package's build directory (once a process): the launch floor that
+    the smallest kernels' times stand beside. ``launch(stream, grid=1,
+    block=32, cluster=1, smem=0)`` launches it at a kernel's shape (clusters
+    of ``cluster`` CTAs, ``smem`` bytes of dynamic shared memory each).
+    Raises if it does not build or launch."""
     import ctypes
 
     from dgdm_histopath_torch.ops.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc_path
@@ -440,10 +494,11 @@ def empty_kernel():
     if proc.returncode:
         raise RuntimeError(f"the empty kernel did not build: {proc.stderr[-2000:]}")
     fn = ctypes.CDLL(str(lib)).empty_launch
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
-    def launch(stream):
-        err = fn(stream)
+    def launch(stream, grid=1, block=32, cluster=1, smem=0):
+        err = fn(grid, block, cluster, smem, stream)
         if err:
             raise RuntimeError(f"the empty kernel did not launch: CUDA error {err}")
     return launch
@@ -532,6 +587,7 @@ def backward_checks(torch, gen, src, idx, w, tag, out: dict, timed: bool) -> Non
     if not (torch.equal(nbr_t.offsets, plain_t.offsets)
             and torch.equal(nbr_t.slots, plain_t.slots)):
         raise AssertionError(f"neighbor_transpose differs from its plain version at {tag}")
+    transpose_repeats(torch, idx, None, nbr_t, tag)
     dsrc = gather_rows_bwd(idx, g4, nbr_t)
     dh, dw = weighted_gather_sum_bwd(g3, src, idx, w, nbr_t=nbr_t)
     again = (gather_rows_bwd(idx, g4, nbr_t), *weighted_gather_sum_bwd(g3, src, idx, w,
@@ -606,6 +662,174 @@ def backward_checks(torch, gen, src, idx, w, tag, out: dict, timed: bool) -> Non
             plain_ms=device_ms(torch, lambda: neighbor_transpose_plain(idx)),
             library_ms=None, bound_ms=tbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             bytes=tbytes))
+
+
+def transpose_repeats(torch, idx, m, first, tag, calls: int = TRANSPOSE_CALLS) -> None:
+    """Raise unless ``calls`` builds of idx's list over ``m`` rows (``first``
+    one of them) are bit-identical."""
+    from dgdm_histopath_torch.ops.kernels.neighbor_transpose import neighbor_transpose
+
+    for _ in range(calls - 1):
+        again = neighbor_transpose(idx, m)
+        if not (torch.equal(again.offsets, first.offsets)
+                and torch.equal(again.slots, first.slots)):
+            raise AssertionError(f"neighbor_transpose differs from call to call at {tag}")
+
+
+def transpose_indices(torch, gen, b, n, k, m, kind):
+    """idx [b, n, k] of a named kind over a table of m rows: ``random`` in
+    [0, m), ``hub`` with half of them at row 0, ``ragged`` in [-1, m + 1),
+    ``one row`` every slot at one row, ``out of range`` none in [0, m)."""
+    if kind == "one row":
+        return torch.full((b, n, k), min(7, m - 1), dtype=torch.int32, device="cuda")
+    lo, hi = {"random": (0, m), "hub": (0, m), "ragged": (-1, m + 1),
+              "out of range": (m, m + 8)}[kind]
+    idx = torch.randint(lo, hi, (b, n, k), device="cuda", generator=gen, dtype=torch.int32)
+    half = torch.rand(b, n, k, device="cuda", generator=gen) < 0.5
+    if kind == "hub":
+        idx[half] = 0
+    elif kind == "out of range":
+        idx[half] -= m + 8                                 # [-8, 0)
+    return idx
+
+
+def transpose_phase(torch) -> dict:
+    """The transposed-list kernel at TRANSPOSE_CASES: each case bit-equal to
+    the plain version and bit-identical over TRANSPOSE_CALLS calls, with its
+    launch plan (cluster, grid, shared memory, the clusters of that shape the
+    card holds at once); the timed cases with their device ms, the plain
+    version's, the bytes bound and the launch floor (an empty kernel at the
+    plan's grid, cluster and shared memory, timed as the kernel is)."""
+    import ctypes
+
+    from dgdm_histopath_torch.ops.kernels import build
+    from dgdm_histopath_torch.ops.kernels.neighbor_transpose import (
+        launch_plan, neighbor_transpose, neighbor_transpose_plain)
+
+    lib = ctypes.CDLL(str(build.build_all(["neighbor_transpose"])["neighbor_transpose"]))
+    max_clusters = lib.neighbor_transpose_max_clusters
+    max_clusters.argtypes, max_clusters.restype = [ctypes.c_int64] * 3, ctypes.c_int
+    for r in build.ptxas_report("neighbor_transpose"):
+        log(f"transpose: ptxas {r['kernel']}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} / loads {r['spill_loads']} bytes, static smem "
+            f"{r['static_smem']} (+ the plan's dynamic smem below)")
+    t_phase = time.perf_counter()
+    empty = empty_kernel()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    for label, b, n, k, m, kind, timed in TRANSPOSE_CASES:
+        m = n if m is None else m
+        idx = transpose_indices(torch, gen, b, n, k, m, kind)
+        plan = launch_plan(b, n, k, m)
+        out, ref = neighbor_transpose(idx, m), neighbor_transpose_plain(idx, m)
+        torch.cuda.synchronize()
+        if not (torch.equal(out.offsets, ref.offsets) and torch.equal(out.slots, ref.slots)):
+            raise AssertionError(f"neighbor_transpose differs from its plain version: {label}")
+        transpose_repeats(torch, idx, m, out, label)
+        counts = out.offsets[:, 1:] - out.offsets[:, :-1]
+        row = dict(case=label, shape=[b, n, k], rows=m, cluster=plan.cluster, grid=plan.grid,
+                   warps=plan.warps, smem=plan.smem, scratch=plan.scratch > 0,
+                   max_clusters=max_clusters(plan.warps, plan.cluster, plan.smem),
+                   kept=int(out.offsets[:, -1].sum()),
+                   max_in_degree=int(counts.max()) if counts.numel() else 0)
+        if timed:
+            tbytes = 2 * b * n * k * 4 + b * (m + 1) * 4
+            row.update(
+                ms=device_ms(torch, lambda: neighbor_transpose(idx, m)),
+                plain_ms=device_ms(torch, lambda: neighbor_transpose_plain(idx, m)),
+                floor_ms=device_ms(torch, lambda: empty(
+                    torch.cuda.current_stream().cuda_stream, plan.grid, plan.threads,
+                    plan.cluster, plan.smem)),
+                bound_ms=tbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=tbytes,
+                library_ms=None)
+        rows.append(row)
+        times = (f"  ms {row['ms']:.4f}  plain {row['plain_ms']:.4f}  bound {row['bound_ms']:.4f}"
+                 f" (bytes)  launch floor {row['floor_ms']:.4f}  share of bound "
+                 f"{row['bound_ms'] / row['ms']:.3f}, of bound + floor "
+                 f"{(row['bound_ms'] + row['floor_ms']) / row['ms']:.3f}" if timed else "")
+        log(f"transpose: {label:40s} B{b} N{n} K{k} M{m}: cluster {plan.cluster} x "
+            f"{plan.grid // plan.cluster}, {plan.warps} warps, smem {plan.smem}"
+            f"{' (scratch)' if plan.scratch else ''}, "
+            f"{row['max_clusters']} clusters at once, kept {row['kept']}, in-degree <= "
+            f"{row['max_in_degree']}; bit-equal, {TRANSPOSE_CALLS} calls identical{times}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"transpose: phase took {phase_s:.1f} s")
+    return {"cases": rows, "phase_s": phase_s}
+
+
+def old_transpose(torch, source: str):
+    """A launcher ``fn(idx, m) -> (offsets, slots)`` of a neighbor_transpose.cu
+    of the single-CTA design (one block of 16 warps a graph; its C entry
+    point ``neighbor_transpose_launch(idx, offsets, slots, scratch, B, N, K,
+    M, stream)``, its counters in a global scratch buffer above 160 KiB),
+    built with the kernels' nvcc flags: the yardstick of transpose_ab."""
+    import ctypes
+
+    from dgdm_histopath_torch.ops.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc_path
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"neighbor_transpose_single_cta-{os.getpid()}.so"
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(lib), source],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{source} did not build: {proc.stderr[-2000:]}")
+    fn = ctypes.CDLL(str(lib)).neighbor_transpose_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(idx, m):
+        b, n, k = idx.shape
+        offsets = torch.empty((b, m + 1), dtype=torch.int32, device=idx.device)
+        slots = torch.empty((b, n * k), dtype=torch.int32, device=idx.device)
+        words = m * 16 + (m * 16 >> 5) + 1
+        scratch = (torch.empty(b * words, dtype=torch.int32, device=idx.device)
+                   if words * 4 > 160 * 1024 else None)
+        err = fn(idx.data_ptr(), offsets.data_ptr(), slots.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), b, n, k, m,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the single-CTA neighbor_transpose failed: CUDA error {err}")
+        return offsets, slots
+    return launch
+
+
+def transpose_ab(torch, source: str, card: str) -> dict:
+    """The cluster kernel against the single-CTA one built from ``source``,
+    at TRANSPOSE_AB_SHAPES in one call and in turns (single-CTA, cluster,
+    cluster, single-CTA): both bit-equal to the plain version, the device ms
+    of each turn, the bytes bound and the cluster plan's launch floor."""
+    from dgdm_histopath_torch.ops.kernels.neighbor_transpose import (
+        launch_plan, neighbor_transpose, neighbor_transpose_plain)
+
+    old = old_transpose(torch, source)
+    empty = empty_kernel()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for b, n, k in TRANSPOSE_AB_SHAPES:
+        idx = transpose_indices(torch, gen, b, n, k, n, "random")
+        ref = neighbor_transpose_plain(idx)
+        got = old(idx, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref.offsets) and torch.equal(got[1], ref.slots)):
+            raise AssertionError(f"the single-CTA kernel differs from the plain version at "
+                                 f"B{b} N{n} K{k}")
+        plan = launch_plan(b, n, k, n)
+        turns = [device_ms(torch, fn) for fn in (
+            lambda: old(idx, n), lambda: neighbor_transpose(idx),
+            lambda: neighbor_transpose(idx), lambda: old(idx, n))]
+        floor = device_ms(torch, lambda: empty(torch.cuda.current_stream().cuda_stream,
+                                               plan.grid, plan.threads, plan.cluster,
+                                               plan.smem))
+        tbytes = 2 * b * n * k * 4 + b * (n + 1) * 4
+        row = dict(shape=[b, n, k], single_cta_ms=[turns[0], turns[3]],
+                   cluster_ms=[turns[1], turns[2]], cluster=plan.cluster, floor_ms=floor,
+                   bound_ms=tbytes / HBM_BYTES_PER_S * 1e3,
+                   speedup=(turns[0] + turns[3]) / (turns[1] + turns[2]))
+        rows.append(row)
+        log(f"transpose A/B B{b} N{n} K{k}: single CTA {turns[0]:.4f} / {turns[3]:.4f} ms, "
+            f"cluster of {plan.cluster} {turns[1]:.4f} / {turns[2]:.4f} ms ({row['speedup']:.2f}x)"
+            f", bound {row['bound_ms']:.4f} (bytes), launch floor {floor:.4f} [{card}]")
+    return {"rows": rows}
 
 
 def rows_read(torch, idx, n_src: int) -> int:
@@ -3607,6 +3831,7 @@ def rect_backward_rows(torch, gen, table, idx, w, tag: dict, out: dict,
             and torch.equal(nbr_t.slots, plain_t.slots)):
         raise AssertionError(f"neighbor_transpose over {m} rows differs from its plain "
                              f"version at {tag}")
+    transpose_repeats(torch, idx, m, nbr_t, tag)
     if table.dtype == torch.bfloat16:
         tbytes = 2 * b * n * k * 4 + b * (m + 1) * 4
         out["neighbor_transpose"].append(dict(
@@ -6510,6 +6735,20 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
+    if sys.argv[1:2] == ["--transpose-only"]:
+        # the transposed-list kernel alone; with --old-transpose PATH, against
+        # a neighbor_transpose.cu of the single-CTA design in the same call
+        out = {"transpose": transpose_phase(torch)}
+        if sys.argv[2:3] == ["--old-transpose"]:
+            out["ab"] = transpose_ab(torch, sys.argv[3], card)
+        log("details: " + json.dumps(out, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+
     if sys.argv[1:] == ["--preprocess-only"]:
         # phase 18 alone: the offline-preprocessing cell
         pre = preprocess_phase(torch, card)
@@ -6523,6 +6762,7 @@ def main() -> int:
 
     kern = kernel_phase(torch)
     kern.update(flash_kernel_phase(torch))
+    transpose = transpose_phase(torch)
 
     # DGDM-Base: serving, then training
     graphs = make_graphs(BASE)
@@ -6679,6 +6919,12 @@ def main() -> int:
         if "bwd" in name:
             entry["max_ulp_err_bf16"] = max(r["max_ulp_err"] for r in kern[name]
                                             if r["max_ulp_err"] is not None)
+        if name == "neighbor_transpose":
+            timed = [r for r in transpose["cases"] if "ms" in r]
+            entry["launch_floor_ms"] = timed[0]["floor_ms"]     # at the Base shape's plan
+            entry["cases_ms"] = {r["case"]: {k: r[k] for k in (
+                "shape", "rows", "cluster", "ms", "floor_ms", "bound_ms", "plain_ms")}
+                for r in timed}
         if name in real_step:
             entry["real_step_ms"] = {r["shape"][1]: r["ms"] for r in real_step[name]}
         if name in par["rect"]:
@@ -6698,6 +6944,7 @@ def main() -> int:
               moe["block"]):
         t["profile"].pop("top")           # printed above, one line per kernel
     log("details: " + json.dumps({"ptxas": ptxas, "kernels": kern, "real_step": real_step,
+                                  "transpose": transpose,
                                   "model": timing, "parity": parity, "server": server,
                                   "training": train_timing,
                                   "training_parity": train_parity, "remat": remat,

@@ -14,10 +14,15 @@ halo]`` table, and the local rows it sends.
 The two gather backwards (``gather_rows_bwd``, ``weighted_gather_sum_bwd``)
 are gather-sums over this list: each destination row sums its own slots in
 a fixed order, with no atomics. The CUDA kernel is
-``csrc/neighbor_transpose.cu`` (a stable counting sort, one block per
-graph); it has no TPU counterpart, since the TPU backward contracts one-hot
-tiles instead. Per graph it keeps ``4 * counters(M)`` bytes of counters in
-shared memory, and in a global scratch buffer above :data:`SMEM_LIMIT`.
+``csrc/neighbor_transpose.cu``: a stable counting sort on one thread-block
+cluster per graph, whose CTAs count their segments of the slots per warp in
+shared memory and scan the rows across the cluster through distributed
+shared memory. It has no TPU counterpart, since the TPU backward contracts
+one-hot tiles instead. :func:`launch_plan` sets its shape from (B, N, K, M)
+alone: the cluster's size, the warps a CTA, each CTA's slots and rows, and
+its shared memory (``4 * ((W + 1) * M + C * chunk)`` bytes, 192 KiB at M =
+8192; past :data:`SMEM_LIMIT`, from M ~ 9550 rows, a global scratch buffer
+instead). Each call also takes an int32 rank buffer of B * N * K words.
 
 A model builds the list once per neighbor-index tensor in a forward that a
 gradient will be taken through (:func:`transpose_for_backward`) and hands
@@ -35,18 +40,64 @@ import torch
 from .build import CudaKernel
 
 KERNEL = CudaKernel("neighbor_transpose", "neighbor_transpose_launch", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # idx, offsets, slots, scratch
-    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,      # B, N, K, M
-    ctypes.c_void_p])                                                    # stream
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,      # idx, offsets, slots
+    ctypes.c_void_p, ctypes.c_void_p,                       # ranks, scratch
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,         # B, N * K, M
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,         # warps, cluster, seg
+    ctypes.c_int64, ctypes.c_int64,                         # chunk, smem
+    ctypes.c_void_p])                                       # stream
 
-WARPS = 16                      # the kernel's warps per graph: counters per node
-SMEM_LIMIT = 160 * 1024         # counters in shared memory up to this many bytes
+SMS = 132                       # the H100's SMs, which B clusters of C CTAs should fill
+WARP_CHOICES = (8, 4)           # warps a CTA: 8 where their counters fit shared memory
+MAX_CLUSTER = 16                # CTAs a graph at most (the launch allows non-portable sizes)
+SMEM_LIMIT = 224 * 1024         # a CTA's counters in shared memory up to this many bytes
+MAX_ROWS = 2 ** 27 - 1          # rows the kernel's sort keys (row << 5 | lane) have room for
 
 
-def counters(m: int) -> int:
-    """Int32 counters the kernel keeps for a table of m rows: [m][WARPS]
-    with one pad word per 32 (``neighbor_transpose_counters`` in the .cu)."""
-    return m * WARPS + (m * WARPS >> 5) + 1
+def _cdiv(a: int, d: int) -> int:
+    return -(-a // d)
+
+
+def cta_ints(m: int, warps: int, cluster: int, chunk: int) -> int:
+    """Int32 words of one CTA's counters: cnt [warps][m] and tot [m] (m
+    padded to 4), then the cluster's shares of its chunk, [cluster][chunk]
+    (``cta_ints`` in the .cu)."""
+    return (warps + 1) * _cdiv(m, 4) * 4 + cluster * chunk
+
+
+class LaunchPlan(NamedTuple):
+    cluster: int                # CTAs a graph (C), one cluster each
+    grid: int                   # B * C
+    warps: int                  # a CTA's warps (W): each counts its part of the CTA's slots
+    segment: int                # slots a CTA, a multiple of 32 * W; CTA r: [r * seg, (r + 1) * seg)
+    chunk: int                  # rows a CTA scans across the cluster, a multiple of 4
+    smem: int                   # dynamic shared memory a CTA, bytes (0: counters in scratch)
+    scratch: int                # int32 words of global scratch (0: counters in shared memory)
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+
+def launch_plan(b: int, n: int, k: int, m: int) -> LaunchPlan:
+    """The kernel's launch for idx [b, n, k] over m rows: C from the batch
+    alone, the largest power of two <= 16 with b * C <= 132 (one CTA a graph
+    only once the batch fills the card); 8 warps a CTA where their counters
+    fit SMEM_LIMIT, else 4; each CTA a segment of the n * k slots (whole
+    32-slot tiles for each warp; a small graph leaves the last CTAs none) and
+    a chunk of the m rows (a multiple of 4). Counters that do not fit with 4
+    warps go to global scratch."""
+    nk = n * k
+    c = 1
+    while 2 * c <= MAX_CLUSTER and b * 2 * c <= SMS:
+        c *= 2
+    chunk = _cdiv(_cdiv(m, c), 4) * 4
+    fits = [w for w in WARP_CHOICES if 4 * cta_ints(m, w, c, chunk) <= SMEM_LIMIT]
+    w = fits[0] if fits else WARP_CHOICES[-1]
+    seg = _cdiv(_cdiv(nk, c), 32 * w) * 32 * w
+    words = cta_ints(m, w, c, chunk)
+    return LaunchPlan(cluster=c, grid=b * c, warps=w, segment=seg, chunk=chunk,
+                      smem=4 * words if fits else 0, scratch=0 if fits else b * c * words)
 
 
 # where the model builds the list for a backward: only the card runs a
@@ -68,7 +119,7 @@ def _check(idx: torch.Tensor, m: int) -> None:
     if idx.dim() != 3 or idx.dtype != torch.int32:
         raise ValueError(f"need int32 idx [B, N, K], got {tuple(idx.shape)} {idx.dtype}")
     b, n, k = idx.shape
-    if n * k >= 2 ** 31 or m * WARPS >= 2 ** 31 or m < 0:
+    if n * k >= 2 ** 31 or m >= MAX_ROWS or m < 0:
         raise ValueError(f"N * K = {n * k} slots over M = {m} rows do not fit int32")
 
 
@@ -115,11 +166,14 @@ def _launch(idx: torch.Tensor, m: int) -> NeighborTranspose:
     slots = torch.empty((b, n * k), dtype=torch.int32, device=idx.device)
     if b == 0:
         return NeighborTranspose(offsets, slots)
-    scratch = (torch.empty(b * counters(m), dtype=torch.int32, device=idx.device)
-               if counters(m) * 4 > SMEM_LIMIT else None)
+    plan = launch_plan(b, n, k, m)
+    ranks = torch.empty(b * n * k, dtype=torch.int32, device=idx.device)
+    scratch = (torch.empty(plan.scratch, dtype=torch.int32, device=idx.device)
+               if plan.scratch else None)
     with torch.cuda.device(idx.device):   # the kernel launches on the current device
-        KERNEL.launch(idx.data_ptr(), offsets.data_ptr(), slots.data_ptr(),
-                      None if scratch is None else scratch.data_ptr(), b, n, k, m,
+        KERNEL.launch(idx.data_ptr(), offsets.data_ptr(), slots.data_ptr(), ranks.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(), b, n * k, m,
+                      plan.warps, plan.cluster, plan.segment, plan.chunk, plan.smem,
                       torch.cuda.current_stream().cuda_stream)
     return NeighborTranspose(offsets, slots)
 

@@ -219,19 +219,51 @@ def _assert_scatter_close(out, ref32):
     assert ((out.float() - ref).abs() <= _ulp(ref, out.dtype) + 1e-5).all()
 
 
+def _assert_transpose_bit_equal(idx, m=None, calls=10):
+    """One launch a call; bit-equal to the plain version and the same over
+    ``calls`` calls."""
+    count = kernels.NEIGHBOR_TRANSPOSE.launches
+    outs = [neighbor_transpose(idx, m) for _ in range(calls)]
+    torch.cuda.synchronize()
+    assert kernels.NEIGHBOR_TRANSPOSE.launches == count + calls
+    ref = neighbor_transpose_plain(idx, m)
+    for out in outs:
+        assert torch.equal(out.offsets, ref.offsets) and torch.equal(out.slots, ref.slots)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(32, 1024, 8), (4, 2048, 8), (3, 100, 5), (2, 37, 40),
-                                   (2, 3000, 8), (2, 5, 0)])
+                                   (2, 3000, 8), (2, 5, 0), (1, 8192, 8), (1, 1024, 8),
+                                   (4, 1000, 7), (200, 64, 8)])
 @pytest.mark.parametrize("hub", [False, True])
 def test_neighbor_transpose_kernel_bit_equal_on_card(cuda_device, shape, hub):
-    """N = 3000 keeps its counters in global scratch, the rest in shared memory."""
+    """The cluster plans of the model's shapes (4 CTAs a graph at B 32, 16 at
+    B <= 8), N = 8192 (160 KiB of counters a CTA), N * K off a multiple of
+    the cluster's tiles, and a batch that fills the card alone (C = 1)."""
     _, idx, _ = _data(cuda_device, *shape, 4, torch.float32, hub=hub)
-    count = kernels.NEIGHBOR_TRANSPOSE.launches
-    out = neighbor_transpose(idx)
-    torch.cuda.synchronize()
-    assert kernels.NEIGHBOR_TRANSPOSE.launches == count + 1
-    ref = neighbor_transpose_plain(idx)
-    assert torch.equal(out.offsets, ref.offsets) and torch.equal(out.slots, ref.slots)
+    _assert_transpose_bit_equal(idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one row", "out of range", "M = 1", "M > N", "M < N",
+                                  "M = 0", "scratch"])
+def test_neighbor_transpose_kernel_edge_lists_on_card(cuda_device, case):
+    """Every slot at one row (a group of 8192), every index out of range, a
+    table of 1 row, of more and of fewer rows than N, of none, and of 16384
+    rows (the counters in global scratch)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, n, k = (1, 1024, 8) if case in ("one row", "scratch") else (4, 500, 8)
+    m = {"M = 1": 1, "M > N": 3000, "M < N": 100, "M = 0": 0, "scratch": 16384}.get(case, n)
+    if case == "one row":
+        idx = torch.full((b, n, k), 7, dtype=torch.int32, device=cuda_device)
+    elif case == "out of range":
+        idx = torch.randint(n, n + 8, (b, n, k), device=cuda_device, generator=g,
+                            dtype=torch.int32)
+        idx[torch.rand(b, n, k, device=cuda_device, generator=g) < 0.5] = -1
+    else:
+        idx = torch.randint(-1, m + 1, (b, n, k), device=cuda_device, generator=g,
+                            dtype=torch.int32)
+    _assert_transpose_bit_equal(idx, m)
 
 
 @pytest.mark.cuda
