@@ -103,7 +103,7 @@ Phases, each of which raises on a failed check:
      configs/dgdm_base_moe.yaml --dataset-type graph --batch-size 32`` (2
      epochs of 2 steps on 64 graph files) with the predict CLI on its bundle;
  14. data parallelism: 2 spawned ranks over gloo sharing the card (16
-     graphs each) and 1 rank over NCCL take 3 f32 Base steps with injected
+     graphs each) and 1 rank over NCCL take 2 f32 Base steps with injected
      draws, equal to one process on the global batch of 32; each rank's
      launches 9 / 18 / 9 / 18 + 3 a step.
  15. int8 (w8a8) inference, after the slide phase and on its patches: the
@@ -124,7 +124,7 @@ Phases, each of which raises on a failed check:
 
  16. the parallel tiers, after phase 14 on its graphs: 8 spawned gloo ranks
      share the card. Two run tensor parallelism over (data 1, model 2) on
-     DGDM-Base at full width (f32, 2 pretrain steps with injected draws and
+     DGDM-Base at full width (f32, a pretrain step with injected draws and
      a finetune step: metrics within 1e-5 of max(1, |x|) of one process,
      parameters within 1e-5 of max(1, each tensor's largest entry), launches
      9 / 18 / 9 / 18 + 3 a step, each rank's parameter + AdamW bytes), the
@@ -143,17 +143,35 @@ Phases, each of which raises on a failed check:
      node-sharded inputs (``training_step(block, epoch, prepared=True,
      plan=plan)`` over (1, 2), dropout 0.1: 3 pretrain + 1 finetune steps
      on the 8 sorted graphs in f32 against one process on the card, metrics
-     1e-5 of max(1, |x|) and parameters 1e-5 of max(1, |p|), the same steps
-     in bf16, one bf16 pretrain step on the 8192-node graph; each step's
+     1e-5 of max(1, |x|) and parameters 1e-5 of max(1, |p|), a bf16 pretrain
+     step, one bf16 pretrain step on the 8192-node graph; each step's
      launches a rank against its prediction, 27 / 18 / 27 / 18 + 4, step
-     times and a rank's peak memory against one process's); then 4 and 8 of
-     them run ``dryrun_multichip``. Last, the kernels with a rectangular
+     times and a rank's peak memory against one process's); then all 4 of
+     8 run ``dryrun_multichip(8)`` (every check of 4 ranks, and the (2, 2,
+     2) data x pipe x expert mesh). The ``sp_large`` job runs DGDM-Large
+     over node-sharded inputs, (1, 2), with both windows of 128 (banded
+     layers over the halo tables, windowed attention through the ring
+     shift): on the Large cell's 4 band-exact graphs (bucket 2048) an f32
+     forward (logits 1e-5; the pooled nodes' sets equal at each level and
+     their scores within 3e-5 slot for slot: near-tied nodes may swap
+     slots; two score faults planted in one process's forward must fail
+     that check) and an f32 ``return_attention`` forward (the edge, spatial and readout attention,
+     the ranks' rows concatenated, 1e-5 of one process's), 3 pretrain + 1
+     finetune f32 steps at dropout 0 and at 0.15 (metrics 1e-5 of max(1,
+     |x|), first-step gradients 1e-5 of each tensor's largest entry,
+     parameters as above) and a bf16 step; on configs/dgdm_xl_windowed.yaml's
+     8000-node graph (bucket 8192) a bf16 pretrain step and a bf16
+     ``return_attention`` forward (its [1, 16, 4096, 8192] weights a rank),
+     each rank's peak above resident against one process's; every forward's
+     and step's launches a rank against its prediction (35 / 22 a forward,
+     35 / 22 / 35 / 22 + 4 a step). Last, the kernels with a rectangular
      table at the halo shapes against their plain versions: both forwards
      (bit-equal, 1e-5), and the widened ones, the lists over M rows (bit-
      equal) and both backwards (1e-5 in f32, one ulp in bf16 and f16,
      bit-identical from call to call) at the [32, 622, 128] table over
      [32, 512, 8] slots and the outgoing rows' [32, 512, 128] over [32, 2,
-     H] slots, timed.
+     H] slots, and at the Large graphs' [4, 1024 + 2H, 128] table and
+     outgoing rows (bf16, f32), timed.
 
  17. half precision (ROADMAP item 8), after phase 15 on its graphs: the four
      gather kernels in f16 at the Base shapes (B=32, N in {1024, 512, 256},
@@ -198,7 +216,7 @@ Phases, each of which raises on a failed check:
      features launches 9 / 18 / 9 / 18 + 3, as one training step); the
      perturbations within eps on real nodes and zero on padding; the f32
      gradient on the card against the CPU on 2 graphs (1e-3 of its largest
-     entry); ms per saliency, IG and PGD call (CUDA events, median of 5
+     entry); ms per saliency, IG and PGD call (CUDA events, median of 3
      after a warm-up), the device-busy share of a profiled IG call and its
      peak memory; ``HierarchicalEncoder`` (768 -> 512, 8 heads, 2 levels),
      ``PhaseModulatedGraphDiffusion`` (768) and ``AdaptiveGraphTopology``
@@ -250,15 +268,18 @@ Phases, each of which raises on a failed check:
      card against CPU with ms; two tenants' jobs (counted) and the quota
      refusals.
 
-It prints a ``{"kernels": [...]}`` JSON line (the f16 instantiations as
-``<name>_f16`` entries), then the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. It exits
+Each phase logs its wall seconds as it ends, and all of them on one
+``phase_seconds:`` line at the end. It prints a ``{"kernels": [...]}`` JSON
+line (the f16 instantiations as ``<name>_f16`` entries), then the card's
+name and power limit, and as its last line ``{"ok": true, "device":
+{...}}``. It exits
 non-zero without a CUDA device or without the port beside it.
 
 ``python3 chip_smoke.py --parallel-only`` runs the build and phase 16 alone;
 on a machine of four cards its tiers run over NCCL, one rank a card (TP
-(2, 2), PP over 4 stages, EP (2, 2), the halo and ``sp_forward`` over a
-model axis of 4, ``dryrun_multichip(4)``),
+(2, 2), PP over 4 stages, EP (2, 2), the halo, ``sp_forward``, its
+training and the ``sp_large`` job over a model axis of 4,
+``dryrun_multichip(4)``),
 followed by ``dgdm-train --mesh-shape 2,2`` against one process and a
 SIGTERM, exit 75 and ``resume``, bit-equal.
 
@@ -378,7 +399,7 @@ MOE = dict(BASE, label="DGDM-Base+MoE", config="configs/dgdm_base_moe.yaml",
 # The data-parallel cell: 2 ranks over gloo sharing the card, and one rank a
 # card over NCCL; with ``--dp-only`` on several cards, the train CLI too, on
 # 128 graph files (0.75 / 0.125 / 0.125: 3 training batches of 32 an epoch).
-DP = dict(steps=3, cli_graphs=128, cli_epochs=4)
+DP = dict(steps=2, cli_graphs=128, cli_epochs=4)
 # The int8 cell (ROADMAP item 13): DGDM-Base through DGDMPredictor(quant="int8")
 # on the Base cell's graphs, the dinov2 featurizer at its batch of 256 on the
 # slide cell's patches, dgdm-serve --quant int8 and an int8 edge bundle; the
@@ -423,7 +444,7 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, reps: int = 20, trials: int = 21) -> float:
+def device_ms(torch, fn, reps: int = 20, trials: int = 11) -> float:
     """Device time of one call: a CUDA graph of ``reps`` calls replayed
     ``trials`` times between CUDA events; median of the per-call means."""
     for _ in range(3):
@@ -1799,7 +1820,6 @@ def slide_fixture() -> tuple:
     synthetic H&E fields (the port's generator, one seed each, rendered in
     worker processes), its pyramid in memory, objective power 20."""
     import multiprocessing as mp
-    import os
     from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
@@ -1808,8 +1828,9 @@ def slide_fixture() -> tuple:
 
     t0 = time.perf_counter()
     n, px = SLIDE["fields"], SLIDE["field_px"]
-    with ProcessPoolExecutor(max_workers=min(n * n, os.cpu_count() or 1),
-                             mp_context=mp.get_context("spawn")) as pool:
+    # every field at once: a pool of fewer workers than fields takes a second
+    # round as long as the first
+    with ProcessPoolExecutor(max_workers=n * n, mp_context=mp.get_context("spawn")) as pool:
         futures = [pool.submit(generate_tissue_image, px, px, num_blobs=SLIDE["num_blobs"],
                                seed=seed) for seed in range(n * n)]
         fields = [f.result()[0] for f in futures]
@@ -3140,7 +3161,7 @@ def dp_phase(torch, graphs, card: str, cards: int) -> dict:
         where = ("on one card, host-staged collectives: not a data-parallel speed"
                  if name == "gloo" or len(ranks) == 1 else f"one card a rank, against "
                  f"{[round(x, 1) for x in single_ms]} ms for one process on one card")
-        log(f"dp: {name} world {len(ranks)}, 3 f32 Base steps ({32 // len(ranks)} "
+        log(f"dp: {name} world {len(ranks)}, {DP['steps']} f32 Base steps ({32 // len(ranks)} "
             f"graphs a rank): metrics within {loss:.3e} of max(1, |x|) of one process on the "
             f"global batch (<= 1e-5), parameters at {worst:.3f} of their bound ({worst_key}; "
             f"the steps moved them up to {moved:.2e}); "
@@ -3276,7 +3297,9 @@ def dp_cli(torch, card: str, cards: int, mesh: str = None) -> dict:
 # Every tier on one card runs as gloo ranks sharing it, held against one
 # process in the same call (host-staged collectives: correctness, not speed);
 # with --parallel-only on four cards over NCCL, one rank a card.
-PAR = dict(tp_epochs=(0, 0, 1), pp_micro=4, dryruns=(4, 8))
+# dryrun_multichip over 8 gloo ranks runs every check of 4 and the pipe x
+# expert mesh; four cards run it over their 4 NCCL ranks
+PAR = dict(tp_epochs=(0, 1), pp_micro=4, dryruns={"gloo": (8,), "nccl": (4,)})
 # biases whose true gradient is 0 (a shift that the softmax over the slots
 # cancels): AdamW turns their rounding noise into lr-sized steps
 SHIFT_INVARIANT = ("k_proj.bias", "risk.bias")
@@ -3299,6 +3322,39 @@ SP_BIG = dict(BASE, batch=1, bucket=8192, n_real=8000, seed=300)
 # 8192-node graph (a rank's peak against one process's).
 SP_TRAIN = dict(epochs=(0, 0, 0, 1), config=dict(learning_rate=1e-4, warmup_steps=0,
                                                  pretrain_epochs=1))
+# DGDM-Large over node-sharded inputs (the sp_large job): the preset at full
+# width (1024-d, hidden (768, 512, 256, 128), 16 heads x 8, 6 layers + the
+# U-Net, both windows of 128) on the Large cell's 4 band-exact graphs (bucket
+# 2048, 2000 real nodes), and configs/dgdm_xl_windowed.yaml's case: one
+# band-exact graph of 8000 real nodes in the 8192 bucket, batch 1. Large: an
+# inference forward and a return_attention one (the dense route, the bands
+# kept) against one process, 3 pretrain + 1 finetune steps in f32 at dropout
+# 0 and at the preset's 0.15 against one process (metrics 1e-5 of max(1,
+# |x|), first-step gradients 1e-5 of each tensor's largest entry, parameters
+# as the sp_train job's, logits and returned attention 1e-5, the pooled
+# nodes' sets equal at each level and their scores within 3e-5 slot for
+# slot: a score carries the rounding of the node embeddings, two nodes
+# whose scores lie within it may swap slots, and sorting moves no value by
+# more than the largest change of a score), a bf16 step. The score bound
+# sits above the sound runs' largest reading (1.23e-5) and below what each
+# of SCORE_FAULTS, planted in one process's forward, makes of the scores;
+# the run fails if the check passes a planted fault. XL (bf16): a pretrain step and a
+# return_attention forward ([1, 16, 4096, 8192] weights a rank at tp 2),
+# each rank's peak above resident against one process's. Cut from a run's
+# thousands of steps to these.
+SP_LARGE = dict(seed=100, f32_atol=1e-5, grad_rel=1e-5, score_atol=3e-5)
+# the pooling scores of one block (each level's second half of rows, the
+# last rank's at tp 2) through bf16, or off by 5e-5 (a fault the earlier
+# bound of 1e-4 let through)
+SCORE_FAULTS = {"block_bf16": lambda t: t.bfloat16().float(), "block_plus_5e-5": lambda t: t + 5e-5}
+SP_XL = dict(LARGE, batch=1, bucket=8192, n_real=8000, seed=400,
+             config="configs/dgdm_xl_windowed.yaml")
+# (name, compute dtype, dropout, batch, epochs)
+SP_LARGE_RUNS = (
+    ("float32", "float32", 0.0, "large_batch", SP_TRAIN["epochs"]),
+    ("float32_dropout", "float32", LARGE["dropout"], "large_batch", SP_TRAIN["epochs"]),
+    ("bfloat16", "bfloat16", LARGE["dropout"], "large_batch", (0,)),
+    ("xl", "bfloat16", LARGE["dropout"], "xl_batch", (0,)))
 
 
 def par_meshes(world: int) -> dict:
@@ -3334,7 +3390,8 @@ def sp_expected_launches(cell: dict) -> dict:
 def par_rank(rank: int, size: int, backend: str, root: str, jobs: list) -> None:
     """One rank of the parallel phase: for each (job, world) in ``jobs`` the
     process group of that world (made anew where the size changes; ranks
-    beyond it sit the job out), the job, its result in ``root``."""
+    beyond it sit the job out), the job, its result and wall seconds in
+    ``root``."""
     import os
     import traceback
 
@@ -3356,7 +3413,9 @@ def par_rank(rank: int, size: int, backend: str, root: str, jobs: list) -> None:
                     dist.init_process_group(backend, init_method=f"file://{root}/rdv{i}",
                                             world_size=world, rank=rank)
             if rank < world:
+                t0 = time.perf_counter()
                 results[job] = PAR_JOBS[job](torch, spec, f"cuda:{card}")
+                results.setdefault("seconds", {})[job] = time.perf_counter() - t0
         if dist.is_initialized():
             dist.destroy_process_group()
         torch.save(results, f"{root}/result{rank}.pt")
@@ -3505,10 +3564,10 @@ def sp_measure(torch, fn) -> dict:
             "above_gib": (peak - before) / 2 ** 30, "wall_ms": (time.perf_counter() - t0) * 1e3}
 
 
-def sp_model(torch, dtype: str, device):
+def sp_model(torch, dtype: str, device, preset: str = "dgdm-base"):
     from dgdm_histopath_torch import create_model
 
-    return create_model("dgdm-base", num_classes=2, compute_dtype=dtype, dropout=0.0,
+    return create_model(preset, num_classes=2, compute_dtype=dtype, dropout=0.0,
                         device=device, seed=1)
 
 
@@ -3545,10 +3604,11 @@ def par_sp(torch, spec, device) -> dict:
     return out
 
 
-def sp_trainer(torch, dtype: str, dropout: float, device, mesh=None):
+def sp_trainer(torch, dtype: str, dropout: float, device, mesh=None,
+               preset: str = "dgdm-base"):
     from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, create_model
 
-    model = create_model("dgdm-base", num_classes=2, compute_dtype=dtype, dropout=dropout,
+    model = create_model(preset, num_classes=2, compute_dtype=dtype, dropout=dropout,
                          device=device, seed=1)
     trainer = DGDMTrainer(model, TrainerConfig(**SP_TRAIN["config"]), device=device,
                           mesh=mesh)
@@ -3567,11 +3627,12 @@ def whole_grads(torch, trainer) -> dict:
     return {k: v.cpu() for k, v in grads.items()}
 
 
-def with_selections(fn):
+def with_selections(fn, scores: list = None):
     """(fn(), each pooled level's selection [b, keep] that the U-Net's
     compaction made in it, whole-level node ids, on the host): the one
     process's ``AdaptiveGraphPooling`` and ``sp_forward``'s compaction both
-    call ``compact_top_k_nodes``."""
+    call ``compact_top_k_nodes``. ``scores``, where given, receives the
+    selected nodes' scores in slot order (f32, on the host)."""
     from dgdm_histopath_torch.nn import graph_layers
     from dgdm_histopath_torch.parallel import sp
 
@@ -3580,6 +3641,9 @@ def with_selections(fn):
     def record(*args, **kwargs):
         c = real(*args, **kwargs)
         seen.append(c["sel_idx"].cpu())
+        if scores is not None:
+            score = args[4] if len(args) > 4 else kwargs["score"]
+            scores.append(score.float().gather(-1, c["sel_idx"]).cpu())
         return c
 
     graph_layers.compact_top_k_nodes = sp.compact_top_k_nodes = record
@@ -3587,6 +3651,31 @@ def with_selections(fn):
         return fn(), seen
     finally:
         graph_layers.compact_top_k_nodes = sp.compact_top_k_nodes = real
+
+
+def score_fault_selections(torch, model, on, fault) -> tuple:
+    """One process's forward of ``model`` on ``on`` with ``fault`` applied
+    to the pooling scores of each level's second half of rows (a block's
+    score path gone wrong): (its selections, their scores), as
+    ``with_selections`` records them."""
+    from dgdm_histopath_torch.nn.graph_layers import AdaptiveGraphPooling
+
+    real = AdaptiveGraphPooling.gate
+
+    def gate(self, x):
+        score, _ = real(self, x)
+        half = score.shape[-1] // 2
+        score = torch.cat([score[..., :half], fault(score[..., half:])], -1)
+        return score, x * torch.sigmoid(score).to(x.dtype)[..., None]
+
+    AdaptiveGraphPooling.gate = gate
+    scores = []
+    try:
+        with torch.no_grad():
+            _, sel = with_selections(lambda: model(on), scores)
+    finally:
+        AdaptiveGraphPooling.gate = real
+    return sel, scores
 
 
 def sp_train_run(torch, trainer, epochs, step, grads: bool = False) -> dict:
@@ -3597,12 +3686,12 @@ def sp_train_run(torch, trainer, epochs, step, grads: bool = False) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    metrics, launches, ms, out = [], [], [], {}
+    metrics, launches, ms, out = [], [], [], {"sel0_scores": []}
     for epoch in epochs:
         first = grads and not metrics
         t0 = time.perf_counter()
-        m, counts = counted_call(torch, (lambda: with_selections(lambda: step(epoch))) if first
-                                 else (lambda: step(epoch)))
+        m, counts = counted_call(torch, (lambda: with_selections(
+            lambda: step(epoch), out["sel0_scores"])) if first else (lambda: step(epoch)))
         ms.append((time.perf_counter() - t0) * 1e3)
         if first:
             m, out["sel0"] = m
@@ -3618,7 +3707,7 @@ def sp_train_run(torch, trainer, epochs, step, grads: bool = False) -> dict:
 SP_TRAIN_RUNS = (
     ("float32", "float32", 0.0, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
     ("float32_dropout", "float32", 0.1, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
-    ("bfloat16", "bfloat16", 0.1, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
+    ("bfloat16", "bfloat16", 0.1, "sp_train_batch", "sp_plans", (0,)),
     ("big", "bfloat16", 0.1, "sp_big", "sp_big_plans", (0,)))
 F32_RUNS = ("float32", "float32_dropout")
 SP_TRAIN_NAMES = tuple(r[0] for r in SP_TRAIN_RUNS)
@@ -3647,6 +3736,66 @@ def par_sp_train(torch, spec, device) -> dict:
             out[name]["params"] = {k: v.cpu() for k, v in trainer.model_state_dict().items()}
         del trainer, block
         torch.cuda.empty_cache()
+    return out
+
+
+def sp_attention_rows(out: dict) -> dict:
+    """The returned attention of a forward on the host: the edge attentions
+    of each encoder layer, the spatial attention's weights, the readout's."""
+    return {**{f"edge_attentions {i}": a.cpu() for i, a in enumerate(out["edge_attentions"])},
+            "spatial_attention": out["spatial_attention"].cpu(),
+            "attention_weights": out["attention_weights"].cpu()}
+
+
+def par_sp_large(torch, spec, device) -> dict:
+    """DGDM-Large over node-sharded inputs on this rank's block (the ``sp``
+    mesh): the f32 forward (logits, selections, node embeddings) and the
+    f32 ``return_attention`` forward (its rows of the returned attention) on
+    the Large graphs, each run of ``SP_LARGE_RUNS`` through
+    ``training_step(block, epoch, prepared=True, plan=plan)``, the bf16
+    ``return_attention`` forward on the 8192-node graph; launches, peak
+    memory and wall times of each."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes, sp_forward
+
+    shape = par_meshes(dist.get_world_size())["sp"]
+    mesh = make_mesh(axes=("data", "model"), shape=shape)
+    tp = shape[1]
+    out = {"tp": tp, "index": mesh.axis("model").index}
+    model = sp_model(torch, "float32", device, "dgdm-large")
+    block = shard_graph_nodes(spec["large_batch"], mesh).to(device)
+    plan = spec["large_plans"][tp]
+    scores = []
+    r, sel = with_selections(lambda: sp_measure(torch, lambda: sp_forward(
+        model, block, plan, mesh)), scores)
+    out["forward"] = dict(sp_result(r, sel, emb=True), scores=scores)
+    r = sp_measure(torch, lambda: sp_forward(model, block, plan, mesh, return_attention=True))
+    attention = sp_attention_rows(r["out"])
+    out["attention"] = dict(sp_result(r, [], emb=False), rows=attention)
+    del model, block, r
+    torch.cuda.empty_cache()
+    for name, dtype, dropout, batch, epochs in SP_LARGE_RUNS:
+        trainer = sp_trainer(torch, dtype, dropout, device, mesh, "dgdm-large")
+        block = shard_graph_nodes(spec[batch], mesh).to(device)
+        plan = spec[batch.replace("batch", "plans")][tp]
+        out[name] = sp_train_run(torch, trainer, epochs, lambda e: trainer.training_step(
+            block, e, prepared=True, plan=plan), grads=name in F32_RUNS)
+        if name in F32_RUNS:
+            out[name]["params"] = {k: v.cpu() for k, v in trainer.model_state_dict().items()}
+        del trainer, block
+        torch.cuda.empty_cache()
+    model = sp_model(torch, "bfloat16", device, "dgdm-large")
+    block = shard_graph_nodes(spec["xl_batch"], mesh).to(device)
+    r = sp_measure(torch, lambda: sp_forward(model, block, spec["xl_plans"][tp], mesh,
+                                             return_attention=True))
+    weights = r["out"]["spatial_attention"]
+    r["weights_shape"] = tuple(weights.shape)
+    r["finite"] = all(bool(torch.isfinite(t).all()) for t in (
+        weights, r["out"]["classification_logits"], *r["out"]["edge_attentions"]))
+    out["xl_attention"] = sp_result(r, [], emb=False)
+    del model, block, r, weights
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3683,8 +3832,8 @@ def par_dryrun(n: int):
 
 
 PAR_JOBS = {"tp": par_tp, "pp": par_pp, "ep": par_ep, "halo": par_halo, "sp": par_sp,
-            "sp_train": par_sp_train,
-            **{f"dryrun{n}": par_dryrun(n) for n in PAR["dryruns"]}}
+            "sp_train": par_sp_train, "sp_large": par_sp_large,
+            **{f"dryrun{n}": par_dryrun(n) for ns in PAR["dryruns"].values() for n in ns}}
 
 
 def par_spec(torch, graphs) -> tuple:
@@ -3773,7 +3922,67 @@ def par_spec(torch, graphs) -> tuple:
     torch.cuda.empty_cache()
     sp_spec(torch, graphs, spec, ref)
     sp_train_spec(torch, spec, ref)
+    sp_large_spec(torch, spec, ref)
     return spec, ref
+
+
+def sp_large_spec(torch, spec: dict, ref: dict, device="cuda") -> None:
+    """The sp_large job's inputs into ``spec``: the Large cell's band-exact
+    graphs with labels and the XL config's 8192-node graph (already in
+    Morton order: a re-sort could move an edge out of its band), their plans
+    for a model axis of 2 and 4; and one process's runs on the whole
+    batches into ``ref["sp_large"]``: the f32 forward, each run of
+    ``SP_LARGE_RUNS``, the XL bf16 ``return_attention`` forward (its returned
+    attention is compared after the ranks, ``sp_large_attention``)."""
+    from dgdm_histopath_torch import batch_graphs, create_model
+    from dgdm_histopath_torch.ops.graph import in_band_fraction
+    from dgdm_histopath_torch.parallel import halo
+    from dgdm_histopath_torch.utils.config import load_config
+
+    probe = create_model("dgdm-large", device="cpu", seed=0)
+    yaml_model_matches(probe, load_config(SP_XL["config"]))
+    del probe
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(17)
+    for key, cell in (("large", LARGE), ("xl", SP_XL)):
+        graphs = make_graphs(cell, seed=SP_LARGE["seed"] if key == "large" else cell["seed"])
+        frac = min(in_band_fraction(g.nbr_idx, g.nbr_mask, cell["window"]) for g in graphs)
+        if frac != 1.0:
+            raise AssertionError(f"sp_large: the {key} graphs are not band-exact ({frac})")
+        batch = batch_graphs(graphs)
+        spec[f"{key}_batch"] = batch.replace(y=torch.randint(0, 2, (len(graphs),),
+                                                             generator=gen))
+        spec[f"{key}_plans"] = {tp: halo.build_halo_plan(batch.nbr_idx, batch.nbr_mask, tp)
+                                for tp in (2, 4)}
+    one = ref["sp_large"] = {"inputs_s": time.perf_counter() - t0}
+    model = sp_model(torch, "float32", device, "dgdm-large")
+    on = spec["large_batch"].to(device)
+    scores = []
+    r, sel = with_selections(lambda: sp_measure(torch, lambda: model(on)), scores)
+    one["forward"] = dict(sp_result(r, sel, emb=True), scores=scores)
+    one["faults"] = {}
+    for name, fault in SCORE_FAULTS.items():
+        got, got_scores = score_fault_selections(torch, model, on, fault)
+        one["faults"][name] = selection_check(got, sel[:len(got)], got_scores,
+                                              scores[:len(got)])
+    del model, on, r
+    torch.cuda.empty_cache()
+    for name, dtype, dropout, batch, epochs in SP_LARGE_RUNS:
+        trainer = sp_trainer(torch, dtype, dropout, device, preset="dgdm-large")
+        on = spec[batch].to(device)
+        r = sp_train_run(torch, trainer, epochs, lambda e: trainer.training_step(on, e),
+                         grads=name in F32_RUNS)
+        if name in F32_RUNS:
+            r["params"] = {k: v.detach().cpu() for k, v in trainer.model.named_parameters()}
+        one[name] = r
+        del trainer, on
+        torch.cuda.empty_cache()
+    model = sp_model(torch, "bfloat16", device, "dgdm-large")
+    on = spec["xl_batch"].to(device)
+    r = sp_measure(torch, lambda: model(on, return_attention=True))
+    one["xl_attention"] = sp_result(r, [], emb=False)
+    del model, on, r
+    torch.cuda.empty_cache()
 
 
 def sp_spec(torch, graphs, spec: dict, ref: dict, device="cuda") -> None:
@@ -3887,47 +4096,52 @@ def rect_backward_rows(torch, gen, table, idx, w, tag: dict, out: dict,
 
 def par_rect_kernels(torch, spec) -> dict:
     """The kernels with a rectangular table at the halo tier's shapes (model
-    axis 2, rank 0): the outgoing rows (gather_rows from the [B, n_loc,
-    128] block, [B, 2, H] slots), the local step (gather_rows and
-    gather_agg over the [B, n_loc + 2H, 128] table, [B, n_loc, 8] slots,
-    masked slots -1 as the model points them), the forwards in bf16 and f32
-    held to their plain versions and timed; then the backwards at both
-    shapes and the transposed lists over their M rows in f32, bf16 and f16
-    (``rect_backward_rows``)."""
+    axis 2, rank 0), of the Base graphs and (the sp_large job's) the Large
+    graphs: the outgoing rows (gather_rows from the [B, n_loc, 128] block,
+    [B, 2, H] slots), the local step (gather_rows and gather_agg over the
+    [B, n_loc + 2H, 128] table, [B, n_loc, 8] slots, masked slots -1 as the
+    model points them), the forwards in bf16 and f32 held to their plain
+    versions and timed; then the backwards at both shapes and the
+    transposed lists over their M rows in f32, bf16 and f16 (Large: bf16
+    and f32) (``rect_backward_rows``)."""
     from dgdm_histopath_torch.ops.graph import real_edge_index
     from dgdm_histopath_torch.parallel.halo import local_plan
     from dgdm_histopath_torch.parallel.mesh import Axis, Mesh
 
-    plan = spec["plans"][2]
     mesh = Mesh(("data", "model"), (1, 2), lines={"model": Axis("model", 2, 0)})
-    send, idx = (t.cuda() for t in local_plan(plan, mesh, device="cpu"))
-    n_loc = plan.n_local
-    srt = spec["sorted"]
-    masked = (srt.nbr_mask & srt.node_mask[..., None])[:, :n_loc].cuda()
-    idx = real_edge_index(idx, masked).contiguous()
-    block = srt.x[:, :n_loc].cuda()
     gen = torch.Generator(device="cuda").manual_seed(14)
     rows = {name: [] for name in ("gather_rows", "gather_agg", "gather_rows_bwd",
                                   "gather_agg_bwd", "neighbor_transpose")}
-    m = n_loc + 2 * plan.halo_size
-    w = torch.rand(idx.shape, generator=gen, device="cuda")
-    for dtype in (torch.bfloat16, torch.float32, torch.float16):
-        x = block.to(dtype).contiguous()
-        table = torch.randn(x.shape[0], m, x.shape[-1], generator=gen,
-                            device="cuda").to(dtype)
-        dt = str(dtype).replace("torch.", "")
-        if dtype != torch.float16:
-            rows["gather_rows"].append(gather_rows_row(torch, x, send, dict(
-                case="outgoing rows", shape=tuple(send.shape), src=tuple(x.shape), dtype=dt)))
-            rows["gather_rows"].append(gather_rows_row(torch, table, idx, dict(
-                case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
-            rows["gather_agg"].append(gather_agg_row(torch, table, idx, w, dict(
-                case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt)))
-        rect_backward_rows(torch, gen, table, idx, w, dict(
-            case="local step", shape=tuple(idx.shape), src=tuple(table.shape), dtype=dt), rows)
-        rect_backward_rows(torch, gen, x, send, None, dict(
-            case="outgoing rows", shape=tuple(send.shape), src=tuple(x.shape), dtype=dt),
-            rows, agg=False)
+    # (label, plan, graphs, dtypes); the block's rows: the Base graphs'
+    # features as the encoder sees them, random ones of the Large width
+    cases = (("", spec["plans"][2], spec["sorted"],
+              (torch.bfloat16, torch.float32, torch.float16)),
+             ("Large ", spec["large_plans"][2], spec["large_batch"],
+              (torch.bfloat16, torch.float32)))
+    for label, plan, srt, dtypes in cases:
+        send, idx = (t.cuda() for t in local_plan(plan, mesh, device="cpu"))
+        n_loc = plan.n_local
+        masked = (srt.nbr_mask & srt.node_mask[..., None])[:, :n_loc].cuda()
+        idx = real_edge_index(idx, masked).contiguous()
+        block = (srt.x[:, :n_loc].cuda() if not label else
+                 torch.randn(srt.x.shape[0], n_loc, 128, generator=gen, device="cuda"))
+        m = n_loc + 2 * plan.halo_size
+        w = torch.rand(idx.shape, generator=gen, device="cuda")
+        for dtype in dtypes:
+            x = block.to(dtype).contiguous()
+            table = torch.randn(x.shape[0], m, x.shape[-1], generator=gen,
+                                device="cuda").to(dtype)
+            dt = str(dtype).replace("torch.", "")
+            out_tag = dict(case=f"{label}outgoing rows", shape=tuple(send.shape),
+                           src=tuple(x.shape), dtype=dt)
+            step_tag = dict(case=f"{label}local step", shape=tuple(idx.shape),
+                            src=tuple(table.shape), dtype=dt)
+            if dtype != torch.float16:
+                rows["gather_rows"].append(gather_rows_row(torch, x, send, out_tag))
+                rows["gather_rows"].append(gather_rows_row(torch, table, idx, step_tag))
+                rows["gather_agg"].append(gather_agg_row(torch, table, idx, w, step_tag))
+            rect_backward_rows(torch, gen, table, idx, w, step_tag, rows)
+            rect_backward_rows(torch, gen, x, send, None, out_tag, rows, agg=False)
     # the launch floor: an empty kernel of one warp, timed as the kernels are
     empty = empty_kernel()
     rows["empty_kernel_ms"] = device_ms(torch, lambda: empty(
@@ -3940,7 +4154,7 @@ def par_rect_kernels(torch, spec) -> dict:
         for r in rs:
             lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             ulp = (f" ulp {r['max_ulp_err']:.2f}" if r.get("max_ulp_err") is not None else "")
-            log(f"kernel {name:18s} rectangular {r['case']:13s} src {r['src']} idx "
+            log(f"kernel {name:18s} rectangular {r['case']:19s} src {r['src']} idx "
                 f"{r['shape']} {r['dtype']:8s} err {r['max_abs_err']:.2e}{ulp}  ms "
                 f"{r['ms']:.4f}  plain {r['plain_ms']:.4f}  library {lib}  bound "
                 f"{r['bound_ms']:.4f} ({r['bound_by']})")
@@ -3950,7 +4164,7 @@ def par_rect_kernels(torch, spec) -> dict:
     return rows
 
 
-def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
+def par_compare(torch, got: dict, ref: dict, spec: dict, world: int, card: str) -> dict:
     """Every rank's results against the one-process references; raises on a
     failed bound."""
     out = {}
@@ -3976,7 +4190,7 @@ def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
                  "sharded": ranks[0]["sharded"], "rank_bytes": [r["bytes"] for r in ranks],
                  "one_process_bytes": ref["tp_bytes"]}
     log(f"parallel: TP {ranks[0]['shape']} (data, model), DGDM-Base f32 batch 32 bucket 1024, "
-        f"2 pretrain + 1 finetune steps: metrics within {loss:.3e} of max(1, |x|) of one "
+        f"1 pretrain + 1 finetune step: metrics within {loss:.3e} of max(1, |x|) of one "
         f"process (<= 1e-5), parameters at {worst:.3f} of their bound ({worst_key}); "
         f"{ranks[0]['sharded']} parameters sharded; launches a step {ranks[0]['launches']} "
         f"(one process: {expected}); rank param + AdamW bytes "
@@ -4058,8 +4272,10 @@ def par_compare(torch, got: dict, ref: dict, world: int, card: str) -> dict:
     out["sp"] = sp_compare(torch, [r["sp"] for r in got], ref["sp"], card)
     out["sp_train"] = sp_train_compare(torch, [r["sp_train"] for r in got], ref["sp_train"],
                                        card)
+    out["sp_large"] = sp_large_compare(torch, [r["sp_large"] for r in got], ref["sp_large"],
+                                       spec, card)
 
-    for n in PAR["dryruns"]:
+    for n in sorted({n for ns in PAR["dryruns"].values() for n in ns}):
         if f"dryrun{n}" in got[0]:
             r = got[0][f"dryrun{n}"]
             out[f"dryrun{n}"] = {"line": r["line"], "wall_s": r["wall_s"]}
@@ -4074,6 +4290,28 @@ def sel_agreement(got, want) -> tuple:
     sets = [bool((a.sort().values == b.sort().values).all())
             for x, y in zip(got, want) for a, b in zip(x, y)]
     return slots, sum(sets) / len(sets)
+
+
+def selection_check(got: list, want: list, got_scores: list, want_scores: list) -> dict:
+    """The pooled selections of two runs of the same forwards (each
+    forward's [level 1, level 2] selections in call order, and their
+    scores in slot order): the share of slots holding the same node and of
+    (graph, level) pairs selecting the same nodes, both in node ids of the
+    whole graph (a level-2 slot's level-1 slot composed), and the largest
+    difference of the selected scores slot for slot. Two nodes whose scores
+    lie within rounding of each other may take each other's slots in the
+    two runs (a near tie); their scores still agree slot by slot."""
+    import torch
+
+    def node_ids(sel):
+        ids = []
+        for s0, s1 in zip(sel[0::2], sel[1::2]):
+            ids += [s0, torch.gather(s0, -1, s1)]
+        return ids
+
+    slots, sets = sel_agreement(node_ids(got), node_ids(want))
+    gap = max((a - b).abs().max().item() for a, b in zip(got_scores, want_scores))
+    return {"slots_equal": slots, "sets_equal": sets, "score_gap": gap}
 
 
 def sp_compare(torch, ranks: list, ref: dict, card: str) -> dict:
@@ -4191,6 +4429,8 @@ def sp_f32_check(ranks: list, one: dict, name: str) -> dict:
     slots, sets = sel_agreement(got["sel0"], one["sel0"])
     return {"same_on_every_rank": all(r[name]["metrics"] == got["metrics"] for r in ranks),
             "sel0_slots_equal": slots, "sel0_sets_equal": sets,
+            "sel0_ids": selection_check(got["sel0"], one["sel0"], got["sel0_scores"],
+                                        one["sel0_scores"]),
             "max_metric_rel": max(metric.values()),
             "max_first_step_metric_rel": max(v for k, v in metric.items()
                                              if k.startswith("0 ")),
@@ -4282,22 +4522,222 @@ def sp_train_compare(torch, ranks: list, ref: dict, card: str) -> dict:
     return out
 
 
+def sp_large_attention(torch, spec: dict, ranks: list) -> dict:
+    """One process's f32 ``return_attention`` forward of DGDM-Large on the
+    whole Large batch, on the card, against the ranks' rows of each returned
+    attention concatenated in rank order along its node axis (the query axis
+    of the spatial weights): the largest difference of each, and of the
+    logits."""
+    model = sp_model(torch, "float32", "cuda", "dgdm-large")
+    with torch.no_grad():
+        out = model(spec["large_batch"].to("cuda"), return_attention=True)
+    want = {**{f"edge_attentions {i}": a for i, a in enumerate(out["edge_attentions"])},
+            "spatial_attention": out["spatial_attention"],
+            "attention_weights": out["attention_weights"]}
+    errors = {}
+    for key, w in want.items():
+        got = torch.cat([r["attention"]["rows"][key] for r in ranks],
+                        2 if key == "spatial_attention" else 1).cuda()
+        if got.shape != w.shape:
+            raise AssertionError(f"sp_large: {key} rows {tuple(got.shape)} concatenated, one "
+                                 f"process {tuple(w.shape)}")
+        errors[key] = (got - w).abs().max().item()
+    logits = out["classification_logits"].cpu()
+    del model, out, want
+    torch.cuda.empty_cache()
+    return {"errors": errors, "shape": tuple(ranks[0]["attention"]["rows"][
+        "spatial_attention"].shape), "logits_err": max(
+        (r["attention"]["logits"] - logits).abs().max().item() for r in ranks)}
+
+
+def sp_large_compare(torch, ranks: list, ref: dict, spec: dict, card: str) -> dict:
+    """Each rank's sp_large results against one process's on the card: the
+    f32 forward's logits (1e-5) and pooled selections (``selection_check``:
+    the same nodes at each level, their scores within 3e-5 slot for slot;
+    the same check on one process's forward with each of SCORE_FAULTS
+    planted must fail), the returned attention concatenated over the ranks (1e-5), the f32 runs
+    as the sp_train job holds them (``sp_f32_check``; first-step gradients
+    1e-5 of each tensor's largest entry, the first step's selections as the
+    forward's), every
+    forward's and step's launches as predicted on every rank, the bf16 and
+    XL results finite, and at bucket 8192 each rank's peak above its
+    resident memory below one process's (the step and the
+    ``return_attention`` forward). Raises on a failed bound."""
+    tp = ranks[0]["tp"]
+    fwd_expected, step_expected = sp_expected_launches(LARGE), sp_train_expected_launches(LARGE)
+    out = {"tp": tp, "expected_launches": {"forward": fwd_expected, "step": step_expected},
+           "inputs_s": ref["inputs_s"]}
+    f = ref["forward"]
+    n_loc = f["emb"].shape[1] // tp
+    sel = [selection_check(r["forward"]["sel"], f["sel"], r["forward"]["scores"], f["scores"])
+           for r in ranks]
+    out["forward"] = {
+        "logits_err": max((r["forward"]["logits"] - f["logits"]).abs().max().item()
+                          for r in ranks),
+        "emb_err": max((r["forward"]["emb"] - f["emb"][:, r["index"] * n_loc:
+                                                        (r["index"] + 1) * n_loc])
+                       .abs().max().item() for r in ranks),
+        "sel_slots_equal": min(c["slots_equal"] for c in sel),
+        "sel_sets_equal": min(c["sets_equal"] for c in sel),
+        "sel_score_gap": max(c["score_gap"] for c in sel),
+        "faults": ref["faults"],
+        "launches": [r["forward"]["launches"] for r in ranks], "one_launches": f["launches"],
+        "wall_ms": [r["forward"]["wall_ms"] for r in ranks], "one_wall_ms": f["wall_ms"],
+        "above_gib": [r["forward"]["above_gib"] for r in ranks],
+        "one_above_gib": f["above_gib"]}
+    out["attention"] = dict(sp_large_attention(torch, spec, ranks),
+                            launches=[r["attention"]["launches"] for r in ranks],
+                            wall_ms=[r["attention"]["wall_ms"] for r in ranks],
+                            above_gib=[r["attention"]["above_gib"] for r in ranks])
+    for name in F32_RUNS:
+        out[f"{name}_check"] = sp_f32_check(ranks, ref[name], name)
+    for name in (r[0] for r in SP_LARGE_RUNS):
+        one = ref[name]
+        out[name] = {
+            "launches": [r[name]["launches"] for r in ranks], "one_launches": one["launches"],
+            "step_ms": [r[name]["step_ms"] for r in ranks], "one_step_ms": one["step_ms"],
+            "peak_gib": [r[name]["peak_gib"] for r in ranks], "one_peak_gib": one["peak_gib"],
+            "above_gib": [r[name]["above_gib"] for r in ranks],
+            "one_above_gib": one["above_gib"],
+            "loss": [m["loss"] for m in ranks[0][name]["metrics"]],
+            "one_loss": [m["loss"] for m in one["metrics"]],
+            "finite": all(math.isfinite(v) for r in ranks for m in r[name]["metrics"]
+                          for v in m.values())}
+    xa, one_xa = [r["xl_attention"] for r in ranks], ref["xl_attention"]
+    out["xl_attention"] = {
+        "weights_shape": xa[0]["weights_shape"], "finite": all(r["finite"] for r in xa),
+        "launches": [r["launches"] for r in xa], "one_launches": one_xa["launches"],
+        "peak_gib": [r["peak_gib"] for r in xa], "one_peak_gib": one_xa["peak_gib"],
+        "above_gib": [r["above_gib"] for r in xa], "one_above_gib": one_xa["above_gib"],
+        "wall_ms": [r["wall_ms"] for r in xa], "one_wall_ms": one_xa["wall_ms"]}
+    # the rows a rank receives for one f32 table of 128 features: a halo
+    # table at the full-N levels, an all-gathered one at the pooled levels,
+    # the window route's two windows of W rows
+    w = LARGE["window"]
+    out["halo"] = {}
+    for key in ("large", "xl"):
+        plan, b = spec[f"{key}_plans"][tp], spec[f"{key}_batch"].x.shape[0]
+        n = spec[f"{key}_batch"].x.shape[1]
+        out["halo"][key] = {"H": {t: p.halo_size for t, p in spec[f"{key}_plans"].items()},
+                            "table_bytes": {
+                                "halo, N": b * (tp - 1) * plan.halo_size * 128 * 4,
+                                **{f"all-gather, N/{2 ** d}": b * (tp - 1) * (n >> d) // tp
+                                   * 128 * 4 for d in (1, 2)},
+                                "window ring, N": b * 2 * w * 128 * 4}}
+
+    def gathers(c):
+        return {k: c[k] for k in ("gather_rows", "gather_agg", "gather_rows_bwd",
+                                  "gather_agg_bwd", "neighbor_transpose")}
+
+    fw, at = out["forward"], out["attention"]
+    log(f"parallel: sp_large (1, {tp}) (data, model), DGDM-Large f32 batch 4 bucket 2048 "
+        f"(windows of {w}): logits within {fw['logits_err']:.2e} of one process (<= "
+        f"{SP_LARGE['f32_atol']}), node embeddings {fw['emb_err']:.2e}; pooled nodes (ids of "
+        f"the graph): slots equal {fw['sel_slots_equal']:.4f}, sets {fw['sel_sets_equal']:.3f}, "
+        f"selected scores slot for slot within {fw['sel_score_gap']:.2e}; a rank's launches "
+        f"{gathers(fw['launches'][0])} (predicted {gathers(fwd_expected)}; one process "
+        f"{gathers(fw['one_launches'])}); wall {[round(x, 1) for x in fw['wall_ms']]} ms "
+        f"against {fw['one_wall_ms']:.1f}; peak GiB above resident "
+        f"{[round(x, 3) for x in fw['above_gib']]} against {fw['one_above_gib']:.3f} [{card}]")
+    faults = {k: f"slots {c['slots_equal']:.4f}, sets {c['sets_equal']:.3f}, scores within "
+                 f"{c['score_gap']:.2e}" for k, c in fw["faults"].items()}
+    log(f"parallel: sp_large planted score faults (a block's pooling scores in one process's "
+        f"f32 forward) against the sound forward: {faults} (each must fail: sets equal and "
+        f"scores within {SP_LARGE['score_atol']}) [{card}]")
+    log(f"parallel: sp_large return_attention f32: rows concatenated over the ranks, "
+        f"largest differences {({k: f'{v:.2e}' for k, v in at['errors'].items()})} (<= "
+        f"{SP_LARGE['f32_atol']}), spatial weights {at['shape']} a rank, logits "
+        f"{at['logits_err']:.2e}; launches {gathers(at['launches'][0])}; wall "
+        f"{[round(x, 1) for x in at['wall_ms']]} ms; peak GiB above resident "
+        f"{[round(x, 3) for x in at['above_gib']]} [{card}]")
+    for name in F32_RUNS:
+        c = out[f"{name}_check"]
+        log(f"parallel: sp_large training {name} (1, {tp}), 3 pretrain + 1 finetune steps: "
+            f"metrics within {c['max_metric_rel']:.3e} of max(1, |x|) of one process, "
+            f"first-step gradients within {c['max_grad0_rel']:.3e} of each tensor's largest "
+            f"entry (<= {SP_LARGE['grad_rel']}), first-step pooled nodes: slots equal "
+            f"{c['sel0_ids']['slots_equal']:.4f}, sets {c['sel0_ids']['sets_equal']:.3f}, "
+            f"scores slot for slot within {c['sel0_ids']['score_gap']:.2e}; parameters at "
+            f"{c['max_param_over_bound']:.3f} of "
+            f"their bound ({c['max_param_over_strict_bound']:.3f} of the strict bound); worst "
+            f"gradients {[(k, f'{v:.2e}') for k, v in c['worst_grads0'][:3]]}, parameters "
+            f"{[(k, round(v, 3)) for k, v in c['worst_params'][:3]]} [{card}]")
+    for name, what in (("float32", "f32, dropout 0"),
+                       ("float32_dropout", f"f32, dropout {LARGE['dropout']}"),
+                       ("bfloat16", f"bf16, dropout {LARGE['dropout']}, 1 pretrain step"),
+                       ("xl", "bf16, configs/dgdm_xl_windowed.yaml, one graph of 8000 nodes "
+                              "in bucket 8192, 1 pretrain step")):
+        r = out[name]
+        log(f"parallel: sp_large training {what}: a rank's launches a step "
+            f"{gathers(r['launches'][0][0])} (predicted {gathers(step_expected)}; one process "
+            f"{gathers(r['one_launches'][0])}); step wall ms a rank "
+            f"{[[round(x, 1) for x in ms] for ms in r['step_ms']]} against "
+            f"{[round(x, 1) for x in r['one_step_ms']]}; peak GiB a rank "
+            f"{[round(x, 3) for x in r['peak_gib']]} ({[round(x, 3) for x in r['above_gib']]} "
+            f"above resident) against {r['one_peak_gib']:.3f} ({r['one_above_gib']:.3f}) for "
+            f"one process; loss {[round(x, 5) for x in r['loss']]} against "
+            f"{[round(x, 5) for x in r['one_loss']]} [{card}]")
+    x = out["xl_attention"]
+    log(f"parallel: sp_large XL return_attention bf16, bucket 8192: spatial weights "
+        f"{x['weights_shape']} a rank, finite {x['finite']}; launches "
+        f"{gathers(x['launches'][0])}; peak GiB a rank {[round(v, 3) for v in x['peak_gib']]} "
+        f"({[round(v, 3) for v in x['above_gib']]} above resident) against "
+        f"{x['one_peak_gib']:.3f} ({x['one_above_gib']:.3f}) for one process; wall "
+        f"{[round(v, 1) for v in x['wall_ms']]} ms against {x['one_wall_ms']:.1f} [{card}]")
+    log(f"parallel: sp_large H and bytes a rank receives a table (f32, F 128): "
+        f"{out['halo']} [{card}]")
+    failed = {"forward logits": fw["logits_err"] > SP_LARGE["f32_atol"],
+              "forward selections": fw["sel_sets_equal"] < 1.0
+              or fw["sel_score_gap"] > SP_LARGE["score_atol"],
+              "selection check blind to a planted score fault": any(
+                  c["sets_equal"] == 1.0 and c["score_gap"] <= SP_LARGE["score_atol"]
+                  for c in fw["faults"].values()),
+              "attention": max(at["errors"].values()) > SP_LARGE["f32_atol"]
+              or at["logits_err"] > SP_LARGE["f32_atol"],
+              "forward launches": any(c != fwd_expected for c in fw["launches"]
+                                      + at["launches"] + x["launches"]),
+              "one-process forward launches": any(
+                  c != expected_launches(LARGE, training=False)
+                  for c in (fw["one_launches"], x["one_launches"])),
+              "step launches": any(c != step_expected for n, *_ in SP_LARGE_RUNS
+                                   for r in out[n]["launches"] for c in r),
+              "one-process step launches": any(
+                  c != expected_launches(LARGE, training=True)
+                  for n, *_ in SP_LARGE_RUNS for c in out[n]["one_launches"]),
+              "finite": not (all(out[n]["finite"] for n, *_ in SP_LARGE_RUNS)
+                             and x["finite"]),
+              "8192-node step peak": max(out["xl"]["above_gib"]) >= out["xl"]["one_above_gib"],
+              "8192-node attention peak": max(x["above_gib"]) >= x["one_above_gib"]}
+    for name in F32_RUNS:
+        c = out[f"{name}_check"]
+        failed.update({f"{name} ranks": not c["same_on_every_rank"],
+                       f"{name} metrics": c["max_metric_rel"] > 1e-5,
+                       f"{name} first-step gradients": c["max_grad0_rel"] > SP_LARGE["grad_rel"],
+                       f"{name} parameters": c["max_param_over_bound"] > 1.0,
+                       f"{name} selections": c["sel0_ids"]["sets_equal"] < 1.0
+                       or c["sel0_ids"]["score_gap"] > SP_LARGE["score_atol"]})
+    if any(failed.values()):
+        raise AssertionError(f"sp_large: {[k for k, v in failed.items() if v]} failed")
+    return out
+
+
 def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
     """The tiers through their entry points. One card: 8 gloo ranks share it;
     2 of them run TP (1, 2) on DGDM-Base at full width, PP, EP, the halo
-    tier, ``sp_forward`` and training over node-sharded inputs, then 4 and 8
-    run ``dryrun_multichip``. Four
-    cards (``cards >= 4``): 4 NCCL ranks, one a card, run TP (2, 2), PP (1,
-    4), EP (2, 2), the halo and ``sp_forward`` over 4 and
-    ``dryrun_multichip(4)``. Each tier against one process of
-    this call; then both kernels with a rectangular table at the halo shapes."""
+    tier, ``sp_forward`` and training over node-sharded inputs, then
+    DGDM-Large and the XL config's 8192-node graph over node-sharded inputs
+    (the ``sp_large`` job: windows, returned attention), then all 8 run
+    ``dryrun_multichip(8)``. Four cards (``cards >= 4``): 4 NCCL ranks, one a
+    card, run TP (2, 2), PP (1, 4), EP (2, 2), the halo, ``sp_forward``,
+    its training and ``sp_large`` over 4 and ``dryrun_multichip(4)``. Each
+    tier against one process of this call; then the kernels with a
+    rectangular table at the halo shapes of the Base and the Large graphs."""
     import multiprocessing
     import tempfile
 
     backend, world = ("nccl", 4) if cards >= 4 else ("gloo", 2)
-    dry = [n for n in PAR["dryruns"] if backend == "gloo" or n <= cards]
-    jobs = ([(j, world) for j in ("tp", "pp", "ep", "halo", "sp", "sp_train")]
-            + [(f"dryrun{n}", n) for n in dry])
+    jobs = ([(j, world) for j in ("tp", "pp", "ep", "halo", "sp", "sp_train", "sp_large")]
+            + [(f"dryrun{n}", n) for n in PAR["dryruns"][backend]])
     size = max(w for _, w in jobs)
     t0 = time.perf_counter()
     spec, ref = par_spec(torch, graphs)
@@ -4327,12 +4767,14 @@ def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
         got = [torch.load(f"{root}/result{r}.pt", weights_only=False) for r in range(world)]
     # the kernels alone first: a wrong kernel shows there before the steps
     rect = par_rect_kernels(torch, spec) if backend == "gloo" else None
-    out = par_compare(torch, got, ref, world, card)
-    out.update(backend=backend, world=world, ranks_wall_s=wall, reference_s=ref_s)
+    out = par_compare(torch, got, ref, spec, world, card)
+    job_s = {job: round(got[0]["seconds"][job], 1) for job, _ in jobs}
+    out.update(backend=backend, world=world, ranks_wall_s=wall, reference_s=ref_s,
+               job_seconds=job_s)
     how = ("one a card" if backend == "nccl" else
            "sharing the card, host-staged collectives: not a parallel speed")
-    log(f"parallel: {size} {backend} ranks ({how}) in {wall:.1f} s, the one-process "
-        f"references {ref_s:.1f} s [{card}]")
+    log(f"parallel: {size} {backend} ranks ({how}) in {wall:.1f} s (rank 0's jobs: {job_s} "
+        f"s), the one-process references {ref_s:.1f} s [{card}]")
     if rect is not None:
         out["rect"] = rect
         out["dropout_draw"] = dropout_draw_memory(torch, card)
@@ -5541,7 +5983,7 @@ def preprocess_phase(torch, card: str) -> dict:
 # research graph modules at Base widths. One gradient call launches what one
 # Base training step launches: 9 / 18 / 9 / 18 + 3.
 RESEARCH = dict(ig_steps=16, pgd_steps=10, epsilon=0.05, hier_hidden=512, hier_heads=8,
-                hier_levels=2, grad_rtol=1e-3, module_rtol=1e-4, reps=5)
+                hier_levels=2, grad_rtol=1e-3, module_rtol=1e-4, reps=3)
 
 
 def research_expected(grads: int, forwards: int = 0, gathers: int = 0) -> dict:
@@ -6657,7 +7099,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    t_build = time.perf_counter() - t0
+    log(f"build: {sorted(libs)} in {t_build:.1f} s (nvcc, sm_90a)")
     ptxas = {name: build.ptxas_report(name) for name in PTXAS_SOURCES}
     for r in (r for rows in ptxas.values() for r in rows):
         log(f"ptxas: {r['kernel']}: {r['registers']} registers, spill stores "
@@ -6760,99 +7203,95 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
-    kern = kernel_phase(torch)
-    kern.update(flash_kernel_phase(torch))
-    transpose = transpose_phase(torch)
+    seconds = {"build": round(t_build, 1)}
+
+    def timed(name: str, fn, *args):
+        """``fn(*args)``, its wall seconds under ``name``, the cache emptied
+        after it."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        log(f"phase {name}: {seconds[name]} s")
+        return out
+
+    kern = timed("kernels", kernel_phase, torch)
+    kern.update(timed("flash_kernels", flash_kernel_phase, torch))
+    transpose = timed("transpose", transpose_phase, torch)
 
     # DGDM-Base: serving, then training
     graphs = make_graphs(BASE)
-    predictor, launches, timing, parity = model_phase(torch, graphs, card, BASE)
-    server = server_phase(predictor, graphs, BASE)
+    predictor, launches, timing, parity = timed("base_model", model_phase, torch, graphs,
+                                                card, BASE)
+    server = timed("base_server", server_phase, predictor, graphs, BASE)
     del predictor
-    torch.cuda.empty_cache()
     captured = []
-    train_launches, train_timing, train_parity = training_phase(torch, graphs, card, BASE,
-                                                                captured)
-    torch.cuda.empty_cache()
-    real_step = real_step_phase(torch, captured)
+    train_launches, train_timing, train_parity = timed("base_training", training_phase, torch,
+                                                       graphs, card, BASE, captured)
+    real_step = timed("real_step", real_step_phase, torch, captured)
     del captured
-    torch.cuda.empty_cache()
 
     # the flash path, through the module a user would call
-    flash_module = flash_module_phase(torch, card)
-    torch.cuda.empty_cache()
+    flash_module = timed("flash_module", flash_module_phase, torch, card)
 
     # DGDM-Large (windowed + banded): serving, then training
     large_graphs = make_graphs(LARGE, seed=100)
-    predictor, l_launches, l_timing, l_parity = model_phase(torch, large_graphs, card, LARGE)
-    l_server = server_one_request(predictor, large_graphs[0], LARGE)
+    predictor, l_launches, l_timing, l_parity = timed("large_model", model_phase, torch,
+                                                      large_graphs, card, LARGE)
+    l_server = timed("large_server", server_one_request, predictor, large_graphs[0], LARGE)
     del predictor
-    torch.cuda.empty_cache()
-    l_train_launches, l_train_timing, l_train_parity = training_phase(
-        torch, large_graphs, card, LARGE)
+    l_train_launches, l_train_timing, l_train_parity = timed(
+        "large_training", training_phase, torch, large_graphs, card, LARGE)
     del large_graphs
-    torch.cuda.empty_cache()
 
     # so that every phase above runs as it did before this phase existed
-    remat = remat_phase(torch, graphs, card, BASE)
-    torch.cuda.empty_cache()
+    remat = timed("remat", remat_phase, torch, graphs, card, BASE)
 
     # the MoE tier (configs/dgdm_base_moe.yaml) against the Base numbers above
-    moe = moe_phase(torch, graphs, card, train_timing, timing)
-    torch.cuda.empty_cache()
+    moe = timed("moe", moe_phase, torch, graphs, card, train_timing, timing)
 
     # data parallelism: two gloo ranks sharing the card, one NCCL rank
-    dp = dp_phase(torch, graphs, card, torch.cuda.device_count())
-    torch.cuda.empty_cache()
+    dp = timed("dp", dp_phase, torch, graphs, card, torch.cuda.device_count())
 
-    # the other parallel tiers (TP, PP, EP, the halo) and the multichip dry runs
-    par = parallel_phase(torch, graphs, card, 1)
-    torch.cuda.empty_cache()
+    # the other parallel tiers (TP, PP, EP, the halo, node sharding with
+    # DGDM-Large's windows) and the multichip dry runs
+    par = timed("parallel", parallel_phase, torch, graphs, card, 1)
 
     # last: the whole-slide path
     slide_keep = {}
-    slide = slide_phase(torch, card, kern, slide_keep)
-    torch.cuda.empty_cache()
+    slide = timed("slide", slide_phase, torch, card, kern, slide_keep)
 
     # last: int8 inference, on the Base cell's graphs and the slide's patches
-    int8 = int8_phase(torch, graphs, card, slide_keep)
+    int8 = timed("int8", int8_phase, torch, graphs, card, slide_keep)
     slide_backend = slide_keep["backend"]           # for phase 21
     del slide_keep
-    torch.cuda.empty_cache()
 
     # half precision (item 8): the kernels in f16 beside the bf16 rows above,
     # DGDM-Base in f16 / with bf16 parameters / with set2set, the f16 CLI run
-    dtype = dtype_phase(torch, graphs, card, kern)
-    torch.cuda.empty_cache()
+    dtype = timed("dtype", dtype_phase, torch, graphs, card, kern)
 
     # phase 19: feature gradients through the gather backward kernels, the
     # research modules
-    research = research_phase(torch, graphs, card)
-    torch.cuda.empty_cache()
+    research = timed("research", research_phase, torch, graphs, card)
 
     # phase 20: dgdm-quality and its gates, ResilientTrainer and federated
     # DGDM-Base training on the card
-    quality = quality_phase(torch, graphs, card)
-    torch.cuda.empty_cache()
+    quality = timed("quality", quality_phase, torch, graphs, card)
 
     # phase 21: clinical/ (DICOM -> predict_slide -> EHR), the exported
     # program, production, quantum/ and enterprise/ on the card
-    orch = orchestration_phase(torch, graphs, card, slide_backend)
+    orch = timed("orchestration", orchestration_phase, torch, graphs, card, slide_backend)
     del graphs, slide_backend
-    torch.cuda.empty_cache()
 
     # last: training through the CLI, resumed after a SIGTERM, and dgdm-predict
-    cli = cli_phase(torch, card)
-    torch.cuda.empty_cache()
+    cli = timed("cli", cli_phase, torch, card)
 
     # last: the serving tier, dynamic batching, the rate limit and dgdm-serve
-    serve = serve_phase(torch, card)
-    torch.cuda.empty_cache()
+    serve = timed("serve", serve_phase, torch, card)
 
     # last: offline preprocessing (slides rendered on the card -> graphs ->
     # dgdm-predict)
-    pre = preprocess_phase(torch, card)
-    torch.cuda.empty_cache()
+    pre = timed("preprocess", preprocess_phase, torch, card)
 
     replaces = KERNEL_SOURCES
     line = {"kernels": []}
@@ -6894,6 +7333,9 @@ def main() -> int:
                    "sp_graph_conv": par["halo"]["sp_launches"][name],
                    "sp_forward_rank": par["sp"]["float32"]["launches"][0][name],
                    "sp_training_step_rank": par["sp_train"]["bfloat16"]["launches"][0][0][name],
+                   "sp_large_forward_rank": par["sp_large"]["forward"]["launches"][0][name],
+                   "sp_large_training_step_rank": (
+                       par["sp_large"]["float32"]["launches"][0][0][name]),
                    "spatial_attention_use_flash": (
                        flash_module[name]["bfloat16"]["launches"][name]
                        if name in flash_module else 0)}
@@ -6959,6 +7401,8 @@ def main() -> int:
                                             "server": l_server,
                                             "training": l_train_timing,
                                             "training_parity": l_train_parity}}))
+    seconds["total"] = round(time.perf_counter() - t_start, 1)
+    log("phase_seconds: " + json.dumps(seconds))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(card)

@@ -14,7 +14,7 @@ weights forces the dense route, as in the reference. Softmax math is f32;
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -33,13 +33,15 @@ def scaled_dot_product_attention(
     generator: Optional[torch.Generator] = None,
     traffic_dtype: Optional[torch.dtype] = None,
     dropout_rows: Optional[NodeRows] = None,
+    dropout_dim: int = -2,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked SDPA. q [..., Lq, H, D], k/v [..., Lk, H, D].
 
     Returns (out [..., Lq, H, D], weights [..., H, Lq, Lk]). Query rows
     with no valid key come out as zeros. ``dropout_rate > 0`` drops
     attention weights with draws from ``generator``, keyed to the graph's
-    nodes that the queries are where ``dropout_rows`` names them. ``traffic_dtype``
+    nodes (or windows) that the weights' axis ``dropout_dim`` (the queries)
+    holds where ``dropout_rows`` names them. ``traffic_dtype``
     (default f32) is the type the QK^T logits and the weights are stored in:
     one rounding of each, the softmax between them stays f32.
     """
@@ -57,7 +59,7 @@ def scaled_dot_product_attention(
     if key_mask is not None:
         any_key = key_mask.any(-1)[..., None, None, None]
         weights = torch.where(any_key, weights, torch.zeros((), device=weights.device))
-    weights = dropout(weights, dropout_rate, generator, dropout_rows)   # the query axis
+    weights = dropout(weights, dropout_rate, generator, dropout_rows, dropout_dim)
     if traffic_dtype is not None:
         weights = weights.to(traffic_dtype)
     out = torch.einsum("...hqk,...khd->...qhd", weights.to(v.dtype), v)
@@ -176,6 +178,20 @@ def sinusoidal_position_encoding_2d(pos: torch.Tensor, dim: int,
     return out
 
 
+class KeyBlock(NamedTuple):
+    """Where the queries' rows are a contiguous block of a larger graph (a
+    rank's node block, ``parallel/sp.py``): ``rows`` names its nodes
+    (``nn.layers.NodeRows``: the graph's ``n`` and the block's first row
+    ``lo``); ``gather`` takes a per-node tensor of the block [B, n_loc, ...]
+    to the whole graph's [B, n, ...] (the dense route's keys), ``ring(t,
+    w)`` to (the w rows before the block, the w rows after it) [B, w, ...],
+    the graph's ends joined (the window route's adjacent blocks)."""
+
+    rows: NodeRows
+    gather: Callable[[torch.Tensor], torch.Tensor]
+    ring: Callable[[torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
+
+
 class SpatialAttention(nn.Module):
     """Self-attention over nodes with 2-D positional encoding and a
     ``-distance / tau`` bias, masked and batched.
@@ -232,64 +248,91 @@ class SpatialAttention(nn.Module):
             return "window"
         return "dense"
 
-    def _windowed(self, q, k, v, posf, node_mask, rate, generator):
+    def block_route(self, n: int, n_loc: int, deterministic: bool = True,
+                    return_weights: bool = False) -> str:
+        """The route of a block of ``n_loc`` query rows of a graph of ``n``
+        nodes, decided on the whole graph as one process decides it; raises
+        ``ValueError`` for a route a block cannot take: flash, or a window
+        that does not tile the block."""
+        route = self.route(n, deterministic, return_weights)
+        if route == "flash":
+            raise ValueError(f"the flash route attends within one graph's rows; a block of "
+                             f"{n_loc} queries of {n} nodes takes dense or window")
+        if route == "window" and n_loc % self.window_size:
+            raise ValueError(f"windowed attention over a node block of {n_loc} rows of {n}: "
+                             f"the block is not a whole number of windows of "
+                             f"{self.window_size}")
+        return route
+
+    def _windowed(self, q, k, v, posf, node_mask, rate, generator,
+                  block: Optional[KeyBlock] = None):
+        """Each W-block of query rows against the previous, its own and the
+        next key block ([.., nb, H, W, 3W] weights). The previous block of
+        the rows' first and the next of their last come from ``block.ring``
+        (the adjacent ranks' rows), else from the rows' other end (the
+        graph's ends joined, as ``torch.roll`` joins them)."""
         w = self.window_size
         lead, n = q.shape[:-3], q.shape[-3]
         nb = n // w
-        blk = len(lead)                       # the axis of the nb blocks
+        ax = len(lead)                        # the node axis, then the blocks'
 
-        def blocks(t):                        # [.., N, ...] -> [.., nb, w, ...]
-            return t.reshape(*lead, nb, w, *t.shape[blk + 1:])
+        def widen(t):                         # [.., N, ...] -> [.., nb, 3W, ...]
+            prev, nxt = (block.ring(t, w) if block is not None
+                         else (t.narrow(ax, n - w, w), t.narrow(ax, 0, w)))
+            ext = torch.cat([prev, t, nxt], dim=ax).unflatten(ax, (nb + 2, w))
+            return torch.cat([ext.narrow(ax, j, nb) for j in range(3)], dim=ax + 1)
 
-        def widen(t):                         # previous + own + next block
-            return torch.cat([torch.roll(t, 1, blk), t, torch.roll(t, -1, blk)], dim=blk + 1)
+        def blocks(t):                        # [.., N, ...] -> [.., nb, W, ...]
+            return t.unflatten(ax, (nb, w))
 
         qpos = blocks(posf)
+        windows = None if block is None else NodeRows(block.rows.n // w,
+                                                      lo=block.rows.lo // w)
         ctx, _ = scaled_dot_product_attention(
-            blocks(q), widen(blocks(k)), widen(blocks(v)),
-            bias=distance_bias(qpos, widen(qpos), self.distance_tau)[..., None, :, :],
-            key_mask=widen(blocks(node_mask)), dropout_rate=rate, generator=generator,
-            traffic_dtype=self.traffic_dtype)
-        return ctx.reshape(*lead, n, *ctx.shape[blk + 2:])
+            blocks(q), widen(k), widen(v),
+            bias=distance_bias(qpos, widen(posf), self.distance_tau)[..., None, :, :],
+            key_mask=widen(node_mask), dropout_rate=rate, generator=generator,
+            traffic_dtype=self.traffic_dtype, dropout_rows=windows, dropout_dim=-4)
+        return ctx.flatten(ax, ax + 1)
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, node_mask: torch.Tensor,
                 return_weights: bool = False, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None, keys=None,
-                rows: Optional[NodeRows] = None):
+                generator: Optional[torch.Generator] = None,
+                block: Optional[KeyBlock] = None):
         """x [B, N, D], pos [B, N, 2], node_mask [B, N] bool. When not
         deterministic, dropout falls on the attention weights.
 
-        ``keys``: where the queries' N rows are a block of a larger graph
-        (``parallel/sp.py``), a function taking a per-node tensor of this
-        block [B, N, ...] to that of every key [B, N_k, ...]; the keys'
-        projections, positions and mask go through it, and the route must be
-        dense; ``rows`` (``nn.layers.NodeRows``) then names the block's nodes
-        for the dropout masks."""
+        ``block``: where the N rows are a block of a larger graph
+        (:class:`KeyBlock`). The route is the whole graph's
+        (:meth:`block_route`); the dense route takes every key through
+        ``block.gather`` ([B, H, N, n] weights), the window route the
+        adjacent blocks through ``block.ring``, and the dropout masks are
+        the whole graph's, cut to the block's rows (or windows)."""
         pos_enc = sinusoidal_position_encoding_2d(pos, self.embed_dim).to(x.dtype)
         h = x + self.pos_proj(pos_enc)
         heads = (self.num_heads, self.embed_dim // self.num_heads)
-        if keys is None:
-            keys = lambda t: t  # noqa: E731 - every key is a query row
+        route = (self.route(x.shape[-2], deterministic, return_weights) if block is None
+                 else self.block_route(block.rows.n, x.shape[-2], deterministic,
+                                       return_weights))
+        # every key of the graph, for a block on the dense route
+        keys = (block.gather if block is not None and route == "dense"
+                else lambda t: t)
         q = self.q_proj(h).unflatten(-1, heads)
         k = keys(self.k_proj(h)).unflatten(-1, heads)
         v = keys(self.v_proj(h)).unflatten(-1, heads)
         posf = pos.float()
-        kpos, key_mask = keys(posf), keys(node_mask)
         rate = 0.0 if deterministic else self.dropout
-        route = self.route(k.shape[-3], deterministic, return_weights)
-        if route != "dense" and k.shape[-3] != q.shape[-3]:
-            raise ValueError(f"the {route} route attends within one graph's rows; a block "
-                             f"of {q.shape[-3]} queries over {k.shape[-3]} keys takes dense")
         weights = None
         if route == "flash":
             ctx = flash_spatial_attention(q, k, v, posf, node_mask, tau=self.distance_tau)
         elif route == "window":
-            ctx = self._windowed(q, k, v, posf, node_mask, rate, generator)
+            ctx = self._windowed(q, k, v, posf, node_mask, rate, generator, block)
         else:
             ctx, weights = scaled_dot_product_attention(
-                q, k, v, bias=distance_bias(posf, kpos, self.distance_tau)[..., None, :, :],
-                key_mask=key_mask, dropout_rate=rate, generator=generator,
-                traffic_dtype=self.traffic_dtype, dropout_rows=rows)
+                q, k, v, bias=distance_bias(posf, keys(posf), self.distance_tau)[..., None, :, :],
+                key_mask=keys(node_mask), dropout_rate=rate, generator=generator,
+                traffic_dtype=self.traffic_dtype,
+                dropout_rows=None if block is None else block.rows)
         out = self.out_proj(ctx.to(self.compute_dtype).flatten(-2))
         out = self.norm(x + out)
         out = out * node_mask[..., None].to(out.dtype)

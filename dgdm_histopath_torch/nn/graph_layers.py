@@ -15,7 +15,9 @@ formulations (one-hot adjacency, XLA take) compute the same function.
 bucket splits into >= 3 blocks of W nodes, neighbor slots outside the
 ±1-block band of their node are masked off before anything reads the mask,
 so messages, the per-edge softmax and the degree normalization all see the
-pruned graph. The gather kernels then run on the absolute indices.
+pruned graph. The gather kernels then run on the absolute indices. Over a
+node block (``parallel/sp.py``) the band is the whole graph's: the level
+prunes its whole mask and gives the block its rows (``Neighbors.mask``).
 
 The layers take ``nbr_t``, the transposed list of ``nbr_idx`` that both
 gather backwards read (``ops/kernels/neighbor_transpose.py``). ``GraphUNet``
@@ -53,12 +55,19 @@ class Neighbors(NamedTuple):
     ``norm`` is (edge_norm [B, N, K], self_norm [B, N]) of
     :func:`symmetric_norm` over the whole graph, at these N rows; ``nbr_t``
     idx's transposed list over the M rows for the gathers' backwards (None:
-    they build it)."""
+    they build it).
+
+    ``band`` is the window of the layers that may read the level (None:
+    unbanded); ``mask`` [B, N, K], where given, is the layer's neighbour
+    mask, these N rows of the whole level's band-pruned mask, from which
+    ``norm`` is then formed."""
 
     idx: torch.Tensor
     table: Callable[[torch.Tensor], torch.Tensor]
     norm: Tuple[torch.Tensor, torch.Tensor]
     nbr_t: Optional[NeighborTranspose] = None
+    band: Optional[int] = None
+    mask: Optional[torch.Tensor] = None
 
 
 class GraphConvolution(nn.Module):
@@ -108,7 +117,8 @@ class DynamicGraphLayer(nn.Module):
     between the two convolutions, its masks keyed to the graph's nodes that
     ``rows`` names (None: the rows themselves). With ``nbrs`` the key gather
     and both convolutions read their neighbours through it (``nbr_idx`` is
-    then unused)."""
+    then unused) and take its ``mask``; a banded layer takes only a level
+    of its band."""
 
     def __init__(self, in_features: int, features: int, num_heads: int = 8,
                  edge_dim: Optional[int] = None, dropout: float = 0.0,
@@ -136,9 +146,13 @@ class DynamicGraphLayer(nn.Module):
                 generator: Optional[torch.Generator] = None, nbr_t=None,
                 nbrs: Optional[Neighbors] = None, rows: Optional[NodeRows] = None):
         heads = (self.num_heads, self.features // self.num_heads)
-        if nbrs is not None and self.band_window is not None:
-            raise ValueError("a banded layer reads absolute node ids; it takes no nbrs")
-        nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
+        if nbrs is None:
+            nbr_mask = band_prune(nbr_idx, nbr_mask, self.band_window)
+        elif nbrs.band != self.band_window:
+            raise ValueError(f"a layer of band {self.band_window} over a level of band "
+                             f"{nbrs.band}: its degree normalization is another graph's")
+        elif nbrs.mask is not None:
+            nbr_mask = nbrs.mask
         x_in = self.in_proj(x) if self.in_proj is not None else x
         q = self.q_proj(x_in).unflatten(-1, heads)                 # [B, N, H, D]
         keys = self.k_proj(x_in)

@@ -43,11 +43,11 @@ not match the process group raises. Host-side agreement (the preemption
 flag) goes over a gloo group of its own, so it needs no device sync.
 
 The module's collectives with a gradient come in two adjoint conventions,
-named where they are defined: ``all_reduce``, ``all_gather`` and
-``all_to_all`` for a loss summed over ranks, and ``copy_to_line``,
-``reduce_from_line``, ``gather_from_line`` and ``scatter_to_line`` for a
-loss that every rank of a line holds (the tensor- and expert-parallel
-layers).
+named where they are defined: ``all_reduce``, ``all_gather``,
+``all_to_all`` and ``shift`` for a loss summed over ranks, and
+``copy_to_line``, ``reduce_from_line``, ``gather_from_line`` and
+``scatter_to_line`` for a loss that every rank of a line holds (the
+tensor- and expert-parallel layers).
 """
 
 from __future__ import annotations
@@ -169,10 +169,10 @@ class Axis:
 # ---------------------------------------------------------------------------
 # Collectives with a gradient, in two adjoint conventions:
 #
-# * summed loss (``all_reduce``, ``all_gather``, ``all_to_all``): each rank
-#   holds its part of a loss that is the sum over ranks, so a collective's
-#   gradient is its exact adjoint: a sum is summed back, a gather summed and
-#   cut, an exchange exchanged back;
+# * summed loss (``all_reduce``, ``all_gather``, ``all_to_all``, ``shift``):
+#   each rank holds its part of a loss that is the sum over ranks, so a
+#   collective's gradient is its exact adjoint: a sum is summed back, a
+#   gather summed and cut, an exchange or a shift sent back;
 # * replicated loss (``copy_to_line``, ``reduce_from_line``,
 #   ``gather_from_line``, ``scatter_to_line``): every rank of the line holds
 #   the same activations and the same loss, counted once (the tensor- and
@@ -219,6 +219,17 @@ class _AllToAll(torch.autograd.Function):
         return ctx.axis.all_to_all(grad.contiguous(), ctx.dim), None, None
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, offset):
+        ctx.axis, ctx.offset = axis, offset
+        return axis.shift(x, offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.shift(grad.contiguous(), -ctx.offset), None, None
+
+
 class _Copy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -263,6 +274,14 @@ def all_to_all(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
     """``Axis.all_to_all`` with a gradient: the incoming gradient is sent
     back the way the values came."""
     return x if axis.size == 1 else _AllToAll.apply(x, axis, dim)
+
+
+def shift(x: torch.Tensor, axis: Axis, offset: int = 1) -> torch.Tensor:
+    """``Axis.shift`` with a gradient (summed loss): the rank ``offset``
+    indices behind's ``x`` (cyclically); the incoming gradient goes back the
+    way the values came, shifted by ``-offset``. The identity on a line of
+    one rank."""
+    return x if axis.size == 1 else _Shift.apply(x, axis, offset)
 
 
 def copy_to_line(x: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -571,4 +590,4 @@ def replicate_tree(tensors: Iterable[torch.Tensor], mesh: Mesh, axis: str = DATA
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Axis", "Mesh", "align_node_batches", "all_gather",
            "all_reduce", "all_to_all", "check_axes", "copy_to_line", "gather_from_line",
            "local_world_size", "make_mesh", "pad_batch_to_devices", "reduce_from_line",
-           "replicate_tree", "scatter_to_line", "shard_batch", "shard_rows"]
+           "replicate_tree", "scatter_to_line", "shard_batch", "shard_rows", "shift"]

@@ -19,9 +19,17 @@ whole ``DGDMModel`` forward. PyTorch has no such compiler, so
   ``up0``) every neighbour gather reads a ``[local || halo]`` table
   (``halo.halo_table`` over the batch's ``HaloPlan``, one exchange a
   table: the key table and each convolution's features), rectangular for
-  the gather kernels;
-* spatial attention keeps its queries local and all-gathers the keys,
-  values, positions and node mask: ``[b, H, N/tp, N]`` scores a rank;
+  the gather kernels. Where ``graph_window`` bands them (DGDM-Large), the
+  band is the whole level's: a block's layers take its rows of the whole
+  band-pruned mask and the degree normalization it gives, as one process
+  prunes it; the halo plan, built from the unpruned lists, holds
+  every row a banded layer reads;
+* spatial attention keeps its queries local. The dense route all-gathers
+  the keys, values, positions and node mask: ``[b, H, N/tp, N]`` scores a
+  rank. The window route (``spatial_window``, where the whole N allows it)
+  takes from each adjacent rank one window of them (``mesh.shift``: the
+  previous rank's last W rows, the next rank's first W, the last rank
+  joined to the first as the model's roll joins the graph's ends);
 * U-Net pooling all-gathers the score and the gated rows; every rank runs
   the one-process compaction (the same stable argsort, ``keep`` of the
   whole level) and keeps its contiguous block of pooled positions. Compact
@@ -37,9 +45,9 @@ It trains as well (``mode="pretrain" | "finetune"``, dropout on), the
 counterpart of JAX ``DGDMTrainer.training_step(shard_graph_nodes(batch,
 mesh), prepared=True)``, where GSPMD makes every collective differentiable.
 Here each collective above is the summed-loss one of ``mesh.py``
-(``all_gather``, ``all_reduce``, ``all_to_all``): every rank holds its part
-of a loss that is the sum over the ranks of the line, and the backward of
-each collective is its exact adjoint. The loss convention that goes with
+(``all_gather``, ``all_reduce``, ``all_to_all``, ``shift``): every rank
+holds its part of a loss that is the sum over the ranks of the line, and
+the backward of each collective is its exact adjoint. The loss convention that goes with
 it (the trainer's): a per-node term (the diffusion and reconstruction sums)
 is this rank's partial sum over the counts of the whole line, and a term
 every rank computes alike (InfoNCE over the line-gathered embeddings, the
@@ -49,11 +57,12 @@ transposed lists its gathers' backwards read once: the ``[local || halo]``
 table's (``n_loc + tp·H`` rows) and the outgoing rows' (``n_loc``) at the
 full-N levels, the whole level's (N') at the pooled ones. Dropout draws
 each mask at the whole graph's shape and keys each row to its node
-(``nn.layers.NodeRows``: the block's nodes at the full-N levels, the
-composed selections at the pooled ones, as one process keys them), and the
-diffusion draws and the entity mask come at the whole graph's shape, so a
-rank drops, masks and noises what one process does, also where two nodes
-whose pooling scores tie to rounding swap slots. The options it does not cover raise (ROADMAP item 12).
+(``nn.layers.NodeRows``: the block's nodes at the full-N levels, its
+windows on the window route, the composed selections at the pooled ones,
+as one process keys them), and the diffusion draws and the entity mask
+come at the whole graph's shape, so a rank drops, masks and noises what one
+process does, also where two nodes whose pooling scores tie to rounding
+swap slots. The options it does not cover raise (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -62,12 +71,14 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from ..nn.attention import KeyBlock
 from ..nn.graph_layers import Neighbors
 from ..nn.layers import NodeRows
 from ..nn.moe import local_mean
 from ..ops.diffusion import randn_like
 from ..ops.graph import (
     PaddedGraph,
+    band_prune,
     compact_top_k_nodes,
     masked_global_max,
     masked_softmax,
@@ -77,11 +88,12 @@ from ..ops.graph import (
 )
 from ..ops.kernels.neighbor_transpose import transpose_for_backward
 from .halo import HaloPlan, halo_table, local_plan
-from .mesh import DATA_AXIS, MODEL_AXIS, Axis, Mesh, all_gather, all_reduce
+from .mesh import DATA_AXIS, MODEL_AXIS, Axis, Mesh, all_gather, all_reduce, shift
 from .tp import whole_weights
 
 _NODE_LEAVES = ("x", "pos", "nbr_idx", "nbr_mask", "edge_attr", "node_mask")
-_QUEUED = "ROADMAP queue 1, item 12: the node-sharded forward does not cover them yet"
+_QUEUED = ("ROADMAP queue 1, item 12 (12b: use_flash; 12c: the MoE, remat under a "
+           "gradient): the node-sharded forward does not cover them yet")
 
 
 def node_sharding(mesh: Mesh, batch_sharded: bool = True) -> tuple:
@@ -140,6 +152,22 @@ def _line_gather(axis: Axis) -> Callable[[torch.Tensor], torch.Tensor]:
     return gather
 
 
+def _line_ring(axis: Axis) -> Callable:
+    """The window route's adjacent rows (``nn.attention.KeyBlock.ring``):
+    of a per-node tensor [b, n, ...], the previous rank's last w rows and
+    the next rank's first w, the line's last rank joined to its first (on a
+    line of one rank, the block's own other end, as ``torch.roll`` joins a
+    graph's); a float tensor with the summed-loss gradient
+    (``mesh.shift``), a bool one through uint8."""
+    def ring(t: torch.Tensor, w: int) -> tuple:
+        last, first = t[:, -w:].contiguous(), t[:, :w].contiguous()
+        if t.dtype == torch.bool:
+            return (axis.shift(last.to(torch.uint8), 1).bool(),
+                    axis.shift(first.to(torch.uint8), -1).bool())
+        return shift(last, axis, 1), shift(first, axis, -1)
+    return ring
+
+
 def line_mean(axis: Axis, inner: Callable = local_mean) -> Callable:
     """A ``batch_mean(num, count)`` over a node block: ``count`` summed over
     ``axis`` first (the line's nodes make one graph), then ``inner`` (a
@@ -169,24 +197,27 @@ class _Level(NamedTuple):
 
 
 def _level(idx, kmask, nodem, ea, axis: Axis, table, local_idx=None,
-           rows: Optional[int] = None) -> _Level:
+           rows: Optional[int] = None, band: Optional[int] = None) -> _Level:
     """A level from its whole structure; ``local_idx`` indexes ``table``, of
     ``rows`` rows (default: this rank's rows of ``idx``, for a table of the
     whole level). Its transposed list is built here when a gradient will be
-    taken (on the card)."""
+    taken (on the card). ``band``: the window of the banded layers that read
+    it; the whole level's mask is band-pruned as one process prunes it, and
+    its layers take this rank's rows of it and the degree normalization it
+    gives."""
     n = idx.shape[1] // axis.size
     lo = axis.index * n
-    norm = tuple(t[:, lo:lo + n].contiguous()
-                 for t in symmetric_norm(idx, kmask & nodem[..., None]))
+    mask = band_prune(idx, kmask & nodem[..., None], band)
+    norm = tuple(t[:, lo:lo + n].contiguous() for t in symmetric_norm(idx, mask))
     # the gather kernels take contiguous indices
     mine = (idx[:, lo:lo + n] if local_idx is None else local_idx).contiguous()
     nbr_t = transpose_for_backward(mine, idx.shape[1] if rows is None else rows)
-    return _Level(idx, kmask, nodem, ea, lo, n, Neighbors(mine, table, norm, nbr_t))
+    return _Level(idx, kmask, nodem, ea, lo, n,
+                  Neighbors(mine, table, norm, nbr_t, band, mask[:, lo:lo + n]))
 
 
 def _layer(layer, h: torch.Tensor, lvl: _Level, rand: dict) -> torch.Tensor:
-    mask = lvl.rows(lvl.kmask & lvl.nodem[..., None])
-    return layer(h, lvl.nbrs.idx, mask, lvl.rows(lvl.ea), nbrs=lvl.nbrs, **rand)
+    return layer(h, lvl.nbrs.idx, lvl.nbrs.mask, lvl.rows(lvl.ea), nbrs=lvl.nbrs, **rand)
 
 
 def level_sizes(model, n: int) -> list:
@@ -198,16 +229,12 @@ def level_sizes(model, n: int) -> list:
     return sizes
 
 
-def _check_options(model, mode: str, return_attention: bool) -> None:
+def _check_options(model, mode: str) -> None:
     if mode not in ("inference", "pretrain", "finetune"):
         raise ValueError(f"unknown mode {mode!r}")
     refused = []
-    if return_attention:
-        refused.append("return_attention=True")
     if model.moe_experts > 0:
         refused.append("moe_experts > 0")
-    if model.spatial_window is not None or model.graph_window is not None:
-        refused.append("spatial_window / graph_window (DGDM-Large)")
     if model.use_spatial_attention and model.spatial_attention.use_flash:
         refused.append("use_flash")
     if model.use_remat and torch.is_grad_enabled():
@@ -253,23 +280,25 @@ def _unet(unet, x: torch.Tensor, top: _Level, gather, axis: Axis, rand: dict) ->
     return out * top.rows(top.nodem)[..., None].to(out.dtype), [s for _, s, _, _ in levels]
 
 
-def _readout(model, h: torch.Tensor, top: _Level, gather, axis: Axis) -> torch.Tensor:
-    """The global pool over all N of the blocks: [b, F] on every rank."""
+def _readout(model, h: torch.Tensor, top: _Level, gather, axis: Axis) -> tuple:
+    """The global pool over all N of the blocks: ([b, F] on every rank, and
+    for the attention pool this rank's rows [b, n] of its head-averaged
+    weights, else None)."""
     node_mask = top.rows(top.nodem)
     if model.pooling == "max":
-        return gather(masked_global_max(h, node_mask)[:, None]).amax(1)
+        return gather(masked_global_max(h, node_mask)[:, None]).amax(1), None
     if model.pooling == "mean":
         m = node_mask.to(h.dtype)[..., None]
         total = all_reduce((h * m).sum(-2).contiguous(), axis)
-        return total / axis.all_reduce_(m.sum(-2).contiguous()).clamp_min(1.0)
+        return total / axis.all_reduce_(m.sum(-2).contiguous()).clamp_min(1.0), None
     if model.pooling == "set2set":
         # its LSTM's attention rounds read every node: the level, gathered whole
-        return model.pool(gather(h), top.nodem)
+        return model.pool(gather(h), top.nodem), None
     pool = model.pool
     logits, v = pool.logits_values(h)
     weights = top.rows(masked_softmax(gather(logits), top.nodem[..., None], dim=-2))
     pooled = torch.einsum("...nh,...nhd->...hd", weights.to(v.dtype), v)
-    return pool.out_proj(all_reduce(pooled.contiguous(), axis).flatten(-2))
+    return pool.out_proj(all_reduce(pooled.contiguous(), axis).flatten(-2)), weights.mean(-1)
 
 
 def _block_rows(t: Optional[torch.Tensor], axis: Axis, n_loc: int) -> Optional[torch.Tensor]:
@@ -300,25 +329,44 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
     line, ``line_mean``), and ``diffusion_t``; its ``t`` [b] and ``noise``
     [b, N, hidden] are given for the whole graph or drawn from ``generator``
     at that shape, as one process draws them. Dropout, when not
-    ``deterministic``, draws from ``generator`` too. A gradient flows through
-    every collective (the summed-loss convention, see the module note).
-    Every level's node count must divide by the ``model`` size
-    (``ValueError``); returned attention, MoE, windows, flash attention and
-    remat under a gradient raise ``NotImplementedError`` (ROADMAP item 12)."""
-    _check_options(model, mode, return_attention)
+    ``deterministic``, draws from ``generator`` too. With
+    ``return_attention`` the outputs add this rank's rows of the model's
+    weights: ``edge_attentions`` ([b, n, K, H] a graph layer),
+    ``spatial_attention`` ([b, H, n, N]: returning the weights takes the
+    dense route, as in the model) and, for the attention readout,
+    ``attention_weights`` [b, n]; concatenated over the line's ranks they
+    are one process's. A gradient flows through every collective (the
+    summed-loss convention, see the module note).
+
+    DGDM-Large's windows (``graph_window``, ``spatial_window``) are the
+    whole graph's: the band and the window route apply where the whole
+    bucket N allows them, as in one process. A banded level prunes the
+    whole level's mask and gives the block its rows; a window takes the
+    adjacent ranks' edge rows (``mesh.shift``, the last rank joined to the
+    first as the model's roll joins a graph's ends).
+
+    Every level's node count must divide by the ``model`` size, and on the
+    window route the block by the window (``ValueError``); MoE, flash
+    attention and remat under a gradient raise ``NotImplementedError``
+    (ROADMAP item 12)."""
+    _check_options(model, mode)
     axis = mesh.axis(MODEL_AXIS)
     n_loc = block.x.shape[1]
+    n = n_loc * axis.size
     if plan.tp != axis.size or plan.n_local != n_loc:
         raise ValueError(f"plan for tp={plan.tp}, {plan.n_local} rows a block; the mesh's "
                          f"model axis is {axis.size} and the block has {n_loc} rows")
-    for size in level_sizes(model, n_loc * axis.size):
+    for size in level_sizes(model, n):
         if size % axis.size:
             raise ValueError(f"a level of {size} nodes is not divisible by model axis "
                              f"{axis.size}")
+    if model.use_spatial_attention:
+        model.spatial_attention.block_route(n, n_loc, deterministic, return_attention)
     gather = _line_gather(axis)
     rand = dict(deterministic=deterministic, generator=generator)
     # the first level's dropout masks: this block's nodes of the whole graph
-    block_rand = dict(rand, rows=NodeRows(n_loc * axis.size, lo=axis.index * n_loc))
+    rows = NodeRows(n, lo=axis.index * n_loc)
+    block_rand = dict(rand, rows=rows)
     send, idx = local_plan(plan, mesh, device=block.x.device)
     if idx.shape[:2] != block.nbr_idx.shape[:2]:
         raise ValueError(f"block {tuple(block.nbr_idx.shape)} does not match its plan part "
@@ -331,18 +379,28 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
         top = _level(gather(real_edge_index(block.nbr_idx, masked)), gather(block.nbr_mask),
                      gather(node_mask), None if ea is None else gather(ea), axis,
                      lambda x: halo_table(x, send, axis, send_t), real_edge_index(idx, masked),
-                     n_loc + axis.size * plan.halo_size)
+                     n_loc + axis.size * plan.halo_size, model.graph_window)
 
+        outputs: Dict[str, Any] = {}
         h = model.feature_encoder(block.x.to(model.dtype), **block_rand)
-        h = model.graph_encoder(h, top.nbrs.idx, block.nbr_mask, node_mask, edge_attr=ea,
-                                nbrs=top.nbrs, **block_rand)["embeddings"]
+        enc = model.graph_encoder(h, top.nbrs.idx, block.nbr_mask, node_mask, edge_attr=ea,
+                                  return_attention=return_attention, nbrs=top.nbrs,
+                                  **block_rand)
+        h = enc["embeddings"]
+        if return_attention:
+            outputs["edge_attentions"] = enc["attentions"]
         if model.use_spatial_attention:
-            h = model.spatial_attention(h, block.pos.float(), node_mask, keys=gather,
-                                        **block_rand)
+            res = model.spatial_attention(h, block.pos.float(), node_mask,
+                                          return_weights=return_attention, **rand,
+                                          block=KeyBlock(rows, gather, _line_ring(axis)))
+            if return_attention:
+                h, outputs["spatial_attention"] = res
+            else:
+                h = res
         selections = []
         if model.use_hierarchical:
             h, selections = _unet(model.graph_unet, h, top, gather, axis, block_rand)
-        outputs: Dict[str, Any] = {"node_embeddings": h}
+        outputs["node_embeddings"] = h
         if mode == "pretrain":
             # the whole graph's draws, in one process's order (t, then the noise)
             diff = model.diffusion
@@ -359,7 +417,9 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
             outputs["diffusion_loss"] = mean((sq * mask_f).sum(), mask_f.sum() * sq.shape[-1])
             outputs["diffusion_t"] = t
             outputs["reconstruction"] = model.recon_head(h)
-        pooled = _readout(model, h, top, gather, axis)
+        pooled, weights = _readout(model, h, top, gather, axis)
+        if return_attention and weights is not None:
+            outputs["attention_weights"] = weights
         outputs.update(graph_embedding=pooled, **model.heads(pooled, **rand),
                        pool_sel_idx=selections)
         return outputs

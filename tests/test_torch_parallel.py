@@ -32,6 +32,16 @@ on a (2, 2) mesh of virtual devices (loss rel 2e-4, parameters atol 2e-4).
 That JAX run compiles while the ranks work, in a thread beside the spawn.
 The gradients through ``halo_gather`` and ``sp_graph_conv``, summed over
 the ranks, 1e-5 of ``jax.grad`` of the JAX functions.
+
+DGDM-Large's two windows (W 8, the same parameters): ``sp_forward`` at
+(1, 2), (2, 2) and (1, 4) on buckets of 32 and 64 with the bounds above,
+JAX's forward ``DGDMModel.apply`` on ``shard_graph_nodes(batch, mesh)``; the
+returned attention's rows concatenated over a line against one process
+(1e-5); the training steps on the JAX draws against one process and the
+JAX windowed trainer on a (2, 2) mesh, and with dropout at (1, 2) and
+(1, 4) against one process, with the bounds above; ``mesh.shift`` and its
+gradient against ``torch.roll``. The JAX windowed references compile in a
+second thread beside the spawn.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -61,13 +71,14 @@ from dgdm_histopath_torch.models.encoders import GraphEncoder
 from dgdm_histopath_torch.nn.graph_layers import GraphConvolution
 from dgdm_histopath_torch.nn.layers import DenseGeneral, init_parameters
 from dgdm_histopath_torch.nn.moe import MoEFFN
+from dgdm_histopath_torch.ops.graph import band_eligible
 from dgdm_histopath_torch.parallel import (constrain_nodes, dryrun_multichip, halo,
                                            level_sizes, make_pp_layers_fn, node_sharding,
                                            pp_bubble_fraction, shard_graph_nodes,
                                            shard_tree_like, sp_forward, stack_layer_params,
                                            unstack_layer_params)
 from dgdm_histopath_torch.parallel.ep import count_expert_sharded, ep_param_specs
-from dgdm_histopath_torch.parallel.mesh import Axis, Mesh
+from dgdm_histopath_torch.parallel.mesh import Axis, Mesh, shift
 from dgdm_histopath_torch.parallel.tp import (describe_sharding, flatten_specs, nest,
                                               tp_param_specs)
 from dgdm_histopath_torch.training import DGDMTrainer, TrainerConfig
@@ -100,6 +111,13 @@ SP_SET2SET = {**SP_MODEL, "pooling": "set2set"}
 SP_TRAIN = {**SP_MODEL, "graph_layers": 2}
 SP_TRAIN_EPOCHS = [0, 0, 0, 1]
 SP_TRAIN_Y = np.array([2, 0, 1, 1], np.int32)
+# DGDM-Large's two windows at a CPU size, W 8: the forward's tiny Base and
+# the training model with both windows (the same parameters), on buckets of
+# 32 (4 windows: one a rank over a model axis of 4) and 64
+WIN = dict(spatial_window=8, graph_window=8)
+SP_WIN, SP_WIN_TRAIN = {**SP_MODEL, **WIN}, {**SP_TRAIN, **WIN}
+SP_WIN_SHAPES = ((1, 2), (2, 2), (1, 4))
+RING_OFFSETS = (1, -1, 2)
 
 
 def spmd_batch():
@@ -210,17 +228,43 @@ def jax_sp_train_init(ref):
         rngs = {"diffusion": jax.random.fold_in(rng, 0), "masking": jax.random.fold_in(rng, 1),
                 "dropout": jax.random.fold_in(rng, 2)}
         draws.append(jax_draws(jm, params0, batch, rngs) if epoch == 0 else None)
-    ref["sp_train"] = {"trainer": jt, "block": jax_shard_nodes(batch, jmesh),
+    # the model with both windows has the same parameters: its trainer starts
+    # from a copy of the state (the steps donate theirs), with the same draws
+    jw = jtr.DGDMTrainer(JaxDGDM(**SP_WIN_TRAIN, gather_impl="xla"),
+                         jtr.TrainerConfig(**CFG, allow_out_of_band_graphs=True), mesh=jmesh)
+    jw.state = jax.tree_util.tree_map(lambda a: jax.device_put(np.asarray(a), a.sharding),
+                                      state)
+    ref["sp_train"] = {"trainer": jt, "win_trainer": jw, "block": jax_shard_nodes(batch, jmesh),
                        "state0": params_from_flax(_flat(params0)), "draws": draws,
                        "batch": to_torch_graph(batch)}
 
 
-def jax_sp_train_steps(ref):
-    """JAX ``training_step(shard_graph_nodes(batch, mesh), prepared=True)``."""
+def jax_sp_train_steps(ref, prefix=""):
+    """JAX ``training_step(shard_graph_nodes(batch, mesh), prepared=True)``
+    (``prefix="win_"``: of the model with both windows)."""
     r = ref["sp_train"]
-    jt, block = r.pop("trainer"), r.pop("block")
-    r["jax"] = [jt.training_step(block, e, prepared=True) for e in SP_TRAIN_EPOCHS]
-    r["jax_params"] = params_from_flax(_flat(jax.device_get(jt.state.params)))
+    jt = r.pop(f"{prefix}trainer")
+    r[f"{prefix}jax"] = [jt.training_step(r["block"], e, prepared=True)
+                         for e in SP_TRAIN_EPOCHS]
+    r[f"{prefix}jax_params"] = params_from_flax(_flat(jax.device_get(jt.state.params)))
+
+
+def jax_sp_windowed(ref):
+    """The JAX references of the windowed model over node-sharded inputs:
+    ``DGDMModel.apply`` of the tiny Base with both windows on
+    ``shard_graph_nodes(batch, mesh)`` at each shape and bucket (GSPMD
+    partitions it), then the windowed training model's node-sharded steps."""
+    with jax.default_matmul_precision("float32"):
+        jm = JaxDGDM(**SP_WIN, gather_impl="xla")
+        fwd = jax.jit(lambda p, g: jm.apply(p, g, mode="inference", deterministic=True))
+        ref["win_forward"] = {}
+        for dp, tp in SP_WIN_SHAPES:
+            jmesh = jax_make_mesh(n_devices=dp * tp, axes=("data", "model"), shape=(dp, tp))
+            for n, batch in ref["sp_jax_batches"].items():
+                out = fwd(ref["sp_params"], jax_shard_nodes(batch, jmesh))
+                ref["win_forward"][(dp, tp), n] = {
+                    k: np.asarray(out[k]) for k in ("classification_logits", "graph_embedding")}
+        jax_sp_train_steps(ref, "win_")
 
 
 def sp_batch(n):
@@ -239,6 +283,7 @@ def jax_sp_reference(ref, prefix="sp", model=SP_MODEL, buckets=SP_BUCKETS):
             "masking": jax.random.PRNGKey(2)}
     params = jm.init(rngs, batches[32], mode="pretrain", deterministic=True)
     fwd = jax.jit(lambda p, g: jm.apply(p, g, mode="inference", deterministic=True))
+    ref[f"{prefix}_params"], ref[f"{prefix}_jax_batches"] = params, batches
     ref[f"{prefix}_state"] = params_from_flax(_flat(params))
     ref[f"{prefix}_forward"] = {n: {k: np.asarray(v) for k, v in fwd(params, b).items()
                                     if k in ("classification_logits", "graph_embedding")}
@@ -246,9 +291,10 @@ def jax_sp_reference(ref, prefix="sp", model=SP_MODEL, buckets=SP_BUCKETS):
     ref[f"{prefix}_batches"] = {n: to_torch_graph(b) for n, b in batches.items()}
 
 
-def sp_one_process(state, batches, model=SP_MODEL):
+def sp_one_process(state, batches, model=SP_MODEL, attention=False):
     """The port's one-process forward of each batch, with every pooled
-    level's selection."""
+    level's selection; with ``attention`` also the first batch's with
+    ``return_attention=True``, under ``"attention"``."""
     model = DGDMModel(**model)
     model.load_state_dict(state)
     sel = {}
@@ -260,6 +306,8 @@ def sp_one_process(state, batches, model=SP_MODEL):
         for n, b in batches.items():
             out[n] = model(b)
             out[n]["pool_sel_idx"] = [sel[0], sel[1]]
+        if attention:
+            out["attention"] = model(next(iter(batches.values())), return_attention=True)
     return out
 
 
@@ -359,10 +407,19 @@ def par(tmp_path_factory):
     dropout_steps = [(e, None) for e in SP_TRAIN_EPOCHS]
     jax_steps = list(zip(SP_TRAIN_EPOCHS, st["draws"]))
 
-    def sp_train(shape, steps, dropout, plan=sp_plan, **kw):
+    sp_plan4 = halo.build_halo_plan(st["batch"].nbr_idx, st["batch"].nbr_mask, 4)
+
+    def sp_train(shape, steps, dropout, plan=sp_plan, model=SP_TRAIN, **kw):
         return {"module": WORKER, "job": "sp_train", "shape": shape, "batch": st["batch"],
-                "plan": plan, "steps": steps, "model": {**SP_TRAIN, "dropout": dropout},
+                "plan": plan, "steps": steps, "model": {**model, "dropout": dropout},
                 "state": st["state0"], "config": CFG, **kw}
+
+    def sp_win(shapes, **kw):
+        return {"module": WORKER, "job": "sp_model", "model": SP_WIN, "state": ref["sp_state"],
+                "batches": ref["sp_batches"], "plans": sp_plans, "shapes": shapes,
+                "attention": True, **kw}
+
+    ring = torch.from_numpy(np.random.RandomState(8).randn(2, 2, 8, 3).astype(np.float32))
 
     specs = {
         "tp22_pretrain": tp((2, 2), MODEL, state0, pre_steps, CFG, validate=[(t4, 0), (t4, 1)]),
@@ -384,6 +441,12 @@ def par(tmp_path_factory):
                        "plans": sp_plans, "shapes": SP_SHAPES},
         "sp_train22_dropout": sp_train((2, 2), dropout_steps, 0.1),
         "sp_train22_jax": sp_train((2, 2), jax_steps, 0.0),
+        "sp_win_4": sp_win([s for s in SP_WIN_SHAPES if s[0] * s[1] == 4]),
+        "sp_win22_jax": sp_train((2, 2), jax_steps, 0.0, model=SP_WIN_TRAIN),
+        "sp_win14_dropout": sp_train((1, 4), dropout_steps, 0.1, plan=sp_plan4,
+                                     model=SP_WIN_TRAIN),
+        "ring_shift": {"module": WORKER, "job": "ring_shift", "x": ring[0], "w": ring[1],
+                       "offsets": RING_OFFSETS},
         "halo_grads": {"module": WORKER, "job": "halo_grads", "batch": port_halo_batch,
                        "plan": plan, "conv": (16, 24, 3), "conv_state": ref["conv_state"],
                        "gather_cot": ref["halo_grads"]["gather_cot"],
@@ -397,17 +460,24 @@ def par(tmp_path_factory):
                         world=2),
         "sp_train12_dropout": sp_train((1, 2), dropout_steps, 0.1, world=2),
         "sp_train12_jax": sp_train((1, 2), jax_steps, 0.0, world=2),
+        "sp_win_2": sp_win([(1, 2)], world=2),
+        "sp_win12_jax": sp_train((1, 2), jax_steps, 0.0, model=SP_WIN_TRAIN, world=2),
+        "sp_win12_dropout": sp_train((1, 2), dropout_steps, 0.1, model=SP_WIN_TRAIN,
+                                     world=2),
         # the data-parallel run that (2, 2) with dropout is held to
         "sp_dp21_dropout": sp_train((2, 1), dropout_steps, 0.1, plan=None, world=2),
         "one_rank": {"module": WORKER, "job": "one_rank", "world": 1, "model": MODEL,
                      "state": state0, "config": CFG, "batch": t4},
     }
-    # the JAX node-sharded steps compile while the ranks work
-    with ThreadPoolExecutor(1) as pool:
+    # the JAX node-sharded steps and the windowed references compile while
+    # the ranks work
+    with ThreadPoolExecutor(2) as pool:
         spawned = pool.submit(spawn_ranks, 4, list(specs.values()), tmp, timeout=600)
+        windowed = pool.submit(jax_sp_windowed, ref)
         with jax.default_matmul_precision("float32"):
             jax_sp_train_steps(ref)
         ranks = spawned.result()
+        windowed.result()
     got = {name: [r[i] for r in ranks] for i, name in enumerate(specs)}
 
     single = {"pretrain": single_run(state0, pre_steps, [(t4, 0, None), (t4, 1, None)]),
@@ -420,9 +490,16 @@ def par(tmp_path_factory):
                                                             dropout_steps],
                                              model={**SP_TRAIN, "dropout": 0.1}),
               "sp_train_jax": single_run(st["state0"], [(st["batch"], e, d) for e, d in
-                                                        jax_steps], model=SP_TRAIN)}
+                                                        jax_steps], model=SP_TRAIN),
+              "sp_win": sp_one_process(ref["sp_state"], ref["sp_batches"], SP_WIN,
+                                       attention=True),
+              "sp_win_jax": single_run(st["state0"], [(st["batch"], e, d) for e, d in
+                                                      jax_steps], model=SP_WIN_TRAIN),
+              "sp_win_dropout": single_run(st["state0"], [(st["batch"], e, d) for e, d in
+                                                          dropout_steps],
+                                           model={**SP_WIN_TRAIN, "dropout": 0.1})}
     return {"ref": ref, "got": got, "single": single, "plan": plan, "one_plan": one_plan,
-            "moe": (moe_x, moe_mask, moe_states), "state0": state0}
+            "moe": (moe_x, moe_mask, moe_states), "state0": state0, "ring": ring}
 
 
 def _metrics_close(got, ref, what, rtol=1e-5):
@@ -590,10 +667,38 @@ def test_sp_forward_matches_jax_and_one_process(par, shape, n):
     other heads and the graph embedding 1e-5 too), equal on every rank of a
     model line; every pooled level's selection equal to one process's; the
     rank's ``node_embeddings`` within 1e-5 of its block of one process's."""
+    ranks = [r[shape, n] for r in par["got"]["sp_model"]]
+    assert_sp_forward(ranks, par["single"]["sp"][n], par["ref"]["sp_forward"][n], shape, n)
+
+
+@pytest.mark.parametrize("n", SP_BUCKETS)
+@pytest.mark.parametrize("shape", SP_WIN_SHAPES)
+def test_sp_windowed_forward_matches_jax_and_one_process(par, shape, n):
+    """DGDM-Large's two windows (W 8, banded graph layers and windowed
+    spatial attention) on the tiny Base over (data, model) ``shape``, with
+    the bounds above; JAX's forward is ``DGDMModel.apply`` on
+    ``shard_graph_nodes(batch, mesh)`` over a mesh of that shape. The
+    route and the band are the whole bucket's: at bucket 32 the graph has 4
+    windows, so over a model axis of 4 a rank holds one window, both its
+    neighbours come from other ranks and rank 0's previous one is rank 3's
+    last (a rule decided on the block's 8 rows would go dense)."""
+    model = DGDMModel(**SP_WIN)
+    assert model.spatial_attention.route(n) == "window" and band_eligible(n, 8)
+    job = "sp_win_2" if shape == (1, 2) else "sp_win_4"
+    ranks = [r[shape, n] for r in par["got"][job] if r is not None]
+    one = par["single"]["sp_win"][n]
+    assert_sp_forward(ranks, one, par["ref"]["win_forward"][shape, n], shape, n)
+    # the windows change the model: its logits are not those without them
+    plain = par["single"]["sp"][n]["classification_logits"]
+    assert float((one["classification_logits"] - plain).abs().max()) > 1e-3
+
+
+def assert_sp_forward(ranks, one, jax_ref, shape, n):
+    """Each rank's ``sp_forward`` outputs against JAX's (logits and graph
+    embedding 1e-4) and one process's (1e-5, node embeddings its block,
+    selections equal), the heads equal on every rank of a model line."""
     dp, tp = shape
     rows, n_loc = SP_GRAPHS // dp, n // tp
-    one, jax_ref = par["single"]["sp"][n], par["ref"]["sp_forward"][n]
-    ranks = [r[shape, n] for r in par["got"]["sp_model"]]
     for rank, out in enumerate(ranks):
         d, m = divmod(rank, tp)
         b = slice(d * rows, (d + 1) * rows)
@@ -612,6 +717,41 @@ def test_sp_forward_matches_jax_and_one_process(par, shape, n):
             assert torch.equal(got, want[b])
         assert torch.equal(out["classification_logits"],
                            ranks[d * tp]["classification_logits"])
+
+
+@pytest.mark.parametrize("shape", SP_WIN_SHAPES)
+def test_sp_forward_returns_the_attention_rows_of_one_process(par, shape):
+    """``return_attention=True`` on the windowed tiny Base, bucket 32: each
+    rank returns its rows of the banded encoder layers' edge attentions
+    [b, n, K, H], of the spatial attention's dense weights [b, H, n, N]
+    (weights asked take the dense route, the band stays) and of the
+    readout's attention weights [b, n]; concatenated over the model line's
+    ranks they are one process's within 1e-5, and the logits stay within
+    1e-5."""
+    dp, tp = shape
+    rows = SP_GRAPHS // dp
+    one = par["single"]["sp_win"]["attention"]
+    job = "sp_win_2" if shape == (1, 2) else "sp_win_4"
+    ranks = [r[shape, "attention"] for r in par["got"][job] if r is not None]
+    assert len(one["edge_attentions"]) == SP_WIN["graph_layers"]
+    for d in range(dp):
+        line = ranks[d * tp:(d + 1) * tp]
+        b = slice(d * rows, (d + 1) * rows)
+        got = {"spatial_attention": torch.cat([r["spatial_attention"] for r in line], 2),
+               "attention_weights": torch.cat([r["attention_weights"] for r in line], 1),
+               **{f"edge_attentions {i}": torch.cat([r["edge_attentions"][i] for r in line], 1)
+                  for i in range(len(one["edge_attentions"]))}}
+        want = {"spatial_attention": one["spatial_attention"],
+                "attention_weights": one["attention_weights"],
+                **{f"edge_attentions {i}": a for i, a in enumerate(one["edge_attentions"])}}
+        for key, w in want.items():
+            assert got[key].shape == w[b].shape, key
+            np.testing.assert_allclose(got[key].numpy(), w[b].numpy(), atol=1e-5, rtol=0,
+                                       err_msg=key)
+        for r in line:
+            np.testing.assert_allclose(r["classification_logits"].numpy(),
+                                       one["classification_logits"][b].numpy(), atol=1e-5,
+                                       rtol=0)
 
 
 @pytest.mark.parametrize("shape", SP_SHAPES)
@@ -639,34 +779,48 @@ def test_sp_forward_set2set_matches_jax_and_one_process(par, shape):
 @pytest.mark.parametrize("option", ["mode", "dropout", "return_attention", "moe",
                                     "spatial_window", "graph_window", "use_flash", "remat"])
 def test_sp_forward_refuses_the_options_it_does_not_cover(option):
-    """Returned attention, the MoE, DGDM-Large's windows, flash attention and
-    remat under a gradient raise naming ROADMAP item 12. Training modes
-    work: over a model axis of 1, ``mode="pretrain"`` gives the model's
-    diffusion loss on the same draws, and ``deterministic=False`` the
-    model's dropout from the same generator state, within 1e-6."""
+    """The MoE, flash attention and remat under a gradient raise naming
+    ROADMAP item 12. The rest work over a model axis of 1, within 1e-6 of
+    the model: ``mode="pretrain"`` gives the model's diffusion loss on the
+    same draws, ``deterministic=False`` the model's dropout from the same
+    generator state, ``return_attention=True`` the model's edge, spatial and
+    readout attention, and each of DGDM-Large's windows (W 8 on the
+    bucket's 4 windows) the model's banded layers or windowed attention,
+    with dropout in pretrain mode (the window route's masks over the
+    windows, a rank's ring shift the identity, as ``torch.roll`` wraps the
+    graph)."""
     kw = {"moe": {"moe_experts": 4}, "spatial_window": {"spatial_window": 8},
           "graph_window": {"graph_window": 8}, "remat": {"use_remat": True},
           "dropout": {"dropout": 0.1}}.get(option, {})
+    if option in ("spatial_window", "graph_window"):
+        kw["dropout"] = 0.1
     model = init_parameters(DGDMModel(**{**SP_MODEL, **kw}), torch.Generator().manual_seed(5))
     if option == "use_flash":
         model.spatial_attention.use_flash = True
     g = to_torch_graph(sp_batch(32))
     mesh = Mesh(("data", "model"), (1, 1))
     plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp=1)
-    if option in ("mode", "dropout"):
-        call = ({"mode": "pretrain", "deterministic": False} if option == "mode"
-                else {"mode": "finetune", "deterministic": False})
+    if option in ("mode", "dropout", "return_attention", "spatial_window", "graph_window"):
+        call, keys = {
+            "mode": ({"mode": "pretrain", "deterministic": False},
+                     ("diffusion_loss", "classification_logits")),
+            "dropout": ({"mode": "finetune", "deterministic": False},
+                        ("node_embeddings", "classification_logits")),
+            "return_attention": ({"return_attention": True},
+                                 ("edge_attentions", "spatial_attention", "attention_weights",
+                                  "classification_logits")),
+        }.get(option, ({"mode": "pretrain", "deterministic": False},
+                       ("diffusion_loss", "node_embeddings", "classification_logits")))
+        if option == "spatial_window":
+            assert model.spatial_attention.route(32, deterministic=False) == "window"
         got = sp_forward(model, g, plan, mesh, generator=torch.Generator().manual_seed(9),
                          **call)
         want = model(g, generator=torch.Generator().manual_seed(9), **call)
-        keys = ("diffusion_loss", "classification_logits") if option == "mode" else \
-            ("node_embeddings", "classification_logits")
         for key in keys:
             torch.testing.assert_close(got[key], want[key], atol=1e-6, rtol=1e-6)
         return
-    call = {"return_attention": {"return_attention": True}}.get(option, {})
     with pytest.raises(NotImplementedError, match="item 12"):
-        sp_forward(model, g, plan, mesh, **call)
+        sp_forward(model, g, plan, mesh)
 
 
 def test_sp_forward_rejects_a_level_that_does_not_divide():
@@ -679,6 +833,24 @@ def test_sp_forward_rejects_a_level_that_does_not_divide():
     model = DGDMModel(**SP_MODEL)
     assert level_sizes(model, 24) == [24, 12, 6]
     with pytest.raises(ValueError, match="6 nodes is not divisible by model axis 4"):
+        sp_forward(model, shard_graph_nodes(g, mesh), plan, mesh)
+
+
+@pytest.mark.parametrize("n,tp,window", [(48, 4, 8), (48, 2, 16)])
+def test_sp_forward_rejects_a_block_that_is_not_whole_windows(n, tp, window):
+    """The window route is the whole bucket's (48 nodes: 6 windows of 8, 3
+    of 16); a block of 12 or 24 rows is not a whole number of them, and the
+    call raises before any exchange, naming the shape. Every level divides
+    by the model axis."""
+    g = to_torch_graph(j_batch([make_synthetic_graph(seed=0, n_nodes=n, n_real=n - 4,
+                                                     feat_dim=16)] * 2))
+    mesh = Mesh(("data", "model"), (1, tp), lines={"model": Axis("model", tp, 0)})
+    plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp=tp)
+    model = DGDMModel(**{**SP_MODEL, "spatial_window": window})
+    assert all(size % tp == 0 for size in level_sizes(model, n))
+    assert model.spatial_attention.route(n) == "window"
+    with pytest.raises(ValueError, match=f"block of {n // tp} rows of {n}: the block is not "
+                                         f"a whole number of windows of {window}"):
         sp_forward(model, shard_graph_nodes(g, mesh), plan, mesh)
 
 
@@ -830,6 +1002,43 @@ def test_rectangular_tables_on_the_cpu_and_forward_only():
 
 
 @pytest.mark.parametrize("shape", ["(1, 2)", "(2, 2)"])
+def test_sp_windowed_training_matches_jax_and_one_process(par, shape):
+    """The steps of the JAX-draws test below on the model with both windows
+    (W 8 on 4 windows of the 32 bucket, 93.5% of the edges in band: the band
+    prunes the rest), from the same state and draws, with the same bounds:
+    against one port process and JAX ``training_step(shard_graph_nodes(
+    batch, mesh), prepared=True)`` of the windowed model on a (2, 2)
+    mesh."""
+    name = "12" if shape == "(1, 2)" else "22"
+    got = next(r for r in par["got"][f"sp_win{name}_jax"] if r is not None)
+    jref = par["ref"]["sp_train"]
+    assert_sp_training_matches(got, par["single"]["sp_win_jax"], jref["win_jax"],
+                               jref["win_jax_params"], f"windowed sp {shape}")
+    # the windows change the steps: their losses are not the plain model's
+    assert abs(got["metrics"][0]["loss"] - jref["jax"][0]["loss"]) > 1e-5
+
+
+@pytest.mark.parametrize("shape", ["(1, 2)", "(1, 4)"])
+def test_sp_windowed_training_with_dropout_equals_one_process(par, shape):
+    """The windowed model's steps at dropout 0.1 from the generator (on the
+    spatial attention: the whole [b, nb, H, W, 3W] draw of one process, a
+    rank keeping its windows' rows), 3 pretrain and 1 finetune, against one
+    process on the whole batch with the bounds of the dropout test below;
+    at (1, 4) each rank holds one window of the 32 bucket."""
+    name, tp = {"(1, 2)": ("12", 2), "(1, 4)": ("14", 4)}[shape]
+    ranks = [r for r in par["got"][f"sp_win{name}_dropout"] if r is not None]
+    assert len(ranks) == tp
+    ref = par["single"]["sp_win_dropout"]
+    assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    _metrics_close(ranks[0]["metrics"], ref["metrics"], f"windowed sp {shape} dropout")
+    for r in ranks[1:]:
+        assert all(torch.equal(r["params"][k], ranks[0]["params"][k]) for k in r["params"])
+    params = {k: v for k, v in ranks[0]["params"].items() if k in ref["params"]}
+    assert_params_close(params, ref["params"], len(SP_TRAIN_EPOCHS) * CFG["learning_rate"],
+                        f"windowed sp {shape} dropout")
+
+
+@pytest.mark.parametrize("shape", ["(1, 2)", "(2, 2)"])
 def test_sp_training_with_dropout_equals_one_process(par, shape):
     """``training_step(block, epoch, prepared=True, plan=plan)`` with dropout
     0.1 and the generator's draws, 3 pretrain and 1 finetune steps: every
@@ -862,17 +1071,24 @@ def test_sp_training_matches_jax_and_one_process(par, shape):
     2e-4 (the JAX test's bounds)."""
     name = "12" if shape == "(1, 2)" else "22"
     got = next(r for r in par["got"][f"sp_train{name}_jax"] if r is not None)
-    one = par["single"]["sp_train_jax"]
-    _metrics_close(got["metrics"], one["metrics"], f"sp {shape}")
+    jref = par["ref"]["sp_train"]
+    assert_sp_training_matches(got, par["single"]["sp_train_jax"], jref["jax"],
+                               jref["jax_params"], f"sp {shape}")
+
+
+def assert_sp_training_matches(got, one, jax_metrics, jax_params, what):
+    """A rank's node-sharded steps against one port process (metrics 1e-5 of
+    max(1, |x|), parameters 1e-5, the key biases to the summed learning
+    rate) and the JAX steps (each loss rel 2e-4, parameters atol 2e-4)."""
+    _metrics_close(got["metrics"], one["metrics"], what)
     params = {k: v for k, v in got["params"].items() if k in one["params"]}
     assert_params_close(params, one["params"], len(SP_TRAIN_EPOCHS) * CFG["learning_rate"],
-                        f"sp {shape}")
-    jref = par["ref"]["sp_train"]
-    for a, b in zip(got["metrics"], jref["jax"]):
+                        what)
+    for a, b in zip(got["metrics"], jax_metrics):
         assert set(a) == set(b)
         assert a["loss"] == pytest.approx(float(b["loss"]), rel=2e-4)
-    assert set(params) == set(jref["jax_params"])
-    for key, value in jref["jax_params"].items():
+    assert set(params) == set(jax_params)
+    for key, value in jax_params.items():
         np.testing.assert_allclose(params[key].numpy(), value.numpy(), atol=2e-4, err_msg=key)
 
 
@@ -961,6 +1177,24 @@ def test_mesh_lines_and_collectives_with_their_gradients(par):
         assert torch.equal(g, torch.stack([w[m, :2], w[m, :2]]))
         assert float(res["shift"]) == float(pair[1 - m])
         assert float(res["broadcast"]) == float(pair[1])
+
+
+@pytest.mark.parametrize("offset", RING_OFFSETS)
+def test_ring_shift_gradient_equals_torch_roll(par, offset):
+    """``mesh.shift`` over a model line of 4 ranks, each holding 2 of 8 rows:
+    what the ranks receive, concatenated, is ``torch.roll`` of the whole
+    tensor by ``offset`` blocks (the last rank's rows wrap to the first),
+    and the gradient of ``sum(y * w)`` each rank gets for its block is its
+    block of the gradient through ``torch.roll`` (sent back by
+    ``-offset``). On a line of one rank the shift is the identity."""
+    x, w = (t.clone() for t in par["ring"])
+    ranks = [r[offset] for r in par["got"]["ring_shift"]]
+    leaf = x.clone().requires_grad_()
+    y = torch.roll(leaf, 2 * offset, 1)
+    (y * w).sum().backward()
+    assert torch.equal(torch.cat([r[0] for r in ranks], 1), y.detach())
+    assert torch.equal(torch.cat([r[1] for r in ranks], 1), leaf.grad)
+    assert shift(x, Axis("model"), offset) is x
 
 
 def test_a_one_rank_process_group_keeps_the_data_parallel_path(par):

@@ -13,7 +13,10 @@ tests/test_torch_parallel.py, in its one spawn of 4 ranks).
   named by node ids take those nodes' masks, so a swap of two rows swaps
   their masks with them; the U-Net's pooled levels key theirs so.
 * ``sp_forward`` over a model axis of 1 with the transposed lists built on
-  the CPU: the parameters' gradients within 1e-5 of the model's.
+  the CPU: the parameters' gradients within 1e-5 of the model's, also with
+  DGDM-Large's two windows.
+* The band over a node block: its level gives its layers the whole graph's
+  band-pruned rows and their degree normalization.
 * ``training_step`` refuses a plan without a prepared block.
 
 The inputs are made with numpy from a seed.
@@ -25,15 +28,22 @@ import torch
 
 from dgdm_histopath_torch.models.dgdm import DGDMModel
 from dgdm_histopath_torch.nn.layers import NodeRows, dropout, init_parameters
-from dgdm_histopath_torch.ops.graph import PaddedGraph
+from dgdm_histopath_torch.ops.graph import (
+    PaddedGraph,
+    band_eligible,
+    band_prune,
+    in_band_mask,
+    real_edge_index,
+    symmetric_norm,
+)
 from dgdm_histopath_torch.ops.kernels import neighbor_transpose as nt
 from dgdm_histopath_torch.ops.kernels.gather_agg import (
     weighted_gather_sum,
     weighted_gather_sum_bwd_plain,
 )
 from dgdm_histopath_torch.ops.kernels.gather_rows import gather_rows, gather_rows_bwd_plain
-from dgdm_histopath_torch.parallel import halo, sp_forward
-from dgdm_histopath_torch.parallel.mesh import Mesh
+from dgdm_histopath_torch.parallel import halo, sp, sp_forward
+from dgdm_histopath_torch.parallel.mesh import Axis, Mesh
 from dgdm_histopath_torch.training import DGDMTrainer, TrainerConfig
 
 B, N, K, F = 3, 12, 4, 5
@@ -193,7 +203,6 @@ def test_the_unet_keys_a_pooled_levels_masks_to_its_nodes(monkeypatch):
     it does not."""
     from dgdm_histopath_torch.nn import graph_layers
     from dgdm_histopath_torch.nn.graph_layers import GraphUNet
-    from dgdm_histopath_torch.ops.graph import real_edge_index
 
     g = tiny_graph(graphs=1)
     unet = init_parameters(GraphUNet(16, 16, depth=2, num_heads=4, edge_dim=3, dropout=0.5),
@@ -274,6 +283,17 @@ MODEL = dict(node_features=16, hidden_dims=(32, 16), num_diffusion_steps=3,
              dropout=0.1)
 
 
+def loss_and_grads(model, fn):
+    """``fn(generator)``'s pretrain loss plus a logits term, and the
+    parameters' gradients of it."""
+    model.zero_grad(set_to_none=True)
+    out = fn(torch.Generator().manual_seed(4))
+    loss = out["diffusion_loss"] + out["classification_logits"].square().mean()
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.clone() for k, p in model.named_parameters()
+                                  if p.grad is not None}
+
+
 def test_sp_forward_gradient_with_built_lists_equals_the_model(monkeypatch):
     """Over a model axis of 1 the block is the whole graph and the halo table
     holds N + 1 rows (H = 1): with the transposed lists built in the forward
@@ -294,20 +314,60 @@ def test_sp_forward_gradient_with_built_lists_equals_the_model(monkeypatch):
     plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp=1)
     mesh = Mesh(("data", "model"), (1, 1))
 
-    def loss_and_grads(fn):
-        model.zero_grad(set_to_none=True)
-        out = fn(torch.Generator().manual_seed(4))
-        loss = out["diffusion_loss"] + out["classification_logits"].square().mean()
-        loss.backward()
-        return float(loss.detach()), {k: p.grad.clone() for k, p in model.named_parameters()
-                             if p.grad is not None}
-
-    got, got_g = loss_and_grads(lambda gen: sp_forward(
+    got, got_g = loss_and_grads(model, lambda gen: sp_forward(
         model, g, plan, mesh, mode="pretrain", deterministic=False, generator=gen))
     assert ((2, 32, 4), 33) in built and ((2, 1, 1), 32) in built
     assert ((2, 16, 4), 16) in built and ((2, 8, 4), 8) in built
-    want, want_g = loss_and_grads(lambda gen: model(g, mode="pretrain", deterministic=False,
-                                                    generator=gen))
+    want, want_g = loss_and_grads(model, lambda gen: model(g, mode="pretrain",
+                                                           deterministic=False, generator=gen))
+    assert got == pytest.approx(want, rel=1e-6)
+    assert set(got_g) == set(want_g)
+    for k, v in want_g.items():
+        np.testing.assert_allclose(got_g[k].numpy(), v.numpy(), atol=1e-5, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("n,tp", [(32, 2), (32, 4), (16, 2)])
+def test_in_band_mask_over_a_block_equals_the_whole_graphs_rows(n, tp):
+    """A node block's level (``sp._level`` with band 8) gives its layers
+    the whole graph's band-pruned rows [lo, lo + n/tp) and their degree
+    normalization, as one process prunes them: with 4 windows a block of one
+    window still takes the band (a rule decided on its 8 rows would not);
+    with 2 windows no block does."""
+    g = tiny_graph(n=n)
+    idx = real_edge_index(g.nbr_idx, g.nbr_mask)
+    masked = g.nbr_mask & g.node_mask[..., None]
+    whole = band_prune(idx, masked, 8)
+    assert torch.equal(whole, in_band_mask(idx, masked, 8) if band_eligible(n, 8) else masked)
+    assert band_eligible(n, 8) == (n // 8 >= 3) and bool((whole != masked).any()) == (
+        n // 8 >= 3)
+    norm = symmetric_norm(idx, whole)
+    n_loc = n // tp
+    for r in range(tp):
+        lvl = sp._level(idx, g.nbr_mask, g.node_mask, None, Axis("model", tp, r),
+                        table=lambda t: t, band=8)
+        rows = slice(r * n_loc, (r + 1) * n_loc)
+        assert lvl.nbrs.band == 8 and torch.equal(lvl.nbrs.mask, whole[:, rows])
+        for got, want in zip(lvl.nbrs.norm, norm):
+            assert torch.equal(got, want[:, rows])
+
+
+def test_sp_forward_gradient_with_both_windows_equals_the_model():
+    """The gradient test above on the model with both windows (W 8 on the
+    32 bucket's 4 windows: banded layers over the block's halo table, the
+    window route through the ring, which one rank wraps onto itself), and
+    with the lists built on the CPU: the pretrain loss with dropout on the
+    window weights and the parameters' gradients within 1e-5 of the
+    model's."""
+    g = tiny_graph()
+    model = init_parameters(DGDMModel(**MODEL, spatial_window=8, graph_window=8),
+                            torch.Generator().manual_seed(3))
+    assert model.spatial_attention.route(32, deterministic=False) == "window"
+    plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp=1)
+    mesh = Mesh(("data", "model"), (1, 1))
+    got, got_g = loss_and_grads(model, lambda gen: sp_forward(
+        model, g, plan, mesh, mode="pretrain", deterministic=False, generator=gen))
+    want, want_g = loss_and_grads(model, lambda gen: model(
+        g, mode="pretrain", deterministic=False, generator=gen))
     assert got == pytest.approx(want, rel=1e-6)
     assert set(got_g) == set(want_g)
     for k, v in want_g.items():

@@ -119,7 +119,9 @@ def halo(spec, rank) -> dict:
 
 def sp_model(spec, rank) -> dict:
     """``sp_forward`` of the model on each (mesh shape, batch): this rank's
-    outputs."""
+    outputs; with ``spec["attention"]`` also those of the call with
+    ``return_attention=True`` on each shape's first batch, under
+    ``(shape, "attention")``."""
     from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes, sp_forward
 
     model = _model(spec).eval()
@@ -128,8 +130,12 @@ def sp_model(spec, rank) -> dict:
         mesh = make_mesh(axes=("data", "model"), shape=shape)
         for n, batch in spec["batches"].items():
             block = shard_graph_nodes(batch, mesh)
+            plan = spec["plans"][shape[1], n]
             with torch.no_grad():        # inference, as a caller serving the model runs it
-                out[shape, n] = sp_forward(model, block, spec["plans"][shape[1], n], mesh)
+                out[shape, n] = sp_forward(model, block, plan, mesh)
+                if spec.get("attention") and (shape, "attention") not in out:
+                    out[shape, "attention"] = sp_forward(model, block, plan, mesh,
+                                                         return_attention=True)
     return out
 
 
@@ -223,6 +229,26 @@ def collectives(spec, rank) -> dict:
             "broadcast": line.broadcast_(torch.tensor([float(rank)]), 1)}
 
 
+def ring_shift(spec, rank) -> dict:
+    """``mesh.shift`` over the model line of a (1, world) mesh, each offset
+    of ``spec["offsets"]``: what this rank received and the gradient of
+    ``sum(y * w)`` with respect to its block, w this rank's block of
+    ``spec["w"]``."""
+    from dgdm_histopath_torch.parallel import make_mesh
+    from dgdm_histopath_torch.parallel.mesh import shift
+
+    tp = dist.get_world_size()
+    line = make_mesh(axes=("data", "model"), shape=(1, tp)).axis("model")
+    x = spec["x"].chunk(tp, 1)[line.index].clone().requires_grad_()
+    w = spec["w"].chunk(tp, 1)[line.index]
+    out = {}
+    for offset in spec["offsets"]:
+        y = shift(x, line, offset)
+        (g,) = torch.autograd.grad((y * w).sum(), x)
+        out[offset] = (y.detach(), g)
+    return out
+
+
 def one_rank(spec, rank) -> dict:
     """A process group of one rank: the data mesh keeps the data-parallel
     path (its line is the world group), and a step runs on it."""
@@ -245,4 +271,5 @@ def dryrun(spec, rank) -> dict:
 
 JOBS = {"tp_steps": tp_steps, "tp_checkpoint": tp_checkpoint, "ep_block": ep_block,
         "halo": halo, "sp_model": sp_model, "sp_train": sp_train, "halo_grads": halo_grads,
-        "pp": pp, "collectives": collectives, "one_rank": one_rank, "dryrun": dryrun}
+        "pp": pp, "collectives": collectives, "ring_shift": ring_shift, "one_rank": one_rank,
+        "dryrun": dryrun}
