@@ -3355,6 +3355,38 @@ SP_LARGE_RUNS = (
     ("float32_dropout", "float32", LARGE["dropout"], "large_batch", SP_TRAIN["epochs"]),
     ("bfloat16", "bfloat16", LARGE["dropout"], "large_batch", (0,)),
     ("xl", "bfloat16", LARGE["dropout"], "xl_batch", (0,)))
+# The MoE and remat over node-sharded inputs (the sp_moe and sp_remat jobs).
+# sp_moe: configs/dgdm_base_moe.yaml's model (MOE["model"]: 4 experts, top-1,
+# capacity 1.5, groups of 1024 tokens, moe_hidden 256) at full width on the 8
+# sorted Base graphs (bucket 1024: a group is one graph, over both ranks'
+# blocks): an f32 inference forward against one process (logits 1e-5, the
+# aux loss 1e-6, each expert's kept and dropped tokens equal), the runs of
+# SP_TRAIN at dropout 0 and 0.1 with SP_TRAIN's bounds, and one bf16 step on
+# the 8192-node graph (groups inside a block; a rank's peak above resident
+# against one process's). A token's first choice may flip where its two
+# largest router probabilities lie within ``tie`` of each other (the f32
+# rounding of its block's router input, ~2e-6 on the card); the check allows
+# no other flip and counts these: in the forward each expert's counts then
+# within the flips and the logits compared on the graphs without one; in a
+# training run the steps before the first flip held to the bounds (the flip
+# moves a token to another expert, so the runs train different functions
+# from there; the flip's step and later ones are reported). The run fails
+# if the check lets the planted fault through: one process's probabilities
+# with ``fault`` added to expert 0 on the last rank's rows of every graph.
+SP_MOE = dict(tie=1e-5, fault=1e-2, f32_atol=1e-5, aux_atol=1e-6)
+# sp_remat: DGDM-Base with use_remat, the f32 run of SP_TRAIN at dropout 0.1
+# against one process with remat, and one bf16 step on the 8192-node graph:
+# a rank's peak above resident with remat, beside the sp_train job's without
+# it and one process's with it. The recompute runs each encoder layer's key
+# gather, its three outgoing-row gathers and its two aggregations again.
+# (name, compute dtype, dropout, batch, plans, epochs)
+SP_MOE_RUNS = (
+    ("float32", "float32", 0.0, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
+    ("float32_dropout", "float32", 0.1, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
+    ("big", "bfloat16", 0.1, "sp_big", "sp_big_plans", (0,)))
+SP_REMAT_RUNS = (
+    ("float32_dropout", "float32", 0.1, "sp_train_batch", "sp_plans", SP_TRAIN["epochs"]),
+    ("big", "bfloat16", 0.1, "sp_big", "sp_big_plans", (0,)))
 
 
 def par_meshes(world: int) -> dict:
@@ -3364,14 +3396,20 @@ def par_meshes(world: int) -> dict:
     return {"tp": (2, 2), "pp": (1, 4), "ep": (2, 2), "halo": (1, 4), "sp": (1, 4)}
 
 
-def sp_train_expected_launches(cell: dict) -> dict:
+def sp_train_expected_launches(cell: dict, remat: bool = False) -> dict:
     """A rank's launches in one training step over node-sharded inputs: the
     forward's of ``sp_forward`` (the outgoing-rows gathers included), one
     backward launch for each of its gathers and aggregations, and four
     transposed lists: the [local || halo] table's and the outgoing rows' at
-    the full-N levels, one for each pooled level."""
+    the full-N levels, one for each pooled level. With ``remat`` the
+    backward runs each encoder layer's forward again: its key gather, the
+    three outgoing-row gathers of its halo tables and its two aggregations
+    (no list: the recompute reads the level's)."""
     fwd = sp_expected_launches(cell)
-    return {**fwd, "gather_rows_bwd": fwd["gather_rows"], "gather_agg_bwd": fwd["gather_agg"],
+    again = cell["encoder_layers"] if remat else 0
+    return {**fwd, "gather_rows": fwd["gather_rows"] + 4 * again,
+            "gather_agg": fwd["gather_agg"] + 2 * again,
+            "gather_rows_bwd": fwd["gather_rows"], "gather_agg_bwd": fwd["gather_agg"],
             "neighbor_transpose": 4}
 
 
@@ -3564,11 +3602,11 @@ def sp_measure(torch, fn) -> dict:
             "above_gib": (peak - before) / 2 ** 30, "wall_ms": (time.perf_counter() - t0) * 1e3}
 
 
-def sp_model(torch, dtype: str, device, preset: str = "dgdm-base"):
+def sp_model(torch, dtype: str, device, preset: str = "dgdm-base", **model_kw):
     from dgdm_histopath_torch import create_model
 
     return create_model(preset, num_classes=2, compute_dtype=dtype, dropout=0.0,
-                        device=device, seed=1)
+                        device=device, seed=1, **model_kw)
 
 
 def sp_result(r: dict, sel, emb: bool) -> dict:
@@ -3605,11 +3643,11 @@ def par_sp(torch, spec, device) -> dict:
 
 
 def sp_trainer(torch, dtype: str, dropout: float, device, mesh=None,
-               preset: str = "dgdm-base"):
+               preset: str = "dgdm-base", **model_kw):
     from dgdm_histopath_torch import DGDMTrainer, TrainerConfig, create_model
 
     model = create_model(preset, num_classes=2, compute_dtype=dtype, dropout=dropout,
-                         device=device, seed=1)
+                         device=device, seed=1, **model_kw)
     trainer = DGDMTrainer(model, TrainerConfig(**SP_TRAIN["config"]), device=device,
                           mesh=mesh)
     trainer.init_state(seed=0)
@@ -3713,30 +3751,77 @@ F32_RUNS = ("float32", "float32_dropout")
 SP_TRAIN_NAMES = tuple(r[0] for r in SP_TRAIN_RUNS)
 
 
-def par_sp_train(torch, spec, device) -> dict:
+def par_sp_train(torch, spec, device, runs=SP_TRAIN_RUNS, out=None, **model_kw) -> dict:
     """DGDM-Base training over node-sharded inputs through ``training_step(
     block, epoch, prepared=True, plan=plan)`` on this rank's block (the
-    ``sp`` mesh): each run of ``SP_TRAIN_RUNS`` with its metrics, launches,
-    step wall times and peak memory, and the whole parameters after the f32
-    run."""
+    ``sp`` mesh): each run of ``runs`` with its metrics, launches, step wall
+    times and peak memory, and the whole parameters after the f32 runs;
+    ``model_kw`` the model's options (the MoE's, ``use_remat``)."""
     import torch.distributed as dist
 
     from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes
 
     shape = par_meshes(dist.get_world_size())["sp"]
     mesh = make_mesh(axes=("data", "model"), shape=shape)
-    out = {"tp": shape[1], "index": mesh.axis("model").index}
-    for name, dtype, dropout, batch, plans, epochs in SP_TRAIN_RUNS:
-        trainer = sp_trainer(torch, dtype, dropout, device, mesh)
+    out = {**(out or {}), "tp": shape[1], "index": mesh.axis("model").index}
+    for name, dtype, dropout, batch, plans, epochs in runs:
+        trainer = sp_trainer(torch, dtype, dropout, device, mesh, **model_kw)
         block = shard_graph_nodes(spec[batch], mesh).to(device)
         plan = spec[plans][shape[1]]
+        routing = []
+        if trainer.model.moe_experts:
+            moe_routing(torch, trainer.model, routing)
         out[name] = sp_train_run(torch, trainer, epochs, lambda e: trainer.training_step(
             block, e, prepared=True, plan=plan), grads=name in F32_RUNS)
+        out[name]["routing"] = routing
         if name in F32_RUNS:
             out[name]["params"] = {k: v.cpu() for k, v in trainer.model_state_dict().items()}
         del trainer, block
         torch.cuda.empty_cache()
     return out
+
+
+def moe_routing(torch, model, record: list) -> None:
+    """Hook ``model``'s MoE block: each call appends its routing (the
+    block's line of groups over node blocks) to ``record``: the router's
+    probabilities, first choices (one-hot, dropped tokens included) and kept
+    tokens [g, G, E] and the token mask [g, G], on the host."""
+    def hook(m, args, kwargs, out):
+        with torch.no_grad():
+            r = m.route(args[0], args[1], kwargs.get("group_size"), kwargs.get("block"))
+        record.append({k: r[k].float().cpu() for k in ("probs", "first_choice", "kept", "mask")})
+
+    model.moe_ffn.register_forward_hook(hook, with_kwargs=True)
+
+
+def par_sp_moe(torch, spec, device) -> dict:
+    """configs/dgdm_base_moe.yaml's DGDM-Base over node-sharded inputs on this
+    rank's block (the ``sp`` mesh): the f32 inference forward (logits, aux
+    loss, the routing of its line's groups, launches, peak memory), then the
+    runs of SP_MOE_RUNS through ``training_step(block, epoch, prepared=True,
+    plan=plan)``."""
+    import torch.distributed as dist
+
+    from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes, sp_forward
+
+    shape = par_meshes(dist.get_world_size())["sp"]
+    mesh = make_mesh(axes=("data", "model"), shape=shape)
+    model = sp_model(torch, "float32", device, **MOE["model"])
+    routing = []
+    moe_routing(torch, model, routing)
+    block = shard_graph_nodes(spec["sp_batch"], mesh).to(device)
+    r = sp_measure(torch, lambda: sp_forward(model, block, spec["sp_plans"][shape[1]], mesh))
+    aux = float(r["out"]["moe_aux_loss"])
+    forward = dict(sp_result(r, [], emb=False), aux=aux, routing=routing[0])
+    del model, block, r
+    torch.cuda.empty_cache()
+    return par_sp_train(torch, spec, device, SP_MOE_RUNS, {"forward": forward}, **MOE["model"])
+
+
+def par_sp_remat(torch, spec, device) -> dict:
+    """DGDM-Base with ``use_remat`` over node-sharded inputs: the runs of
+    SP_REMAT_RUNS on this rank's block."""
+    return par_sp_train(torch, spec, device, SP_REMAT_RUNS, use_remat=True)
 
 
 def sp_attention_rows(out: dict) -> dict:
@@ -3801,23 +3886,41 @@ def par_sp_large(torch, spec, device) -> dict:
 
 def sp_train_spec(torch, spec: dict, ref: dict, device="cuda") -> None:
     """The labelled batch of the node-sharded steps into ``spec``, and one
-    process's runs of ``SP_TRAIN_RUNS`` on the whole batches into
-    ``ref["sp_train"]``."""
+    process's runs on the whole batches: of ``SP_TRAIN_RUNS`` into
+    ``ref["sp_train"]``, of the MoE model's forward (its routing hooked) and
+    ``SP_MOE_RUNS`` into ``ref["sp_moe"]``, of ``SP_REMAT_RUNS`` with remat
+    into ``ref["sp_remat"]``."""
     gen = torch.Generator().manual_seed(15)
     b = spec["sp_batch"].x.shape[0]
     spec["sp_train_batch"] = spec["sp_batch"].replace(y=torch.randint(0, 2, (b,),
                                                                       generator=gen))
-    ref["sp_train"] = {}
-    for name, dtype, dropout, batch, _, epochs in SP_TRAIN_RUNS:
-        trainer = sp_trainer(torch, dtype, dropout, device)
-        on = spec[batch].to(device)
-        r = sp_train_run(torch, trainer, epochs, lambda e: trainer.training_step(on, e),
-                         grads=name in F32_RUNS)
-        if name in F32_RUNS:
-            r["params"] = {k: v.detach().cpu() for k, v in trainer.model.named_parameters()}
-        ref["sp_train"][name] = r
-        del trainer, on
-        torch.cuda.empty_cache()
+    model = sp_model(torch, "float32", device, **MOE["model"])
+    routing = []
+    moe_routing(torch, model, routing)
+    on = spec["sp_batch"].to(device)
+    r = sp_measure(torch, lambda: model(on))
+    aux = float(r["out"]["moe_aux_loss"])
+    forward = dict(sp_result(r, [], emb=False), aux=aux, routing=routing[0])
+    del model, on, r
+    torch.cuda.empty_cache()
+    for key, runs, model_kw in (("sp_train", SP_TRAIN_RUNS, {}),
+                                ("sp_moe", SP_MOE_RUNS, MOE["model"]),
+                                ("sp_remat", SP_REMAT_RUNS, {"use_remat": True})):
+        ref[key] = {"forward": forward} if key == "sp_moe" else {}
+        for name, dtype, dropout, batch, _, epochs in runs:
+            trainer = sp_trainer(torch, dtype, dropout, device, **model_kw)
+            on = spec[batch].to(device)
+            routing = []
+            if trainer.model.moe_experts:
+                moe_routing(torch, trainer.model, routing)
+            r = sp_train_run(torch, trainer, epochs, lambda e: trainer.training_step(on, e),
+                             grads=name in F32_RUNS)
+            r["routing"] = routing
+            if name in F32_RUNS:
+                r["params"] = {k: v.detach().cpu() for k, v in trainer.model.named_parameters()}
+            ref[key][name] = r
+            del trainer, on
+            torch.cuda.empty_cache()
 
 
 def par_dryrun(n: int):
@@ -3832,7 +3935,8 @@ def par_dryrun(n: int):
 
 
 PAR_JOBS = {"tp": par_tp, "pp": par_pp, "ep": par_ep, "halo": par_halo, "sp": par_sp,
-            "sp_train": par_sp_train, "sp_large": par_sp_large,
+            "sp_train": par_sp_train, "sp_moe": par_sp_moe, "sp_remat": par_sp_remat,
+            "sp_large": par_sp_large,
             **{f"dryrun{n}": par_dryrun(n) for ns in PAR["dryruns"].values() for n in ns}}
 
 
@@ -4272,6 +4376,17 @@ def par_compare(torch, got: dict, ref: dict, spec: dict, world: int, card: str) 
     out["sp"] = sp_compare(torch, [r["sp"] for r in got], ref["sp"], card)
     out["sp_train"] = sp_train_compare(torch, [r["sp_train"] for r in got], ref["sp_train"],
                                        card)
+    out["sp_moe"] = sp_moe_compare(torch, [r["sp_moe"] for r in got], ref["sp_moe"], card)
+    out["sp_remat"] = remat = sp_train_compare(torch, [r["sp_remat"] for r in got],
+                                               ref["sp_remat"], card, SP_REMAT_RUNS,
+                                               "sp_remat training", remat=True)
+    plain = out["sp_train"]["big"]
+    remat["big_without_remat_above_gib"] = plain["above_gib"]
+    log(f"parallel: sp_remat, one bf16 pretrain step on the 8192-node graph: a rank's peak "
+        f"above resident {[round(x, 3) for x in remat['big']['above_gib']]} GiB with remat, "
+        f"{[round(x, 3) for x in plain['above_gib']]} without (the sp_train job); one "
+        f"process {remat['big']['one_above_gib']:.3f} with remat, {plain['one_above_gib']:.3f} "
+        f"without [{card}]")
     out["sp_large"] = sp_large_compare(torch, [r["sp_large"] for r in got], ref["sp_large"],
                                        spec, card)
 
@@ -4392,7 +4507,7 @@ def adamw_first_update(g):
     return g / (g.abs() + 1e-8)
 
 
-def sp_f32_check(ranks: list, one: dict, name: str) -> dict:
+def sp_f32_check(ranks: list, one: dict, name: str, steps: int = None) -> dict:
     """A rank's f32 run against one process's: each step's metrics over
     max(1, |x|), the first step's gradients over each tensor's largest entry
     (floored at 1e-3 of the largest entry of all, for the tensors whose true
@@ -4404,17 +4519,22 @@ def sp_f32_check(ranks: list, one: dict, name: str) -> dict:
     (|g| + eps): below eps (1e-8) the update is lr x g / eps, so a rounding
     difference of a gradient at 1e-7 of its tensor's largest entry (held by
     the gradient bound) moves the entry by a tenth of lr, the strict bound.
-    Where |g| >> eps that term is ~0. Both ratios are returned."""
+    Where |g| >> eps that term is ~0. Both ratios are returned. ``steps``:
+    hold only the metrics of the first ``steps`` steps (a routing flip's
+    step and those after it train another function), and the parameters
+    only where that is every step."""
     got = ranks[0][name]
+    steps = len(one["metrics"]) if steps is None else steps
     lr_sum = SP_TRAIN["config"]["learning_rate"] * len(SP_TRAIN["epochs"])
     lr0 = SP_TRAIN["config"]["learning_rate"]       # the first step's (no warmup)
     metric = {f"{i} {k}": abs(a[k] - s[k]) / max(1.0, abs(s[k]))
-              for i, (a, s) in enumerate(zip(got["metrics"], one["metrics"])) for k in s}
+              for i, (a, s) in enumerate(zip(got["metrics"][:steps], one["metrics"][:steps]))
+              for k in s}
     floor = 1e-3 * max(g.abs().max().item() for g in one["grads0"].values())
     grad = {k: (got["grads0"][k] - g).abs().max().item() / max(g.abs().max().item(), floor)
             for k, g in one["grads0"].items()}
     param, strict = {}, {}
-    for key, want in one["params"].items():
+    for key, want in (one["params"] if steps == len(one["metrics"]) else {}).items():
         bound = lr_sum if key.endswith(SHIFT_INVARIANT) else \
             1e-5 * max(want.abs().max().item(), 1.0)
         diff = (got["params"][key] - want).abs().double()
@@ -4431,36 +4551,60 @@ def sp_f32_check(ranks: list, one: dict, name: str) -> dict:
             "sel0_slots_equal": slots, "sel0_sets_equal": sets,
             "sel0_ids": selection_check(got["sel0"], one["sel0"], got["sel0_scores"],
                                         one["sel0_scores"]),
-            "max_metric_rel": max(metric.values()),
-            "max_first_step_metric_rel": max(v for k, v in metric.items()
-                                             if k.startswith("0 ")),
-            "max_grad0_rel": max(grad.values()), "max_param_over_bound": max(param.values()),
-            "max_param_over_strict_bound": max(strict.values()),
+            "max_metric_rel": max(metric.values(), default=0.0),
+            "max_first_step_metric_rel": max((v for k, v in metric.items()
+                                              if k.startswith("0 ")), default=0.0),
+            "max_grad0_rel": max(grad.values()) if steps else 0.0,
+            "max_param_over_bound": max(param.values(), default=0.0),
+            "max_param_over_strict_bound": max(strict.values(), default=0.0),
+            "steps_held": steps,
             "worst_metrics": worst(metric), "worst_grads0": worst(grad),
             "worst_params": worst(param), "worst_params_strict": worst(strict)}
 
 
-def sp_train_compare(torch, ranks: list, ref: dict, card: str) -> dict:
-    """Each rank's node-sharded training runs against one process's on the
-    card. f32 without dropout and at dropout 0.1 alike, as the DP phase:
-    metrics equal on every rank and within 1e-5 of max(1, |x|) of one
-    process's at every step, the first step's gradients within 1e-4 of each
-    tensor's largest entry, the parameters within 1e-5 of max(1, each
-    tensor's largest entry) (the shift-invariant key biases to the summed
-    learning rate) plus what AdamW's first update makes of the two runs'
-    first-step gradients (``sp_f32_check``), the first step's pooled node
-    sets equal (their slots are
-    reported: a swap of two tied nodes keeps their dropout masks). Every step's
-    launches as predicted on every rank (one process: 9 / 18 / 9 / 18 + 3);
-    on the 8192-node graph each rank's peak above its resident memory below
-    one process's. Raises on a failed bound."""
+RUN_TEXT = {"float32": "f32, dropout 0", "float32_dropout": "f32, dropout 0.1",
+            "bfloat16": "bf16, dropout 0.1",
+            "big": "bf16, one graph of 8000 nodes in bucket 8192, 1 pretrain step"}
+
+
+def sp_train_compare(torch, ranks: list, ref: dict, card: str, runs=SP_TRAIN_RUNS,
+                     what: str = "sp training", remat: bool = False) -> dict:
+    """Each rank's node-sharded training runs (``runs``) against one
+    process's on the card. f32 without dropout and at dropout 0.1 alike, as
+    the DP phase: metrics equal on every rank and within 1e-5 of max(1, |x|)
+    of one process's at every step, the first step's gradients within 1e-4
+    of each tensor's largest entry, the parameters within 1e-5 of max(1,
+    each tensor's largest entry) (the shift-invariant key biases to the
+    summed learning rate) plus what AdamW's first update makes of the two
+    runs' first-step gradients (``sp_f32_check``), the first step's pooled
+    node sets equal (their slots are reported: a swap of two tied nodes
+    keeps their dropout masks). Every step's launches as predicted on every
+    rank (``sp_train_expected_launches``; one process: 9 / 18 / 9 / 18 + 3,
+    with ``remat`` 13 / 26 / 9 / 18 + 3); on the 8192-node graph each rank's
+    peak above its resident memory below one process's. An MoE run's routing
+    is held each step (``moe_run_flips``): a first choice may flip only at a
+    near tie, and the steps before the first flip are held to the bounds.
+    Raises on a failed bound."""
     tp = ranks[0]["tp"]
-    expected = sp_train_expected_launches(BASE)
-    one_expected = expected_launches(BASE, training=True)
+    names = tuple(r[0] for r in runs)
+    f32 = [n for n in names if n in F32_RUNS]
+    expected = sp_train_expected_launches(BASE, remat)
+    one_expected = expected_launches(BASE, training=True, remat=remat)
     out = {"tp": tp, "expected_launches": expected}
-    for name in F32_RUNS:
-        out[f"{name}_check"] = c = sp_f32_check(ranks, ref[name], name)
-        log(f"parallel: sp training {name} (1, {tp}), DGDM-Base batch {SP['batch']} bucket "
+    for name in f32:
+        flips = moe_run_flips(ranks, ref[name], name) if ref[name].get("routing") else []
+        held = next((i for i, f in enumerate(flips) if f["flipped"]), None)
+        out[f"{name}_check"] = c = sp_f32_check(ranks, ref[name], name, held)
+        c["flips"] = flips
+        if flips:
+            log(f"parallel: {what} {name}: the routing a step, flipped first choices "
+                f"{[f['flipped'] for f in flips]} (largest gap "
+                f"{max(f['max_gap'] for f in flips):.2e}, allowed <= {SP_MOE['tie']}; "
+                f"router probabilities within "
+                f"{['%.1e' % f['max_prob_diff'] for f in flips]} "
+                f"of one process's); steps held to the bounds: {c['steps_held']} of "
+                f"{len(ref[name]['metrics'])} [{card}]")
+        log(f"parallel: {what} {name} (1, {tp}), DGDM-Base batch {SP['batch']} bucket "
             f"1024, 3 pretrain + 1 finetune steps: metrics within {c['max_metric_rel']:.3e} of "
             f"max(1, |x|) of one process (first step {c['max_first_step_metric_rel']:.3e}), "
             f"first-step gradients within {c['max_grad0_rel']:.3e} of each tensor's largest "
@@ -4472,7 +4616,7 @@ def sp_train_compare(torch, ranks: list, ref: dict, card: str) -> dict:
             f"metrics {[(k, f'{v:.2e}') for k, v in c['worst_metrics']]}, gradients "
             f"{[(k, f'{v:.2e}') for k, v in c['worst_grads0']]}, parameters "
             f"{[(k, round(v, 3)) for k, v in c['worst_params']]} [{card}]")
-    for name in ("float32", "float32_dropout", "bfloat16", "big"):
+    for name in names:
         one = ref[name]
         out[name] = {
             "launches": [r[name]["launches"] for r in ranks], "one_launches": one["launches"],
@@ -4489,11 +4633,9 @@ def sp_train_compare(torch, ranks: list, ref: dict, card: str) -> dict:
         return {k: c[k] for k in ("gather_rows", "gather_agg", "gather_rows_bwd",
                                   "gather_agg_bwd", "neighbor_transpose")}
 
-    for name, what in (("float32", "f32, dropout 0"), ("float32_dropout", "f32, dropout 0.1"),
-                       ("bfloat16", "bf16, dropout 0.1"),
-                       ("big", "bf16, one graph of 8000 nodes in bucket 8192, 1 pretrain step")):
+    for name in names:
         r = out[name]
-        log(f"parallel: sp training {what}: a rank's launches a step "
+        log(f"parallel: {what} {RUN_TEXT[name]}: a rank's launches a step "
             f"{gathers(r['launches'][0][0])} (predicted {gathers(expected)}; one process "
             f"{gathers(r['one_launches'][0])}); step wall ms a rank "
             f"{[[round(x, 1) for x in ms] for ms in r['step_ms']]} against "
@@ -4503,23 +4645,121 @@ def sp_train_compare(torch, ranks: list, ref: dict, card: str) -> dict:
             f"one process; loss {[round(x, 5) for x in r['loss']]} against "
             f"{[round(x, 5) for x in r['one_loss']]} [{card}]")
     failed = {}
-    for name in F32_RUNS:
+    for name in f32:
         c = out[f"{name}_check"]
+        failed[f"{name} routing flips"] = not all(f["ok"] for f in c["flips"])
         failed.update({f"{name} ranks": not c["same_on_every_rank"],
                        f"{name} metrics": c["max_metric_rel"] > 1e-5,
                        f"{name} first-step gradients": c["max_grad0_rel"] > 1e-4,
                        f"{name} parameters": c["max_param_over_bound"] > 1.0,
-                       f"{name} selections": c["sel0_sets_equal"] < 1.0})
+                       f"{name} selections": (c["steps_held"] > 0
+                                              and c["sel0_sets_equal"] < 1.0)})
     failed.update({
-        "launches": any(c != expected for n in SP_TRAIN_NAMES
-                        for r in out[n]["launches"] for c in r),
-        "one-process launches": any(c != one_expected for n in SP_TRAIN_NAMES
+        "launches": any(c != expected for n in names for r in out[n]["launches"] for c in r),
+        "one-process launches": any(c != one_expected for n in names
                                     for c in out[n]["one_launches"]),
-        "finite": not all(out[n]["finite"] for n in SP_TRAIN_NAMES),
+        "finite": not all(out[n]["finite"] for n in names),
         "8192-node peak": max(out["big"]["above_gib"]) >= out["big"]["one_above_gib"]})
     if any(failed.values()):
-        raise AssertionError(f"sp training: {[k for k, v in failed.items() if v]} failed")
+        raise AssertionError(f"{what}: {[k for k, v in failed.items() if v]} failed")
     return out
+
+
+def moe_run_flips(ranks: list, one: dict, name: str) -> list:
+    """Each step's routing of a MoE run on the ranks against one process's,
+    up to the first step in which a first choice flips (the two runs train
+    different functions from there): its flipped tokens and their largest
+    gap (``moe_flip_check``, ``SP_MOE["tie"]``) and the largest difference of
+    a router probability."""
+    steps = []
+    for s, want in enumerate(one["routing"]):
+        checks = [moe_flip_check(want, r[name]["routing"][s]["first_choice"], SP_MOE["tie"])
+                  for r in ranks]
+        steps.append({"flipped": max(c["flipped"] for c in checks),
+                      "max_gap": max(c["max_gap"] for c in checks),
+                      "ok": all(c["ok"] for c in checks),
+                      "max_prob_diff": max((r[name]["routing"][s]["probs"] - want["probs"])
+                                           .abs().max().item() for r in ranks)})
+        if steps[-1]["flipped"]:
+            break
+    return steps
+
+
+def moe_flip_check(one: dict, got_first, tie: float) -> dict:
+    """The tokens whose first choice differs between one process's routing
+    ``one`` and ``got_first`` [g, G, E] (one-hot), among the real ones: their
+    count and the largest gap between their two largest router
+    probabilities in ``one``; ``ok`` when no such gap exceeds ``tie``."""
+    real = one["mask"] > 0
+    flipped = (one["first_choice"].argmax(-1) != got_first.argmax(-1)) & real
+    top = one["probs"].topk(2, -1).values
+    gaps = (top[..., 0] - top[..., 1])[flipped]
+    worst = float(gaps.max()) if gaps.numel() else 0.0
+    return {"flipped": int(flipped.sum()), "max_gap": worst, "ok": worst <= tie,
+            "graphs": flipped.any(-1)}
+
+
+def sp_moe_compare(torch, ranks: list, ref: dict, card: str) -> dict:
+    """The sp_moe job: the f32 forward of each rank against one process's
+    (every group one graph: the logits of the graphs without a flipped
+    token within 1e-5, equal on both ranks; the aux loss 1e-6; each
+    expert's kept and dropped tokens equal, or within the flips; flips only
+    within ``SP_MOE["tie"]``, and MOE_FAULT caught), then its training runs
+    (``sp_train_compare``). Raises on a failed bound."""
+    one = ref["forward"]
+    forward = [r["forward"] for r in ranks]
+    flips = [moe_flip_check(one["routing"], r["routing"]["first_choice"], SP_MOE["tie"])
+             for r in forward]
+    # the planted fault: expert 0 raised on the last rank's rows of every graph
+    faulted = one["routing"]["probs"].clone()
+    half = faulted.shape[1] - faulted.shape[1] // ranks[0]["tp"]
+    faulted[:, half:, 0] += SP_MOE["fault"]
+    first = torch.nn.functional.one_hot(faulted.argmax(-1), faulted.shape[-1]).float()
+    fault = moe_flip_check(one["routing"], first, SP_MOE["tie"])
+    clean = ~torch.stack([f["graphs"] for f in flips]).any(0)
+    logits = max(((r["logits"] - one["logits"])[clean].abs().max().item() if clean.any()
+                  else 0.0) for r in forward)
+    aux = max(abs(r["aux"] - one["aux"]) for r in forward)
+    n_flips = max(f["flipped"] for f in flips)
+
+    def counts(rt):
+        kept = rt["kept"].sum((0, 1))
+        return kept, rt["first_choice"].sum((0, 1)) - kept
+
+    kept1, dropped1 = counts(one["routing"])
+    count_err = max(max((a - b).abs().max().item() for a, b in zip(counts(r["routing"]),
+                                                                    (kept1, dropped1)))
+                    for r in forward)
+    out = {"flipped_tokens": n_flips, "flip_max_gap": max(f["max_gap"] for f in flips),
+           "max_prob_diff": max((r["routing"]["probs"] - one["routing"]["probs"]).abs().max()
+                                .item() for r in forward),
+           "fault_flipped": fault["flipped"], "fault_max_gap": fault["max_gap"],
+           "logits_err": logits, "aux_err": aux, "count_err": count_err,
+           "kept": kept1.tolist(), "dropped": dropped1.tolist(),
+           "launches": [r["launches"] for r in forward], "one_launches": one["launches"],
+           "graphs_compared": int(clean.sum())}
+    expected = sp_expected_launches(BASE)
+    log(f"parallel: sp_moe forward (1, {ranks[0]['tp']}), {MOE['config']} at full width, "
+        f"f32, the 8 sorted Base graphs (groups of 1024: each a graph over both blocks): "
+        f"logits of {out['graphs_compared']} graphs within {logits:.2e} of one process "
+        f"(<= {SP_MOE['f32_atol']}), aux loss within {aux:.2e} (<= {SP_MOE['aux_atol']}), "
+        f"kept {out['kept']} / dropped {out['dropped']} an expert, counts off by {count_err:.0f}; "
+        f"{n_flips} flipped first choices (largest gap {out['flip_max_gap']:.2e}, allowed "
+        f"<= {SP_MOE['tie']}; router probabilities within {out['max_prob_diff']:.2e} of one "
+        f"process's); the planted fault (+{SP_MOE['fault']} on expert 0, last "
+        f"rank's rows) flips {fault['flipped']} tokens, largest gap {fault['max_gap']:.2e}; "
+        f"launches a rank {forward[0]['launches']} (predicted {expected}) [{card}]")
+    failed = {"flips": not all(f["ok"] for f in flips),
+              "fault passed": fault["ok"],
+              "logits": logits > SP_MOE["f32_atol"] or not all(
+                  torch.equal(r["logits"], forward[0]["logits"]) for r in forward),
+              "aux": n_flips == 0 and aux > SP_MOE["aux_atol"],
+              "counts": count_err > n_flips,
+              "launches": any(r["launches"] != expected for r in forward)}
+    if any(failed.values()):
+        raise AssertionError(f"sp_moe forward: {[k for k, v in failed.items() if v]} failed")
+    return {"forward": out, **sp_train_compare(torch, ranks, ref, card, SP_MOE_RUNS,
+                                               "sp_moe training")}
 
 
 def sp_large_attention(torch, spec: dict, ranks: list) -> dict:
@@ -4736,7 +4976,8 @@ def parallel_phase(torch, graphs, card: str, cards: int) -> dict:
     import tempfile
 
     backend, world = ("nccl", 4) if cards >= 4 else ("gloo", 2)
-    jobs = ([(j, world) for j in ("tp", "pp", "ep", "halo", "sp", "sp_train", "sp_large")]
+    jobs = ([(j, world) for j in ("tp", "pp", "ep", "halo", "sp", "sp_train", "sp_moe",
+                                  "sp_remat", "sp_large")]
             + [(f"dryrun{n}", n) for n in PAR["dryruns"][backend]])
     size = max(w for _, w in jobs)
     t0 = time.perf_counter()
@@ -7333,6 +7574,11 @@ def main() -> int:
                    "sp_graph_conv": par["halo"]["sp_launches"][name],
                    "sp_forward_rank": par["sp"]["float32"]["launches"][0][name],
                    "sp_training_step_rank": par["sp_train"]["bfloat16"]["launches"][0][0][name],
+                   "sp_moe_forward_rank": par["sp_moe"]["forward"]["launches"][0][name],
+                   "sp_moe_training_step_rank": (
+                       par["sp_moe"]["float32"]["launches"][0][0][name]),
+                   "sp_remat_training_step_rank": (
+                       par["sp_remat"]["float32_dropout"]["launches"][0][0][name]),
                    "sp_large_forward_rank": par["sp_large"]["forward"]["launches"][0][name],
                    "sp_large_training_step_rank": (
                        par["sp_large"]["float32"]["launches"][0][0][name]),

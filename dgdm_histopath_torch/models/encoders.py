@@ -3,6 +3,8 @@ JAX package's ``models/encoders.py``)."""
 
 from __future__ import annotations
 
+import contextvars
+import functools
 from typing import Dict, Optional, Sequence, Union
 
 import torch
@@ -150,8 +152,16 @@ class GraphEncoder(nn.Module):
         the draws after the backward are those of a step without remat.
         Dropout from the global generator (``generator=None``) is replayed by
         ``checkpoint`` itself. ``nbr_t`` and ``e`` come in as inputs: the
-        recompute builds no list."""
+        recompute builds no list. Over a node block (``nbrs``) the recompute
+        runs the layer's halo exchanges again, inside the backward; it never
+        stops early (``set_checkpoint_early_stop(False)``), so every rank
+        runs each layer's whole recompute, and with it every exchange, at the
+        same point of the same backward graph. The recompute runs in the
+        context of the first run, so a context variable set around the
+        forward (a tensor-parallel layout's whole weights,
+        ``parallel.tp.whole_weights``) holds for it too."""
         saved = None if deterministic or generator is None else generator.get_state()
+        context = contextvars.copy_context()
         first = True
 
         def run(h, nbr_idx, nbr_mask, e, nbr_t):
@@ -160,18 +170,20 @@ class GraphEncoder(nn.Module):
             if not first and saved is not None:   # the recompute replays the draws
                 found = generator.get_state()
                 generator.set_state(saved)
+            call = layer if first else functools.partial(context.run, layer)
             first = False
             try:
-                return layer(h, nbr_idx, nbr_mask, e, deterministic=deterministic,
-                             generator=generator, nbr_t=nbr_t, nbrs=nbrs, rows=rows)
+                return call(h, nbr_idx, nbr_mask, e, deterministic=deterministic,
+                            generator=generator, nbr_t=nbr_t, nbrs=nbrs, rows=rows)
             finally:                              # also when the recompute stops early
                 if found is not None:
                     generator.set_state(found)
 
-        return torch.utils.checkpoint.checkpoint(run, h, nbr_idx, nbr_mask, e, nbr_t,
-                                                 use_reentrant=False,
-                                                 preserve_rng_state=(not deterministic
-                                                                     and generator is None))
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return torch.utils.checkpoint.checkpoint(run, h, nbr_idx, nbr_mask, e, nbr_t,
+                                                     use_reentrant=False,
+                                                     preserve_rng_state=(not deterministic
+                                                                         and generator is None))
 
 
 class PositionalEncoder(nn.Module):

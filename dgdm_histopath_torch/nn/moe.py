@@ -14,17 +14,30 @@ Parameter layouts are the reference's: ``router`` is a ``Dense`` to E
 get zero output and carry no weight in the Switch load-balance loss
 ``E · Σ_e f_e · P_e`` (per group, averaged over the groups with a real
 token).
+
+Over a node block (``parallel/sp.py``: ``block``, an ``nn.attention.KeyBlock``)
+the groups are the whole graphs' tokens, graph-major then node, as one
+process groups them, so a group may lie inside the block, straddle the
+ranks of one graph or straddle graphs and ranks. The router runs on the
+block's rows (probabilities are per token); ``block.gather`` brings the
+line's probabilities together, and every rank runs the position and keep
+arithmetic on the whole groups, so capacities, positions, the second slot's
+offset and the aux loss's sums are one process's. The experts compute at one
+process's buffer shape ``[E, g, C]`` from the block's tokens, the others'
+rows zero: each slot holds one token, so dispatch and combine stay exact
+sums, and the expert dropout, drawn at that whole shape, falls where one
+process's does.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .attention import KeyBlock
 from .layers import Dense, dropout, get_activation, lecun_normal_
 
 
@@ -83,24 +96,32 @@ class MoEFFN(nn.Module):
         return max(1, min(cap, grp))
 
     def route(self, x: torch.Tensor, token_mask: torch.Tensor,
-              group_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
+              group_size: Optional[int] = None,
+              block: Optional[KeyBlock] = None) -> Dict[str, torch.Tensor]:
         """The routing of ``x``: ``dispatch`` and ``combine`` [g, G, E, C]
         f32, ``probs`` [g, G, E], ``first_choice`` [g, G, E] (the first
         slot's one-hot, dropped tokens included), ``kept`` [g, G, E] (the
         tokens each expert takes), ``mask`` [g, G] and the tokens ``xg``
-        [g, G, F]. ``group_size`` overrides the group length."""
+        [g, G, F]. ``group_size`` overrides the group length. With ``block``
+        (x a node block, ``token_mask`` the whole graphs' [..., n]) all of
+        these are the whole graphs' groups, ``xg`` zero outside the block."""
         e_num, f = self.num_experts, self.features
-        lead = x.shape[:-1]
-        t_tok = math.prod(lead) if lead else 1
-        grp = group_size or routing_group(t_tok, x.shape[-2], self.group_size)
+        t_tok = token_mask.numel()
+        grp = group_size or routing_group(t_tok, token_mask.shape[-1], self.group_size)
         if t_tok % grp:
             raise ValueError(f"routing groups of {grp} do not divide {t_tok} tokens")
         n_grp = t_tok // grp
-        xg = x.reshape(n_grp, grp, f)
         mask = token_mask.reshape(n_grp, grp).float()
         cap = self.capacity(grp)
-
-        probs = torch.softmax(self.router(xg.float()), dim=-1)     # [g, G, E]
+        if block is None:
+            xg = x.reshape(n_grp, grp, f)
+            probs = torch.softmax(self.router(xg.float()), dim=-1)     # [g, G, E]
+        else:
+            # per token on the block's rows, then the line's whole groups
+            probs = block.gather(torch.softmax(self.router(x.float()), dim=-1))
+            probs = probs.reshape(n_grp, grp, e_num)
+            lo, n_loc = block.rows.lo, x.shape[-2]
+            xg = F.pad(x, (0, 0, lo, block.rows.n - lo - n_loc)).reshape(n_grp, grp, f)
         remaining = probs
         count_e = torch.zeros(n_grp, e_num, device=x.device)
         slots = []
@@ -150,13 +171,18 @@ class MoEFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, token_mask: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                batch_mean: Callable = local_mean, group_size: Optional[int] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                batch_mean: Callable = local_mean, group_size: Optional[int] = None,
+                block: Optional[KeyBlock] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``batch_mean(num, count)`` averages the aux loss over the groups
-        with a real token; ``group_size`` overrides the routing group."""
+        with a real token; ``group_size`` overrides the routing group.
+        ``block`` (``nn.attention.KeyBlock``): x [..., n_loc, F] is the rows
+        ``[block.rows.lo, + n_loc)`` of graphs of ``block.rows.n`` nodes and
+        ``token_mask`` the whole graphs' [..., n]; the output is the block's
+        rows, the aux loss the whole groups' (equal on every rank of the
+        line)."""
         if x.shape[-1] != self.features:
             raise ValueError(f"x feature dim {x.shape[-1]} != features {self.features}")
-        r = self.route(x, token_mask, group_size)
+        r = self.route(x, token_mask, group_size, block)
         mask, probs = r["mask"], r["probs"]
         out = self.experts(r["xg"], r["dispatch"], r["combine"], deterministic, generator)
 
@@ -169,8 +195,10 @@ class MoEFFN(nn.Module):
         per_group = self.num_experts * (frac_tokens * mean_prob).sum(-1)
         aux = batch_mean((per_group * has_real).sum(), has_real.sum())
 
-        out = out * mask[..., None].to(out.dtype)
-        return out.reshape(x.shape), aux.float()
+        out = (out * mask[..., None].to(out.dtype)).reshape(token_mask.shape + (self.features,))
+        if block is not None:
+            out = out.narrow(-2, block.rows.lo, x.shape[-2])
+        return out, aux.float()
 
 
 __all__ = ["MoEFFN", "local_mean", "routing_group"]

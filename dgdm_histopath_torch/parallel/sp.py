@@ -30,6 +30,13 @@ whole ``DGDMModel`` forward. PyTorch has no such compiler, so
   takes from each adjacent rank one window of them (``mesh.shift``: the
   previous rank's last W rows, the next rank's first W, the last rank
   joined to the first as the model's roll joins the graph's ends);
+* the MoE residual FFN routes in the whole graphs' groups (``nn/moe.py``):
+  the router runs on the block, its probabilities are all-gathered, every
+  rank runs the groups' position and keep arithmetic whole and the experts
+  compute the block's tokens at one process's buffer shape; the aux loss
+  comes back equal on every rank of a line. Over the data axis the groups
+  are the global batch's, and a group that would straddle data ranks
+  raises;
 * U-Net pooling all-gathers the score and the gated rows; every rank runs
   the one-process compaction (the same stable argsort, ``keep`` of the
   whole level) and keeps its contiguous block of pooled positions. Compact
@@ -62,7 +69,12 @@ windows on the window route, the composed selections at the pooled ones,
 as one process keys them), and the diffusion draws and the entity mask
 come at the whole graph's shape, so a rank drops, masks and noises what one
 process does, also where two nodes whose pooling scores tie to rounding
-swap slots. The options it does not cover raise (ROADMAP item 12).
+swap slots. ``use_remat`` checkpoints each encoder layer as in one
+process: the recompute runs the layer's three halo exchanges again, inside
+the backward, on every rank in the same order (the same graph on every
+rank, and the recompute never stops early, ``GraphEncoder._checkpointed``).
+``use_flash`` raises: no model path of the reference takes flash (ROADMAP
+item 12b).
 """
 
 from __future__ import annotations
@@ -74,7 +86,7 @@ import torch
 from ..nn.attention import KeyBlock
 from ..nn.graph_layers import Neighbors
 from ..nn.layers import NodeRows
-from ..nn.moe import local_mean
+from ..nn.moe import local_mean, routing_group
 from ..ops.diffusion import randn_like
 from ..ops.graph import (
     PaddedGraph,
@@ -92,8 +104,9 @@ from .mesh import DATA_AXIS, MODEL_AXIS, Axis, Mesh, all_gather, all_reduce, shi
 from .tp import whole_weights
 
 _NODE_LEAVES = ("x", "pos", "nbr_idx", "nbr_mask", "edge_attr", "node_mask")
-_QUEUED = ("ROADMAP queue 1, item 12 (12b: use_flash; 12c: the MoE, remat under a "
-           "gradient): the node-sharded forward does not cover them yet")
+_BEYOND = ("beyond the reference (ROADMAP queue 1, entry 4, item 12b): the JAX DGDMModel "
+           "builds its spatial attention without flash, so no model path takes it, sharded "
+           "or not")
 
 
 def node_sharding(mesh: Mesh, batch_sharded: bool = True) -> tuple:
@@ -232,16 +245,20 @@ def level_sizes(model, n: int) -> list:
 def _check_options(model, mode: str) -> None:
     if mode not in ("inference", "pretrain", "finetune"):
         raise ValueError(f"unknown mode {mode!r}")
-    refused = []
-    if model.moe_experts > 0:
-        refused.append("moe_experts > 0")
     if model.use_spatial_attention and model.spatial_attention.use_flash:
-        refused.append("use_flash")
-    if model.use_remat and torch.is_grad_enabled():
-        # a checkpointed layer's recompute would run its halo exchanges again
-        refused.append("use_remat under a gradient")
-    if refused:
-        raise NotImplementedError(f"sp_forward: {', '.join(refused)} not ported ({_QUEUED})")
+        raise NotImplementedError(f"sp_forward: use_flash is {_BEYOND}")
+
+
+def moe_group(model, b: int, n: int, mesh: Mesh) -> int:
+    """The MoE's routing-group length over node blocks of ``b`` graphs of
+    ``n`` nodes a data rank: the global batch's (``routing_group`` of its
+    ``b·dp·n`` tokens), as one process on the whole batch groups them.
+    Raises ``ValueError`` where a group would straddle two data ranks."""
+    grp = routing_group(b * mesh.size * n, n, model.moe_ffn.group_size)
+    if (b * n) % grp:
+        raise ValueError(f"an MoE routing group of {grp} tokens would straddle two data "
+                         f"ranks ({b} graphs of {n} nodes a rank)")
+    return grp
 
 
 def _unet(unet, x: torch.Tensor, top: _Level, gather, axis: Axis, rand: dict) -> tuple:
@@ -310,7 +327,8 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
                mode: str = "inference", deterministic: bool = True,
                return_attention: bool = False, generator: Optional[torch.Generator] = None,
                t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-               batch_mean: Optional[Callable] = None) -> Dict[str, Any]:
+               batch_mean: Optional[Callable] = None,
+               data_mean: Callable = local_mean) -> Dict[str, Any]:
     """``DGDMModel.forward`` over node-sharded inputs: what ``model(batch,
     mode, deterministic, ...)`` computes, with every rank of the mesh holding
     its block ``block = shard_graph_nodes(batch, mesh)`` and the host-built
@@ -326,8 +344,8 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
     ``pool_sel_idx``, each pooled level's selection [b, keep] (node ids of
     the level above). Pretrain mode adds ``diffusion_loss``, this rank's
     share of the mean through ``batch_mean`` (default: the counts of the
-    line, ``line_mean``), and ``diffusion_t``; its ``t`` [b] and ``noise``
-    [b, N, hidden] are given for the whole graph or drawn from ``generator``
+    line over ``data_mean``, ``line_mean``), and ``diffusion_t``; its ``t``
+    [b] and ``noise`` [b, N, hidden] are given for the whole graph or drawn from ``generator``
     at that shape, as one process draws them. Dropout, when not
     ``deterministic``, draws from ``generator`` too. With
     ``return_attention`` the outputs add this rank's rows of the model's
@@ -338,6 +356,14 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
     are one process's. A gradient flows through every collective (the
     summed-loss convention, see the module note).
 
+    With ``moe_experts > 0`` the MoE routes in the whole graphs' groups, the
+    global batch's (:func:`moe_group`), and ``moe_aux_loss``, through
+    ``data_mean`` (the mean over the data ranks: ``local_mean``, or a
+    data-parallel trainer's), is the whole groups' and equal on every rank
+    of a line, like ``graph_embedding``. With ``use_remat`` each encoder layer is
+    checkpointed where a gradient is taken, its halo exchanges run again in
+    the recompute.
+
     DGDM-Large's windows (``graph_window``, ``spatial_window``) are the
     whole graph's: the band and the window route apply where the whole
     bucket N allows them, as in one process. A banded level prunes the
@@ -346,9 +372,9 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
     first as the model's roll joins a graph's ends).
 
     Every level's node count must divide by the ``model`` size, and on the
-    window route the block by the window (``ValueError``); MoE, flash
-    attention and remat under a gradient raise ``NotImplementedError``
-    (ROADMAP item 12)."""
+    window route the block by the window (``ValueError``); flash attention
+    raises ``NotImplementedError``: beyond the reference (ROADMAP item
+    12b)."""
     _check_options(model, mode)
     axis = mesh.axis(MODEL_AXIS)
     n_loc = block.x.shape[1]
@@ -367,6 +393,9 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
     # the first level's dropout masks: this block's nodes of the whole graph
     rows = NodeRows(n, lo=axis.index * n_loc)
     block_rand = dict(rand, rows=rows)
+    line = KeyBlock(rows, gather, _line_ring(axis))
+    if model.moe_experts > 0:
+        group = moe_group(model, block.x.shape[0], n, mesh)
     send, idx = local_plan(plan, mesh, device=block.x.device)
     if idx.shape[:2] != block.nbr_idx.shape[:2]:
         raise ValueError(f"block {tuple(block.nbr_idx.shape)} does not match its plan part "
@@ -389,10 +418,15 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
         h = enc["embeddings"]
         if return_attention:
             outputs["edge_attentions"] = enc["attentions"]
+        if model.moe_experts > 0:
+            moe_out, outputs["moe_aux_loss"] = model.moe_ffn(
+                model.moe_norm(h), top.nodem, **rand, batch_mean=data_mean, group_size=group,
+                block=line)
+            h = h + moe_out
         if model.use_spatial_attention:
             res = model.spatial_attention(h, block.pos.float(), node_mask,
                                           return_weights=return_attention, **rand,
-                                          block=KeyBlock(rows, gather, _line_ring(axis)))
+                                          block=line)
             if return_attention:
                 h, outputs["spatial_attention"] = res
             else:
@@ -413,7 +447,7 @@ def sp_forward(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
             predicted, true_noise, t = diff(h, t=t, noise=_block_rows(noise, axis, n_loc))
             mask_f = node_mask[..., None].float()
             sq = (predicted.float() - true_noise.float()) ** 2
-            mean = batch_mean or line_mean(axis)
+            mean = batch_mean or line_mean(axis, data_mean)
             outputs["diffusion_loss"] = mean((sq * mask_f).sum(), mask_f.sum() * sq.shape[-1])
             outputs["diffusion_t"] = t
             outputs["reconstruction"] = model.recon_head(h)
@@ -430,10 +464,12 @@ def sp_pretrain_step(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
                      generator: Optional[torch.Generator] = None,
                      masked: Optional[torch.Tensor] = None, t: Optional[torch.Tensor] = None,
                      noise: Optional[torch.Tensor] = None,
-                     batch_mean: Optional[Callable] = None) -> Dict[str, Any]:
+                     batch_mean: Optional[Callable] = None,
+                     data_mean: Callable = local_mean) -> Dict[str, Any]:
     """``DGDMModel.pretrain_step`` over node-sharded inputs: entity masking,
     then :func:`sp_forward` in pretrain mode, and the masked-node
-    reconstruction loss (this rank's share, through ``batch_mean``).
+    reconstruction loss (this rank's share, through ``batch_mean``, default
+    the line's counts over ``data_mean``).
     ``masked`` [b, N] is given for the whole graph or drawn from
     ``generator`` at that shape; ``masked_nodes`` comes back as this rank's
     block of it."""
@@ -444,10 +480,10 @@ def sp_pretrain_step(model, block: PaddedGraph, plan: HaloPlan, mesh: Mesh,
                             device=block.x.device) < mask_ratio
     masked = _block_rows(masked, axis, n_loc) & block.node_mask
     corrupted = model.apply_entity_masking(block, masked=masked)
-    mean = batch_mean or line_mean(axis)
+    mean = batch_mean or line_mean(axis, data_mean)
     outputs = sp_forward(model, corrupted, plan, mesh, mode="pretrain",
                          deterministic=deterministic, generator=generator, t=t, noise=noise,
-                         batch_mean=mean)
+                         batch_mean=mean, data_mean=data_mean)
     m = masked[..., None].float()
     sq = (outputs["reconstruction"].float() - block.x.float()) ** 2
     outputs["reconstruction_loss"] = mean((sq * m).sum(), m.sum() * block.x.shape[-1])
@@ -460,5 +496,5 @@ def whole_node_mask(block: PaddedGraph, mesh: Mesh) -> torch.Tensor:
     return _line_gather(mesh.axis(MODEL_AXIS))(block.node_mask)
 
 
-__all__ = ["constrain_nodes", "level_sizes", "line_mean", "node_sharding", "shard_graph_nodes",
-           "sp_forward", "sp_pretrain_step", "whole_node_mask"]
+__all__ = ["constrain_nodes", "level_sizes", "line_mean", "moe_group", "node_sharding",
+           "shard_graph_nodes", "sp_forward", "sp_pretrain_step", "whole_node_mask"]

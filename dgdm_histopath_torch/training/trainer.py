@@ -106,12 +106,12 @@ from ..evaluation.metrics import concordance_index
 from ..models.decoders import cox_partial_likelihood, discrete_survival_loss
 from ..models.dgdm import DGDMModel
 from ..nn.layers import init_parameters
-from ..nn.moe import local_mean, routing_group
+from ..nn.moe import local_mean
 from ..ops.graph import PaddedGraph, band_eligible, in_band_fraction
 from ..parallel.mesh import (MODEL_AXIS, Mesh, align_node_batches, all_gather, make_mesh,
                              pad_batch_to_devices, replicate_tree, shard_batch, shard_rows)
 from ..parallel.halo import HaloPlan
-from ..parallel.sp import line_mean, sp_forward, sp_pretrain_step, whole_node_mask
+from ..parallel.sp import line_mean, moe_group, sp_forward, sp_pretrain_step, whole_node_mask
 from ..parallel.tp import (describe_sharding, gather_state, grad_norm, nest, place_state_tp,
                            shard_state, tp_size, unify_replicated)
 from ..utils.config import DGDMConfig
@@ -538,7 +538,7 @@ class DGDMTrainer:
         else:
             # per-node sums over the counts of the whole line and data batch
             out = sp_pretrain_step(self.model, batch, plan, self.mesh, **given,
-                                   batch_mean=self._line_mean())
+                                   batch_mean=self._line_mean(), data_mean=self._mean())
             # InfoNCE over the line's embeddings: every rank of the line alike
             emb = all_gather(out["node_embeddings"], self.mesh.axis(MODEL_AXIS), 1)
             node_mask = whole_node_mask(batch, self.mesh)
@@ -555,10 +555,16 @@ class DGDMTrainer:
             metrics["contrastive_loss"] = closs
             loss = loss + closs
         if "moe_aux_loss" in out:
-            metrics["moe_aux_loss"] = out["moe_aux_loss"]
-            loss = loss + cfg.moe_aux_weight * out["moe_aux_loss"]
+            metrics["moe_aux_loss"] = self._aux_share(out["moe_aux_loss"], plan)
+            loss = loss + cfg.moe_aux_weight * metrics["moe_aux_loss"]
         metrics["loss"] = loss
         return loss, metrics
+
+    def _aux_share(self, aux: torch.Tensor, plan: Optional[HaloPlan]) -> torch.Tensor:
+        """The MoE aux loss's share of this rank: over node blocks every rank
+        of the model line holds the whole groups' value (a data rank's share
+        under data parallelism), so each takes 1/line of it."""
+        return aux if plan is None else aux / self.mesh.axis(MODEL_AXIS).size
 
     def _heads(self, out: Dict[str, Any], batch: PaddedGraph,
                node_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -590,7 +596,8 @@ class DGDMTrainer:
             h = self._heads(out, batch)
         else:
             out = sp_forward(self.model, batch, plan, self.mesh, mode="finetune",
-                             deterministic=False, generator=self.dropout_generator)
+                             deterministic=False, generator=self.dropout_generator,
+                             data_mean=self._mean())
             h = self._heads(out, batch, whole_node_mask(batch, self.mesh))
         valid, denom = h["valid"], h["valid"].sum().clamp_min(1.0)
         if self.task == "classification":
@@ -613,8 +620,8 @@ class DGDMTrainer:
             metrics = {k: v / self._replicas(plan) for k, v in metrics.items()}
             loss = metrics["loss"]
         if "moe_aux_loss" in out:
-            metrics["moe_aux_loss"] = out["moe_aux_loss"]
-            loss = loss + self.config.moe_aux_weight * out["moe_aux_loss"]
+            metrics["moe_aux_loss"] = self._aux_share(out["moe_aux_loss"], plan)
+            loss = loss + self.config.moe_aux_weight * metrics["moe_aux_loss"]
             metrics["loss"] = loss
         return loss, metrics
 
@@ -677,16 +684,11 @@ class DGDMTrainer:
 
     def _set_moe_group(self, batch: PaddedGraph) -> None:
         """Under data parallelism the MoE routes in the groups of the global
-        batch: a group may not straddle two ranks."""
+        batch: a group may not straddle two ranks (``parallel.sp.moe_group``,
+        which a node-sharded step takes itself)."""
         self._moe_group = None
-        if not (self._dp and self.model.moe_experts):
-            return
-        b, n = batch.node_mask.shape
-        grp = routing_group(b * self._dp.size * n, n, self.model.moe_ffn.group_size)
-        if (b * n) % grp:
-            raise ValueError(f"an MoE routing group of {grp} tokens would straddle two "
-                             f"ranks ({b} graphs of {n} nodes a rank)")
-        self._moe_group = grp
+        if self._dp and self.model.moe_experts:
+            self._moe_group = moe_group(self.model, *batch.node_mask.shape, self.mesh)
 
     def _grad_norm(self, grads: list) -> torch.Tensor:
         """The global norm of the whole gradient (under tensor parallelism
@@ -797,7 +799,8 @@ class DGDMTrainer:
         if self._dp:
             self.dropout_generator.manual_seed(
                 _fold(_fold(self.seed, self.step), 1 + self._dp.rank))
-            self._set_moe_group(batch)
+            if plan is None:
+                self._set_moe_group(batch)
             if pretrain or batch.y is None:
                 draws = self._global_draws(batch, draws, self.config.use_contrastive_loss,
                                            nodes)

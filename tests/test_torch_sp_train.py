@@ -18,16 +18,32 @@ tests/test_torch_parallel.py, in its one spawn of 4 ranks).
 * The band over a node block: its level gives its layers the whole graph's
   band-pruned rows and their degree normalization.
 * ``training_step`` refuses a plan without a prepared block.
+* The MoE over a node block (``MoEFFN.route`` / ``forward`` with a
+  ``KeyBlock``): groups inside a block, straddling the ranks of one graph
+  and straddling graphs and ranks, top-1 and top-2 with capacity drops (the
+  second slot offset by the whole group's kept first choices): every rank's
+  routing equal to the whole groups', its output rows within 1e-6 of theirs
+  and the aux loss equal.
+* A remat step over a model line of threads (``ThreadAxis``: the line's
+  collectives through shared memory, each a barrier with a timeout, so a
+  rank that waits on a collective the others do not issue fails the test in
+  seconds instead of hanging it): every rank issues the same collectives in
+  the same order, each encoder layer's three halo exchanges once more than
+  without remat, and the gradients summed over the ranks are one process's.
 
 The inputs are made with numpy from a seed.
 """
+
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 from dgdm_histopath_torch.models.dgdm import DGDMModel
+from dgdm_histopath_torch.nn.attention import KeyBlock
 from dgdm_histopath_torch.nn.layers import NodeRows, dropout, init_parameters
+from dgdm_histopath_torch.nn.moe import MoEFFN
 from dgdm_histopath_torch.ops.graph import (
     PaddedGraph,
     band_eligible,
@@ -42,7 +58,7 @@ from dgdm_histopath_torch.ops.kernels.gather_agg import (
     weighted_gather_sum_bwd_plain,
 )
 from dgdm_histopath_torch.ops.kernels.gather_rows import gather_rows, gather_rows_bwd_plain
-from dgdm_histopath_torch.parallel import halo, sp, sp_forward
+from dgdm_histopath_torch.parallel import halo, shard_graph_nodes, sp, sp_forward
 from dgdm_histopath_torch.parallel.mesh import Axis, Mesh
 from dgdm_histopath_torch.training import DGDMTrainer, TrainerConfig
 
@@ -390,3 +406,201 @@ def test_training_step_takes_a_plan_only_with_a_prepared_block():
     with pytest.raises(ValueError, match="prepared=True"):
         trainer().training_step(g, 0, plan=plan)
     assert trainer().training_step(g, 0, prepared=True) == trainer().training_step(g, 0)
+
+
+# (graphs, nodes, tp, group): a group of 8 inside a block of 16 rows, of 32
+# over two blocks of one graph, of 64 over two graphs of 32 and their blocks
+PLACEMENTS = {"inside_a_block": (2, 32, 2, 8), "straddles_ranks": (2, 32, 2, 32),
+              "straddles_graphs_and_ranks": (4, 32, 4, 64)}
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+@pytest.mark.parametrize("placement", sorted(PLACEMENTS))
+def test_moe_routing_over_a_node_block_equals_the_whole_groups(placement, top_k):
+    """Each rank's ``route`` with its block (its rows' probabilities, the
+    others' gathered) gives the whole groups' dispatch, kept tokens and first
+    choices bit for bit and their probabilities and combine weights; its
+    ``forward`` output is its rows of the whole output within 1e-6 and the
+    aux loss the whole groups'. Capacity 0.5 drops tokens; at top-2 the
+    second slot's positions start after the whole group's kept first
+    choices, which a block's own count would not give."""
+    b, n, tp, grp = PLACEMENTS[placement]
+    rs = np.random.RandomState(12)
+    x = torch.from_numpy(rs.randn(b, n, 16).astype(np.float32))
+    mask = torch.from_numpy(rs.rand(b, n) < 0.9)
+    moe = init_parameters(MoEFFN(16, 32, num_experts=4, top_k=top_k, capacity_factor=0.5,
+                                 group_size=grp, dtype=torch.float32),
+                          torch.Generator().manual_seed(13))
+    whole = moe.route(x, mask)
+    out, aux = moe(x, mask)
+    assert whole["dispatch"].shape[:2] == (b * n // grp, grp)
+    real = mask.reshape(whole["kept"].shape[:2])
+    assert ((whole["kept"].sum(-1) == 0) & real).any()            # drops
+    n_loc = n // tp
+    blocks = [x[:, r * n_loc:(r + 1) * n_loc] for r in range(tp)]
+
+    def gather(r):
+        def fn(t):          # the line's probabilities, this rank's own part t
+            parts = [torch.softmax(moe.router(p), -1) for p in blocks]
+            parts[r] = t
+            return torch.cat(parts, 1)
+        return fn
+
+    for r in range(tp):
+        block = KeyBlock(NodeRows(n, lo=r * n_loc), gather(r), None)
+        got = moe.route(blocks[r], mask, block=block)
+        for key in ("dispatch", "kept", "first_choice", "mask"):
+            assert torch.equal(got[key], whole[key]), key
+        for key in ("probs", "combine"):
+            torch.testing.assert_close(got[key], whole[key], atol=1e-7, rtol=0)
+        got_out, got_aux = moe(blocks[r], mask, block=block)
+        torch.testing.assert_close(got_out, out[:, r * n_loc:(r + 1) * n_loc], atol=1e-6,
+                                   rtol=0)
+        assert float(got_aux.detach()) == float(aux.detach())
+    # a straddling group's positions depend on the other blocks' tokens: a
+    # route that sees only the last block's (the others masked off) places
+    # them elsewhere; a group inside a block is the block's own
+    only = mask.clone()
+    only[:, :n - n_loc] = False
+    lone = moe.route(x, only)["dispatch"].reshape(b, n, 4, -1)[:, n - n_loc:]
+    mine = whole["dispatch"].reshape(b, n, 4, -1)[:, n - n_loc:]
+    assert torch.equal(lone, mine) == (placement == "inside_a_block")
+
+
+class ThreadAxis(Axis):
+    """A model line whose ranks are threads of this process: each collective
+    posts this rank's tensor and its signature, meets the others at a barrier
+    (``timeout`` seconds: a rank left waiting raises), and fails where the
+    ranks issued different collectives. ``log`` keeps each rank's
+    signatures in order."""
+
+    def __init__(self, board: dict, index: int):
+        super().__init__("model", board["size"], index)
+        self.board = board
+
+    def _exchange(self, op: str, t: torch.Tensor) -> list:
+        b = self.board
+        sig = (op, tuple(t.shape), t.dtype)
+        b["log"][self.index].append(sig)
+        b["slots"][self.index] = (sig, t.detach().clone())
+        b["barrier"].wait()
+        posted = list(b["slots"])
+        b["barrier"].wait()
+        if any(p[0] != sig for p in posted):
+            raise AssertionError(f"rank {self.index} issued {sig}, the line "
+                                 f"{[p[0] for p in posted]}")
+        return [p[1] for p in posted]
+
+    def all_reduce_(self, t):
+        parts = self._exchange("all_reduce", t)
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        return t.copy_(total)
+
+    def broadcast_(self, t, index=0):
+        return t.copy_(self._exchange("broadcast", t)[index])
+
+    def all_gather(self, t, dim=0):
+        return torch.cat(self._exchange("all_gather", t), dim)
+
+    def all_to_all(self, t, dim=0):
+        parts = self._exchange("all_to_all", t)
+        return torch.cat([p.chunk(self.size, dim)[self.index] for p in parts], dim)
+
+    def shift(self, t, offset=1):
+        return self._exchange("shift", t)[(self.index - offset) % self.size].clone()
+
+
+def run_line(tp: int, fn, timeout: float = 60.0):
+    """``fn(mesh, rank)`` on a (1, tp) mesh of threads; returns each rank's
+    result and its collectives in order. A rank's error (a broken barrier
+    included) aborts the others and is raised."""
+    board = {"size": tp, "barrier": threading.Barrier(tp, timeout=timeout),
+             "slots": [None] * tp, "log": [[] for _ in range(tp)]}
+    results, errors = [None] * tp, []
+
+    def work(r):
+        try:
+            mesh = Mesh(("data", "model"), (1, tp), lines={"model": ThreadAxis(board, r)})
+            results[r] = fn(mesh, r)
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+            board["barrier"].abort()
+
+    threads = [threading.Thread(target=work, args=(r,), daemon=True) for r in range(tp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(4 * timeout)
+    assert not any(t.is_alive() for t in threads), "a rank hung"
+    if errors:
+        raise errors[0]
+    return results, board["log"]
+
+
+def remat_step(state, g, tp: int, remat: bool):
+    """A pretrain step's loss and gradients over a (1, tp) line of threads:
+    ``sp_pretrain_step`` at dropout 0.1 with the MoE, each rank's loss its
+    share (the per-node terms over the line's counts, the graph-level terms
+    divided by the line), backward on every rank."""
+    plan = halo.build_halo_plan(g.nbr_idx, g.nbr_mask, tp)
+
+    def fn(mesh, r):
+        model = DGDMModel(**MODEL, use_remat=remat, moe_experts=4, moe_top_k=2)
+        model.load_state_dict(state)
+        out = sp.sp_pretrain_step(model, shard_graph_nodes(g, mesh), plan, mesh,
+                                  generator=torch.Generator().manual_seed(4))
+        loss = (out["diffusion_loss"] + out["reconstruction_loss"]
+                + (out["classification_logits"].square().mean() + out["moe_aux_loss"]) / tp)
+        loss.backward()
+        return float(loss.detach()), {k: p.grad for k, p in model.named_parameters()
+                             if p.grad is not None}
+
+    return run_line(tp, fn)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_a_remat_step_issues_the_same_collectives_on_every_rank(tp):
+    """A node-sharded pretrain step with ``use_remat`` (2 encoder layers,
+    the MoE, dropout 0.1) over a line of tp threads: every rank issues the
+    same collectives, in the same order, with the same shapes; the recompute
+    adds each layer's three halo exchanges (all_to_all) and nothing else;
+    the summed loss and the gradients summed over the ranks are one
+    process's with remat (1e-5)."""
+    g = tiny_graph(n=32, graphs=2)
+    model = init_parameters(DGDMModel(**MODEL, use_remat=True, moe_experts=4, moe_top_k=2),
+                            torch.Generator().manual_seed(3))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = model.pretrain_step(g, generator=torch.Generator().manual_seed(4))
+    loss = (out["diffusion_loss"] + out["reconstruction_loss"]
+            + out["classification_logits"].square().mean() + out["moe_aux_loss"])
+    loss.backward()
+    want = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+    loss = float(loss.detach())
+    ranks, log = remat_step(state, g, tp, remat=True)
+    _, plain = remat_step(state, g, tp, remat=False)
+    assert all(entry == log[0] for entry in log)
+    exchanges = [[s for s in seq if s[0] == "all_to_all"] for seq in (log[0], plain[0])]
+    assert len(exchanges[0]) == len(exchanges[1]) + 3 * MODEL["graph_layers"]
+    assert [s for s in log[0] if s[0] != "all_to_all"] == \
+        [s for s in plain[0] if s[0] != "all_to_all"]
+    assert sum(r[0] for r in ranks) == pytest.approx(loss, rel=1e-6)
+    assert set(ranks[0][1]) == set(want)
+    for k, v in want.items():
+        got = sum(r[1][k] for r in ranks)
+        np.testing.assert_allclose(got.numpy(), v.numpy(), atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_moe_groups_are_the_global_batchs_and_never_straddle_data_ranks():
+    """Over node blocks the MoE routes in the global batch's groups
+    (``sp.moe_group``): 4 graphs of 32 nodes a data rank of two make one
+    group of 256 tokens, which would straddle the two data ranks and
+    raises; 4 graphs of 256 make groups of 1024, one a data rank; one data
+    rank takes min(1024, its tokens)."""
+    model = DGDMModel(**MODEL, moe_experts=4)
+    two = Mesh(("data", "model"), (2, 2))
+    with pytest.raises(ValueError, match="straddle two data ranks"):
+        sp.moe_group(model, 4, 32, two)
+    assert sp.moe_group(model, 4, 256, two) == 1024
+    assert sp.moe_group(model, 4, 32, Mesh(("data", "model"), (1, 2))) == 128

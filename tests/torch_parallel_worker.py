@@ -117,14 +117,31 @@ def halo(spec, rank) -> dict:
             "block": block}
 
 
+def routing_codes(moe, args, kwargs) -> torch.Tensor:
+    """A forward hook's view of an MoE call's routing (``MoEFFN.route`` of
+    its inputs, the node block's line included): for each token of each
+    group [g, G, k] the buffer slots ``e·C + c`` it takes, sorted, -1 for a
+    dropped choice. Equal codes are equal kept tokens and positions."""
+    with torch.no_grad():
+        r = moe.route(args[0], args[1], kwargs.get("group_size"), kwargs.get("block"))
+    v, i = r["dispatch"].flatten(-2).topk(moe.top_k, -1)
+    return torch.where(v > 0, i, -1).sort(-1).values
+
+
 def sp_model(spec, rank) -> dict:
     """``sp_forward`` of the model on each (mesh shape, batch): this rank's
     outputs; with ``spec["attention"]`` also those of the call with
     ``return_attention=True`` on each shape's first batch, under
-    ``(shape, "attention")``."""
+    ``(shape, "attention")``. An MoE model's outputs add its routing
+    (``routing_codes``) under ``"moe_routing"``."""
     from dgdm_histopath_torch.parallel import make_mesh, shard_graph_nodes, sp_forward
 
     model = _model(spec).eval()
+    codes = []
+    if model.moe_experts:
+        model.moe_ffn.register_forward_hook(
+            lambda m, args, kwargs, o: codes.append(routing_codes(m, args, kwargs)),
+            with_kwargs=True)
     out = {}
     for shape in spec["shapes"]:
         mesh = make_mesh(axes=("data", "model"), shape=shape)
@@ -133,6 +150,8 @@ def sp_model(spec, rank) -> dict:
             plan = spec["plans"][shape[1], n]
             with torch.no_grad():        # inference, as a caller serving the model runs it
                 out[shape, n] = sp_forward(model, block, plan, mesh)
+                if codes:
+                    out[shape, n]["moe_routing"] = codes.pop()
                 if spec.get("attention") and (shape, "attention") not in out:
                     out[shape, "attention"] = sp_forward(model, block, plan, mesh,
                                                          return_attention=True)
