@@ -267,6 +267,21 @@ Phases, each of which raises on a failed check:
      card against the CPU, ``HybridQuantumClassicalLayer(768, 128, 2)``
      card against CPU with ms; two tenants' jobs (counted) and the quota
      refusals.
+ 22. the staged accuracy gates (``dgdm_histopath_torch/scripts/``), last:
+     (a) ``eval_camelyon16 --synthetic --hard`` with the calibrated recipe's
+     training flags (GATE_C16_RECIPE) cut to GATE_PHASE_EPOCHS of pretraining
+     and finetuning, the dense arm at train seed 0 and the
+     int8 rider, on a copy of ``docs/results/c16_hard``'s manifest and graph
+     cache with the features that cache holds (``simple_cnn+stats``): no
+     cache miss, the reports and arm file in the JAX package's keys, a finite
+     AUC and int8 delta, and gather_agg, gather_rows, their backwards and
+     neighbor_transpose launched (the counts over the arm-seed); (b) the tiny
+     ``eval_tcga --synthetic --hard`` loop of ``tests/test_gate_harness.py``
+     (two train seeds, int8 rider; slides rendered for it) with a
+     ``macro_ovr`` pooled report; (c) ``convert_timm_vit`` on a random
+     timm-layout state dict at the dinov2_b14 geometry (a 37 x 37 grid
+     resized to 16 x 16), the bundle in an f32 ``PatchFeatureExtractor`` and
+     32 patches' features against the timm forward of the state dict.
 
 Each phase logs its wall seconds as it ends, and all of them on one
 ``phase_seconds:`` line at the end. It prints a ``{"kernels": [...]}`` JSON
@@ -274,6 +289,15 @@ line (the f16 instantiations as ``<name>_f16`` entries), then the card's
 name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``. It exits
 non-zero without a CUDA device or without the port beside it.
+
+``python3 chip_smoke.py --gates-only [--train-seeds 5,6,7,8,9]`` runs the
+build and the whole c16 hard gate: the calibrated recipe exactly
+(``--extractor stats --per-slide-norm``, its graphs built from slides
+rendered from the committed manifest's seed, timed in this process, in one
+spawned worker and through ``render_slides``'s rule), the dense and scratch
+arms over GATE_SEEDS train seeds (or the ones given), and the pooled report
+beside the JAX package's ``docs/results/c16_hard/report_pooled.json`` over
+the same seeds.
 
 ``python3 chip_smoke.py --parallel-only`` runs the build and phase 16 alone;
 on a machine of four cards its tiers run over NCCL, one rank a card (TP
@@ -7319,6 +7343,427 @@ def orchestration_phase(torch, graphs, card: str, backend=None) -> dict:
     return out
 
 
+# Phase 22, the staged accuracy gates. The calibrated c16 hard recipe's
+# training flags (docs/results/c16_hard/README.md); each run adds its
+# featurizer, its arms and its seeds.
+GATE_C16_DIR = os.path.join("docs", "results", "c16_hard")
+GATE_C16_RECIPE = ["--synthetic", "--hard", "--n-train-per-class", "48",
+                   "--n-test-per-class", "64", "--selection", "final", "--hidden", "256,128,64",
+                   "--dropout", "0.2", "--lr", "1e-3", "--weight-decay", "1e-3",
+                   "--finetune-lr-factor", "1.0", "--batch-size", "4", "--seed", "0"]
+GATE_EPOCHS = (4, 40)           # the recipe's pretrain and finetune epochs: --gates-only
+# phase 22's cut (PERF.md §4): the whole run's arm-seed trains 1 + 1 epochs
+# (a recipe arm-seed of 4 + 40 takes 67-84 s of fit on an H100, up to ~2x on
+# a slow host), the 4-class loop renders 512 px slides (1024 in the test it
+# mirrors)
+GATE_PHASE_EPOCHS = (1, 1)
+GATE_TCGA_SLIDE = 512
+# --gates-only: the train seeds of both arms, 0-4 of the JAX package's 0-9
+# (an arm-seed takes 67-84 s of fit on an H100: 20 would pass 1000 s)
+GATE_SEEDS = tuple(range(5))
+GATE_KERNELS = ("gather_agg", "gather_rows", "gather_rows_bwd", "gather_agg_bwd",
+                "neighbor_transpose")
+# the keys the JAX package's harness writes into a one-arm report with the int8 rider
+GATE_REPORT_KEYS = {
+    "dataset", "config", "hidden_dims", "per_slide_norm", "selection", "seed", "train_seed",
+    "extractor", "vit_weights", "backbone_pretrained", "n_train", "n_test", "bucket",
+    "max_patches", "auc", "f1", "auc_ci95", "accuracy", "auc_int8", "int8_auc_delta",
+    "reference_target", "auc_delta_vs_reference", "parity_valid", "preprocess_s_per_slide",
+    "best_val_loss", "wall_s", "device", "real_nodes", "int8_auc_delta_ci95"}
+
+
+def gate_epochs(epochs) -> list:
+    return ["--pretrain-epochs", str(epochs[0]), "--finetune-epochs", str(epochs[1])]
+
+
+def gate_copy(root: str, cache: bool) -> str:
+    """A copy of the committed c16 hard gate's manifest (and graph cache)
+    under ``root``: the gate's ``--out``."""
+    import shutil
+    out = os.path.join(root, "c16")
+    shutil.copytree(os.path.join(GATE_C16_DIR, "synthetic_data"),
+                    os.path.join(out, "synthetic_data"))
+    if cache:
+        shutil.copytree(os.path.join(GATE_C16_DIR, "graph_cache"),
+                        os.path.join(out, "graph_cache"))
+    return out
+
+
+class FitClock:
+    """Wall seconds and steps of every ``DGDMTrainer.fit`` inside the block
+    (the fit's own history counts its steps)."""
+
+    def __init__(self, torch):
+        self.torch, self.fits = torch, []
+
+    def __enter__(self):
+        from dgdm_histopath_torch.training import trainer
+        self.cls, self.orig = trainer.DGDMTrainer, trainer.DGDMTrainer.fit
+        clock = self
+
+        def fit(trainer_self, *args, **kwargs):
+            t0 = time.perf_counter()
+            res = clock.orig(trainer_self, *args, **kwargs)
+            clock.torch.cuda.synchronize()
+            clock.fits.append({"s": time.perf_counter() - t0,
+                               "steps": sum(h["steps"] for h in res["history"])})
+            return res
+        self.cls.fit = fit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fit = self.orig
+
+
+def gate_arm_file(path: str) -> dict:
+    import numpy as np
+    with np.load(path, allow_pickle=True) as z:
+        files = sorted(z.files)
+        metrics = json.loads(str(z["metrics"]))
+        shape = list(z["probs"].shape)
+    if files != ["labels", "metrics", "probs", "probs_int8"]:
+        raise AssertionError(f"{path}: arrays {files}")
+    if metrics["_arm_config"].get("backend") != "torch":
+        raise AssertionError(f"{path}: fingerprint {metrics['_arm_config']}")
+    return {"arrays": files, "probs_shape": shape}
+
+
+def gates_c16_arm(torch, root: str, card: str) -> dict:
+    """(a) The c16 hard gate's dense arm, train seed 0, with the int8 rider,
+    on the committed graph cache: no miss, JAX's keys, finite AUCs, the five
+    kernels of training and prediction launched."""
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.scripts import eval_camelyon16
+    out = gate_copy(root, cache=True)
+    cache = os.path.join(out, "graph_cache")
+    before = sorted(os.listdir(cache))
+    argv = [*GATE_C16_RECIPE, *gate_epochs(GATE_PHASE_EPOCHS),
+            "--extractor", "simple_cnn+stats", "--ab-int8", "--train-seed", "0", "--out", out]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with FitClock(torch) as clock:
+        report = eval_camelyon16.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if report["graph_cache_misses"] != 0 or sorted(os.listdir(cache)) != before:
+        raise AssertionError(f"c16 gate: {report['graph_cache_misses']} graph-cache misses")
+    saved = json.loads(open(os.path.join(out, "report.json")).read())
+    if not GATE_REPORT_KEYS <= set(saved):
+        raise AssertionError(f"c16 gate report lacks {sorted(GATE_REPORT_KEYS - set(saved))}")
+    arm = gate_arm_file(os.path.join(out, "variant_dense_s0.npz"))
+    if not (math.isfinite(report["auc"]) and math.isfinite(report["int8_auc_delta"])):
+        raise AssertionError(f"c16 gate: auc {report['auc']}, int8 delta "
+                             f"{report['int8_auc_delta']}")
+    missing = [k for k in GATE_KERNELS if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"c16 gate: {missing} launched no time ({launches})")
+    fit = clock.fits[0]
+    expected = math.ceil((96 - 96 // 5) / 4) * sum(GATE_PHASE_EPOCHS)
+    if fit["steps"] != expected:
+        raise AssertionError(f"c16 gate: {fit['steps']} steps, expected {expected}")
+    jax_auc = json.loads(open(os.path.join(GATE_C16_DIR, "report_pooled.json")).read())[
+        "arms"]["dense"]["auc_by_seed"]["0"]
+    res = {"card": card, "wall_s": wall, "fit_s": fit["s"], "steps": fit["steps"],
+           "steps_per_s": fit["steps"] / fit["s"], "auc": report["auc"],
+           "auc_ci95": report["auc_ci95"], "auc_int8": report["auc_int8"],
+           "int8_auc_delta": report["int8_auc_delta"], "jax_seed0_auc": jax_auc,
+           "cache_misses": report["graph_cache_misses"], "launches": launches, "arm": arm,
+           "epochs": GATE_PHASE_EPOCHS, "extractor": "simple_cnn+stats"}
+    log(f"gates: c16 dense arm t0 ({report['n_train']} train / {report['n_test']} test, "
+        f"{GATE_PHASE_EPOCHS[0]} + {GATE_PHASE_EPOCHS[1]} epochs, simple_cnn+stats "
+        f"graphs of the committed cache, 0 misses): AUC {report['auc']:.4f} "
+        f"{report['auc_ci95']}, int8 delta {report['int8_auc_delta']}; JAX seed 0 "
+        f"(stats + per-slide norm graphs) {jax_auc}; {fit['steps']} steps in "
+        f"{fit['s']:.2f} s of fit ({res['steps_per_s']:.1f} steps/s), {wall:.2f} s of arm; "
+        f"launches {launches} [{card}]")
+    return res
+
+
+def gates_tcga_loop(torch, root: str) -> dict:
+    """(b) The tiny 4-class hard loop (two train seeds, the int8 rider)."""
+    import numpy as np
+
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.scripts import eval_tcga
+    out = os.path.join(root, "tcga")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = eval_tcga.main([
+        "--synthetic", "--hard", "--out", out, "--slide-size", str(GATE_TCGA_SLIDE),
+        "--n-train-per-class", "4",
+        "--n-test-per-class", "3", "--patch-size", "32", "--bucket", "64", "--max-patches",
+        "64", "--hidden", "32,16", "--pretrain-epochs", "1", "--finetune-epochs", "2",
+        "--batch-size", "2", "--train-seed", "0,1", "--ab-int8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    pooled = json.loads(open(os.path.join(out, "report_pooled.json")).read())
+    with np.load(os.path.join(out, "variant_dense_s0.npz"), allow_pickle=True) as z:
+        shape = z["probs"].shape
+    if (pooled["auc_metric"] != "macro_ovr" or pooled["arms"]["dense"]["train_seeds"] != [0, 1]
+            or pooled["int8_auc_delta"]["train_seeds"] != [0, 1] or shape != (12, 4)
+            or report["subtypes"] != ["LumA", "LumB", "Her2", "Basal"]):
+        raise AssertionError(f"tcga loop: pooled {pooled['auc_metric']}, probs {shape}")
+    log(f"gates: tcga 4-class loop, 2 train seeds: macro OVR AUC by seed "
+        f"{pooled['arms']['dense']['auc_by_seed']}, {wall:.1f} s, launches {launches}")
+    return {"wall_s": wall, "auc_by_seed": pooled["arms"]["dense"]["auc_by_seed"],
+            "auc_metric": pooled["auc_metric"], "launches": launches}
+
+
+def gates_convert(torch, root: str, card: str) -> dict:
+    """(c) timm DINOv2 weights (random, at the dinov2_b14 geometry: 518 px,
+    a 37 x 37 grid) through the converter into an f32 extractor; 32
+    patches' features against the timm forward of the state dict."""
+    import numpy as np
+
+    from dgdm_histopath_torch.models.vit import IMAGENET_MEAN, IMAGENET_STD
+    from dgdm_histopath_torch.models.vit import PatchFeatureExtractor
+    from dgdm_histopath_torch.scripts import convert_timm_vit as conv
+    dim, depth, heads, patch, grid = 768, 12, 12, 14, 37
+    g = torch.Generator().manual_seed(0)
+    r = lambda *shape: torch.randn(*shape, generator=g) * 0.02  # noqa: E731
+    sd = {"cls_token": r(1, 1, dim), "pos_embed": r(1, grid * grid + 1, dim),
+          "patch_embed.proj.weight": r(dim, 3, patch, patch), "patch_embed.proj.bias": r(dim),
+          "norm.weight": 1 + r(dim), "norm.bias": r(dim)}
+    for i in range(depth):
+        p = f"blocks.{i}."
+        sd.update({p + "norm1.weight": 1 + r(dim), p + "norm1.bias": r(dim),
+                   p + "attn.qkv.weight": r(3 * dim, dim), p + "attn.qkv.bias": r(3 * dim),
+                   p + "attn.proj.weight": r(dim, dim), p + "attn.proj.bias": r(dim),
+                   p + "ls1.gamma": 0.1 + r(dim).abs(), p + "norm2.weight": 1 + r(dim),
+                   p + "norm2.bias": r(dim), p + "mlp.fc1.weight": r(4 * dim, dim),
+                   p + "mlp.fc1.bias": r(4 * dim), p + "mlp.fc2.weight": r(dim, 4 * dim),
+                   p + "mlp.fc2.bias": r(dim), p + "ls2.gamma": 0.1 + r(dim).abs()})
+    src, bundle = os.path.join(root, "dinov2_b14.pth"), os.path.join(root, "dinov2_b14.npz")
+    torch.save(sd, src)
+    t0 = time.perf_counter()
+    if conv.main([src, bundle, "--arch", "dinov2_b14", "--image-size", "224"]) != 0:
+        raise AssertionError("convert_timm_vit failed")
+    convert_s = time.perf_counter() - t0
+    ext = PatchFeatureExtractor(arch="dinov2_b14", dtype="float32")
+    ext.load_npz_weights(bundle)
+    patches = np.random.RandomState(0).randint(0, 256, (32, 224, 224, 3), np.uint8)
+    feats = ext.extract(patches)
+    with np.load(bundle) as z:
+        pos = z["p:params/pos_embed"]
+    tsd = {k: v.cuda() for k, v in sd.items()}
+    tsd["pos_embed"] = torch.as_tensor(pos, device="cuda")
+    x = torch.as_tensor((patches / 255.0 - IMAGENET_MEAN) / IMAGENET_STD,
+                        dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        ref = conv.timm_vit_forward(tsd, x, depth, heads, patch).cpu().numpy()
+    err = float(np.abs(feats - ref).max())
+    if feats.shape != (32, dim) or not err <= conv.CHECK_ATOL:
+        raise AssertionError(f"converted dinov2_b14: features {feats.shape}, max |err| {err}")
+    log(f"gates: convert_timm_vit dinov2_b14 (37 x 37 -> 16 x 16 grid) in {convert_s:.1f} s; "
+        f"32 patches' f32 features against the timm forward: max |err| {err:.3g} "
+        f"(<= {conv.CHECK_ATOL}) [{card}]")
+    return {"convert_s": convert_s, "max_abs_err": err, "atol": conv.CHECK_ATOL,
+            "tensors": len(sd)}
+
+
+def gates_phase(torch, card: str) -> dict:
+    """Phase 22: the staged accuracy gates on the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out = {"c16": gates_c16_arm(torch, root, card)}
+        torch.cuda.empty_cache()
+        out["tcga"] = gates_tcga_loop(torch, root)
+        torch.cuda.empty_cache()
+        out["convert"] = gates_convert(torch, root, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"gates: phase 22 took {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+def pooled_auc_ci(labels, probs_by_seed, n_bootstrap: int = 2000, seed: int = 0) -> list:
+    """Two-level percentile-bootstrap 95% CI of the mean AUC over seeds: each
+    draw resamples the seeds and, shared by them, the test slides."""
+    import numpy as np
+
+    from dgdm_histopath_torch.evaluation.metrics import _roc_auc
+    rs = np.random.RandomState(seed)
+    n, k = len(labels), len(probs_by_seed)
+    vals = []
+    for _ in range(n_bootstrap):
+        seeds, idx = rs.randint(0, k, k), rs.randint(0, n, n)
+        v = float(np.mean([_roc_auc(labels[idx], probs_by_seed[s][idx]) for s in seeds]))
+        if math.isfinite(v):
+            vals.append(v)
+    return [float(x) for x in np.percentile(vals, [2.5, 97.5])]
+
+
+def arm_probs(folder: str, tag: str, seeds) -> tuple:
+    import numpy as np
+    probs, labels = [], None
+    for s in seeds:
+        name = f"variant_{tag}_s0.npz" if s == 0 else f"variant_{tag}_s0t{s}.npz"
+        with np.load(os.path.join(folder, name), allow_pickle=True) as z:
+            probs.append(np.asarray(z["probs"], np.float64))
+            labels = np.asarray(z["labels"])
+    return labels, probs
+
+
+def gate_graphs_vs_committed(out: str) -> dict:
+    """The port's stats + per-slide-norm graphs against the committed
+    ``simple_cnn+stats`` graphs of the same slides (JAX's preprocessing): the
+    node masks and positions, and the stats features after the same
+    per-slide norm."""
+    import numpy as np
+    cache, ref_cache = os.path.join(out, "graph_cache"), os.path.join(GATE_C16_DIR,
+                                                                      "graph_cache")
+    masks_equal, pos_err, n, diffs = 0, 0.0, 0, [np.zeros((0, 14))]
+    for name in sorted(os.listdir(ref_cache)):
+        if not name.endswith("_b256_simple_cnn-stats.npz"):
+            continue
+        stem = name[: -len("_b256_simple_cnn-stats.npz")]
+        with np.load(os.path.join(ref_cache, name)) as a, \
+                np.load(os.path.join(cache, f"{stem}_b256_stats_psn.npz")) as b:
+            n += 1
+            if not np.array_equal(a["node_mask"], b["node_mask"]):
+                continue
+            masks_equal += 1
+            m = a["node_mask"]
+            pos_err = max(pos_err, float(np.abs(a["pos"][m] - b["pos"][m]).max()))
+            st = a["x"][m][:, -14:]
+            st = (st - np.median(st, 0)) / (st.std(0) + 1e-6)
+            diffs.append(np.abs(st - b["x"][m]))
+    diffs = np.concatenate(diffs)
+    return {"slides": n, "node_masks_equal": masks_equal, "pos_max_abs_err": pos_err,
+            "features_max_abs_err": float(diffs.max()),
+            "features_median_abs_err": float(np.median(diffs)),
+            "features_within_1e-3": float((diffs <= 1e-3).mean()),
+            "feature_max_abs_err_by_column": [round(float(v), 6) for v in diffs.max(0)]}
+
+
+def gate_render_timing(out: str, card: str) -> dict:
+    """The c16 hard set's slides (224 of 1024², the committed manifest's
+    seed) rendered on the host into ``out``'s ``synthetic_data``, where the
+    gate then finds them: 8 in this process (seconds a pixel), one in a
+    spawned worker of its own (its start-up: that call's wall less this
+    process's time for the slide's pixels), the other 215 through
+    ``render_slides``'s rule. The break-even of a worker, in pixels, is its
+    start-up over the seconds a pixel: ``PIXELS_PER_WORKER`` stands for it."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from pathlib import Path
+
+    from dgdm_histopath_torch.scripts import eval_camelyon16
+    from dgdm_histopath_torch.scripts import gate_harness as gh
+    jobs = {}
+    eval_camelyon16.generate_synthetic_camelyon16_hard(
+        Path(out) / "synthetic_data", n_train_per_class=48, n_test_per_class=64, seed=0,
+        jobs=jobs)
+    items = sorted(jobs.items(), key=lambda kv: str(kv[0]))
+    pixels = lambda part: sum(kw["width"] * kw["height"] for _, kw in part)  # noqa: E731
+    t0 = time.perf_counter()
+    for item in items[:8]:
+        gh._render_one(item)
+    s_per_px = (time.perf_counter() - t0) / pixels(items[:8])
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        pool.submit(gh._render_one, items[8]).result()
+    startup = time.perf_counter() - t0 - pixels(items[8:9]) * s_per_px
+    rest = items[9:]
+    workers = min(os.cpu_count() or 1, pixels(rest) // gh.PIXELS_PER_WORKER)
+    t0 = time.perf_counter()
+    gh.render_slides(dict(rest))
+    rule_s = time.perf_counter() - t0
+    res = {"s_per_mpx": s_per_px * 1e6, "worker_startup_s": startup,
+           "break_even_px": startup / s_per_px, "pixels_per_worker": gh.PIXELS_PER_WORKER,
+           "rest_slides": len(rest), "rest_px": pixels(rest), "rest_workers": workers,
+           "rest_s": rule_s, "rest_in_process_s": pixels(rest) * s_per_px,
+           "cores": os.cpu_count()}
+    log(f"gates-only: host rendering of 1024² c16 slides: {res['s_per_mpx']:.4f} s a "
+        f"megapixel in this process, a spawned worker's start-up {startup:.2f} s, so a "
+        f"worker breaks even at {res['break_even_px'] / 2 ** 20:.1f} Mpx (PIXELS_PER_WORKER "
+        f"{gh.PIXELS_PER_WORKER / 2 ** 20:.0f} Mpx); the other {len(rest)} slides "
+        f"({pixels(rest) / 2 ** 20:.0f} Mpx) in {workers} workers by the rule: {rule_s:.1f} s "
+        f"against {res['rest_in_process_s']:.1f} s in this process (estimated), "
+        f"{os.cpu_count()} cores [{card}]")
+    return res
+
+
+def gates_full(torch, card: str, seeds=GATE_SEEDS) -> dict:
+    """``--gates-only``: the calibrated c16 hard recipe exactly, dense and
+    scratch arms over ``seeds``, pooled, beside the JAX package's pooled
+    report of the same recipe."""
+    import tempfile
+
+    import numpy as np
+
+    from dgdm_histopath_torch.evaluation.metrics import _roc_auc, pooled_paired_bootstrap_delta
+    from dgdm_histopath_torch.ops import kernels
+    from dgdm_histopath_torch.scripts import eval_camelyon16
+    jax_dir = GATE_C16_DIR
+    jax_pooled = json.loads(open(os.path.join(jax_dir, "report_pooled.json")).read())
+    with tempfile.TemporaryDirectory() as root:
+        out = gate_copy(root, cache=False)
+        render = gate_render_timing(out, card)
+        argv = [*GATE_C16_RECIPE, *gate_epochs(GATE_EPOCHS),
+                "--extractor", "stats", "--per-slide-norm", "--ab-pretrain",
+                "--train-seed", ",".join(str(s) for s in seeds), "--out", out]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with FitClock(torch) as clock:
+            eval_camelyon16.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        pooled = json.loads(open(os.path.join(out, "report_pooled.json")).read())
+        # the per-seed report of the first train seed (the recipe's --seed is 0)
+        first_name = "report.json" if seeds[0] == 0 else f"report_t{seeds[0]}.json"
+        first = json.loads(open(os.path.join(out, first_name)).read())
+        graphs = gate_graphs_vs_committed(out)
+        labels, dense = arm_probs(out, "dense", seeds)
+        jlabels, jdense = arm_probs(jax_dir, "dense", seeds)
+        if not np.array_equal(labels, jlabels):
+            raise AssertionError("the port's test labels are not the committed gate's")
+        ours_ci, jax_ci = pooled_auc_ci(labels, dense), pooled_auc_ci(jlabels, jdense)
+        # JAX's uplift over the same seeds, pooled as aggregate_hard_seeds pools it
+        _, jscratch = arm_probs(jax_dir, "scratch", seeds)
+        jax_same = pooled_paired_bootstrap_delta(_roc_auc, jlabels, jscratch, jdense,
+                                                 n_bootstrap=2000, resample_seeds=True)
+    ours_auc = pooled["arms"]["dense"]["auc_mean"]
+    jax_auc = float(np.mean([jax_pooled["arms"]["dense"]["auc_by_seed"][str(s)]
+                             for s in seeds]))
+    uplift, jax_uplift = pooled["pretrain_auc_uplift"], jax_pooled["pretrain_auc_uplift"]
+    jax_uplift_same = {"delta": jax_same["delta"], "ci95": [jax_same["lower"], jax_same["upper"]],
+                       "per_seed": jax_same["per_seed"]}
+    inside = jax_ci[0] <= ours_auc <= jax_ci[1]
+    res = {"card": card, "seeds": list(seeds), "wall_s": wall, "render": render,
+           "graph_cache_misses": first["graph_cache_misses"],
+           "preprocess_s_per_slide": first["preprocess_s_per_slide"],
+           "fits": clock.fits, "launches": launches, "graphs_vs_committed": graphs,
+           "dense_auc_mean": ours_auc, "dense_auc_ci95_two_level": ours_ci,
+           "dense_auc_by_seed": pooled["arms"]["dense"]["auc_by_seed"],
+           "scratch_auc_mean": pooled["arms"]["scratch"]["auc_mean"],
+           "pretrain_auc_uplift": uplift,
+           "jax": {"dense_auc_mean": jax_auc, "dense_auc_ci95_two_level": jax_ci,
+                   "full_dense_auc_mean": jax_pooled["arms"]["dense"]["auc_mean"],
+                   "pretrain_auc_uplift": jax_uplift,
+                   "pretrain_auc_uplift_same_seeds": jax_uplift_same},
+           "dense_inside_jax_ci": inside}
+    log(f"gates-only: c16 hard recipe (stats, per-slide norm), {len(seeds)} train seeds "
+        f"x dense + scratch in {wall:.1f} s ({first['graph_cache_misses']} graphs built, "
+        f"{first['preprocess_s_per_slide']} s a slide), launches {launches} [{card}]")
+    log(f"gates-only: graphs against the committed simple_cnn+stats cache: {graphs}")
+    log(f"gates-only: pooled dense AUC port {ours_auc:.4f} two-level CI {ours_ci} | JAX "
+        f"{jax_auc:.4f} CI {jax_ci} (report_pooled.json auc_mean "
+        f"{jax_pooled['arms']['dense']['auc_mean']}); inside JAX's CI: {inside}")
+    log(f"gates-only: pretrain uplift port {uplift['delta']} CI {uplift['ci95']} per seed "
+        f"{uplift['per_seed']} | JAX over the same seeds {jax_same['delta']:.4f} CI "
+        f"[{jax_same['lower']:.4f}, {jax_same['upper']:.4f}] per seed {jax_same['per_seed']}, "
+        f"over its 10 {jax_uplift['delta']} CI {jax_uplift['ci95']}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -7433,6 +7878,25 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
+    if sys.argv[1:2] == ["--gates-only"]:
+        # the whole calibrated c16 hard gate on the card
+        args = sys.argv[2:]
+        seeds = (tuple(int(s) for s in args[1].split(",") if s)
+                 if len(args) == 2 and args[0] == "--train-seeds" else GATE_SEEDS)
+        # the pooled report, and so the comparison, needs two train seeds or more
+        if (args and (len(args) != 2 or args[0] != "--train-seeds")) or len(seeds) < 2:
+            print("usage: chip_smoke.py --gates-only [--train-seeds 5,6,7,8,9]",
+                  file=sys.stderr)
+            return 2
+        gates = gates_full(torch, card, seeds)
+        log("details: " + json.dumps({"gates_full": gates}, default=str))
+        log(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+
     if sys.argv[1:] == ["--preprocess-only"]:
         # phase 18 alone: the offline-preprocessing cell
         pre = preprocess_phase(torch, card)
@@ -7534,6 +7998,9 @@ def main() -> int:
     # dgdm-predict)
     pre = timed("preprocess", preprocess_phase, torch, card)
 
+    # last: the staged accuracy gates (phase 22)
+    gates = timed("gates", gates_phase, torch, card)
+
     replaces = KERNEL_SOURCES
     line = {"kernels": []}
     for name, (source, where) in replaces.items():
@@ -7549,6 +8016,8 @@ def main() -> int:
                    "dgdm_serve": serve["launches"][name],
                    "preprocess_predict_slide": pre["predict_slide"]["launches"][name],
                    "preprocess_dgdm_predict": pre["predict"]["launches"][name],
+                   "gate_c16_arm_seed": gates["c16"]["launches"][name],
+                   "gate_tcga_loop": gates["tcga"]["launches"][name],
                    "research_node_saliency": research["launches"][name],
                    "research_integrated_gradients": research["ig_launches"][name],
                    "research_pgd": research["pgd_launches"][name],
@@ -7639,6 +8108,7 @@ def main() -> int:
                                   "flash_module": flash_module, "cli": cli,
                                   "serve": serve, "moe": moe, "dp": dp, "int8": int8,
                                   "dtype": dtype, "preprocess": pre, "research": research,
+                                  "gates": gates,
                                   "quality": quality, "orchestration": orch,
                                   "parallel": {k: v for k, v in par.items() if k != "rect"},
                                   "slide": {

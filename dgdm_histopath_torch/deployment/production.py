@@ -10,6 +10,7 @@ package's.
 
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -215,3 +216,29 @@ class ProductionHealthChecker:
                 checks["model_loaded"] = False
         checks["dependencies"] = check_dependencies()["healthy"]
         return {"healthy": all(checks.values()), "checks": checks, "timestamp": time.time()}
+
+    def serve_forever(self, port: int = 8080) -> None:
+        """A minimal HTTP health endpoint (the k8s probe target): GET
+        /healthz, /readyz or /health answers ``check()`` as JSON, 200 when
+        healthy and 503 otherwise; any other path 404."""
+        import http.server
+
+        checker = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                if self.path in ("/healthz", "/readyz", "/health"):
+                    report = checker.check()
+                    body = json.dumps(report).encode()
+                    self.send_response(200 if report["healthy"] else 503)
+                    self.send_header("Content-Type", "application/json")
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self.send_response(404)
+                    self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        http.server.HTTPServer(("", port), Handler).serve_forever()

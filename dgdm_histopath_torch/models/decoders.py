@@ -101,25 +101,47 @@ class _MLPHead(nn.Module):
 
 
 class ClassificationHead(_MLPHead):
+    """Logits over ``num_classes``; ``loss`` is the (class-weighted,
+    label-smoothed) cross entropy, ``predict`` the softmax summary."""
+
     def __init__(self, in_features: int, num_classes: int,
                  hidden_dims: Sequence[int] = (128,), dropout: float = 0.0,
-                 dtype=torch.float32, param_dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 class_weights: Optional[Sequence[float]] = None,
+                 label_smoothing: float = 0.0):
         super().__init__(in_features, hidden_dims, dropout, dtype, param_dtype)
         self.logits = Dense(self.trunk_features, num_classes, **self.dt)
+        self.class_weights = class_weights
+        self.label_smoothing = label_smoothing
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.logits(self.trunk(x, deterministic, generator))
 
+    def loss(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        cw = (None if self.class_weights is None
+              else torch.as_tensor(self.class_weights, device=logits.device))
+        return cross_entropy_loss(logits, labels, cw, self.label_smoothing)
+
+    @staticmethod
+    def predict(logits: torch.Tensor) -> Dict[str, torch.Tensor]:
+        probs = torch.softmax(logits.float(), dim=-1)
+        return {"probabilities": probs, "predictions": probs.argmax(-1),
+                "confidence": probs.amax(-1)}
+
 
 class RegressionHead(_MLPHead):
-    """Mean (and, with ``predict_uncertainty``, log-variance) outputs."""
+    """Mean (and, with ``predict_uncertainty``, log-variance) outputs;
+    ``loss`` by ``loss_type``: mse | mae | huber | gaussian_nll."""
 
     def __init__(self, in_features: int, num_targets: int = 1,
                  hidden_dims: Sequence[int] = (128,), dropout: float = 0.0,
                  predict_uncertainty: bool = False, dtype=torch.float32,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, loss_type: str = "mse",
+                 huber_delta: float = 1.0):
         super().__init__(in_features, hidden_dims, dropout, dtype, param_dtype)
+        self.loss_type = loss_type
+        self.huber_delta = huber_delta
         self.mean = Dense(self.trunk_features, num_targets, **self.dt)
         self.log_var = (Dense(self.trunk_features, num_targets, **self.dt)
                         if predict_uncertainty else None)
@@ -131,6 +153,23 @@ class RegressionHead(_MLPHead):
         if self.log_var is not None:
             out["log_var"] = self.log_var(h)
         return out
+
+    def loss(self, outputs: Dict[str, torch.Tensor], targets: torch.Tensor) -> torch.Tensor:
+        pred = outputs["mean"].float()
+        err = pred - targets.float().reshape(pred.shape)
+        if self.loss_type == "mse":
+            return (err ** 2).mean()
+        if self.loss_type == "mae":
+            return err.abs().mean()
+        if self.loss_type == "huber":
+            d = self.huber_delta
+            abs_err = err.abs()
+            quad = abs_err.clamp_max(d)
+            return (0.5 * quad ** 2 + d * (abs_err - quad)).mean()
+        if self.loss_type == "gaussian_nll":
+            log_var = outputs["log_var"].float()
+            return (0.5 * (log_var + err ** 2 * torch.exp(-log_var))).mean()
+        raise ValueError(f"unknown loss_type {self.loss_type!r}")
 
 
 class SurvivalHead(_MLPHead):
@@ -157,6 +196,12 @@ class SurvivalHead(_MLPHead):
         surv = torch.cumprod(torch.sigmoid(-hazards.float()), dim=-1)
         return {"hazard_logits": hazards, "survival": surv}
 
+    def loss(self, outputs: Dict[str, torch.Tensor], time: torch.Tensor,
+             event: torch.Tensor) -> torch.Tensor:
+        if self.mode == "cox":
+            return cox_partial_likelihood(outputs["risk"], time, event)
+        return discrete_survival_loss(outputs["hazard_logits"], time.to(torch.int32), event)
+
 
 class MultiTaskHead(nn.Module):
     """A shared trunk (``trunk{i}`` Denses, each followed by tanh-GELU), one
@@ -166,7 +211,7 @@ class MultiTaskHead(nn.Module):
 
     ``task_configs``: name -> ``{"type": "classification", "num_classes"}``
     or ``{"type": "regression", "num_targets", "loss_type"}``; the
-    ``loss_type`` is the regression loss's, which no forward reads."""
+    ``loss_type`` is the regression head's ``loss``, which no forward reads."""
 
     def __init__(self, in_features: int, task_configs: Dict[str, dict],
                  trunk_dims: Sequence[int] = (256,), dropout: float = 0.1,
@@ -186,7 +231,8 @@ class MultiTaskHead(nn.Module):
                 head = ClassificationHead(prev, cfg.get("num_classes", 2), dropout=dropout,
                                           **dt)
             elif kind == "regression":
-                head = RegressionHead(prev, cfg.get("num_targets", 1), dropout=dropout, **dt)
+                head = RegressionHead(prev, cfg.get("num_targets", 1), dropout=dropout,
+                                      loss_type=cfg.get("loss_type", "mse"), **dt)
             else:
                 raise ValueError(f"unknown task type {kind!r}")
             self.add_module(f"head_{name}", head)

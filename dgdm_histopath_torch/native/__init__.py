@@ -138,6 +138,16 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
+def available() -> bool:
+    """Whether the native reader can serve reads here: the library builds
+    and loads (on first use). A read through it still raises on a failure."""
+    try:
+        get_lib()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 

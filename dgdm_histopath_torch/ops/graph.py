@@ -55,8 +55,16 @@ class PaddedGraph:
     def feature_dim(self) -> int:
         return self.x.shape[-1]
 
+    @property
+    def n_real_nodes(self) -> torch.Tensor:
+        """Real nodes per graph (int32, one per leading index)."""
+        return self.node_mask.to(torch.int32).sum(-1, dtype=torch.int32)
+
     def replace(self, **changes) -> "PaddedGraph":
         return dataclasses.replace(self, **changes)
+
+    def replace_features(self, x: torch.Tensor) -> "PaddedGraph":
+        return self.replace(x=x)
 
     def to(self, device, non_blocking: bool = False) -> "PaddedGraph":
         return self.replace(**{f: getattr(self, f).to(device, non_blocking=non_blocking)
