@@ -297,7 +297,8 @@ rendered from the committed manifest's seed, timed in this process, in one
 spawned worker and through ``render_slides``'s rule), the dense and scratch
 arms over GATE_SEEDS train seeds (or the ones given), and the pooled report
 beside the JAX package's ``docs/results/c16_hard/report_pooled.json`` over
-the same seeds.
+the same seeds and, seed by seed, beside the JAX package's rerun of the
+recipe on the CPU (``docs/results/c16_hard_rerun``, ``compare_gate_runs``).
 
 ``python3 chip_smoke.py --parallel-only`` runs the build and phase 16 alone;
 on a machine of four cards its tiers run over NCCL, one rank a card (TP
@@ -7347,6 +7348,8 @@ def orchestration_phase(torch, graphs, card: str, backend=None) -> dict:
 # training flags (docs/results/c16_hard/README.md); each run adds its
 # featurizer, its arms and its seeds.
 GATE_C16_DIR = os.path.join("docs", "results", "c16_hard")
+# the JAX package's arms of the same recipe rerun on the CPU (train seeds 0-9)
+GATE_RERUN_DIR = os.path.join("docs", "results", "c16_hard_rerun")
 GATE_C16_RECIPE = ["--synthetic", "--hard", "--n-train-per-class", "48",
                    "--n-test-per-class", "64", "--selection", "final", "--hidden", "256,128,64",
                    "--dropout", "0.2", "--lr", "1e-3", "--weight-decay", "1e-3",
@@ -7581,23 +7584,6 @@ def gates_phase(torch, card: str) -> dict:
     return out
 
 
-def pooled_auc_ci(labels, probs_by_seed, n_bootstrap: int = 2000, seed: int = 0) -> list:
-    """Two-level percentile-bootstrap 95% CI of the mean AUC over seeds: each
-    draw resamples the seeds and, shared by them, the test slides."""
-    import numpy as np
-
-    from dgdm_histopath_torch.evaluation.metrics import _roc_auc
-    rs = np.random.RandomState(seed)
-    n, k = len(labels), len(probs_by_seed)
-    vals = []
-    for _ in range(n_bootstrap):
-        seeds, idx = rs.randint(0, k, k), rs.randint(0, n, n)
-        v = float(np.mean([_roc_auc(labels[idx], probs_by_seed[s][idx]) for s in seeds]))
-        if math.isfinite(v):
-            vals.append(v)
-    return [float(x) for x in np.percentile(vals, [2.5, 97.5])]
-
-
 def arm_probs(folder: str, tag: str, seeds) -> tuple:
     import numpy as np
     probs, labels = [], None
@@ -7700,6 +7686,7 @@ def gates_full(torch, card: str, seeds=GATE_SEEDS) -> dict:
     from dgdm_histopath_torch.evaluation.metrics import _roc_auc, pooled_paired_bootstrap_delta
     from dgdm_histopath_torch.ops import kernels
     from dgdm_histopath_torch.scripts import eval_camelyon16
+    from dgdm_histopath_torch.scripts.compare_gate_runs import compare, pooled_auc_ci
     jax_dir = GATE_C16_DIR
     jax_pooled = json.loads(open(os.path.join(jax_dir, "report_pooled.json")).read())
     with tempfile.TemporaryDirectory() as root:
@@ -7730,6 +7717,8 @@ def gates_full(torch, card: str, seeds=GATE_SEEDS) -> dict:
         _, jscratch = arm_probs(jax_dir, "scratch", seeds)
         jax_same = pooled_paired_bootstrap_delta(_roc_auc, jlabels, jscratch, jdense,
                                                  n_bootstrap=2000, resample_seeds=True)
+        # the port's arms against JAX's rerun of the recipe on the CPU, seed by seed
+        rerun = compare(GATE_RERUN_DIR, out, seeds)
     ours_auc = pooled["arms"]["dense"]["auc_mean"]
     jax_auc = float(np.mean([jax_pooled["arms"]["dense"]["auc_by_seed"][str(s)]
                              for s in seeds]))
@@ -7749,7 +7738,7 @@ def gates_full(torch, card: str, seeds=GATE_SEEDS) -> dict:
                    "full_dense_auc_mean": jax_pooled["arms"]["dense"]["auc_mean"],
                    "pretrain_auc_uplift": jax_uplift,
                    "pretrain_auc_uplift_same_seeds": jax_uplift_same},
-           "dense_inside_jax_ci": inside}
+           "dense_inside_jax_ci": inside, "vs_jax_rerun": rerun}
     log(f"gates-only: c16 hard recipe (stats, per-slide norm), {len(seeds)} train seeds "
         f"x dense + scratch in {wall:.1f} s ({first['graph_cache_misses']} graphs built, "
         f"{first['preprocess_s_per_slide']} s a slide), launches {launches} [{card}]")
@@ -7761,6 +7750,14 @@ def gates_full(torch, card: str, seeds=GATE_SEEDS) -> dict:
         f"{uplift['per_seed']} | JAX over the same seeds {jax_same['delta']:.4f} CI "
         f"[{jax_same['lower']:.4f}, {jax_same['upper']:.4f}] per seed {jax_same['per_seed']}, "
         f"over its 10 {jax_uplift['delta']} CI {jax_uplift['ci95']}")
+    theirs, ours, diff = rerun["ref_arms"], rerun["run_arms"], rerun["differences"]
+    log(f"gates-only: against JAX's CPU rerun ({GATE_RERUN_DIR}), seeds {rerun['train_seeds']}: "
+        f"dense port {ours['dense_auc_mean']:.4f} | JAX {theirs['dense_auc_mean']:.4f} CI "
+        f"{theirs['dense_auc_ci95_two_level']}; uplift port {ours['uplift_mean']:.4f} CI "
+        f"{ours['uplift_ci95_two_level']} | JAX {theirs['uplift_mean']:.4f} CI "
+        f"{theirs['uplift_ci95_two_level']}; port minus JAX per seed: "
+        + "; ".join(f"{k} {v['mean']:+.4f} CI [{v['ci95'][0]:+.4f}, {v['ci95'][1]:+.4f}]"
+                    for k, v in diff.items()) + f"; fault: {rerun['fault']}")
     return res
 
 

@@ -17,6 +17,7 @@ against ``--mesh-shape 1``, and SIGTERM -> 75 -> ``resume`` bit-equal.
 """
 
 import json
+import logging
 import os
 import signal
 import subprocess
@@ -469,6 +470,21 @@ def _cli(root, out, *extra):
             "--dataset-type", "graph", "--metadata", str(root / "labels.json"),
             "--num-classes", "2", "--seed", "0", "--log-level", "WARNING", "--device", "cpu",
             "--output-dir", str(root / out), *extra]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _package_loggers_put_back():
+    """``dgdm-train``'s ``main`` calls ``setup_logging``, which stops each
+    package's records at its own logger; put both loggers back as they
+    were, so that the tests after this file still see the records through
+    ``caplog``."""
+    loggers = [logging.getLogger(n) for n in ("dgdm_histopath_torch", "dgdm_histopath_tpu")]
+    saved = [(lg.level, lg.propagate, list(lg.handlers)) for lg in loggers]
+    yield
+    for lg, (level, propagate, handlers) in zip(loggers, saved):
+        lg.setLevel(level)
+        lg.propagate = propagate
+        lg.handlers[:] = handlers
 
 
 def test_cli_mesh_shape_2_on_the_cpu_matches_one_process_and_resumes(graph_files):
